@@ -1,0 +1,18 @@
+"""petastorm_tpu_torch: the PyTorch/CUDA port of petastorm_tpu.
+
+A second package beside the JAX one, for NVIDIA GPUs (Hopper first). It reads
+and writes the same Parquet stores (same metadata keys and codec ids), keeps
+its own trimmed copies of the host modules it needs, and imports nothing of
+JAX or of ``petastorm_tpu``. Every TPU kernel of the JAX package is a
+hand-written Hopper kernel here (``ops/kernels``), beside a plain PyTorch
+version. Entry points that touch a device default to CUDA and raise without
+it unless the caller passes ``device='cpu'``.
+
+Top-level API: ``make_reader``, ``TransformSpec``, ``NoDataAvailableError``.
+"""
+
+from petastorm_tpu_torch.errors import NoDataAvailableError  # noqa: F401
+from petastorm_tpu_torch.reader import make_reader  # noqa: F401
+from petastorm_tpu_torch.transform import TransformSpec  # noqa: F401
+
+__version__ = '0.1.0'

@@ -1,0 +1,280 @@
+"""Column blocks and the columnar results reader / loader buffers.
+
+Trimmed twin of ``petastorm_tpu/columnar.py`` (plus its
+``BatchResultsQueueReader`` from ``batch_worker.py``). A *column block* is a
+plain dict ``{field_name: column}``, each column holding one decoded value per
+row: a numpy array with a leading row axis, or a 1-D object array for ragged
+or non-numeric cells. Workers publish blocks; the loader slices batches out of
+them with numpy, so rows never become Python objects on the hot path.
+
+The buffers draw from ``np.random.default_rng(seed)`` exactly as the JAX
+package's do, so a seed gives the same batches in both packages.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import pyarrow as pa
+
+
+def column_cells(column):
+    """ChunkedArray -> list of per-row cell values; binary cells are
+    zero-copy memoryview slices of the Arrow data buffer."""
+    t = column.type
+    if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+        out = []
+        for chunk in column.chunks:
+            n = len(chunk)
+            if n == 0:
+                continue
+            if chunk.null_count:
+                out.extend(chunk.to_pylist())
+                continue
+            off_dtype = np.int64 if pa.types.is_large_binary(t) else np.int32
+            _, offsets_buf, data_buf = chunk.buffers()
+            offs = np.frombuffer(offsets_buf, dtype=off_dtype, count=n + 1,
+                                 offset=chunk.offset * np.dtype(off_dtype).itemsize).tolist()
+            mv = memoryview(data_buf)
+            out.extend(mv[offs[i]:offs[i + 1]] for i in range(n))
+        return out
+    return column.to_pylist()
+
+
+def _object_column(values):
+    out = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
+
+
+def stack_cells(values):
+    """List of decoded cells -> one block column: a stacked ``[N, ...]`` array
+    when every cell is an array of one shape/dtype (or a numeric scalar), else
+    a 1-D object array preserving each cell."""
+    if not values:
+        return np.empty(0, dtype=object)
+    v0 = values[0]
+    if isinstance(v0, np.ndarray) and v0.ndim > 0:
+        shape, dtype = v0.shape, v0.dtype
+        if dtype == object or not all(isinstance(v, np.ndarray) and v.shape == shape
+                                      and v.dtype == dtype for v in values):
+            return _object_column(values)
+        return np.stack(values)
+    if isinstance(v0, (np.bool_, np.number)) or type(v0) in (int, float, bool):
+        try:
+            return np.array(values)
+        except ValueError:
+            return _object_column(values)
+    return _object_column(values)
+
+
+def block_num_rows(block):
+    return len(next(iter(block.values()))) if block else 0
+
+
+def block_to_rows(block):
+    """Explode a block into per-row dicts (row transforms operate on rows)."""
+    names = list(block)
+    cols = [block[name] for name in names]
+    n = len(cols[0]) if cols else 0
+    return [dict(zip(names, (c[i] for c in cols))) for i in range(n)]
+
+
+def rows_to_block(rows):
+    """Re-collate row dicts into a block (after a per-row transform)."""
+    return {name: stack_cells([r[name] for r in rows]) for name in rows[0]}
+
+
+def concat_columns(parts):
+    """Concatenate per-segment arrays of one logical column; mixed layouts
+    degrade to one object column."""
+    if len(parts) == 1:
+        return parts[0]
+    if (len({p.ndim for p in parts}) == 1 and len({p.shape[1:] for p in parts}) == 1
+            and len({p.dtype == object for p in parts}) == 1):
+        return np.concatenate(parts)
+    rows = []
+    for p in parts:
+        rows.extend(p[i] for i in range(len(p)))
+    return _object_column(rows)
+
+
+class BatchResultsQueueReader(object):
+    """Consumer side of ``make_reader(output='columnar')``: one namedtuple of
+    column arrays per published row group."""
+
+    batched_output = True
+
+    def __init__(self, schema):
+        self._schema = schema
+
+    def read_next(self, pool):
+        return self._schema.make_namedtuple(**pool.get_results())
+
+
+class FifoColumnarBuffer(object):
+    """FIFO of column blocks with fixed-size batch extraction (no shuffling).
+    Rows are buffered as views and concatenated only where a batch crosses a
+    block boundary."""
+
+    def __init__(self):
+        self._segments = deque()
+        self._head = 0  # rows of the head segment already emitted
+        self._size = 0
+
+    @property
+    def size(self):
+        return self._size
+
+    def add_block(self, block):
+        n = block_num_rows(block)
+        if n:
+            self._segments.append(block)
+            self._size += n
+
+    def can_emit(self, batch_size):
+        return self._size >= batch_size
+
+    def emit(self, count):
+        parts = []
+        taken = 0
+        while taken < count:
+            head = self._segments[0]
+            head_len = block_num_rows(head)
+            take = min(count - taken, head_len - self._head)
+            parts.append({k: v[self._head:self._head + take] for k, v in head.items()})
+            self._head += take
+            taken += take
+            if self._head == head_len:
+                self._segments.popleft()
+                self._head = 0
+        self._size -= count
+        if len(parts) == 1:
+            return parts[0]
+        return {name: concat_columns([p[name] for p in parts]) for name in parts[0]}
+
+    def finish(self):
+        pass
+
+    def clear(self):
+        self._segments.clear()
+        self._head = 0
+        self._size = 0
+
+
+class ShuffledColumnarBuffer(object):
+    """Columnar decorrelation buffer: buffered blocks stay intact and a
+    permutation of ``(segment, row)`` indices decides the emit order. A batch
+    is gathered segment by segment into one fresh allocation: one copy per
+    emitted row. ``min_after`` rows stay buffered until :meth:`finish`."""
+
+    def __init__(self, capacity, min_after, seed=None):
+        if min_after >= capacity:
+            raise ValueError('min_after ({}) must be smaller than capacity ({})'.format(
+                min_after, capacity))
+        self._min_after = min_after
+        self._rng = np.random.default_rng(seed)
+        self._segments = {}       # seg_id -> block
+        self._seg_remaining = {}  # seg_id -> rows not yet emitted
+        self._next_seg = 0
+        self._order_seg = np.empty(0, dtype=np.int64)
+        self._order_row = np.empty(0, dtype=np.int64)
+        self._cursor = 0
+        self._staged_ids = []     # seg ids not yet folded into the permutation
+        self._staged_rows = 0
+        self._done = False
+
+    @property
+    def size(self):
+        return (len(self._order_seg) - self._cursor) + self._staged_rows
+
+    def add_block(self, block):
+        n = block_num_rows(block)
+        if not n:
+            return
+        sid = self._next_seg
+        self._next_seg += 1
+        self._segments[sid] = block
+        self._seg_remaining[sid] = n
+        self._staged_ids.append(sid)
+        self._staged_rows += n
+
+    def can_emit(self, batch_size):
+        if self._done:
+            return self.size > 0
+        return self.size - batch_size >= self._min_after
+
+    def emit(self, count):
+        count = min(count, self.size)
+        if len(self._order_seg) - self._cursor < count:
+            self._fold_staged()
+        sel_seg = self._order_seg[self._cursor:self._cursor + count]
+        sel_row = self._order_row[self._cursor:self._cursor + count]
+        self._cursor += count
+        plan = []  # (segment block, row indices), shared by all columns
+        for sid in np.unique(sel_seg):
+            rows = sel_row[sel_seg == sid]
+            plan.append((self._segments[sid], rows))
+            self._seg_remaining[sid] -= len(rows)
+            if self._seg_remaining[sid] == 0:
+                del self._segments[sid]
+                del self._seg_remaining[sid]
+        out = {}
+        first = plan[0][0]
+        for name in first:
+            col0 = first[name]
+            uniform = (isinstance(col0, np.ndarray) and col0.dtype != object and all(
+                isinstance(seg[name], np.ndarray) and seg[name].dtype == col0.dtype
+                and seg[name].shape[1:] == col0.shape[1:] for seg, _ in plan))
+            if not uniform:
+                parts = [seg[name][rows] for seg, rows in plan]
+                out[name] = parts[0] if len(parts) == 1 else concat_columns(parts)
+                continue
+            # one gather straight into the batch allocation: wide rows
+            # (images) copy faster one memcpy per row than through np.take
+            out_col = np.empty((count,) + col0.shape[1:], col0.dtype)
+            wide = col0[:1].nbytes >= 4096
+            pos = 0
+            for seg, rows in plan:
+                src = seg[name]
+                if wide:
+                    for row in rows:
+                        out_col[pos] = src[row]
+                        pos += 1
+                else:
+                    np.take(src, rows, axis=0, out=out_col[pos:pos + len(rows)])
+                    pos += len(rows)
+            out[name] = out_col
+        return out
+
+    def _fold_staged(self):
+        """Fold staged segments into a fresh permutation together with every
+        not-yet-emitted index (index arrays only, no row data is touched)."""
+        segs = [self._order_seg[self._cursor:]]
+        rows = [self._order_row[self._cursor:]]
+        for sid in self._staged_ids:
+            n = self._seg_remaining[sid]
+            segs.append(np.full(n, sid, dtype=np.int64))
+            rows.append(np.arange(n, dtype=np.int64))
+        all_seg = np.concatenate(segs)
+        all_row = np.concatenate(rows)
+        perm = self._rng.permutation(len(all_seg))
+        self._order_seg = all_seg[perm]
+        self._order_row = all_row[perm]
+        self._cursor = 0
+        self._staged_ids = []
+        self._staged_rows = 0
+
+    def finish(self):
+        self._done = True
+
+    def clear(self):
+        self._segments = {}
+        self._seg_remaining = {}
+        self._order_seg = np.empty(0, dtype=np.int64)
+        self._order_row = np.empty(0, dtype=np.int64)
+        self._cursor = 0
+        self._staged_ids = []
+        self._staged_rows = 0

@@ -1,0 +1,23 @@
+"""Framework-level exceptions (twin of ``petastorm_tpu/errors.py``).
+
+Only the classes the ported read path raises are kept; the taxonomy still
+roots at :class:`PetastormTpuError` so a consumer catches one base class.
+"""
+
+
+class PetastormTpuError(Exception):
+    """Base class for all framework errors."""
+
+
+class NoDataAvailableError(PetastormTpuError):
+    """Raised when a reader configuration selects zero row groups, for example
+    when ``shard_count`` exceeds the number of row groups."""
+
+
+class SchemaError(PetastormTpuError):
+    """Raised for schema definition / encoding / decoding violations."""
+
+
+class EmptyResultError(PetastormTpuError):
+    """Raised by ``pool.get_results()`` when all ventilated work has been
+    processed and no further results will arrive."""

@@ -1,0 +1,38 @@
+"""Weight transfer from the JAX package's flax variables to this package's models.
+
+``flax_to_torch(variables)`` takes ``{'params': ..., 'batch_stats': ...}`` as
+nested dicts of numpy arrays (``jax.device_get`` of a flax tree) and returns a
+``state_dict`` for the matching :mod:`petastorm_tpu_torch.models` module:
+conv kernels HWIO -> OIHW, dense kernels transposed, batch-norm
+scale/bias/mean/var renamed one to one.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def flax_to_torch(variables):
+    """flax ``{'params', 'batch_stats'}`` (numpy leaves) -> torch ``state_dict``."""
+    state = OrderedDict()
+    for collection in ('params', 'batch_stats'):
+        for path, value in _flatten(variables.get(collection) or {}):
+            name = path[-1]
+            if name == 'kernel':
+                name = 'weight'
+                # conv HWIO -> OIHW; dense (in, out) -> (out, in)
+                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            key = '.'.join(path[:-1] + (name,))
+            state[key] = torch.from_numpy(np.array(value, dtype=np.float32, order='C'))
+    return state

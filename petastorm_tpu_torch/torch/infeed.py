@@ -1,0 +1,182 @@
+"""Device infeed: double-buffered host->device staging.
+
+Twin of ``petastorm_tpu/jax/infeed.py``. ``prefetch_to_device`` keeps
+``size`` batches in flight: each batch is copied into pinned host memory and
+sent with ``.to(device, non_blocking=True)`` on a side CUDA stream, and an
+event recorded after its copies makes the consumer's stream wait for exactly
+that batch. So the copy of batch N+1 overlaps compute on batch N, and the
+consumer never reads a batch before it has landed.
+"""
+
+from __future__ import annotations
+
+import queue as queue_mod
+import threading
+from collections import deque
+
+import numpy as np
+import torch
+
+from petastorm_tpu_torch.device import resolve_device
+
+#: numpy dtype kinds that can live on the device; everything else (strings,
+#: objects, datetimes) stays host-side numpy
+TORCH_COMPATIBLE_KINDS = ('b', 'i', 'u', 'f', 'c')
+
+#: dtypes torch cannot hold (or holds poorly), promoted as the JAX package's
+#: torch adapter does (``petastorm_tpu/torch_utils.py``)
+_PROMOTIONS = {
+    np.dtype(np.uint16): np.int32,
+    np.dtype(np.uint32): np.int64,
+    np.dtype(np.uint64): np.int64,
+}
+
+_TORCH_DTYPES = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def _to_tensor(x, device):
+    if x.dtype in _PROMOTIONS:
+        x = x.astype(_PROMOTIONS[x.dtype])
+    if device.type == 'cpu':
+        # torch.from_numpy needs writable memory: read-only views copy
+        return torch.from_numpy(np.require(x, requirements=['C', 'W']))
+    host = torch.empty(x.shape, dtype=_TORCH_DTYPES[x.dtype.newbyteorder('=')], pin_memory=True)
+    host.numpy()[...] = x  # the one host copy: into pinned memory
+    return host.to(device, non_blocking=True)
+
+
+def stage_batch(batch, device=None, stream=None):
+    """Move the numeric numpy arrays of a (possibly nested) batch dict onto
+    ``device`` (``None`` = CUDA). Other columns stay numpy. On CUDA the copies
+    are enqueued on ``stream`` (default: the current stream) and are
+    asynchronous: a consumer on another stream must wait for them."""
+    device = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, np.ndarray) and x.dtype.kind in TORCH_COMPATIBLE_KINDS:
+            return _to_tensor(x, device)
+        return x
+
+    if device.type == 'cuda' and stream is not None:
+        with torch.cuda.stream(stream):
+            return put(batch)
+    return put(batch)
+
+
+def _tensors(batch):
+    if isinstance(batch, dict):
+        for v in batch.values():
+            yield from _tensors(v)
+    elif isinstance(batch, torch.Tensor):
+        yield batch
+
+
+def prefetch_to_device(iterator, device=None, size=2, background=True):
+    """Yield batches from ``iterator`` staged onto ``device`` (``None`` =
+    CUDA), keeping ``size`` batches in flight ahead of the consumer.
+
+    ``background=True`` (default) pulls and stages on a dedicated thread;
+    its errors are re-raised on the consumer thread. ``background=False``
+    refills synchronously on the consumer thread.
+    """
+    device = resolve_device(device)
+    if size < 1:
+        raise ValueError('size must be >= 1')
+    side = torch.cuda.Stream(device) if device.type == 'cuda' else None
+
+    def stage(batch):
+        staged = stage_batch(batch, device, stream=side)
+        event = None
+        if side is not None:
+            event = torch.cuda.Event()
+            event.record(side)
+        return staged, event
+
+    def hand_over(staged, event):
+        if event is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(event)
+            for t in _tensors(staged):
+                # allocated on the side stream, used on the consumer's: the
+                # caching allocator must not recycle it before that use ends
+                t.record_stream(consumer)
+        return staged
+
+    if background:
+        return _prefetch_background(iterator, stage, hand_over, size)
+    return _prefetch_sync(iterator, stage, hand_over, size)
+
+
+def _prefetch_sync(iterator, stage, hand_over, size):
+    pending = deque()
+    it = iter(iterator)
+    try:
+        while True:
+            while len(pending) < size:
+                try:
+                    pending.append(stage(next(it)))
+                except StopIteration:
+                    while pending:
+                        yield hand_over(*pending.popleft())
+                    return
+            yield hand_over(*pending.popleft())
+    finally:
+        pending.clear()
+
+
+class _Final(object):
+    """End-of-stream sentinel; carries the pump's exception, if any."""
+
+    def __init__(self, exc=None):
+        self.exc = exc
+
+
+def _prefetch_background(iterator, stage, hand_over, size):
+    q = queue_mod.Queue(maxsize=size)
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def pump():
+        try:
+            for batch in iterator:
+                if not put(stage(batch)):
+                    return
+            put(_Final())
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the consumer thread
+            put(_Final(exc))
+
+    thread = threading.Thread(target=pump, daemon=True, name='pstpu-torch-prefetch')
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, _Final):
+                if item.exc is not None:
+                    raise item.exc
+                return
+            yield hand_over(*item)
+    finally:
+        stop.set()
+        thread.join(timeout=5)

@@ -1,0 +1,225 @@
+"""Unischema: one schema definition rendered to numpy / Arrow views.
+
+Trimmed twin of ``petastorm_tpu/unischema.py``: the same JSON layout
+(``to_json``/``from_json``) and field semantics, so a schema stored by either
+package loads in the other. A non-scalar field given no codec keeps
+``codec=None`` (the JAX package defaults it to ``NdarrayCodec``, which is not
+ported yet); such a field can describe a transform's output but cannot be
+written or serialized.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import OrderedDict, namedtuple
+from decimal import Decimal
+
+import numpy as np
+import pyarrow as pa
+
+from petastorm_tpu_torch.codecs import DataFieldCodec, ScalarCodec, codec_from_json
+from petastorm_tpu_torch.errors import SchemaError
+
+_SPECIAL_DTYPE_TOKENS = {
+    'string': np.str_,
+    'bytes': np.bytes_,
+    'decimal': Decimal,
+    'bool': np.bool_,
+    'datetime64': np.datetime64,
+}
+
+
+def _dtype_to_token(numpy_dtype):
+    for token, t in _SPECIAL_DTYPE_TOKENS.items():
+        if numpy_dtype is t:
+            return token
+    return np.dtype(numpy_dtype).str
+
+
+def _token_to_dtype(token):
+    if token in _SPECIAL_DTYPE_TOKENS:
+        return _SPECIAL_DTYPE_TOKENS[token]
+    return np.dtype(token).type
+
+
+def _require_codec(field):
+    if field.codec is None:
+        raise SchemaError('Field {} has shape {} and no codec: pass RawTensorCodec() '
+                          '(NdarrayCodec is not yet ported to petastorm_tpu_torch)'.format(
+                              field.name, field.shape))
+    return field.codec
+
+
+class UnischemaField(object):
+    """A single field: name, numpy dtype, shape (``None`` entries are
+    wildcards), codec, nullability. Equality ignores the codec."""
+
+    __slots__ = ('name', 'numpy_dtype', 'shape', 'codec', 'nullable')
+
+    def __init__(self, name, numpy_dtype, shape=(), codec=None, nullable=False):
+        if codec is not None and not isinstance(codec, DataFieldCodec):
+            raise SchemaError('codec for field {} must be a DataFieldCodec, got {!r}'.format(name, codec))
+        self.name = name
+        self.numpy_dtype = numpy_dtype if numpy_dtype is Decimal else np.dtype(numpy_dtype).type
+        self.shape = tuple(shape) if shape is not None else None
+        if codec is None and self.shape == ():
+            codec = ScalarCodec()
+        self.codec = codec
+        self.nullable = bool(nullable)
+
+    @property
+    def is_scalar(self):
+        return self.shape == ()
+
+    def to_json(self):
+        return {
+            'name': self.name,
+            'numpy_dtype': _dtype_to_token(self.numpy_dtype),
+            'shape': list(self.shape) if self.shape is not None else None,
+            'codec': _require_codec(self).to_json(),
+            'nullable': self.nullable,
+        }
+
+    @classmethod
+    def from_json(cls, spec):
+        return cls(
+            name=spec['name'],
+            numpy_dtype=_token_to_dtype(spec['numpy_dtype']),
+            shape=tuple(spec['shape']) if spec['shape'] is not None else None,
+            codec=codec_from_json(spec['codec']),
+            nullable=spec['nullable'],
+        )
+
+    def _key(self):
+        return (self.name, _dtype_to_token(self.numpy_dtype), self.shape, self.nullable)
+
+    def __eq__(self, other):
+        return isinstance(other, UnischemaField) and self._key() == other._key()
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return 'UnischemaField(name={!r}, numpy_dtype={}, shape={}, codec={!r}, nullable={})'.format(
+            self.name, _dtype_to_token(self.numpy_dtype), self.shape, self.codec, self.nullable)
+
+
+_NAMEDTUPLES = {}
+
+
+def _namedtuple_type(parent_name, field_names):
+    """Cached namedtuple type per (schema name, field names): repeated calls
+    return the same type object."""
+    key = (parent_name, tuple(field_names))
+    if key not in _NAMEDTUPLES:
+        _NAMEDTUPLES[key] = namedtuple(parent_name, field_names)
+    return _NAMEDTUPLES[key]
+
+
+class Unischema(object):
+    """An ordered (name-sorted) collection of :class:`UnischemaField`."""
+
+    def __init__(self, name, fields):
+        self._name = name
+        names = [f.name for f in fields]
+        dupes = sorted({n for n in names if names.count(n) > 1})
+        if dupes:
+            raise SchemaError('Duplicate field names in schema {}: {}'.format(name, dupes))
+        self._fields = OrderedDict((f.name, f) for f in sorted(fields, key=lambda f: f.name))
+        for f in self._fields.values():
+            if not hasattr(self, f.name):
+                setattr(self, f.name, f)
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def fields(self):
+        return self._fields
+
+    def create_schema_view(self, fields_or_patterns):
+        """Subset view by :class:`UnischemaField` instances, field names, or
+        regex patterns (full-match)."""
+        if isinstance(fields_or_patterns, str):
+            fields_or_patterns = [fields_or_patterns]
+        view_fields = []
+        for item in fields_or_patterns:
+            if isinstance(item, UnischemaField):
+                own = self._fields.get(item.name)
+                if own is None or own != item:
+                    raise SchemaError('Field {!r} does not match schema {}'.format(item, self._name))
+                view_fields.append(own)
+            else:
+                matched = match_unischema_fields(self, [item])
+                if not matched:
+                    raise SchemaError('Pattern {!r} matched no fields in schema {}'.format(item, self._name))
+                view_fields.extend(matched)
+        seen = set()
+        unique = [f for f in view_fields if not (f.name in seen or seen.add(f.name))]
+        return Unischema('{}_view'.format(self._name), unique)
+
+    def make_namedtuple(self, **kwargs):
+        return self.namedtuple(*[kwargs[f] for f in self._fields])
+
+    @property
+    def namedtuple(self):
+        """The cached namedtuple type for rows of this schema."""
+        return _namedtuple_type(self._name, list(self._fields))
+
+    def __iter__(self):
+        return iter(self._fields.values())
+
+    def __len__(self):
+        return len(self._fields)
+
+    def __repr__(self):
+        lines = ['Unischema({}, ['.format(self._name)]
+        lines.extend('  {!r},'.format(f) for f in self._fields.values())
+        lines.append('])')
+        return '\n'.join(lines)
+
+    def to_json(self):
+        return {'name': self._name, 'fields': [f.to_json() for f in self._fields.values()]}
+
+    @classmethod
+    def from_json(cls, spec):
+        return cls(spec['name'], [UnischemaField.from_json(f) for f in spec['fields']])
+
+    def as_arrow_schema(self):
+        """Physical Arrow schema of the Parquet files this Unischema writes."""
+        return pa.schema([pa.field(f.name, _require_codec(f).arrow_type(f), f.nullable)
+                          for f in self._fields.values()])
+
+
+def encode_row(schema, row_dict):
+    """Encode an in-memory row dict into the Parquet storage representation,
+    validating against the schema."""
+    if not isinstance(row_dict, dict):
+        raise SchemaError('row must be a dict, got {}'.format(type(row_dict)))
+    unknown = set(row_dict) - set(schema.fields)
+    if unknown:
+        raise SchemaError('Row contains fields not in schema {}: {}'.format(schema.name, sorted(unknown)))
+    encoded = {}
+    for field in schema:
+        if field.name not in row_dict and not field.nullable:
+            raise SchemaError('Field {} is not nullable but is missing from the row'.format(field.name))
+        value = row_dict.get(field.name)
+        if value is None:
+            if not field.nullable:
+                raise SchemaError('Field {} is not nullable but got None'.format(field.name))
+            encoded[field.name] = None
+        else:
+            encoded[field.name] = _require_codec(field).encode(field, value)
+    return encoded
+
+
+def match_unischema_fields(schema, field_regex):
+    """Fields whose names fully match any of the given regex patterns."""
+    if isinstance(field_regex, str):
+        field_regex = [field_regex]
+    compiled = [re.compile(p) for p in field_regex]
+    return [f for f in schema if any(p.fullmatch(f.name) for p in compiled)]

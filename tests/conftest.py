@@ -27,6 +27,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         'markers', 'slow: spawn-heavy end-to-end matrix tests (process pool)')
+    config.addinivalue_line(
+        'markers', 'gpu: needs an NVIDIA GPU with CUDA; skipped without one')
 
 
 @pytest.fixture
