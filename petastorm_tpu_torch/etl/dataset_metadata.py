@@ -4,7 +4,9 @@ Trimmed twin of ``petastorm_tpu/etl/dataset_metadata.py``. The writer and the
 metadata keys are the JAX package's, byte for byte: the JSON unischema and the
 per-file row-group counts live in ``_common_metadata`` under
 ``petastorm_tpu.unischema.v1`` / ``petastorm_tpu.num_row_groups_per_file.v1``,
-so a store written by either package is read by the other. Not ported yet:
+so a store written by either package is read by the other; columns whose
+codec stores compressed cells (images, ``compressed_ndarray``) are written
+uncompressed, as the JAX writer does. Not ported yet:
 hive partitioning, append/publish, the ``_metadata`` summary-file and legacy
 petastorm fallbacks, row-group indexes.
 """
@@ -84,7 +86,7 @@ class DatasetWriter(object):
         else:
             default = compression if compression is not None else 'none'
             overrides = {f.name: f.codec.preferred_column_compression for f in fields
-                         if f.codec is not None and f.codec.preferred_column_compression is not None
+                         if f.codec.preferred_column_compression is not None
                          and f.codec.preferred_column_compression != default}
             self._compression = ({**{f.name: default for f in fields}, **overrides}
                                  if overrides else compression)

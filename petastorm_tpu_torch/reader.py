@@ -3,7 +3,8 @@
 Trimmed twin of ``make_reader`` / ``Reader`` in ``petastorm_tpu/reader.py``:
 list the row groups, select columns, shard round-robin, ventilate
 (piece index) items in the seeded per-epoch order into a thread or dummy
-pool, and deliver rows or per-row-group column blocks. For a given seed the
+pool, and deliver rows or per-row-group column blocks, optionally through a
+local-disk cache of decoded blocks. For a given seed the
 row-group order is the JAX package's. The arguments of the JAX
 ``make_reader`` that are not ported yet raise :class:`NotImplementedError`
 naming their ROADMAP item when given a non-default value.
@@ -11,10 +12,12 @@ naming their ROADMAP item when given a non-default value.
 
 from __future__ import annotations
 
+from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import BatchResultsQueueReader
 from petastorm_tpu_torch.errors import EmptyResultError, NoDataAvailableError, PetastormTpuError
 from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.fs import FilesystemResolver
+from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
 from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker, RowResultsQueueReader
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.workers import ConcurrentVentilator, DummyPool, ThreadPool
@@ -30,10 +33,6 @@ _NOT_YET_PORTED = {
     'predicate': (None, 'predicates/selectors/ngram'),
     'rowgroup_selector': (None, 'predicates/selectors/ngram'),
     'ngram': (None, 'predicates/selectors/ngram'),
-    'cache_type': ('null', 'local_disk_cache'),
-    'cache_location': (None, 'local_disk_cache'),
-    'cache_size_limit': (None, 'local_disk_cache'),
-    'cache_row_size_estimate': (None, 'local_disk_cache'),
     'batch_size': (None, 'loader state_dict/resume'),
     'drop_last': (False, 'loader state_dict/resume'),
     'resume_state': (None, 'loader state_dict/resume'),
@@ -53,6 +52,21 @@ _NOT_YET_PORTED = {
 }
 
 
+def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate):
+    if cache_type in (None, 'null'):
+        return NullCache()
+    if cache_type == 'local-disk':
+        if not cache_location:
+            raise ValueError("cache_type='local-disk' requires cache_location")
+        kwargs = {}
+        if cache_size_limit:
+            kwargs['size_limit_bytes'] = cache_size_limit
+        if cache_row_size_estimate:
+            kwargs['expected_cell_size_bytes'] = cache_row_size_estimate
+        return LocalDiskCache(cache_location, **kwargs)
+    raise ValueError('Unknown cache_type {!r} (expected null/local-disk)'.format(cache_type))
+
+
 def make_reader(dataset_url,
                 schema_fields=None,
                 reader_pool_type='thread', workers_count=10, results_queue_size=50,
@@ -60,6 +74,8 @@ def make_reader(dataset_url,
                 shuffle_row_groups=True,
                 num_epochs=1,
                 cur_shard=None, shard_count=None,
+                cache_type='null', cache_location=None, cache_size_limit=None,
+                cache_row_size_estimate=None,
                 transform_spec=None,
                 output='rows',
                 **not_yet_ported):
@@ -72,6 +88,10 @@ def make_reader(dataset_url,
     :param num_epochs: passes over the dataset; ``None`` = infinite
     :param cur_shard/shard_count: keep row groups where
         ``index % shard_count == cur_shard``
+    :param cache_type: ``'null'`` or ``'local-disk'``: a cache of decoded
+        (and decode-time resized) row-group blocks in ``cache_location``,
+        bounded by ``cache_size_limit`` bytes; ``cache_row_size_estimate``
+        only warns when the bound holds few entries
     :param transform_spec: :class:`TransformSpec` run on the workers
     :param output: ``'rows'`` yields one schema namedtuple per row;
         ``'columnar'`` yields one namedtuple of column arrays per row group
@@ -102,9 +122,11 @@ def make_reader(dataset_url,
         raise ValueError('Unknown reader_pool_type {!r} (expected thread/dummy)'.format(
             reader_pool_type))
     results_reader = BatchResultsQueueReader if output == 'columnar' else RowResultsQueueReader
+    cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
     return Reader(dataset_url, schema, pool, results_reader, schema_fields=schema_fields,
                   seed=seed, shuffle_row_groups=shuffle_row_groups, num_epochs=num_epochs,
-                  cur_shard=cur_shard, shard_count=shard_count, transform_spec=transform_spec)
+                  cur_shard=cur_shard, shard_count=shard_count, cache=cache,
+                  transform_spec=transform_spec)
 
 
 class Reader(object):
@@ -115,13 +137,15 @@ class Reader(object):
 
     def __init__(self, dataset_url, schema, pool, results_reader_factory, schema_fields=None,
                  seed=None, shuffle_row_groups=True, num_epochs=1, cur_shard=None,
-                 shard_count=None, transform_spec=None):
+                 shard_count=None, cache=NullCache(), transform_spec=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
             raise ValueError('cur_shard {} out of range for shard_count {}'.format(
                 cur_shard, shard_count))
         self.schema = schema
+        #: the decoded-block cache (``stats()`` counts its hits and misses)
+        self.cache = cache
         resolver = FilesystemResolver(dataset_url)
         output_schema = (schema.create_schema_view(schema_fields)
                          if schema_fields is not None else schema)
@@ -148,6 +172,8 @@ class Reader(object):
         self._stopped = False
         pool.start(RowGroupDecoderWorker,
                    {'filesystem': resolver.filesystem(),
+                    'dataset_path': resolver.get_dataset_path(),
+                    'cache': self.cache,
                     'pieces': pieces,
                     'schema': schema,
                     'output_schema': output_schema,

@@ -1,16 +1,20 @@
 """Row-group decode worker: loads ONE row group per task, decodes by column.
 
 Trimmed twin of ``RowGroupDecoderWorker.process`` in
-``petastorm_tpu/row_worker.py``: the pyarrow path only. Each task reads one
-row group with ``pyarrow.parquet``, decodes every column through its codec's
-whole-column ``decode_column`` (per-cell ``decode`` + stack when that
-declines), applies the optional transform and publishes one column block.
-Not ported yet: the native fused decode, predicates, the row-group cache,
-NGram windows and shuffle-row-drop partitions.
+``petastorm_tpu/row_worker.py``: the pyarrow path. Each task reads one row
+group with ``pyarrow.parquet`` and decodes every column through its codec:
+image codecs take the decode hints and the resize target of the
+``TransformSpec`` (``decode_column``, then ``decode_batch``), other codecs
+their whole-column ``decode_column``, and per-cell ``decode`` + stack when
+that declines. The decoded block goes through the reader's cache (keyed by
+piece, columns, decode hints and resize target), then the optional transform
+runs and one column block is published. Not ported yet: the native fused
+decode, predicates, NGram windows and shuffle-row-drop partitions.
 """
 
 from __future__ import annotations
 
+import hashlib
 from collections import OrderedDict
 
 import numpy as np
@@ -23,10 +27,25 @@ from petastorm_tpu_torch.workers.worker_base import WorkerBase
 _MAX_OPEN_FILES = 8
 
 
+def _cache_key(dataset_path, piece, column_names, decode_hints=None, resize_hints=None):
+    cols = ','.join(sorted(column_names))
+    if decode_hints:
+        # scaled-decode output differs per hint: readers with different hints
+        # must not share cached decoded blocks
+        cols += '|' + repr(sorted(decode_hints.items()))
+    if resize_hints:
+        # decode-time resize bakes the target size into the cached block
+        cols += '|rsz' + repr(sorted(resize_hints.items()))
+    cols = hashlib.md5(cols.encode()).hexdigest()[:8]
+    # 'b1': the payloads are column blocks, as the JAX package's
+    return '{}:{}:rg{}:b1:{}'.format(
+        hashlib.md5(dataset_path.encode()).hexdigest(), piece.path, piece.row_group, cols)
+
+
 class RowGroupDecoderWorker(WorkerBase):
-    """``args``: pieces, schema (full stored schema), output_schema
-    (post column selection, pre transform), transform_spec,
-    transformed_schema, filesystem."""
+    """``args``: dataset_path, pieces, schema (full stored schema),
+    output_schema (post column selection, pre transform), transform_spec,
+    transformed_schema, filesystem, cache."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -47,28 +66,45 @@ class RowGroupDecoderWorker(WorkerBase):
         self._open_files.clear()
 
     def process(self, piece_index):
-        piece = self.args['pieces'][piece_index]
-        names = list(self.args['output_schema'].fields)
-        table = self._parquet_file(piece.path).read_row_group(piece.row_group, columns=names)
-        transform = self.args['transform_spec']
-        block = self._decode_table(table, names, writable=transform is not None
-                                   and transform.func is not None)
+        args = self.args
+        piece = args['pieces'][piece_index]
+        names = list(args['output_schema'].fields)
+        transform = args['transform_spec']
+        decode_hints = getattr(transform, 'image_decode_hints', None) or {}
+        resize_hints = getattr(transform, 'image_resize', None) or {}
+        key = _cache_key(args['dataset_path'], piece, names, decode_hints, resize_hints)
+        # the cache holds decoded (and resized) blocks, taken before the
+        # transform, which runs on every pass
+        block = args['cache'].get(key, lambda: self._load_block(
+            piece, names, decode_hints, resize_hints,
+            writable=transform is not None and transform.func is not None))
         if transform is not None:
             block = self._apply_transform(block, transform)
         if block and block_num_rows(block):
             self.publish(block)
 
-    def _decode_table(self, table, names, writable):
+    def _load_block(self, piece, names, decode_hints, resize_hints, writable):
+        table = self._parquet_file(piece.path).read_row_group(piece.row_group, columns=names)
         schema = self.args['schema']
         block = {}
         for name in names:
             field = schema.fields[name]
             codec = field.codec
             column = table.column(name)
-            decoded = codec.decode_column(field, column) if hasattr(codec, 'decode_column') else None
+            decoded = None
+            if getattr(codec, 'decode_column_accepts_hints', False):
+                decoded = codec.decode_column(field, column, min_size=decode_hints.get(name),
+                                              resize=resize_hints.get(name))
+            elif hasattr(codec, 'decode_column'):
+                decoded = codec.decode_column(field, column)
             if decoded is None:
                 cells = column_cells(column)
-                decoded = stack_cells([None if v is None else codec.decode(field, v) for v in cells])
+                hint, resize = decode_hints.get(name), resize_hints.get(name)
+                if hasattr(codec, 'decode_batch'):
+                    values = codec.decode_batch(field, cells, min_size=hint, resize=resize)
+                else:
+                    values = [None if v is None else codec.decode(field, v) for v in cells]
+                decoded = stack_cells(values)
             elif writable and isinstance(decoded, np.ndarray) and not decoded.flags.writeable:
                 # zero-copy decodes may be read-only views of the Arrow
                 # buffer; user transforms may mutate in place

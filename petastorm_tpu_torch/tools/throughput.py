@@ -41,7 +41,9 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     ``steps`` batches; stall = time blocked in ``next()`` / wall time of the
     measured steps. On CUDA, ``extra['step_ms']`` holds each measured step's
     time on the device's clock (CUDA events around the step on the
-    consumer's stream), and ``extra['median_step_ms']`` their median."""
+    consumer's stream), and ``extra['median_step_ms']`` their median.
+    ``extra['cache']`` holds the reader's cache counters (``stats()``: hits
+    and misses of a local-disk cache over the whole run)."""
     device = resolve_device(device)
     kwargs = {'num_epochs': None, 'output': 'columnar', **(reader_kwargs or {})}
     reader = make_reader(dataset_url, **kwargs)
@@ -68,7 +70,7 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
                 step_fn(*batch_to_args(batch))
         _sync(device)
         duration = time.perf_counter() - t0
-        extra = {'steps': steps}
+        extra = {'steps': steps, 'cache': reader.cache.stats()}
         if events:
             extra['step_ms'] = [s.elapsed_time(e) for s, e in events]
             extra['median_step_ms'] = statistics.median(extra['step_ms'])

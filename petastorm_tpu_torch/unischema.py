@@ -2,10 +2,8 @@
 
 Trimmed twin of ``petastorm_tpu/unischema.py``: the same JSON layout
 (``to_json``/``from_json``) and field semantics, so a schema stored by either
-package loads in the other. A non-scalar field given no codec keeps
-``codec=None`` (the JAX package defaults it to ``NdarrayCodec``, which is not
-ported yet); such a field can describe a transform's output but cannot be
-written or serialized.
+package loads in the other. A field given no codec gets ``ScalarCodec`` when
+it is a scalar and ``NdarrayCodec`` otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +15,7 @@ from decimal import Decimal
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.codecs import DataFieldCodec, ScalarCodec, codec_from_json
+from petastorm_tpu_torch.codecs import DataFieldCodec, NdarrayCodec, ScalarCodec, codec_from_json
 from petastorm_tpu_torch.errors import SchemaError
 
 _SPECIAL_DTYPE_TOKENS = {
@@ -42,14 +40,6 @@ def _token_to_dtype(token):
     return np.dtype(token).type
 
 
-def _require_codec(field):
-    if field.codec is None:
-        raise SchemaError('Field {} has shape {} and no codec: pass RawTensorCodec() '
-                          '(NdarrayCodec is not yet ported to petastorm_tpu_torch)'.format(
-                              field.name, field.shape))
-    return field.codec
-
-
 class UnischemaField(object):
     """A single field: name, numpy dtype, shape (``None`` entries are
     wildcards), codec, nullability. Equality ignores the codec."""
@@ -62,8 +52,8 @@ class UnischemaField(object):
         self.name = name
         self.numpy_dtype = numpy_dtype if numpy_dtype is Decimal else np.dtype(numpy_dtype).type
         self.shape = tuple(shape) if shape is not None else None
-        if codec is None and self.shape == ():
-            codec = ScalarCodec()
+        if codec is None:
+            codec = ScalarCodec() if self.shape == () else NdarrayCodec()
         self.codec = codec
         self.nullable = bool(nullable)
 
@@ -76,7 +66,7 @@ class UnischemaField(object):
             'name': self.name,
             'numpy_dtype': _dtype_to_token(self.numpy_dtype),
             'shape': list(self.shape) if self.shape is not None else None,
-            'codec': _require_codec(self).to_json(),
+            'codec': self.codec.to_json(),
             'nullable': self.nullable,
         }
 
@@ -191,7 +181,7 @@ class Unischema(object):
 
     def as_arrow_schema(self):
         """Physical Arrow schema of the Parquet files this Unischema writes."""
-        return pa.schema([pa.field(f.name, _require_codec(f).arrow_type(f), f.nullable)
+        return pa.schema([pa.field(f.name, f.codec.arrow_type(f), f.nullable)
                           for f in self._fields.values()])
 
 
@@ -213,7 +203,7 @@ def encode_row(schema, row_dict):
                 raise SchemaError('Field {} is not nullable but got None'.format(field.name))
             encoded[field.name] = None
         else:
-            encoded[field.name] = _require_codec(field).encode(field, value)
+            encoded[field.name] = field.codec.encode(field, value)
     return encoded
 
 

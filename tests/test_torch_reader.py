@@ -159,18 +159,23 @@ def test_thread_pool_stress_loses_and_repeats_nothing(jax_store):
 
 
 def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
-    with pytest.raises(NotImplementedError, match='local_disk_cache'):
-        make_reader(jax_store, cache_type='local-disk')
+    with pytest.raises(NotImplementedError, match='predicates/selectors/ngram'):
+        make_reader(jax_store, predicate=lambda row: True)
     with pytest.raises(NotImplementedError, match='process pool'):
         make_reader(jax_store, reader_pool_type='process')
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_reader(jax_store, no_such_argument=1)
-    # a store whose schema names a codec the port lacks fails on open
+    with pytest.raises(ValueError, match='requires cache_location'):
+        make_reader(jax_store, cache_type='local-disk')
+    # every codec id of the JAX package is ported now: a store with an image
+    # codec opens, and a codec id neither package knows fails on open
     from petastorm_tpu.codecs import CompressedImageCodec
     url = 'file://' + str(tmp_path)
     schema = JaxUnischema('Png', [
         JaxUnischemaField('image', np.uint8, IMAGE_SHAPE, CompressedImageCodec('png'), False)])
     with jax_materialize_dataset(url, schema, rows_per_row_group=2) as w:
         w.write({'image': _rows()[0]['image']})
-    with pytest.raises(SchemaError, match='not yet ported'):
-        get_schema(url)
+    assert get_schema(url).fields['image'].codec.image_codec == 'png'
+    from petastorm_tpu_torch.codecs import codec_from_json
+    with pytest.raises(SchemaError, match='Unknown codec id'):
+        codec_from_json({'codec_id': 'no_such_codec'})

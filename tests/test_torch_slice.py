@@ -152,12 +152,15 @@ def test_port_imports_nothing_of_jax():
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in',
         '             ("jax", "jaxlib", "flax", "optax", "petastorm_tpu"))',
         'assert not bad, bad',
+        # the decode slice's modules, the native decoder's bindings and build among them
+        'for m in ("native.image_codec", "native.build", "codecs", "local_disk_cache", "cache"):',
+        '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         'print(len([m for m in sys.modules if m.startswith("petastorm_tpu_torch")]))',
     ])
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    assert int(out.stdout.split()[-1]) >= 37
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
