@@ -10,9 +10,10 @@ Phases, each printed as one JSON line:
 2. kernel checks: every hand-written kernel of the main path against its plain
    PyTorch version on the card (shapes, types and tolerances below), and the
    times of both (CUDA events, median of 25 runs);
-3. stores: a raw uint8 store, an ImageNet-shaped PNG store and, where the
-   host can encode and decode JPEG, a JPEG store, written by the port's
-   ``materialize_dataset`` from a seed;
+3. stores: a raw uint8 store, an ImageNet-shaped PNG store, a fixed-shape
+   PNG store of the raw store's images and, where the host can encode and
+   decode JPEG, a JPEG store, written by the port's ``materialize_dataset``
+   from a seed;
 4. decode checks: what the host offers for image decode (OpenCV, the image
    libraries' headers and shared objects) and what the port's native decoder
    built with; the route that decodes and the route that resizes each
@@ -20,8 +21,18 @@ Phases, each printed as one JSON line:
    256 store images and on PNGs written here with every row filter; each
    resize route against the plain route (the numpy resamplers' weights,
    applied in float64) within 1 LSB; the host's decode+resize rate on one
-   core and on a pool of one thread per core;
-5. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
+   core and on a pool of one thread per core. The host probe also reports
+   pyarrow, its headers, pyzmq, and the native Parquet reader's build time
+   and ABI: a reader that did not build fails the run;
+5. read checks: every row group of the raw store read by the row worker
+   through the native reader (page-scan views) equals the same row group
+   through ``pq.ParquetFile`` and the codecs; every row group of the
+   fixed-shape PNG store read through the fused native call equals the
+   images as written and the route with the fused read switched off
+   (``PSTPU_DISABLE_FUSED``); each route counted in ``native.read_routes``
+   as named; the host's read rate of each pair on one core and on a pool of
+   one thread per core;
+6. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
    160 px, SGD 0.1 momentum 0.9, ``random_flip`` and ``normalize_images``
    inside it) fed by ``make_reader(output='columnar')`` (thread pool, one
    worker per core) -> ``TorchDataLoader`` (shuffle 512, seed 7) ->
@@ -34,32 +45,40 @@ Phases, each printed as one JSON line:
    - ``png_cached``: the same with ``cache_type='local-disk'``, after one
      epoch that fills the cache; its run must read every row group from it;
    - ``jpeg``: a JPEG store of 320-560 px photos, where the probe allows it
-     (else one line says why it is skipped).
+     (else one line says why it is skipped);
+   - ``png_fixed``: the fixed-shape PNG store (``BASELINE.json`` config 3's
+     image column), no resize: the fused native read decodes every image.
 
    The kernels' launch counts and the image route counts are set to 0 just
-   before each path and read just after it: a kernel of the path that was
-   not launched, or an image decoded or resized by a route other than the one
-   the decode checks named, fails the run. The first staged batch of each path
-   is checked against the store's rows, the losses for being finite and
-   starting near log(1000);
-6. profile: three more steps of the raw path under ``torch.profiler``, the
+   before each path and read just after it, and the read routes are counted
+   over the path's run: a kernel of the path that was not launched, an image
+   decoded or resized by a route other than the one the decode checks named,
+   or a column read by a route other than the path's (``raw``: page scan
+   only; ``png``/``jpeg``: images to the codec with reason ``image-hints``,
+   strings with reason ``codec``; ``png_cached``: no read; ``png_fixed``:
+   fused only) fails the run. The first staged batch of each path is checked
+   against the store's rows, the losses for being finite and starting near
+   log(1000);
+7. profile: three more steps of the raw path under ``torch.profiler``, the
    device's busy time per step by kernel and its idle share;
-7. model check: the trained model on the card (bf16) against a float32 copy
+8. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-8. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+9. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, max error, its time, the plain version's time,
    the least time the card could take and what bounds it), the card's name
    and power limit as ``nvidia-smi`` gives them, and last
    ``{"ok": true, "device": {...}}``.
 
 No failure is caught: any exception ends the run with a non-zero exit code and
-no result line. Without CUDA the run fails at once. The native decoder's
-build, the Triton cache, the stores and the disk cache live under
-``.torch_build/`` in the checkout.
+no result line. Without CUDA the run fails at once. The native libraries
+(built on threads of their own while Triton compiles), the Triton cache, the
+stores and the disk cache live under ``.torch_build/`` in the checkout.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import os
@@ -68,6 +87,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -274,9 +294,11 @@ def _photo(rng, h, w):
     return np.clip(base + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
+@functools.lru_cache(maxsize=None)
 def _image(index):
     """The raw store's image ``index``, made from a seed, so a batch can be
-    checked against the rows it came from."""
+    checked against the rows it came from (kept: the fixed-shape PNG store
+    and the checks use the same images; 79 MB for all)."""
     return _photo(np.random.default_rng([SEED, index]), IMAGE_SIZE, IMAGE_SIZE)
 
 
@@ -353,21 +375,28 @@ def _image_rows(dims):
                    'image': _photo(rng, h, w)}
 
 
-def build_image_store(url, image_format, dims, encoder):
-    """An ImagenetSchema-shaped store (``noun_id``, ``text``, ``image``),
-    ``IMAGE_ROWS_PER_ROW_GROUP`` rows per row group. ``encoder='numpy'``
-    (PNG on a host without OpenCV) writes the cells with :func:`png_bytes`
-    under the same ``compressed_image`` codec id. Returns the PNG store's
-    images as written."""
-    from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
-    from petastorm_tpu_torch.etl import materialize_dataset
-    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+def _image_codec(image_format, encoder):
+    """The ``compressed_image`` codec the stores are written with;
+    ``encoder='numpy'`` (PNG on a host without OpenCV) writes the cells with
+    :func:`png_bytes` under the same codec id."""
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
 
     class NumpyPngCodec(CompressedImageCodec):
         def encode(self, field, value):
             return png_bytes(value)
 
-    codec = (NumpyPngCodec if encoder == 'numpy' else CompressedImageCodec)(image_format)
+    return (NumpyPngCodec if encoder == 'numpy' else CompressedImageCodec)(image_format)
+
+
+def build_image_store(url, image_format, dims, encoder):
+    """An ImagenetSchema-shaped store (``noun_id``, ``text``, ``image``),
+    ``IMAGE_ROWS_PER_ROW_GROUP`` rows per row group. Returns the PNG store's
+    images as written."""
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    codec = _image_codec(image_format, encoder)
     schema = Unischema('ImagenetSchema', [
         UnischemaField('noun_id', np.str_, (), ScalarCodec(), False),
         UnischemaField('text', np.str_, (), ScalarCodec(), False),
@@ -379,6 +408,27 @@ def build_image_store(url, image_format, dims, encoder):
             if image_format == 'png':
                 written.append(row['image'])
     return written
+
+
+def build_png_fixed_store(url, encoder):
+    """The pre-resized PNG store, shaped as ``BASELINE.json`` config 3's
+    image column (HelloWorldSchema's fixed-shape ``CompressedImageCodec('png')``,
+    ``examples/hello_world/petastorm_dataset/generate_petastorm_dataset.py:18-20``):
+    the raw store's images (:func:`_image`) PNG-encoded at their full
+    160x160x3 shape and an int64 label, the writer's default snappy,
+    ``IMAGE_ROWS_PER_ROW_GROUP`` rows per row group. A fully specified shape
+    and no resize is what lets the fused native read decode the images."""
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema('PngFixed', [
+        UnischemaField('image', np.uint8, (IMAGE_SIZE, IMAGE_SIZE, 3),
+                       _image_codec('png', encoder), False),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64), False)])
+    with materialize_dataset(url, schema, rows_per_row_group=IMAGE_ROWS_PER_ROW_GROUP) as writer:
+        for i in range(ROWS):
+            writer.write({'image': _image(i), 'label': np.int64(i % NUM_CLASSES)})
 
 
 def label_of(noun_id):
@@ -462,13 +512,39 @@ def _host_cpu():
     return {'cpu_model': model, 'cpu_count': os.cpu_count()}
 
 
-def probe_host():
-    """What the host offers for image decode, and what the port's native
-    decoder built with. Decides the routes the paths must take."""
+class NativeBuild(threading.Thread):
+    """One native library of the port, built by g++ on a thread of its own
+    while Triton compiles the kernel; ``seconds`` and ``error`` once joined."""
+
+    def __init__(self, build_fn):
+        super().__init__(daemon=True)
+        self._build_fn = build_fn
+        self.seconds = self.error = None
+        self.start()
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            self._build_fn()
+        except Exception as e:  # noqa: BLE001 - probe_host reports it, and fails on the reader's
+            self.error = repr(e)
+        self.seconds = time.perf_counter() - t0
+
+
+def probe_host(builds):
+    """What the host offers for image decode and Parquet reads, and what the
+    port's native libraries built with. Decides the routes the paths must
+    take; a native Parquet reader that did not build fails the run (the
+    library would quietly read through pyarrow)."""
+    import pyarrow
+
+    from petastorm_tpu_torch import native
     from petastorm_tpu_torch.native import image_codec
 
+    for build in builds.values():
+        build.join()
     found = {}
-    for module in ('cv2', 'PIL'):
+    for module in ('cv2', 'PIL', 'zmq'):
         try:
             found[module] = __import__(module).__version__
         except ImportError:
@@ -478,9 +554,11 @@ def probe_host():
     ldconfig = subprocess.run(['ldconfig', '-p'], capture_output=True, text=True, timeout=60)
     libs = sorted({line.split()[0] for line in ldconfig.stdout.splitlines()
                    if any(k in line for k in ('libjpeg', 'libpng', 'libdeflate', 'libz.'))})
-    t0 = time.perf_counter()
-    features = image_codec.features()  # builds the library at first use
-    build_s = time.perf_counter() - t0
+    features = image_codec.features()  # loads the library built above
+    reader = {'pyarrow': pyarrow.__version__,
+              'arrow_api_h': os.path.exists(os.path.join(pyarrow.get_include(), 'arrow', 'api.h')),
+              'build_s': builds['reader'].seconds, 'build_error': builds['reader'].error,
+              'available': native.is_available(), 'abi': native.abi_version()}
     if features is None:
         png_decode = 'cv2' if found['cv2'] else None
     else:
@@ -491,7 +569,8 @@ def probe_host():
         jpeg_decode = 'cv2' if found['cv2'] else None
     resize = 'cv2' if found['cv2'] else ('native' if features is not None else 'numpy')
     probe = {'modules': found, 'headers': headers, 'shared_objects': libs,
-             'native': features, 'native_build_s': build_s,
+             'native': features, 'native_build_s': builds['image'].seconds,
+             'native_build_error': builds['image'].error, 'reader': reader,
              'encoder': 'cv2' if found['cv2'] else 'numpy',
              'routes': {'png': {'decode': png_decode, 'resize': resize},
                         # JPEG needs an encoder (cv2) for the store and a decoder
@@ -499,6 +578,8 @@ def probe_host():
                                  if found['cv2'] and jpeg_decode else None)}}
     if png_decode is None:
         raise AssertionError('no PNG decode route on this host: {}'.format(probe))
+    if not reader['available']:
+        raise AssertionError('the native Parquet reader did not build or load: {}'.format(reader))
     return probe
 
 
@@ -513,6 +594,21 @@ def _store_cells(url, count):
     table = pq.ParquetFile(path).read_row_groups(
         range(-(-count // IMAGE_ROWS_PER_ROW_GROUP)), columns=['image'])
     return table.column('image').slice(0, count), get_schema(url).fields['image']
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """``os.environ`` with ``values`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
 def _decode_rate(field, column, threads):
@@ -621,19 +717,138 @@ def phase_decode_checks(png_url, png_images, jpeg_url, probe):
     stores = [('png', png_url)] + ([('jpeg', jpeg_url)] if jpeg_url else [])
     for fmt, url in stores:
         col, fld = _store_cells(url, CHECK_IMAGES)
-        budget = os.environ.get('PSTPU_IMG_THREADS')
-        os.environ['PSTPU_IMG_THREADS'] = '1'  # one core: no native fan-out
-        try:
+        with _env(PSTPU_IMG_THREADS='1'):  # one core: no native fan-out
             one = _decode_rate(fld, col, 1)
-        finally:
-            if budget is None:
-                del os.environ['PSTPU_IMG_THREADS']
-            else:
-                os.environ['PSTPU_IMG_THREADS'] = budget
         rates[fmt] = {'one_core': one, 'pool': _decode_rate(fld, col, os.cpu_count() or 1)}
     emit({'phase': 'decode_checks', 'probe': probe, 'checks': checks, 'rates': rates,
           'host': _host_cpu()})
     image_routes.reset()
+
+
+# -- the read checks -------------------------------------------------------------
+
+def _row_worker(url, route):
+    """A row worker of ``url`` that opens its files on ``route``: ``'native'``
+    (the port's ``open_parquet``, as the reader's workers do) or
+    ``'pyarrow'`` (``pq.ParquetFile``, the route without the native reader)."""
+    import pyarrow.fs as pafs
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.etl import get_schema
+    from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker
+
+    worker = RowGroupDecoderWorker(0, None, {'schema': get_schema(url),
+                                             'filesystem': pafs.LocalFileSystem()})
+    if route == 'pyarrow':
+        worker._parquet_file = functools.lru_cache(maxsize=None)(pq.ParquetFile)
+    return worker
+
+
+def _load(worker, piece):
+    """One row group's decoded block, as the reader's workers load it."""
+    return worker._load_block(piece, list(worker.args['schema'].fields), {}, {}, writable=False)
+
+
+def _blocks_equal(a, b):
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def _read_rate(url, route, threads):
+    """Rows per second, and decoded MB per second, of the row worker's load
+    of every row group of ``url`` on ``route`` (``threads`` passes over the
+    store on as many threads, a worker each), and the read routes counted."""
+    import concurrent.futures
+
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+    from petastorm_tpu_torch.native import read_routes
+
+    pieces = load_row_groups(url)
+    local = threading.local()
+
+    def load(piece):
+        worker = getattr(local, 'worker', None)
+        if worker is None:
+            worker = local.worker = _row_worker(url, route)
+        block = _load(worker, piece)
+        return len(block['label']), sum(v.nbytes for v in block.values())
+
+    read_routes.reset()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        done = list(pool.map(load, pieces * threads))
+    seconds = time.perf_counter() - t0
+    rows = sum(n for n, _ in done)
+    return {'threads': threads, 'rows': rows, 'rows_per_s': rows / seconds,
+            'decoded_mb_per_s': sum(b for _, b in done) / seconds / 1e6,
+            'routes': {k: v for k, v in read_routes.snapshot().items() if v}}
+
+
+def phase_read_checks(raw_url, fixed_url):
+    """The native Parquet reader against the routes without it, exactly, on
+    every row group, with the routes each read took; then the host's read
+    rates. Raw store: page-scan views against ``pq.ParquetFile`` + the
+    codecs. Fixed-shape PNG store: the fused native call against the images
+    as written and against the reader with the fused read switched off
+    (``PSTPU_DISABLE_FUSED``: Arrow C++ reads, the codec decodes)."""
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+    from petastorm_tpu_torch.native import read_routes
+
+    checks = {}
+    pieces = load_row_groups(raw_url)
+    native_worker, pyarrow_worker = _row_worker(raw_url, 'native'), _row_worker(raw_url, 'pyarrow')
+    read_routes.reset()
+    differ = [k for k, piece in enumerate(pieces)
+              if not _blocks_equal(_load(native_worker, piece), _load(pyarrow_worker, piece))]
+    routes = read_routes.snapshot()
+    checks['raw'] = {'row_groups': len(pieces), 'differing_row_groups': differ, 'routes': routes}
+    if differ or routes != {'fused_batches_total': 0, 'fused_columns_total': 0,
+                            'fused_fallback_total': 0, 'arrow_fallback_columns_total': 0,
+                            'pagescan_columns_total': 2 * len(pieces)}:
+        raise AssertionError('raw store through the native reader: {}'.format(checks['raw']))
+
+    pieces = load_row_groups(fixed_url)
+    worker = _row_worker(fixed_url, 'native')
+    read_routes.reset()
+    fused = [_load(worker, piece) for piece in pieces]
+    fused_routes = read_routes.snapshot()
+    read_routes.reset()
+    with _env(PSTPU_DISABLE_FUSED='1'):
+        unfused = [_load(worker, piece) for piece in pieces]
+    unfused_routes = read_routes.snapshot()
+    images = np.concatenate([b['image'] for b in fused])
+    labels = np.concatenate([b['label'] for b in fused])
+    exact = (len(images) == ROWS and all(np.array_equal(images[i], _image(i)) for i in range(ROWS))
+             and np.array_equal(labels, np.arange(ROWS) % NUM_CLASSES))
+    checks['png_fixed'] = {
+        'row_groups': len(pieces), 'exact_vs_written': exact,
+        'differing_row_groups_vs_unfused': [k for k, (a, b) in enumerate(zip(fused, unfused))
+                                            if not _blocks_equal(a, b)],
+        'writable': all(v.flags.writeable for b in fused for v in b.values()),
+        'routes': fused_routes, 'unfused_routes': unfused_routes}
+    n = len(pieces)
+    if not exact or checks['png_fixed']['differing_row_groups_vs_unfused'] or fused_routes != {
+            'fused_batches_total': n, 'fused_columns_total': 2 * n, 'fused_fallback_total': 0,
+            'arrow_fallback_columns_total': 0, 'pagescan_columns_total': 0} \
+            or unfused_routes['arrow_fallback_columns_total'] != 2 * n:
+        raise AssertionError('fixed-shape PNG store through the fused read: {}'.format(
+            checks['png_fixed']))
+
+    # the host's read rates: one core (no native fan-out), then a pool
+    rates = {}
+    for store, url, pairs in (('raw', raw_url, (('native', {}), ('pyarrow', {}))),
+                              ('png_fixed', fixed_url, (('fused', {}), ('unfused', {
+                                  'PSTPU_DISABLE_FUSED': '1'})))):
+        for name, env in pairs:
+            route = 'pyarrow' if name == 'pyarrow' else 'native'
+            with _env(PSTPU_IMG_THREADS='1', **env):
+                one = _read_rate(url, route, 1)
+            with _env(**env):
+                rates['{}_{}'.format(store, name)] = {
+                    'one_core': one, 'pool': _read_rate(url, route, os.cpu_count() or 1)}
+    emit({'phase': 'read_checks', 'checks': checks, 'rates': rates, 'host': _host_cpu()})
+    read_routes.reset()
 
 
 def check_image_batch(expected):
@@ -675,14 +890,45 @@ def expected_images(url, written, route):
 
 
 def check_routes(counts, routes):
-    """Images went only through the named decode and resize routes."""
-    allowed = {'resize_' + routes['resize']}
-    allowed |= ({'decode_native'} if routes['decode'] == 'native'
-                else {'decode_cv2', 'decode_fallback'})
+    """Images went only through the named decode and resize routes; with
+    ``routes=None``, through none of the codec's routes."""
+    allowed = set()
+    if routes is not None:
+        allowed.add('resize_' + routes['resize'])
+        allowed |= ({'decode_native'} if routes['decode'] == 'native'
+                    else {'decode_cv2', 'decode_fallback'})
     unexpected = {k: v for k, v in counts.items() if v and k not in allowed}
     if unexpected:
         raise AssertionError('images on unexpected routes {} (named: {})'.format(
             unexpected, routes))
+
+
+def check_read_routes(path, counts):
+    """The columns of a path's run went through the read routes the slice
+    names for it: ``raw`` page-scan views only; ``png`` and ``jpeg`` images
+    to the codec's columnar decode (reason ``image-hints``: a resize target)
+    and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
+    ``png_cached`` no read at all; ``png_fixed`` fused only."""
+    def c(key):
+        return counts.get(key, 0)
+
+    reasons = {k.split(':', 1)[1]: v for k, v in counts.items()
+               if k.startswith('fused_fallback_reason:') and v}
+    fused, fallback = c('fused_batches_total'), c('fused_fallback_total')
+    pagescan, arrow = c('pagescan_columns_total'), c('arrow_fallback_columns_total')
+    if path == 'raw':
+        ok = pagescan > 0 and not (fused or fallback or arrow or reasons)
+    elif path in ('png', 'jpeg'):
+        n = reasons.get('image-hints', 0)
+        ok = (n > 0 and reasons == {'image-hints': n, 'codec': 2 * n} and fallback == 3 * n
+              and arrow == 3 * n and not (fused or pagescan))
+    elif path == 'png_cached':
+        ok = not any(counts.values())
+    else:  # png_fixed
+        ok = (fused > 0 and c('fused_columns_total') == 2 * fused
+              and not (fallback or arrow or pagescan or reasons))
+    if not ok:
+        raise AssertionError('{}: columns read by unexpected routes: {}'.format(path, counts))
 
 
 def new_train_state(torch):
@@ -695,8 +941,8 @@ def new_train_state(torch):
 
 def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
     """One path: a fresh model from the seed, 3 warm-up and 10 measured steps
-    through ``pipeline_duty_cycle``. The normalize launches and the image
-    route counts cover this path's run alone."""
+    through ``pipeline_duty_cycle``. The normalize launches, the image route
+    counts and the read route counts cover this path's run alone."""
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
     from petastorm_tpu_torch.ops import normalize_images, random_flip
@@ -749,7 +995,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
           'step_ms': result.extra['step_ms'],
           'peak_memory_bytes': torch.cuda.max_memory_allocated(),
           'losses': losses, 'launches': launches, 'image_routes': counts,
-          'named_routes': routes, 'cache': result.extra['cache'], 'wall_s': wall_s})
+          'named_routes': routes, 'read_routes': result.extra['read_routes'],
+          'cache': result.extra['cache'], 'wall_s': wall_s})
     if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError('{}: losses {}'.format(name, losses))
     # zero-initialised last batch norms make the fresh model's logits small:
@@ -761,8 +1008,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
         if count < WARMUP_STEPS + STEPS:
             raise AssertionError('{}: kernel {} launched {} times in {} steps'.format(
                 name, kernel, count, WARMUP_STEPS + STEPS))
-    if routes is not None:
-        check_routes(counts, routes)
+    check_routes(counts, routes)
+    check_read_routes(name, result.extra['read_routes'])
     return launches, state, train_step, first_batch, result
 
 
@@ -856,13 +1103,16 @@ def main():
 
     import petastorm_tpu_torch  # noqa: F401 - fails here when run outside a checkout
 
+    from petastorm_tpu_torch.native import build as native_build
+
+    builds = {'reader': NativeBuild(native_build.build), 'image': NativeBuild(native_build.build_img)}
     card = phase_device(torch)
     kernels = phase_kernels(torch)
     work_dir = tempfile.mkdtemp(prefix='smoke_', dir=BUILD_DIR)
     try:
-        probe = probe_host()
+        probe = probe_host(builds)
         urls, stores = {}, {}
-        for name in ('raw', 'png', 'jpeg'):
+        for name in ('raw', 'png', 'png_fixed', 'jpeg'):
             if name == 'jpeg' and probe['routes']['jpeg'] is None:
                 continue
             path = os.path.join(work_dir, name)
@@ -870,12 +1120,15 @@ def main():
             t0 = time.perf_counter()
             if name == 'raw':
                 build_store(urls[name])
+            elif name == 'png_fixed':
+                build_png_fixed_store(urls[name], probe['encoder'])
             else:
                 stores[name] = build_image_store(urls[name], name, JPEG_DIMS if name == 'jpeg'
                                                  else PNG_DIMS, probe['encoder'])
             emit({'phase': 'store', 'store': name, 'rows': ROWS, 'bytes': _dir_bytes(path),
                   'build_s': time.perf_counter() - t0})
         phase_decode_checks(urls['png'], stores['png'], urls.get('jpeg'), probe)
+        phase_read_checks(urls['raw'], urls['png_fixed'])
 
         launches, state, train_step, (images, labels), raw = run_path(
             torch, 'raw', urls['raw'], check_batch)
@@ -913,6 +1166,10 @@ def main():
                                          '({} hits)'.format(cache['misses'], cache['hits']))
             for kernel, count in path_launches.items():
                 total[kernel] += count
+        # the pre-resized PNG store: every image decoded by the fused native read
+        path_launches, _, _, _, _ = run_path(torch, 'png_fixed', urls['png_fixed'], check_batch)
+        for kernel, count in path_launches.items():
+            total[kernel] += count
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     phase_profile(torch, state, train_step, images, labels, raw.extra['median_step_ms'])

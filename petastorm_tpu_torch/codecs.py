@@ -15,7 +15,6 @@ from __future__ import annotations
 import io
 import re
 import struct
-import threading
 from decimal import Decimal
 
 import numpy as np
@@ -23,7 +22,7 @@ import pyarrow as pa
 
 from petastorm_tpu_torch.columnar import column_cells, stack_cells
 from petastorm_tpu_torch.errors import SchemaError
-from petastorm_tpu_torch.native import image_codec
+from petastorm_tpu_torch.native import RouteCounts, image_codec
 
 
 def _import_cv2():
@@ -41,40 +40,17 @@ def _import_cv2():
     return cv2
 
 
-class RouteCounts(object):
-    """Images decoded and resized per route since the last :meth:`reset`,
-    summed over every thread of the process:
-
-    - ``decode_native``: decoded by the native library (one call per column);
-    - ``decode_cv2``: decoded by ``cv2.imdecode`` in :meth:`CompressedImageCodec.decode`;
-    - ``decode_fallback``: cells of a column the native route refused or could
-      not take, decoded per image instead (a subset of ``decode_cv2``);
-    - ``resize_cv2`` / ``resize_native`` / ``resize_numpy``: images resized by
-      each route of :func:`_resize_image` or the fused native decode+resize.
-    """
-
-    KEYS = ('decode_native', 'decode_cv2', 'decode_fallback',
-            'resize_cv2', 'resize_native', 'resize_numpy')
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(self.KEYS, 0)
-
-    def add(self, key, n=1):
-        with self._lock:
-            self._counts[key] += n
-
-    def reset(self):
-        with self._lock:
-            self._counts = dict.fromkeys(self.KEYS, 0)
-
-    def snapshot(self):
-        with self._lock:
-            return dict(self._counts)
-
-
-#: the process's image route counts (read by ``chip_smoke.py``)
-image_routes = RouteCounts()
+#: the process's image route counts (read by ``chip_smoke.py``), images
+#: decoded and resized per route, summed over every thread:
+#:
+#: - ``decode_native``: decoded by the native library (one call per column);
+#: - ``decode_cv2``: decoded by ``cv2.imdecode`` in :meth:`CompressedImageCodec.decode`;
+#: - ``decode_fallback``: cells of a column the native route refused or could
+#:   not take, decoded per image instead (a subset of ``decode_cv2``);
+#: - ``resize_cv2`` / ``resize_native`` / ``resize_numpy``: images resized by
+#:   each route of :func:`_resize_image` or the fused native decode+resize.
+image_routes = RouteCounts(('decode_native', 'decode_cv2', 'decode_fallback',
+                            'resize_cv2', 'resize_native', 'resize_numpy'))
 
 _CODEC_REGISTRY = {}
 

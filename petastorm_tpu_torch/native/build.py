@@ -1,22 +1,31 @@
-"""Build the batched image decoder (``image_codec.cpp``) with g++.
+"""Build the port's native libraries with g++, at first use.
 
-Twin of ``build_img`` in ``petastorm_tpu/native/build.py``: ``-O3
--march=native`` (the library is always compiled on the machine that runs
-it), a stamp of the source hash, the CPU and the command line beside the
-library so that any change rebuilds it, and an ``flock`` so that concurrent
-processes (test workers) build it once. The library goes to
-``.torch_build/native/`` at the root of the checkout, never into the package.
+Two targets, each the twin of one in ``petastorm_tpu/native/build.py``:
 
-The source builds with whatever image libraries the host has: the compiler's
-``__has_include`` decides, and :func:`_features` reads its decision back
-(``g++ -dM -E``) to pick the libraries to link. Without libdeflate the PNG
-path links the ``libz.so.1`` that CPython's zlib module loads.
+- :func:`build`: the Parquet row-group reader (``rowgroup_reader.cpp``),
+  ``-O2 -std=c++20``, compiled against the Arrow and Parquet C++ libraries
+  that the installed pyarrow wheel bundles. The wheel ships versioned
+  sonames only (``libarrow.so.2400``), so they are linked by exact name with
+  an rpath into the wheel's directory, both read from pyarrow at build time.
+  A pyarrow upgrade, another Python, or an edit of the source rebuilds it.
+- :func:`build_img`: the batched image decoder (``image_codec.cpp``), ``-O3
+  -march=native`` (the library is always compiled on the machine that runs
+  it), rebuilt when the source, the CPU or the command line changes. The
+  source builds with whatever image libraries the host has: the compiler's
+  ``__has_include`` decides, and :func:`_features` reads its decision back
+  (``g++ -dM -E``) to pick the libraries to link. Without libdeflate the PNG
+  path links the ``libz.so.1`` that CPython's zlib module loads.
 
-Run ``python -m petastorm_tpu_torch.native.build`` to build it ahead of use.
+Both go to ``.torch_build/native/`` at the root of the checkout, never into
+the package, with a stamp beside each library and an ``flock`` so that
+concurrent processes (test workers) build it once.
+
+Run ``python -m petastorm_tpu_torch.native.build`` to build both ahead of use.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import platform
@@ -24,14 +33,21 @@ import subprocess
 import sys
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, 'rowgroup_reader.cpp')
 IMG_SOURCE = os.path.join(_HERE, 'image_codec.cpp')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), '.torch_build', 'native')
+OUTPUT = os.path.join(BUILD_DIR, 'libpstpu_torch.so')
 IMG_OUTPUT = os.path.join(BUILD_DIR, 'libpstpu_torch_img.so')
 
-#: the source's optional libraries: macro -> the link flag it needs
+#: the image source's optional libraries: macro -> the link flag it needs
 _LIBRARIES = {'PSTPU_HAVE_JPEG': '-ljpeg', 'PSTPU_HAVE_PNG': '-lpng16',
               'PSTPU_HAVE_DEFLATE': '-ldeflate'}
 _BASE_FLAGS = ['g++', '-O3', '-march=native', '-std=c++17', '-shared', '-fPIC']
+
+
+def _source_hash(path):
+    with open(path, 'rb') as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def _cpu_fingerprint():
@@ -49,6 +65,87 @@ def _cpu_fingerprint():
         pass
     return hashlib.sha256('\n'.join(ident).encode()).hexdigest()[:16]
 
+
+def _is_fresh(output, stamp):
+    try:
+        with open(output + '.stamp') as f:
+            return os.path.exists(output) and f.read() == stamp
+    except OSError:
+        return False
+
+
+def _build_target(output, stamp, make_cmd, label, force, quiet):
+    """Compile ``output`` unless a build with this ``stamp`` is in place.
+
+    An ``flock`` lets one process at a time compile, the others then find
+    the fresh build; the compiler writes a per-process temporary that is renamed into place, so a
+    process that already loaded the old library keeps its inode.
+    ``make_cmd(tmp_out)`` returns the compiler's argv."""
+    if not force and _is_fresh(output, stamp):
+        return output
+    import fcntl
+    os.makedirs(os.path.dirname(output), exist_ok=True)
+    with open(output + '.lock', 'w') as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            if not force and _is_fresh(output, stamp):  # built while we waited
+                return output
+            tmp_out = '{}.tmp.{}'.format(output, os.getpid())
+            cmd = make_cmd(tmp_out)
+            if not quiet:
+                print('building {}:'.format(label), ' '.join(cmd))
+            result = subprocess.run(cmd, capture_output=True, text=True)
+            if result.returncode != 0:
+                if os.path.exists(tmp_out):
+                    os.unlink(tmp_out)
+                raise RuntimeError('{} build failed:\n{}'.format(label, result.stderr))
+            os.replace(tmp_out, output)
+            with open(output + '.stamp', 'w') as f:
+                f.write(stamp)
+            return output
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
+
+
+# -- the Parquet row-group reader ------------------------------------------------
+
+def arrow_paths():
+    """``(include dir, library dirs, libarrow soname, libparquet soname)`` of
+    the installed pyarrow wheel."""
+    import pyarrow
+    include = pyarrow.get_include()
+    libdirs = pyarrow.get_library_dirs()
+    arrow_lib = parquet_lib = None
+    for d in libdirs:
+        for so in glob.glob(os.path.join(d, 'libarrow.so*')):
+            arrow_lib = os.path.basename(so)
+        for so in glob.glob(os.path.join(d, 'libparquet.so*')):
+            parquet_lib = os.path.basename(so)
+    if not arrow_lib or not parquet_lib:
+        raise RuntimeError('pyarrow wheel does not bundle libarrow/libparquet '
+                           '(searched {})'.format(libdirs))
+    return include, libdirs, arrow_lib, parquet_lib
+
+
+def _reader_command(tmp_out):
+    include, libdirs, arrow_lib, parquet_lib = arrow_paths()
+    cmd = ['g++', '-O2', '-std=c++20', '-shared', '-fPIC', SOURCE, '-I{}'.format(include)]
+    for d in libdirs:
+        cmd += ['-L{}'.format(d), '-Wl,-rpath,{}'.format(d)]
+    return cmd + ['-l:{}'.format(arrow_lib), '-l:{}'.format(parquet_lib), '-o', tmp_out]
+
+
+def build(force=False, quiet=True):
+    """Compile the row-group reader unless a fresh build is in place; returns
+    its path. The stamp holds pyarrow's version, Python's, the source hash
+    and the command line (which names the wheel's directory and sonames)."""
+    import pyarrow
+    stamp = '{}:{}:{}:{}'.format(pyarrow.__version__, sys.version_info[:2],
+                                 _source_hash(SOURCE), ' '.join(_reader_command('OUT')))
+    return _build_target(OUTPUT, stamp, _reader_command, 'native reader', force, quiet)
+
+
+# -- the batched image decoder ---------------------------------------------------
 
 def _features(defines):
     """``{macro: 0 or 1}`` as the compiler decides them for this host, with
@@ -73,20 +170,6 @@ def _command(tmp_out, defines):
     return _BASE_FLAGS + defines + [IMG_SOURCE] + libs + ['-o', tmp_out]
 
 
-def _stamp(defines):
-    with open(IMG_SOURCE, 'rb') as f:
-        source = hashlib.sha256(f.read()).hexdigest()
-    return '{}:{}:{}'.format(source, _cpu_fingerprint(), ' '.join(_command('OUT', defines)))
-
-
-def _is_fresh(output, stamp):
-    try:
-        with open(output + '.stamp') as f:
-            return os.path.exists(output) and f.read() == stamp
-    except OSError:
-        return False
-
-
 def build_img(force=False, quiet=True, output=IMG_OUTPUT, without=()):
     """Compile the decoder unless a fresh build is in place; returns its path.
 
@@ -97,33 +180,13 @@ def build_img(force=False, quiet=True, output=IMG_OUTPUT, without=()):
     unknown = [d for d in defines if d.split('=')[0][2:] not in _LIBRARIES]
     if unknown:
         raise ValueError('unknown libraries in without={!r}'.format(without))
-    stamp = _stamp(defines)
-    if not force and _is_fresh(output, stamp):
-        return output
-    import fcntl
-    os.makedirs(os.path.dirname(output), exist_ok=True)
-    with open(output + '.lock', 'w') as lock_file:
-        fcntl.flock(lock_file, fcntl.LOCK_EX)
-        try:
-            if not force and _is_fresh(output, stamp):  # built while we waited
-                return output
-            tmp_out = '{}.tmp.{}'.format(output, os.getpid())
-            cmd = _command(tmp_out, defines)
-            if not quiet:
-                print('building image codec:', ' '.join(cmd))
-            result = subprocess.run(cmd, capture_output=True, text=True)
-            if result.returncode != 0:
-                if os.path.exists(tmp_out):
-                    os.unlink(tmp_out)
-                raise RuntimeError('image codec build failed:\n{}'.format(result.stderr))
-            # a process that already loaded the old library keeps its inode
-            os.replace(tmp_out, output)
-            with open(output + '.stamp', 'w') as f:
-                f.write(stamp)
-            return output
-        finally:
-            fcntl.flock(lock_file, fcntl.LOCK_UN)
+    stamp = '{}:{}:{}'.format(_source_hash(IMG_SOURCE), _cpu_fingerprint(),
+                              ' '.join(_command('OUT', defines)))
+    return _build_target(output, stamp, lambda tmp_out: _command(tmp_out, defines),
+                         'image codec', force, quiet)
 
 
 if __name__ == '__main__':
-    print('built', build_img(force='--force' in sys.argv, quiet=False))
+    force = '--force' in sys.argv
+    print('built', build(force=force, quiet=False))
+    print('built', build_img(force=force, quiet=False))

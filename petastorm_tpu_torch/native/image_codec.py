@@ -91,6 +91,20 @@ def is_available():
     return _load_library() is not None
 
 
+def batch_fn_addrs():
+    """C addresses of ``pstpu_img_probe_batch2`` and
+    ``pstpu_img_decode_batch2``, for the fused row-group kernel
+    (``pstpu_read_fused``) to call through: images then decode inside the
+    same native call as the page walk, with no link between the two
+    libraries. ``(probe_addr, decode_addr)``, or None when the decoder is
+    unavailable."""
+    lib = _load_library()
+    if lib is None:
+        return None
+    return (ctypes.cast(lib.pstpu_img_probe_batch2, ctypes.c_void_p).value,
+            ctypes.cast(lib.pstpu_img_decode_batch2, ctypes.c_void_p).value)
+
+
 def features():
     """What the loaded library decodes with: ``{'libjpeg': bool, 'libpng':
     bool, 'inflate': 'libdeflate' or 'zlib'}``; ``None`` when unavailable."""

@@ -1,28 +1,37 @@
 """Row-group decode worker: loads ONE row group per task, decodes by column.
 
 Trimmed twin of ``RowGroupDecoderWorker.process`` in
-``petastorm_tpu/row_worker.py``: the pyarrow path. Each task reads one row
-group with ``pyarrow.parquet`` and decodes every column through its codec:
-image codecs take the decode hints and the resize target of the
-``TransformSpec`` (``decode_column``, then ``decode_batch``), other codecs
-their whole-column ``decode_column``, and per-cell ``decode`` + stack when
-that declines. The decoded block goes through the reader's cache (keyed by
-piece, columns, decode hints and resize target), then the optional transform
-runs and one column block is published. Not ported yet: the native fused
-decode, predicates, NGram windows and shuffle-row-drop partitions.
+``petastorm_tpu/row_worker.py``. Each task opens its file through
+:func:`~petastorm_tpu_torch.native.open_parquet` (the native reader for a
+local file, else ``pyarrow.parquet``) and serves the row group's columns in
+the JAX package's order: first the columns the fused native read decodes in
+one call (:meth:`NativeParquetFile.read_fused`), adopted as they are; then
+the rest through ``read_row_group``, which gives page-scan views where it can
+and Arrow C++ for the others, each decoded through its codec: image codecs
+take the decode hints and the resize target of the ``TransformSpec``
+(``decode_column``, then ``decode_batch``), other codecs their whole-column
+``decode_column``, and per-cell ``decode`` + stack when that declines. The
+decoded block goes through the reader's cache (keyed by piece, columns,
+decode hints and resize target), then the optional transform runs and one
+column block is published. Not ported yet: predicates, NGram windows,
+shuffle-row-drop partitions and the fused publish modes of the process pool
+and the serve plane.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 from collections import OrderedDict
 
 import numpy as np
-import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.columnar import (block_num_rows, block_to_rows, column_cells,
                                           rows_to_block, stack_cells)
+from petastorm_tpu_torch.native import open_parquet
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
+
+logger = logging.getLogger(__name__)
 
 _MAX_OPEN_FILES = 8
 
@@ -49,20 +58,19 @@ class RowGroupDecoderWorker(WorkerBase):
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
-        self._open_files = OrderedDict()  # path -> (input file, ParquetFile)
+        self._open_files = OrderedDict()  # path -> NativeParquetFile or ParquetFile
 
     def _parquet_file(self, path):
         if path not in self._open_files:
             if len(self._open_files) >= _MAX_OPEN_FILES:
-                _, (handle, _pf) = self._open_files.popitem(last=False)
-                handle.close()
-            handle = self.args['filesystem'].open_input_file(path)
-            self._open_files[path] = (handle, pq.ParquetFile(handle))
-        return self._open_files[path][1]
+                _, old = self._open_files.popitem(last=False)
+                old.close()
+            self._open_files[path] = open_parquet(path, self.args['filesystem'])
+        return self._open_files[path]
 
     def shutdown(self):
-        for handle, _pf in self._open_files.values():
-            handle.close()
+        for pf in self._open_files.values():
+            pf.close()
         self._open_files.clear()
 
     def process(self, piece_index):
@@ -83,11 +91,35 @@ class RowGroupDecoderWorker(WorkerBase):
         if block and block_num_rows(block):
             self.publish(block)
 
+    def _fused_columns(self, piece, names, decode_hints, resize_hints):
+        """``{name: decoded column}`` of the columns the fused native read
+        serves in one call; ``{}`` when none qualifies, on the pyarrow route,
+        or when the native read fails (the other routes then serve them all).
+        Columns the page scan serves as views stay with it."""
+        pf = self._parquet_file(piece.path)
+        if not hasattr(pf, 'read_fused'):
+            return {}
+        try:
+            block, _rest = pf.read_fused(piece.row_group, names, self.args['schema'].fields,
+                                         decode_hints, resize_hints)
+        except Exception:  # noqa: BLE001 - any surprise: the Arrow route serves it all
+            logger.warning('fused read of %s rg=%s failed; Arrow route', piece.path,
+                           piece.row_group, exc_info=True)
+            return {}
+        return block
+
     def _load_block(self, piece, names, decode_hints, resize_hints, writable):
-        table = self._parquet_file(piece.path).read_row_group(piece.row_group, columns=names)
+        pre = self._fused_columns(piece, names, decode_hints, resize_hints)
+        rest = [name for name in names if name not in pre]
+        table = (self._parquet_file(piece.path).read_row_group(piece.row_group, columns=rest)
+                 if rest else None)
         schema = self.args['schema']
         block = {}
         for name in names:
+            if name in pre:
+                # fused columns are fresh writable views of the batch buffer
+                block[name] = pre[name]
+                continue
             field = schema.fields[name]
             codec = field.codec
             column = table.column(name)
@@ -106,8 +138,8 @@ class RowGroupDecoderWorker(WorkerBase):
                     values = [None if v is None else codec.decode(field, v) for v in cells]
                 decoded = stack_cells(values)
             elif writable and isinstance(decoded, np.ndarray) and not decoded.flags.writeable:
-                # zero-copy decodes may be read-only views of the Arrow
-                # buffer; user transforms may mutate in place
+                # zero-copy decodes are read-only views of the Arrow buffer or
+                # of the mmapped file; user transforms may mutate in place
                 decoded = decoded.copy()
             block[name] = decoded
         return block

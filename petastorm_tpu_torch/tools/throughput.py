@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 import torch
 
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.native import read_routes
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
 
@@ -43,9 +44,13 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     time on the device's clock (CUDA events around the step on the
     consumer's stream), and ``extra['median_step_ms']`` their median.
     ``extra['cache']`` holds the reader's cache counters (``stats()``: hits
-    and misses of a local-disk cache over the whole run)."""
+    and misses of a local-disk cache over the whole run), and
+    ``extra['read_routes']`` the columns each read route served over the
+    whole run (the change in :data:`~petastorm_tpu_torch.native.read_routes`;
+    counts of other readers running at the same time land there too)."""
     device = resolve_device(device)
     kwargs = {'num_epochs': None, 'output': 'columnar', **(reader_kwargs or {})}
+    routes_before = read_routes.snapshot()
     reader = make_reader(dataset_url, **kwargs)
     try:
         loader = TorchDataLoader(reader, batch_size=batch_size, **(loader_kwargs or {}))
@@ -70,7 +75,9 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
                 step_fn(*batch_to_args(batch))
         _sync(device)
         duration = time.perf_counter() - t0
-        extra = {'steps': steps, 'cache': reader.cache.stats()}
+        routes = read_routes.snapshot()
+        extra = {'steps': steps, 'cache': reader.cache.stats(),
+                 'read_routes': {k: v - routes_before.get(k, 0) for k, v in routes.items()}}
         if events:
             extra['step_ms'] = [s.elapsed_time(e) for s, e in events]
             extra['median_step_ms'] = statistics.median(extra['step_ms'])
