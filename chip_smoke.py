@@ -32,7 +32,21 @@ Phases, each printed as one JSON line:
    (``PSTPU_DISABLE_FUSED``); each route counted in ``native.read_routes``
    as named; the host's read rate of each pair on one core and on a pool of
    one thread per core;
-6. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
+6. pool checks: the process pool's shared-memory ring (built from
+   ``native/shm_ring.cpp``) in one process: ``write2``, ``writev``,
+   ``reserve``/``commit``/``abort``, ``try_read_zero_copy``/``release``;
+   a ``ProcessPool`` of one spawned worker per core on the shm transport
+   over the raw store (copy mode and ``zero_copy=True``, 24 epochs) and
+   the fixed-shape PNG store (copy mode, two epochs): every block equals the
+   thread pool's block of the same row group, exactly; a worker SIGKILLed
+   mid-item: every row group still delivered exactly once,
+   ``worker_restarts >= 1``, and no worker imported ``torch``; for each
+   pool its start time, each epoch's seconds and its rows/s after the
+   warm-up epochs (half of the raw store's, one of the PNG store's). The ring
+   size is ``ProcessPool``'s 64 MiB unless ``/dev/shm`` cannot hold one per
+   worker: then what fits, if that still holds what a consumer can pin
+   (:func:`ring_bytes_for`), else the run fails naming the sizes;
+7. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
    160 px, SGD 0.1 momentum 0.9, ``random_flip`` and ``normalize_images``
    inside it) fed by ``make_reader(output='columnar')`` (thread pool, one
    worker per core) -> ``TorchDataLoader`` (shuffle 512, seed 7) ->
@@ -58,12 +72,25 @@ Phases, each printed as one JSON line:
    strings with reason ``codec``; ``png_cached``: no read; ``png_fixed``:
    fused only) fails the run. The first staged batch of each path is checked
    against the store's rows, the losses for being finite and starting near
-   log(1000);
-7. profile: three more steps of the raw path under ``torch.profiler``, the
+   log(1000). Two more paths read through the process pool (one spawned
+   worker per core, shm transport):
+
+   - ``raw_process``: the raw store with ``zero_copy=True``, no transform and
+     no cache: every row group decoded by the fused native call straight into
+     the ring slot the consumer maps (``fused_inplace_batches_total`` equals
+     ``fused_batches_total``, two columns each, no page scan, no Arrow), every
+     publish in place; once the reader stopped no zero-copy borrow is live;
+   - ``png_process``: the ``png`` path through the process pool in copy mode:
+     a decoded 16-row block is above the 1 MiB blob threshold, so every
+     publish rides the ``/dev/shm`` blob channel.
+
+   Each fails on another transport than shm, a restart, a quarantined item or
+   a ``/dev/shm/pstpu_*`` entry of this process left behind;
+8. profile: three more steps of the raw path under ``torch.profiler``, the
    device's busy time per step by kernel and its idle share;
-8. model check: the trained model on the card (bf16) against a float32 copy
+9. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-9. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+10. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, max error, its time, the plain version's time,
    the least time the card could take and what bounds it), the card's name
    and power limit as ``nvidia-smi`` gives them, and last
@@ -71,7 +98,8 @@ Phases, each printed as one JSON line:
 
 No failure is caught: any exception ends the run with a non-zero exit code and
 no result line. Without CUDA the run fails at once. The native libraries
-(built on threads of their own while Triton compiles), the Triton cache, the
+(the reader, the image decoder and the ring, each built on a thread of its
+own while Triton compiles), the Triton cache, the
 stores and the disk cache live under ``.torch_build/`` in the checkout.
 """
 
@@ -83,6 +111,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -120,6 +149,18 @@ IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+
+# the loader's shuffle buffer on every path
+SHUFFLE_CAPACITY = 512
+# ProcessPool's default ring size, per worker
+RING_BYTES = 64 << 20
+# epochs of the raw store each pool reads in the pool checks, and the first
+# of them left out of the rate: a worker's first lap around its ring and its
+# first reads of the store fault in pages of its mappings, which costs more
+# than the copies themselves where page faults are dear (a 64 MiB ring holds
+# 13 raw row groups; one worker per core reads 2 of an epoch's 16)
+POOL_EPOCHS = 24
+POOL_WARM_EPOCHS = 12
 
 TIMING_RUNS = 25
 # device clock cycles the stream spins before a timed run: some milliseconds,
@@ -531,15 +572,24 @@ class NativeBuild(threading.Thread):
         self.seconds = time.perf_counter() - t0
 
 
+def _dev_shm():
+    """``/dev/shm``'s total and free bytes (``os.statvfs``)."""
+    st = os.statvfs('/dev/shm')
+    return {'total_bytes': st.f_blocks * st.f_frsize, 'free_bytes': st.f_bavail * st.f_frsize}
+
+
 def probe_host(builds):
-    """What the host offers for image decode and Parquet reads, and what the
-    port's native libraries built with. Decides the routes the paths must
-    take; a native Parquet reader that did not build fails the run (the
-    library would quietly read through pyarrow)."""
+    """What the host offers for image decode, Parquet reads and the process
+    pool, and what the port's native libraries built with. Decides the routes
+    the paths must take; a native Parquet reader or a ring library that did
+    not build fails the run (the reader would quietly read through pyarrow,
+    the process pool through zmq)."""
+    import multiprocessing
+
     import pyarrow
 
     from petastorm_tpu_torch import native
-    from petastorm_tpu_torch.native import image_codec
+    from petastorm_tpu_torch.native import image_codec, shm_ring
 
     for build in builds.values():
         build.join()
@@ -568,9 +618,12 @@ def probe_host(builds):
     else:
         jpeg_decode = 'cv2' if found['cv2'] else None
     resize = 'cv2' if found['cv2'] else ('native' if features is not None else 'numpy')
+    pool = {'ring_build_s': builds['ring'].seconds, 'ring_build_error': builds['ring'].error,
+            'ring_available': shm_ring.is_available(), 'dev_shm': _dev_shm(),
+            'start_method': 'spawn', 'start_methods': multiprocessing.get_all_start_methods()}
     probe = {'modules': found, 'headers': headers, 'shared_objects': libs,
              'native': features, 'native_build_s': builds['image'].seconds,
-             'native_build_error': builds['image'].error, 'reader': reader,
+             'native_build_error': builds['image'].error, 'reader': reader, 'pool': pool,
              'encoder': 'cv2' if found['cv2'] else 'numpy',
              'routes': {'png': {'decode': png_decode, 'resize': resize},
                         # JPEG needs an encoder (cv2) for the store and a decoder
@@ -580,6 +633,9 @@ def probe_host(builds):
         raise AssertionError('no PNG decode route on this host: {}'.format(probe))
     if not reader['available']:
         raise AssertionError('the native Parquet reader did not build or load: {}'.format(reader))
+    if not pool['ring_available'] or found['zmq'] is None:
+        raise AssertionError('the process pool cannot run on its shm transport: {} (pyzmq '
+                             '{})'.format(pool, found['zmq']))
     return probe
 
 
@@ -851,6 +907,283 @@ def phase_read_checks(raw_url, fixed_url):
     read_routes.reset()
 
 
+# -- the pool checks ------------------------------------------------------------
+
+def raw_payload_bytes():
+    """Ring bytes of one raw row group's in-place message: 64 images and 64
+    int64 labels, the ring's 8-byte length prefix, the 9-byte protocol
+    header and the serializer's pickled header (under 1 KiB)."""
+    return ROWS_PER_ROW_GROUP * (IMAGE_SIZE * IMAGE_SIZE * 3 + 8) + 8 + 9 + 1024
+
+
+def ring_bytes_needed(workers, payload_bytes, rows_per_payload, shuffle_capacity=SHUFFLE_CAPACITY,
+                      batch=BATCH):
+    """The least ring size per worker that cannot wedge a zero-copy reader
+    feeding a shuffling loader (see :func:`ring_bytes_for`)."""
+    pinned = -(-(shuffle_capacity + batch) // rows_per_payload) + 1
+    return payload_bytes * (2 + -(-pinned // workers))
+
+
+def ring_bytes_for(free_bytes, workers, payload_bytes, rows_per_payload,
+                   shuffle_capacity=SHUFFLE_CAPACITY, batch=BATCH):
+    """``(ring_bytes, needed)``: the per-worker ring size of a process pool
+    of ``workers`` on a host whose ``/dev/shm`` has ``free_bytes`` free.
+
+    ``RING_BYTES`` (ProcessPool's default) where ``workers`` of them fit in
+    90% of ``free_bytes`` (the pool's own check), else what fits, in whole
+    MiB. ``needed`` is the least that cannot wedge a zero-copy reader: a
+    ring's bytes return to its worker in FIFO order as the consumer drops
+    its views, and the consumer holds views of up to the shuffle buffer's
+    capacity plus one batch of rows, in whole payloads, plus one being read;
+    spread over the rings, plus one payload to write and one lost to the
+    padding where a reserved message would wrap. Raises when what fits is
+    smaller."""
+    needed = ring_bytes_needed(workers, payload_bytes, rows_per_payload, shuffle_capacity, batch)
+    ring = RING_BYTES
+    if ring * workers > free_bytes * 0.9:
+        ring = int(free_bytes * 0.9 / workers) >> 20 << 20
+    if ring < needed:
+        raise AssertionError('/dev/shm has {} bytes free: {} rings of {} bytes fit, {} are needed '
+                             'per ring'.format(free_bytes, workers, ring, needed))
+    return ring, needed
+
+
+def _ring_round_trip():
+    """The ring in one process, producer and consumer each on a handle of
+    their own: every write and read call of the pool, byte for byte."""
+    from petastorm_tpu_torch.native.shm_ring import ShmRing
+    from petastorm_tpu_torch.workers.protocol import MSG_DATA, ring_header, ring_unpack
+
+    name = '/pstpu_{}_smoke'.format(os.getpid())
+    consumer = ShmRing.create(name, 1 << 20)
+    producer = ShmRing.attach(name)
+    gen = np.random.default_rng(SEED)
+    a = gen.integers(0, 256, 300_000, dtype=np.uint8)
+    b = gen.random(1000)
+    checks = {}
+    try:
+        producer.write2(ring_header(MSG_DATA, 7), a.tobytes())
+        checks['write2'] = ring_unpack(consumer.try_read_view())[:2] == (MSG_DATA, 7)
+        producer.writev([ring_header(MSG_DATA, 8), a, b])
+        kind, d, payload = ring_unpack(consumer.try_read_view())
+        checks['writev'] = (kind, d) == (MSG_DATA, 8) and bytes(payload) == a.tobytes() + b.tobytes()
+        view = producer.reserve(4096)
+        view[:4] = b'torn'
+        producer.abort()
+        checks['abort'] = not consumer.has_message()
+        # the third 300 kB message would wrap: the reservation pads to the
+        # ring's start and stays contiguous, so the consumer borrows it
+        for value in (1, 2, 3):
+            view = producer.try_reserve(a.nbytes)
+            np.frombuffer(view, np.uint8)[:] = a + value
+            producer.commit(a.nbytes)
+        taken = [consumer.try_read_zero_copy() for _ in range(3)]
+        checks['reserve_commit_zero_copy'] = all(
+            borrowed and bytes(v) == (a + value).tobytes()
+            for value, (v, _, borrowed) in zip((1, 2, 3), taken))
+        checks['full_while_borrowed'] = not producer.try_write2(b'', bytes(600_000))
+        for v, span, _ in taken:
+            v.release()
+            consumer.release(span)
+        checks['release'] = producer.try_write2(b'', bytes(600_000)) and len(
+            consumer.try_read_view()) == 600_000
+    finally:
+        producer.close()
+        consumer.close()
+    if not all(checks.values()):
+        raise AssertionError('ring round trip: {}'.format(checks))
+    return checks
+
+
+class KillOnceWorker(object):
+    """The reader's row worker, which SIGKILLs its own process the first
+    time it is handed row group ``args['kill_piece']`` (once across
+    respawns, through the flag file ``args['flag_path']``), and fails if
+    its process imported ``torch`` (module level, so spawned workers can
+    unpickle it)."""
+
+    def __init__(self, worker_id, publish_func, args):
+        from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker
+        self._inner = RowGroupDecoderWorker(worker_id, publish_func, args)
+        self._args = args
+
+    def process(self, piece_index):
+        if 'torch' in sys.modules:
+            raise AssertionError('a spawned worker imported torch')
+        if piece_index == self._args['kill_piece']:
+            try:
+                fd = os.open(self._args['flag_path'], os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                pass
+            else:
+                os.close(fd)
+                os.kill(os.getpid(), signal.SIGKILL)
+        self._inner.process(piece_index)
+
+    def shutdown(self):
+        self._inner.shutdown()
+
+
+def _read_blocks(url, epochs, warm, check, **kwargs):
+    """Every block a reader of ``url`` delivers over ``epochs`` epochs, in
+    store order, handed to ``check`` and dropped. Returns the reader's start
+    time (``make_reader`` until it returns: for a process pool, spawning its
+    workers and their handshake), the seconds of each epoch (the first holds
+    each worker's first-use costs: imports, opening libraries and files) and
+    the rows/s of the epochs after the first ``warm``."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+
+    per_epoch = len(load_row_groups(url))
+    t0 = time.perf_counter()
+    with make_reader(url, output='columnar', shuffle_row_groups=False, num_epochs=epochs,
+                     workers_count=os.cpu_count() or 1, **kwargs) as reader:
+        marks = [(time.perf_counter(), 0)]
+        rows = blocks = 0
+        for block in reader:
+            check(block._asdict())
+            rows += len(block.label)
+            blocks += 1
+            if blocks % per_epoch == 0:
+                marks.append((time.perf_counter(), rows))
+        diagnostics = reader.diagnostics
+    (t_warm, rows_warm), (t_end, _) = marks[warm], marks[-1]
+    return {'epochs': epochs, 'warm_epochs': warm, 'blocks': blocks, 'rows': rows,
+            'start_s': marks[0][0] - t0,
+            'epoch_s': [b[0] - a[0] for a, b in zip(marks, marks[1:])],
+            'rows_per_s': (rows - rows_warm) / (t_end - t_warm), 'diagnostics': diagnostics}
+
+
+def _check_pool_run(name, run, blocks, mismatched):
+    diagnostics = run['diagnostics']
+    if (mismatched or run['blocks'] != blocks or diagnostics['transport'] != 'shm'
+            or diagnostics['worker_restarts'] or diagnostics['items_quarantined']):
+        raise AssertionError('{}: {} blocks, {} differ from the thread pool\'s: {}'.format(
+            name, run['blocks'], len(mismatched), diagnostics))
+
+
+def phase_pool_checks(raw_url, fixed_url, probe, work_dir):
+    """The ring in one process; the process pool's blocks against the
+    thread pool's, exactly, on the raw store (copy mode and zero-copy,
+    ``POOL_EPOCHS`` epochs) and the fixed-shape PNG store (two); a worker
+    killed mid-item; the host's rows/s through each pool, each epoch's
+    seconds and each pool's start time. Returns the ring size the process
+    paths use."""
+    import pyarrow.fs as pafs
+
+    from petastorm_tpu_torch.cache import NullCache
+    from petastorm_tpu_torch.errors import EmptyResultError
+    from petastorm_tpu_torch.etl import get_schema
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+    from petastorm_tpu_torch.serializers import NumpyBlockSerializer
+    from petastorm_tpu_torch.workers import ProcessPool
+
+    workers = os.cpu_count() or 1
+    ring, needed = ring_bytes_for(probe['pool']['dev_shm']['free_bytes'], workers,
+                                  raw_payload_bytes(), ROWS_PER_ROW_GROUP)
+    emit({'phase': 'pool_sizing', 'workers': workers, 'ring_bytes': ring,
+          'ring_bytes_needed': needed, 'payload_bytes': raw_payload_bytes(),
+          'dev_shm': probe['pool']['dev_shm']})
+    checks = {'ring': _ring_round_trip()}
+    pool_kwargs = {'ring_bytes': ring, 'transport': 'shm'}
+    runs, references = {}, {}
+    for store, url, epochs, warm in (('raw', raw_url, POOL_EPOCHS, POOL_WARM_EPOCHS),
+                                     ('png_fixed', fixed_url, 2, 1)):
+        reference = references[store] = {}
+
+        def keep(block, reference=reference):
+            reference.setdefault(tuple(block['label']), {k: np.array(v) for k, v in block.items()})
+
+        runs[store + '_thread'] = _read_blocks(url, epochs, warm, keep)
+        blocks = runs[store + '_thread']['blocks']
+        for mode in (('copy', 'zero_copy') if store == 'raw' else ('copy',)):
+            mismatched = []
+
+            def compare(block, reference=reference, mismatched=mismatched):
+                if not _blocks_equal(block, reference.get(tuple(block['label']), {})):
+                    mismatched.append(int(block['label'][0]))
+
+            run = _read_blocks(url, epochs, warm, compare, reader_pool_type='process',
+                               zero_copy=mode == 'zero_copy', pool_kwargs=pool_kwargs)
+            _check_pool_run('{} {}'.format(store, mode), run, blocks, mismatched)
+            runs['{}_process_{}'.format(store, mode)] = run
+
+    # a worker SIGKILLed mid-item: the pool respawns it and requeues the item
+    schema = get_schema(raw_url)
+    pieces = load_row_groups(raw_url)
+    pool = ProcessPool(workers, serializer=NumpyBlockSerializer(), results_timeout_s=120,
+                       **pool_kwargs)
+    pool.start(KillOnceWorker, {
+        'filesystem': pafs.LocalFileSystem(), 'dataset_path': raw_url[len('file://'):],
+        'cache': NullCache(), 'pieces': pieces, 'schema': schema, 'output_schema': schema,
+        'transform_spec': None, 'transformed_schema': schema, 'kill_piece': len(pieces) // 2,
+        'flag_path': os.path.join(work_dir, 'killed')})
+    delivered = []
+    try:
+        for i in range(len(pieces)):
+            pool.ventilate(piece_index=i)
+        while True:
+            try:
+                block = pool.get_results()
+            except EmptyResultError:
+                break
+            key = tuple(block['label'])
+            delivered.append(key)
+            if not _blocks_equal(block, references['raw'].get(key, {})):
+                raise AssertionError('a row group after the kill differs from the thread pool\'s')
+            del block
+    finally:
+        pool.stop()
+        pool.join()
+    diag = pool.diagnostics
+    checks['kill'] = {'row_groups': len(pieces), 'delivered': len(delivered),
+                      'distinct': len(set(delivered)), 'killed': os.path.exists(
+                          os.path.join(work_dir, 'killed')), 'diagnostics': diag}
+    if sorted(delivered) != sorted(references['raw']) or not checks['kill']['killed'] \
+            or diag['worker_restarts'] < 1 or diag['items_requeued'] < 1 \
+            or diag['items_quarantined']:
+        raise AssertionError('a worker killed mid-item: {}'.format(checks['kill']))
+    emit({'phase': 'pool_checks', 'checks': checks, 'runs': runs, 'host': _host_cpu()})
+    return ring
+
+
+def check_pool(path, pool, read_counts):
+    """A process path ran on the process pool's shm transport with no
+    restart and no quarantined item, and published by the channel the slice
+    names for it: ``raw_process`` in place only (zero-copy delivery, one
+    publish per fused batch); ``png_process`` by blob only."""
+    if not path.endswith('_process'):
+        return
+    from petastorm_tpu_torch.workers.process_pool import PUBLISH_CHANNELS
+
+    publishes = {k: pool.get(k) for k in PUBLISH_CHANNELS}
+    channel = 'publish_inplace' if path == 'raw_process' else 'publish_blob'
+    ok = (pool.get('transport') == 'shm' and not pool['worker_restarts']
+          and not pool['items_quarantined'] and publishes[channel] > 0
+          and not any(v for k, v in publishes.items() if k != channel)
+          and pool['zero_copy'] == (path == 'raw_process'))
+    if path == 'raw_process':
+        ok = ok and publishes[channel] == read_counts.get('fused_inplace_batches_total')
+    if not ok:
+        raise AssertionError('{}: not on the process pool\'s named channel: {}'.format(path, pool))
+
+
+def check_no_leftovers():
+    """No zero-copy borrow is live and no ``/dev/shm`` entry of this
+    process's rings or blob dirs is left."""
+    import gc
+
+    from petastorm_tpu_torch.native.lifetime import registry
+
+    gc.collect()
+    live = registry().counters()['lifetime_live_borrows']
+    left = sorted(f for f in os.listdir('/dev/shm')
+                  if f.startswith(('pstpu_{}_'.format(os.getpid()),
+                                   'pstpu_blobs_{}_'.format(os.getpid()))))
+    if live or left:
+        raise AssertionError('{} live borrows, /dev/shm entries left: {}'.format(live, left))
+
+
 def check_image_batch(expected):
     """A check of a staged batch against ``expected`` (label -> the images
     of the store under that label, decoded and resized by the plain route):
@@ -908,7 +1241,9 @@ def check_read_routes(path, counts):
     names for it: ``raw`` page-scan views only; ``png`` and ``jpeg`` images
     to the codec's columnar decode (reason ``image-hints``: a resize target)
     and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
-    ``png_cached`` no read at all; ``png_fixed`` fused only."""
+    ``png_cached`` no read at all; ``png_fixed`` fused only; ``png_process``
+    as ``png``; ``raw_process`` fused only, every fused batch decoded in
+    place into a ring slot, two columns each."""
     def c(key):
         return counts.get(key, 0)
 
@@ -918,12 +1253,16 @@ def check_read_routes(path, counts):
     pagescan, arrow = c('pagescan_columns_total'), c('arrow_fallback_columns_total')
     if path == 'raw':
         ok = pagescan > 0 and not (fused or fallback or arrow or reasons)
-    elif path in ('png', 'jpeg'):
+    elif path in ('png', 'jpeg', 'png_process'):
         n = reasons.get('image-hints', 0)
         ok = (n > 0 and reasons == {'image-hints': n, 'codec': 2 * n} and fallback == 3 * n
               and arrow == 3 * n and not (fused or pagescan))
     elif path == 'png_cached':
         ok = not any(counts.values())
+    elif path == 'raw_process':
+        ok = (fused > 0 and c('fused_inplace_batches_total') == fused
+              and c('fused_columns_total') == 2 * fused
+              and not (fallback or arrow or pagescan or reasons))
     else:  # png_fixed
         ok = (fused > 0 and c('fused_columns_total') == 2 * fused
               and not (fallback or arrow or pagescan or reasons))
@@ -981,7 +1320,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
     result = pipeline_duty_cycle(
         url, step_fn, lambda b: (b['image'], b['label']), batch_size=BATCH, steps=STEPS,
         warmup_steps=WARMUP_STEPS, reader_kwargs=kwargs,
-        loader_kwargs={'shuffling_queue_capacity': 512, 'seed': SEED})
+        loader_kwargs={'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED})
     wall_s = time.perf_counter() - t0
     launches = {'normalize': nk.launches}
     counts = image_routes.snapshot()
@@ -996,7 +1335,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
           'peak_memory_bytes': torch.cuda.max_memory_allocated(),
           'losses': losses, 'launches': launches, 'image_routes': counts,
           'named_routes': routes, 'read_routes': result.extra['read_routes'],
-          'cache': result.extra['cache'], 'wall_s': wall_s})
+          'cache': result.extra['cache'], 'pool': result.extra['pool'], 'wall_s': wall_s})
     if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError('{}: losses {}'.format(name, losses))
     # zero-initialised last batch norms make the fresh model's logits small:
@@ -1010,6 +1349,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
                 name, kernel, count, WARMUP_STEPS + STEPS))
     check_routes(counts, routes)
     check_read_routes(name, result.extra['read_routes'])
+    check_pool(name, result.extra['pool'], result.extra['read_routes'])
     return launches, state, train_step, first_batch, result
 
 
@@ -1105,7 +1445,8 @@ def main():
 
     from petastorm_tpu_torch.native import build as native_build
 
-    builds = {'reader': NativeBuild(native_build.build), 'image': NativeBuild(native_build.build_img)}
+    builds = {'reader': NativeBuild(native_build.build), 'image': NativeBuild(native_build.build_img),
+              'ring': NativeBuild(native_build.build_ring)}
     card = phase_device(torch)
     kernels = phase_kernels(torch)
     work_dir = tempfile.mkdtemp(prefix='smoke_', dir=BUILD_DIR)
@@ -1129,6 +1470,8 @@ def main():
                   'build_s': time.perf_counter() - t0})
         phase_decode_checks(urls['png'], stores['png'], urls.get('jpeg'), probe)
         phase_read_checks(urls['raw'], urls['png_fixed'])
+        ring = phase_pool_checks(urls['raw'], urls['png_fixed'], probe, work_dir)
+        check_no_leftovers()
 
         launches, state, train_step, (images, labels), raw = run_path(
             torch, 'raw', urls['raw'], check_batch)
@@ -1170,6 +1513,18 @@ def main():
         path_launches, _, _, _, _ = run_path(torch, 'png_fixed', urls['png_fixed'], check_batch)
         for kernel, count in path_launches.items():
             total[kernel] += count
+        # the process pool: one spawned worker per core, shm rings
+        process = {'reader_pool_type': 'process',
+                   'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm'}}
+        for name, url, check, kwargs, named in (
+                ('raw_process', urls['raw'], check_batch, dict(process, zero_copy=True), None),
+                ('png_process', urls['png'], png_check, dict(process, **image_kwargs),
+                 routes['png'])):
+            path_launches, _, _, _, _ = run_path(torch, name, url, check, reader_kwargs=kwargs,
+                                                 routes=named)
+            for kernel, count in path_launches.items():
+                total[kernel] += count
+            check_no_leftovers()
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     phase_profile(torch, state, train_step, images, labels, raw.extra['median_step_ms'])

@@ -21,3 +21,18 @@ class SchemaError(PetastormTpuError):
 class EmptyResultError(PetastormTpuError):
     """Raised by ``pool.get_results()`` when all ventilated work has been
     processed and no further results will arrive."""
+
+
+class TimeoutWaitingForResultError(PetastormTpuError):
+    """Raised when a pool produced no result within its timeout (the message
+    lists every worker's liveness and the item it holds)."""
+
+
+class PoisonItemError(PetastormTpuError):
+    """Raised when one item keeps killing worker processes past its retry
+    budget under ``on_error='raise'`` or ``'retry'``."""
+
+
+class WorkerPoolDepletedError(PetastormTpuError):
+    """Raised when every worker slot of a process pool was shed because
+    respawning it kept failing."""

@@ -21,8 +21,13 @@ shares. A local row group's columns are served in this order:
 :data:`read_routes` counts the columns each route served. Switches, as in
 the JAX package: ``PETASTORM_TPU_DISABLE_NATIVE=1`` forces
 ``pq.ParquetFile``, ``PSTPU_DISABLE_FUSED=1`` skips the fused route and
-``PSTPU_DISABLE_PAGESCAN=1`` the page scan. Not ported yet: the predicate
-kernel, the in-place and blob fused publish, the shared-memory ring and the
+``PSTPU_DISABLE_PAGESCAN=1`` the page scan. In the process pool's in-place
+mode the fused read writes a whole row group into the shm-ring slot the
+consumer maps (:meth:`NativeParquetFile.fused_read_into`), counted as
+``fused_inplace_batches_total``. The ring itself is
+:mod:`~petastorm_tpu_torch.native.shm_ring`, and the lifetime of views into
+it :mod:`~petastorm_tpu_torch.native.lifetime`. Not ported yet: the
+predicate kernel, the blob fused publish of the serve plane and the
 chunk-cached remote reader.
 """
 
@@ -64,7 +69,10 @@ class RouteCounts(object):
 #: column), ``fused_columns_total``, ``fused_fallback_total`` and
 #: ``fused_fallback_reason:<reason>`` (columns not fused, and why),
 #: ``pagescan_columns_total`` (columns served as views) and
-#: ``arrow_fallback_columns_total`` (columns decoded by Arrow C++)
+#: ``arrow_fallback_columns_total`` (columns decoded by Arrow C++); in a
+#: process pool's in-place mode also ``fused_inplace_batches_total`` (fused
+#: batches decoded straight into a ring slot). A process pool adds its
+#: workers' counts to the consumer's as they arrive
 read_routes = RouteCounts(('fused_batches_total', 'fused_columns_total', 'fused_fallback_total',
                            'pagescan_columns_total', 'arrow_fallback_columns_total'))
 
@@ -202,20 +210,22 @@ class NativeParquetFile(object):
         return pagescan.read_columns_zerocopy(self.path, self._pq_meta, i, columns,
                                               self._flat_index, self._mmaps, self._lib)
 
-    def fused_plan(self, i, columns, schema_fields=None, decode_hints=None, resize_hints=None):
+    def fused_plan(self, i, columns, schema_fields=None, decode_hints=None, resize_hints=None,
+                   include_pagescan=False):
         """The :class:`~petastorm_tpu_torch.native.fused.FusedPlan` of one row
         group's column selection (memoized per file), or None when the fused
-        route is switched off or the footer is unusable."""
+        route is switched off or the footer is unusable. ``include_pagescan``
+        fuses the page-scan columns too (the in-place ring mode)."""
         if os.environ.get('PSTPU_DISABLE_FUSED') or self._ensure_pq_meta() is False:
             return None
-        key = (i, tuple(columns),
+        key = (i, tuple(columns), bool(include_pagescan),
                frozenset(n for n in (decode_hints or {}) if decode_hints[n]),
                frozenset(n for n in (resize_hints or {}) if resize_hints[n]))
         if key not in self._fused_plans:
             from petastorm_tpu_torch.native import fused
             self._fused_plans[key] = fused.plan_row_group(
                 self._pq_meta, self._flat_index, i, columns, schema_fields, decode_hints,
-                resize_hints)
+                resize_hints, include_pagescan=include_pagescan)
         return self._fused_plans[key]
 
     def _fused_chunks(self, cols):
@@ -246,6 +256,14 @@ class NativeParquetFile(object):
             return {}, list(columns)
         block, _reasons = fused.read_block(self._lib, self._fused_chunks(plan.columns), plan)
         return block, [c for c in columns if c not in block]
+
+    def fused_read_into(self, plan, out_buf, offsets):
+        """Run a prepared fused plan writing each column at its offset in
+        ``out_buf`` (in the in-place mode, the ring slot the consumer maps).
+        Returns the per-column native results of :func:`fused.read_into`."""
+        from petastorm_tpu_torch.native import fused
+        return fused.read_into(self._lib, self._fused_chunks(plan.columns), plan.columns,
+                               plan.expected_rows, out_buf, offsets)
 
     def read_row_group(self, i, columns=None):
         """One row group as a ``pyarrow.Table``. Columns that qualify for the

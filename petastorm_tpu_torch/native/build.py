@@ -1,6 +1,6 @@
 """Build the port's native libraries with g++, at first use.
 
-Two targets, each the twin of one in ``petastorm_tpu/native/build.py``:
+Three targets, each the twin of one in ``petastorm_tpu/native/build.py``:
 
 - :func:`build`: the Parquet row-group reader (``rowgroup_reader.cpp``),
   ``-O2 -std=c++20``, compiled against the Arrow and Parquet C++ libraries
@@ -15,12 +15,16 @@ Two targets, each the twin of one in ``petastorm_tpu/native/build.py``:
   ``__has_include`` decides, and :func:`_features` reads its decision back
   (``g++ -dM -E``) to pick the libraries to link. Without libdeflate the PNG
   path links the ``libz.so.1`` that CPython's zlib module loads.
+- :func:`build_ring`: the shared-memory ring of the process pool
+  (``shm_ring.cpp``), ``-O2 -std=c++17`` with no third-party headers
+  (``-lrt``: ``shm_open`` lives in librt before glibc 2.34), rebuilt when the
+  source or the command line changes.
 
-Both go to ``.torch_build/native/`` at the root of the checkout, never into
+All go to ``.torch_build/native/`` at the root of the checkout, never into
 the package, with a stamp beside each library and an ``flock`` so that
 concurrent processes (test workers) build it once.
 
-Run ``python -m petastorm_tpu_torch.native.build`` to build both ahead of use.
+Run ``python -m petastorm_tpu_torch.native.build`` to build them ahead of use.
 """
 
 from __future__ import annotations
@@ -35,9 +39,13 @@ import sys
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, 'rowgroup_reader.cpp')
 IMG_SOURCE = os.path.join(_HERE, 'image_codec.cpp')
+RING_SOURCE = os.path.join(_HERE, 'shm_ring.cpp')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), '.torch_build', 'native')
 OUTPUT = os.path.join(BUILD_DIR, 'libpstpu_torch.so')
 IMG_OUTPUT = os.path.join(BUILD_DIR, 'libpstpu_torch_img.so')
+# a file name of its own: the JAX package's ring library exports the same
+# symbols, and each package must load its own under ctypes' RTLD_LOCAL
+RING_OUTPUT = os.path.join(BUILD_DIR, 'libpstpu_torch_ring.so')
 
 #: the image source's optional libraries: macro -> the link flag it needs
 _LIBRARIES = {'PSTPU_HAVE_JPEG': '-ljpeg', 'PSTPU_HAVE_PNG': '-lpng16',
@@ -186,7 +194,22 @@ def build_img(force=False, quiet=True, output=IMG_OUTPUT, without=()):
                          'image codec', force, quiet)
 
 
+# -- the shared-memory ring -------------------------------------------------------
+
+def _ring_command(tmp_out):
+    return ['g++', '-O2', '-std=c++17', '-shared', '-fPIC', RING_SOURCE, '-lrt', '-o', tmp_out]
+
+
+def build_ring(force=False, quiet=True):
+    """Compile the process pool's shared-memory ring unless a fresh build is
+    in place; returns its path. The stamp holds the source hash and the
+    command line."""
+    stamp = '{}:{}'.format(_source_hash(RING_SOURCE), ' '.join(_ring_command('OUT')))
+    return _build_target(RING_OUTPUT, stamp, _ring_command, 'shm ring', force, quiet)
+
+
 if __name__ == '__main__':
     force = '--force' in sys.argv
     print('built', build(force=force, quiet=False))
     print('built', build_img(force=force, quiet=False))
+    print('built', build_ring(force=force, quiet=False))

@@ -1,6 +1,6 @@
 """Fused native read→decode→collate: one native call per row group.
 
-Twin of the heap-mode half of ``petastorm_tpu/native/fused.py``. It drives
+Twin of ``petastorm_tpu/native/fused.py`` without its predicate half. It drives
 the ``pstpu_read_fused`` kernel (``rowgroup_reader.cpp``): a row group's
 qualifying column chunks are page-walked, decompressed (first-party snappy,
 ZSTD and LZ4), PLAIN- and dictionary/RLE-decoded, and written straight into
@@ -22,9 +22,14 @@ Three fused column flavors:
 Each column chunk is judged from the Parquet metadata; every column that is
 not fused is counted under ``fused_fallback_reason:<reason>`` in
 :data:`~petastorm_tpu_torch.native.read_routes`, so an Arrow-fallback count
-is always explained. Not ported yet: the predicate half (the
-"predicates/selectors/ngram" item) and the in-place and blob publish modes
-(the "process pool + serializers" item).
+is always explained.
+
+Two places the batch lands: a fresh heap buffer (:func:`read_block`), or, in
+the process pool's in-place mode, the shm-ring slot the consumer maps
+(:func:`read_into` over a reserved region, planned with
+``include_pagescan=True`` so that the columns the page scan would serve as
+views are copied once, into the slot). Not ported yet: the predicate half
+(the "predicates/selectors/ngram" item).
 """
 
 from __future__ import annotations
@@ -160,6 +165,16 @@ class FusedPlan(object):
         self.reasons = reasons
         self.expected_rows = expected_rows
 
+    @property
+    def inplace_ok(self):
+        """True when every fused column's byte size is known ahead of the
+        decode: what assembling the batch in a ring slot needs (the
+        serializer header is written before the payload)."""
+        return bool(self.columns) and all(c.known_size for c in self.columns)
+
+    def payload_bytes(self):
+        return sum(c.out_bound for c in self.columns)
+
 
 def _np_dtype(maybe_dtype):
     """numpy dtype of a Unischema field's numpy_dtype, or None for the flavors
@@ -223,15 +238,16 @@ def _logical_numeric_dtype(schema_col, phys):
 def _pagescan_eligible(meta_col):
     """True when the zero-copy VIEW path (``pagescan.py``) serves this chunk:
     uncompressed, dictionary-free, PLAIN-only. Fusing it would trade a view
-    for a copy, so the plan leaves it alone (reason ``pagescan``, which is
-    not a fallback)."""
+    for a copy, so the default plan leaves it alone (reason ``pagescan``,
+    which is not a fallback); the in-place ring mode fuses it anyway, where
+    the one copy lands in the consumer's slot."""
     return (meta_col.compression == 'UNCOMPRESSED'
             and not meta_col.has_dictionary_page
             and all(e in ('PLAIN', 'RLE', 'BIT_PACKED') for e in meta_col.encodings))
 
 
 def _plan_column(name, meta_col, schema_col, field, expected_rows, decode_hints,
-                 resize_hints):
+                 resize_hints, include_pagescan=False):
     """ColumnPlan for one column, or a reason string when it must ride Arrow.
     ``field`` is the Unischema field (None for plain stores, where only
     numeric fixed-width columns fuse)."""
@@ -251,7 +267,7 @@ def _plan_column(name, meta_col, schema_col, field, expected_rows, decode_hints,
     codec_id = getattr(codec_obj, 'codec_id', None)
 
     if pt in _PHYS_DTYPE:
-        if _pagescan_eligible(meta_col):
+        if not include_pagescan and _pagescan_eligible(meta_col):
             return 'pagescan'
         phys = _PHYS_DTYPE[pt]
         if field is not None:
@@ -275,7 +291,7 @@ def _plan_column(name, meta_col, schema_col, field, expected_rows, decode_hints,
         return plan
 
     if pt == 'FIXED_LEN_BYTE_ARRAY':
-        if _pagescan_eligible(meta_col):
+        if not include_pagescan and _pagescan_eligible(meta_col):
             return 'pagescan'
         if field is None or codec_id != 'raw_tensor':
             return 'codec'
@@ -340,11 +356,13 @@ def _plan_column(name, meta_col, schema_col, field, expected_rows, decode_hints,
 
 
 def plan_row_group(pq_meta, flat_index, row_group, column_names, schema_fields,
-                   decode_hints=None, resize_hints=None):
+                   decode_hints=None, resize_hints=None, include_pagescan=False):
     """Build the :class:`FusedPlan` for one row group. ``flat_index`` maps a
     flat top-level column name to its leaf index (nested columns are absent
     and fall back with reason ``nesting``); ``schema_fields`` maps field name
-    -> Unischema field (None for plain stores)."""
+    -> Unischema field (None for plain stores). ``include_pagescan`` also
+    fuses the columns the page scan would serve as views (the in-place ring
+    mode)."""
     try:
         rg = pq_meta.row_group(row_group)
     except Exception:  # noqa: BLE001 - malformed metadata: the Arrow path decides
@@ -360,7 +378,8 @@ def plan_row_group(pq_meta, flat_index, row_group, column_names, schema_fields,
         try:
             field = schema_fields.get(name) if schema_fields is not None else None
             plan = _plan_column(name, rg.column(idx), pq_meta.schema.column(idx), field,
-                                expected_rows, decode_hints, resize_hints)
+                                expected_rows, decode_hints, resize_hints,
+                                include_pagescan=include_pagescan)
         except Exception as e:  # noqa: BLE001 - odd metadata: Arrow serves it
             logger.debug('fused qualification of %s failed (%s); Arrow path', name, e)
             plan = 'parse'
@@ -488,6 +507,35 @@ def _parse_npy(header_bytes):
     if fortran:
         return None
     return dtype, shape
+
+
+def column_region(plan, result, expected_rows):
+    """``(dtype_str, row_shape, nbytes)`` of one decoded column's bytes in
+    place (no array built): the layout a consumer needs to view a shared
+    mapping directly. Mirrors :func:`build_column`'s checks; None rejects
+    the column. Columns that need an ``astype`` after the decode decline:
+    that conversion is a copy."""
+    status, out_used, aux0, _aux1, aux_header = result
+    if status != 0:
+        return None
+    if plan.mode == MODE_BINARY_RAW and plan.strip_npy:
+        parsed = _parse_npy(aux_header)
+        if parsed is None:
+            return None
+        dtype, shape = parsed
+        count = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        if count * dtype.itemsize != aux0 or out_used != expected_rows * aux0:
+            return None
+        return dtype.str, (expected_rows,) + shape, out_used
+    if plan.out_dtype is None or plan.out_shape is None:
+        return None
+    if plan.known_size and out_used != plan.out_bound:
+        return None
+    if plan.mode == MODE_BINARY_RAW and aux0 != plan.itemsize:
+        return None
+    if plan.field_dtype is not None and plan.field_dtype != plan.out_dtype:
+        return None
+    return plan.out_dtype.str, plan.out_shape, out_used
 
 
 def build_column(plan, result, out_buf, offset, expected_rows):

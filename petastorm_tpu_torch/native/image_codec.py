@@ -15,6 +15,9 @@ budget (default: CPU count), shared cooperatively across concurrent calls
 column out across all idle cores, while a full worker pool's concurrent calls
 each take the free remainder (floor 1), so total decode threads stay near the
 budget instead of pool width x budget. ``threads=N`` bypasses the accounting.
+Sibling processes cannot see each other's grants, so each worker process of
+a process pool gets an equal share of the cores through ``PSTPU_IMG_THREADS``
+(set by the pool at spawn unless the user set it).
 """
 
 from __future__ import annotations

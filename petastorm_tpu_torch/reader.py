@@ -2,9 +2,9 @@
 
 Trimmed twin of ``make_reader`` / ``Reader`` in ``petastorm_tpu/reader.py``:
 list the row groups, select columns, shard round-robin, ventilate
-(piece index) items in the seeded per-epoch order into a thread or dummy
-pool, and deliver rows or per-row-group column blocks, optionally through a
-local-disk cache of decoded blocks. For a given seed the
+(piece index) items in the seeded per-epoch order into a thread, process or
+dummy pool, and deliver rows or per-row-group column blocks, optionally
+through a local-disk cache of decoded blocks. For a given seed the
 row-group order is the JAX package's. The arguments of the JAX
 ``make_reader`` that are not ported yet raise :class:`NotImplementedError`
 naming their ROADMAP item when given a non-default value.
@@ -20,7 +20,9 @@ from petastorm_tpu_torch.fs import FilesystemResolver
 from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
 from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker, RowResultsQueueReader
 from petastorm_tpu_torch.transform import transform_schema
-from petastorm_tpu_torch.workers import ConcurrentVentilator, DummyPool, ThreadPool
+from petastorm_tpu_torch.serializers import NumpyBlockSerializer
+from petastorm_tpu_torch.workers import (ConcurrentVentilator, DummyPool, ErrorPolicy,
+                                         ProcessPool, ThreadPool)
 
 # extra row groups ventilated beyond the worker count: bounds decoded-data
 # memory while keeping workers busy
@@ -41,15 +43,37 @@ _NOT_YET_PORTED = {
     'chunk_cache_size_limit': (None, 'remote filesystems'),
     'telemetry': (None, 'observability'),
     'autotune': (None, 'observability'),
-    'on_error': ('raise', 'process pool + serializers'),
-    'max_item_retries': (None, 'process pool + serializers'),
-    'protocol_monitor': (None, 'process pool + serializers'),
-    'zero_copy': (False, 'process pool + serializers'),
+    'protocol_monitor': (None, 'observability'),
     'serve': (None, 'DDP/mesh'),
     'serve_weight': (1, 'DDP/mesh'),
     'elastic': (None, 'DDP/mesh'),
     'piece_filter': (None, 'DDP/mesh'),
 }
+
+
+def _make_pool(reader_pool_type, workers_count, results_queue_size, serializer=None,
+               on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None):
+    """The pool of ``reader_pool_type``. Every worker publishes column
+    blocks, so the process pool's serializer defaults to the raw-buffer
+    :class:`NumpyBlockSerializer`; blocks arrive as writable numpy views over
+    the IPC message. ``zero_copy`` (process pool, shm transport) delivers
+    them as lifetime-tracked views straight into the ring slot; the thread
+    and dummy pools hand over in-process arrays already, so for them it is a
+    no-op. ``on_error``/``max_item_retries`` behave alike on every pool.
+    ``pool_kwargs`` are further :class:`ProcessPool` arguments."""
+    policy = ErrorPolicy.resolve(on_error, max_item_retries)
+    if pool_kwargs and reader_pool_type != 'process':
+        raise ValueError("pool_kwargs apply to reader_pool_type='process' only")
+    if reader_pool_type == 'thread':
+        return ThreadPool(workers_count, results_queue_size, on_error=policy)
+    if reader_pool_type == 'process':
+        return ProcessPool(workers_count, results_queue_size,
+                           serializer=serializer or NumpyBlockSerializer(),
+                           on_error=policy, zero_copy=zero_copy, **(pool_kwargs or {}))
+    if reader_pool_type == 'dummy':
+        return DummyPool(on_error=policy)
+    raise ValueError('Unknown reader_pool_type {!r} (expected thread/process/dummy)'.format(
+        reader_pool_type))
 
 
 def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate):
@@ -78,12 +102,16 @@ def make_reader(dataset_url,
                 cache_row_size_estimate=None,
                 transform_spec=None,
                 output='rows',
+                on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
                 **not_yet_ported):
     """Reader for datasets written by :func:`materialize_dataset`.
 
     :param schema_fields: field names / regex patterns / UnischemaFields to
         read (``None`` = all)
-    :param reader_pool_type: ``'thread'`` or ``'dummy'`` (consumer thread)
+    :param reader_pool_type: ``'thread'``, ``'process'`` (spawned worker
+        processes, results over shared-memory rings; see
+        :class:`~petastorm_tpu_torch.workers.ProcessPool`) or ``'dummy'``
+        (the consumer thread)
     :param seed: seeds the per-epoch row-group shuffle; ``None`` = nondeterministic
     :param num_epochs: passes over the dataset; ``None`` = infinite
     :param cur_shard/shard_count: keep row groups where
@@ -96,6 +124,29 @@ def make_reader(dataset_url,
     :param output: ``'rows'`` yields one schema namedtuple per row;
         ``'columnar'`` yields one namedtuple of column arrays per row group
         (the hot path :class:`TorchDataLoader` slices batches from)
+    :param on_error: item-failure policy, the same on every pool type:
+        ``'raise'`` surfaces the first worker error on the iterating thread
+        with the worker-side traceback attached; ``'retry'`` re-runs a failed
+        row group up to ``max_item_retries`` times before raising; ``'skip'``
+        retries, then quarantines it (:attr:`Reader.quarantined_items`,
+        ``diagnostics['items_quarantined']``) and the epoch completes without
+        it. A process pool survives the death of a worker process whatever
+        the policy (respawn and requeue); the policy decides what happens
+        when one item exhausts its budget.
+    :param max_item_retries: consecutive failures (errors or worker-killing
+        crashes) one item may cause before the policy's final action
+        (default 2: an item runs at most 3 times)
+    :param zero_copy: process pool on the shm transport: deliver blocks as
+        numpy views straight into the ring slot instead of a copy each;
+        the slot's bytes are reused only after the block's arrays die, so
+        holding a block applies backpressure. With no transform and no cache
+        the workers then decode fused row groups straight into the slot. A
+        no-op for the thread and dummy pools.
+    :param pool_kwargs: further arguments of the process pool
+        (:class:`~petastorm_tpu_torch.workers.ProcessPool`: ``transport``,
+        ``ring_bytes``, ``results_timeout_s``, ``blob_threshold_bytes``,
+        ...); the JAX ``make_reader`` has no such argument and always takes
+        the pool's defaults
     """
     for name, value in not_yet_ported.items():
         if name not in _NOT_YET_PORTED:
@@ -107,20 +158,15 @@ def make_reader(dataset_url,
                 '(ROADMAP.md, "{}")'.format(name, item))
     if output not in ('rows', 'columnar'):
         raise ValueError("output must be 'rows' or 'columnar', got {!r}".format(output))
+    # the pool is built, not started, before any IO: a bad policy or pool
+    # type fails first
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
+                      max_item_retries=max_item_retries, zero_copy=zero_copy,
+                      pool_kwargs=pool_kwargs)
     try:
         schema = dataset_metadata.get_schema(dataset_url)
     except dataset_metadata.PetastormMetadataError:
         raise PetastormTpuError('Dataset at {} is missing unischema metadata.'.format(dataset_url))
-    if reader_pool_type == 'thread':
-        pool = ThreadPool(workers_count, results_queue_size)
-    elif reader_pool_type == 'dummy':
-        pool = DummyPool()
-    elif reader_pool_type == 'process':
-        raise NotImplementedError("reader_pool_type='process' is not yet ported to "
-                                  'petastorm_tpu_torch (ROADMAP.md, "process pool + serializers")')
-    else:
-        raise ValueError('Unknown reader_pool_type {!r} (expected thread/dummy)'.format(
-            reader_pool_type))
     results_reader = BatchResultsQueueReader if output == 'columnar' else RowResultsQueueReader
     cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
     return Reader(dataset_url, schema, pool, results_reader, schema_fields=schema_fields,
@@ -193,6 +239,20 @@ class Reader(object):
             return self._results_reader.read_next(self._pool)
         except EmptyResultError:
             raise StopIteration
+
+    @property
+    def diagnostics(self):
+        """The pool's diagnostics: items ventilated, completed and in
+        flight, the recovery counters (``worker_restarts``,
+        ``items_requeued``, ``items_quarantined``), the ``lifetime_*``
+        borrow counters and, for a process pool, its transport and
+        publishes per channel."""
+        return self._pool.diagnostics
+
+    @property
+    def quarantined_items(self):
+        """Records of the row groups quarantined under ``on_error='skip'``."""
+        return self._pool.quarantined_items
 
     def stop(self):
         self._pool.stop()

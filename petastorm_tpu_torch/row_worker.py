@@ -13,9 +13,16 @@ take the decode hints and the resize target of the ``TransformSpec``
 ``decode_column``, and per-cell ``decode`` + stack when that declines. The
 decoded block goes through the reader's cache (keyed by piece, columns,
 decode hints and resize target), then the optional transform runs and one
-column block is published. Not ported yet: predicates, NGram windows,
-shuffle-row-drop partitions and the fused publish modes of the process pool
-and the serve plane.
+column block is published.
+
+In a process pool on the shm transport the publish function offers
+``reserve_block``: with no transform and no cache (the JAX package's gate;
+predicates and NGram windows are not ported), the whole row group is then
+decoded by the fused native call straight into the ring slot the consumer
+maps, page-scan columns included, and published with a header write
+(:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not ported yet:
+predicates, NGram windows, shuffle-row-drop partitions and the serve plane's
+fused blob publish.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ from collections import OrderedDict
 
 import numpy as np
 
+from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import (block_num_rows, block_to_rows, column_cells,
                                           rows_to_block, stack_cells)
-from petastorm_tpu_torch.native import open_parquet
+from petastorm_tpu_torch.native import open_parquet, read_routes
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
 
 logger = logging.getLogger(__name__)
@@ -78,6 +86,10 @@ class RowGroupDecoderWorker(WorkerBase):
         piece = args['pieces'][piece_index]
         names = list(args['output_schema'].fields)
         transform = args['transform_spec']
+        if (transform is None and isinstance(args['cache'], NullCache)
+                and self._publish_fused_inplace(piece, names)):
+            # the batch was decoded into the ring slot the consumer maps
+            return
         decode_hints = getattr(transform, 'image_decode_hints', None) or {}
         resize_hints = getattr(transform, 'image_resize', None) or {}
         key = _cache_key(args['dataset_path'], piece, names, decode_hints, resize_hints)
@@ -107,6 +119,57 @@ class RowGroupDecoderWorker(WorkerBase):
                            piece.row_group, exc_info=True)
             return {}
         return block
+
+    def _publish_fused_inplace(self, piece, names):
+        """The shm ring's in-place mode: reserve the ring slot the consumer
+        will map, write the serializer header first (every fused column's
+        size is known ahead), run the fused decode into the slot, and
+        publish with a header write: no copy of the batch between the
+        Parquet pages and the consumer's numpy views. Returns False, with no
+        effect, when any precondition fails; the caller then loads and
+        publishes as usual."""
+        reserve = getattr(self.publish_func, 'reserve_block', None)
+        pf = self._parquet_file(piece.path) if reserve is not None else None
+        if pf is None or not hasattr(pf, 'fused_plan'):
+            return False
+        plan = pf.fused_plan(piece.row_group, names, self.args['schema'].fields,
+                             include_pagescan=True)
+        if plan is None or plan.rest or not plan.inplace_ok:
+            return False
+        if any(p.field_dtype is not None and p.field_dtype != p.out_dtype
+               for p in plan.columns):
+            return False  # an astype after the decode would need a second buffer
+        if plan.expected_rows <= 0:
+            return False
+        meta, offsets, total = [], [], 0
+        for p in plan.columns:
+            meta.append((p.name, p.out_dtype.str, p.out_shape, None))
+            offsets.append(total)
+            total += p.out_bound
+        reserved = reserve(meta, total)
+        if reserved is None:
+            return False
+        view, commit, abort = reserved
+        try:
+            results = pf.fused_read_into(plan, view, offsets)
+        except Exception:  # noqa: BLE001 - any surprise: the copy path serves it
+            logger.warning('in-place fused read of %s rg=%s failed; copy path', piece.path,
+                           piece.row_group, exc_info=True)
+            abort()
+            return False
+        from petastorm_tpu_torch.native import fused
+        failed = {plan.columns[i].name: fused.REASON_BY_STATUS.get(r[0], 'internal')
+                  for i, r in enumerate(results)
+                  if r[0] != 0 or r[1] != plan.columns[i].out_bound}
+        if failed:
+            abort()
+            fused.count_fallbacks(failed)
+            return False
+        commit(total)
+        read_routes.add('fused_columns_total', len(plan.columns))
+        read_routes.add('fused_batches_total')
+        read_routes.add('fused_inplace_batches_total')
+        return True
 
     def _load_block(self, piece, names, decode_hints, resize_hints, writable):
         pre = self._fused_columns(piece, names, decode_hints, resize_hints)

@@ -47,7 +47,11 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     and misses of a local-disk cache over the whole run), and
     ``extra['read_routes']`` the columns each read route served over the
     whole run (the change in :data:`~petastorm_tpu_torch.native.read_routes`;
-    counts of other readers running at the same time land there too)."""
+    counts of other readers running at the same time land there too; a
+    process pool adds its workers' counts as they arrive). ``extra['pool']``
+    holds the pool's ``diagnostics`` at the end of the run: for a process
+    pool its transport, restarts, quarantined items, publishes per channel
+    and live zero-copy borrows."""
     device = resolve_device(device)
     kwargs = {'num_epochs': None, 'output': 'columnar', **(reader_kwargs or {})}
     routes_before = read_routes.snapshot()
@@ -77,7 +81,8 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
         duration = time.perf_counter() - t0
         routes = read_routes.snapshot()
         extra = {'steps': steps, 'cache': reader.cache.stats(),
-                 'read_routes': {k: v - routes_before.get(k, 0) for k, v in routes.items()}}
+                 'read_routes': {k: v - routes_before.get(k, 0) for k, v in routes.items()},
+                 'pool': reader.diagnostics}
         if events:
             extra['step_ms'] = [s.elapsed_time(e) for s, e in events]
             extra['median_step_ms'] = statistics.median(extra['step_ms'])

@@ -3,55 +3,110 @@
 Trimmed twin of ``petastorm_tpu/workers/dummy_pool.py``. ``ventilate`` only
 enqueues; ``worker.process`` runs inside :meth:`get_results` on the caller's
 thread, in ventilation order, which makes the output order a pure function of
-the ventilator's seed (what the parity tests compare).
+the ventilator's seed (what the parity tests compare). Item failures follow
+the same ``on_error``/``max_item_retries`` policy as the other pools
+(``workers/supervision.py``), so a pipeline behaves the same when dropped
+onto this pool for debugging.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import deque
 
 from petastorm_tpu_torch.errors import EmptyResultError
+from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
+from petastorm_tpu_torch.workers.protocol import DispatchIds
+from petastorm_tpu_torch.workers.supervision import (ErrorPolicy, attach_remote_context,
+                                                     format_exception_tb, quarantine_record)
+
+logger = logging.getLogger(__name__)
 
 
 class DummyPool(object):
-    def __init__(self):
+    def __init__(self, on_error='raise', max_item_retries=None):
         self.workers_count = 1
         self._results = deque()
-        self._pending = deque()
+        self._pending = deque()  # (dispatch id, args, kwargs, failed attempts)
         self._lock = threading.Lock()
         self._worker = None
         self._ventilator = None
+        self._policy = ErrorPolicy.resolve(on_error, max_item_retries)
+        self._dispatch_ids = DispatchIds()
+        self._published = False
+        self._ventilated_items = 0
+        self._completed_items = 0
+        self._items_requeued = 0
+        self._quarantined = []
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._worker is not None:
             raise RuntimeError('Pool already started')
-        self._worker = worker_class(0, self._results.append, worker_setup_args)
+        self._worker = worker_class(0, self._publish, worker_setup_args)
         if ventilator is not None:
             self._ventilator = ventilator
             ventilator.start()
 
-    def ventilate(self, **kwargs):
+    def _publish(self, data):
+        self._published = True
+        self._results.append(data)
+
+    def ventilate(self, *args, **kwargs):
         with self._lock:
-            self._pending.append(kwargs)
+            self._ventilated_items += 1
+            self._pending.append((self._dispatch_ids.next(), args, kwargs, 0))
 
     def _process_one(self):
         """Run one pending item on this thread; False when none is queued."""
         with self._lock:
             if not self._pending or self._worker is None:
                 return False
-            kwargs = self._pending.popleft()
+            d, args, kwargs, attempts = self._pending.popleft()
+        self._published = False
         try:
-            self._worker.process(**kwargs)
-        except Exception:
-            if self._ventilator is not None:
-                self._ventilator.stop()
-            raise
-        finally:
-            if self._ventilator is not None:
-                self._ventilator.processed_item()
+            self._worker.process(*args, **kwargs)
+        except Exception as exc:  # noqa: BLE001 - routed through the error policy
+            if not self._handle_item_failure(exc, d, args, kwargs, attempts + 1):
+                return True  # requeued: not complete yet
+        self._complete()
         return True
+
+    def _complete(self):
+        with self._lock:
+            self._completed_items += 1
+        if self._ventilator is not None:
+            self._ventilator.processed_item()
+
+    def _handle_item_failure(self, exc, d, args, kwargs, attempts):
+        """Apply the policy; False when the item was requeued. Under
+        ``'raise'`` the exception propagates (the item counts complete)."""
+        if self._published and self._policy.on_error != 'raise':
+            # its rows are already delivered: a re-run would deliver them twice
+            logger.warning('Item %s failed AFTER publishing; completing the item rather than '
+                           're-running it: %s', kwargs, exc)
+            return True
+        if self._policy.should_retry_error(attempts):
+            logger.warning('Item %s failed (attempt %d/%d); requeueing: %s', kwargs, attempts,
+                           self._policy.max_item_retries + 1, exc)
+            with self._lock:
+                self._pending.append((self._dispatch_ids.next(), args, kwargs, attempts))
+                self._items_requeued += 1
+            return False
+        if self._policy.quarantines():
+            record = quarantine_record(d, attempts, 'error', error=exc,
+                                       tb=format_exception_tb(exc), worker_id=0,
+                                       item={'args': args, 'kwargs': kwargs})
+            with self._lock:
+                self._quarantined.append(record)
+            logger.error('Quarantining item %s after %d failed attempts: %s', kwargs, attempts,
+                         record['error'])
+            return True
+        self._complete()
+        if self._ventilator is not None:
+            self._ventilator.stop()
+        raise attach_remote_context(exc, format_exception_tb(exc), worker_id=0, seq=d)
 
     def get_results(self):
         while True:
@@ -79,3 +134,24 @@ class DummyPool(object):
         if self._worker is not None:
             self._worker.shutdown()
             self._worker = None
+
+    @property
+    def quarantined_items(self):
+        """Records of the items quarantined under ``on_error='skip'``."""
+        with self._lock:
+            return list(self._quarantined)
+
+    @property
+    def diagnostics(self):
+        """The pool diagnostics every pool type reports with the same keys."""
+        with self._lock:
+            out = {'workers_count': self.workers_count,
+                   'items_ventilated': self._ventilated_items,
+                   'items_completed': self._completed_items,
+                   'items_in_flight': self._ventilated_items - self._completed_items,
+                   'results_queue_depth': len(self._results),
+                   'worker_restarts': 0,
+                   'items_requeued': self._items_requeued,
+                   'items_quarantined': len(self._quarantined)}
+        out.update(lifetime_registry().counters())
+        return out

@@ -1,19 +1,30 @@
 """Thread pool: N daemon worker threads with a bounded results queue.
 
-Trimmed twin of ``petastorm_tpu/workers/thread_pool.py``: the first worker
-error is re-raised on the consumer thread (the JAX package's
-``on_error='raise'``). Retry/skip policies, slot grow/retire and the
-protocol monitor are not ported yet.
+Trimmed twin of ``petastorm_tpu/workers/thread_pool.py``. Item failures
+follow the pool-independent ``on_error``/``max_item_retries`` policy
+(``workers/supervision.py``): ``'raise'`` forwards the first error to the
+consumer thread with the worker-side traceback attached, ``'retry'``
+re-enqueues the item up to the budget, ``'skip'`` quarantines it after the
+budget so the epoch completes. An item that fails after it published is
+completed as delivered, never re-run (that would deliver its rows twice).
+Threads cannot die the way processes can, so there is no heartbeat or
+respawn here. Slot grow/retire and the protocol monitor are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
+import sys
 import threading
 
 from petastorm_tpu_torch.errors import EmptyResultError
+from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
+from petastorm_tpu_torch.workers.protocol import MSG_DATA, MSG_DONE, MSG_ERROR, DispatchIds
+from petastorm_tpu_torch.workers.supervision import (ErrorPolicy, attach_remote_context,
+                                                     format_exception_tb, quarantine_record)
 
-_DATA, _DONE, _ERROR = 'data', 'done', 'error'
+logger = logging.getLogger(__name__)
 
 
 class _Stopping(Exception):
@@ -21,16 +32,22 @@ class _Stopping(Exception):
 
 
 class ThreadPool(object):
-    def __init__(self, workers_count, results_queue_size=50):
+    def __init__(self, workers_count, results_queue_size=50, on_error='raise',
+                 max_item_retries=None):
         self.workers_count = workers_count
         self._results_queue = queue.Queue(maxsize=results_queue_size)
         self._task_queue = queue.Queue()
         self._stop_event = threading.Event()
         self._threads = []
         self._ventilator = None
+        self._policy = ErrorPolicy.resolve(on_error, max_item_retries)
         self._counter_lock = threading.Lock()
+        self._dispatch_ids = DispatchIds()
         self._ventilated_items = 0
         self._completed_items = 0
+        self._items_requeued = 0
+        self._quarantined = []
+        self._tls = threading.local()  # per worker thread: whether the item published
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._threads:
@@ -45,10 +62,11 @@ class ThreadPool(object):
             self._ventilator = ventilator
             ventilator.start()
 
-    def ventilate(self, **kwargs):
+    def ventilate(self, *args, **kwargs):
         with self._counter_lock:
             self._ventilated_items += 1
-        self._task_queue.put(kwargs)
+            d = self._dispatch_ids.next()
+        self._task_queue.put((d, args, kwargs, 0))
 
     def get_results(self):
         """Block until a result is available; raise :class:`EmptyResultError`
@@ -60,9 +78,9 @@ class ThreadPool(object):
                 if self._all_done():
                     raise EmptyResultError()
                 continue
-            if kind == _DATA:
+            if kind == MSG_DATA:
                 return payload
-            if kind == _DONE:
+            if kind == MSG_DONE:
                 with self._counter_lock:
                     self._completed_items += 1
                 if self._ventilator is not None:
@@ -98,8 +116,31 @@ class ThreadPool(object):
                 thread.join(timeout=0.05)
         self._threads = []
 
+    @property
+    def quarantined_items(self):
+        """Records of the items quarantined under ``on_error='skip'``."""
+        with self._counter_lock:
+            return list(self._quarantined)
+
+    @property
+    def diagnostics(self):
+        """The pool diagnostics every pool type reports with the same keys;
+        ``worker_restarts`` is always 0 here (threads fail by exception)."""
+        with self._counter_lock:
+            out = {'workers_count': self.workers_count,
+                   'items_ventilated': self._ventilated_items,
+                   'items_completed': self._completed_items,
+                   'items_in_flight': self._ventilated_items - self._completed_items,
+                   'results_queue_depth': self._results_queue.qsize(),
+                   'worker_restarts': 0,
+                   'items_requeued': self._items_requeued,
+                   'items_quarantined': len(self._quarantined)}
+        out.update(lifetime_registry().counters())
+        return out
+
     def _publish(self, data):
-        self._put((_DATA, data))
+        self._tls.published = True
+        self._put((MSG_DATA, data))
 
     def _put(self, record):
         """Bounded put that gives up when the pool stops, so a worker never
@@ -112,21 +153,57 @@ class ThreadPool(object):
                 continue
         raise _Stopping()
 
+    def _handle_item_failure(self, worker, d, args, kwargs, attempts):
+        """Apply the policy to the item that just raised (``attempts``
+        counts this failure), on the worker thread."""
+        exc = sys.exc_info()[1]
+        if getattr(self._tls, 'published', False) and self._policy.on_error != 'raise':
+            # its rows are in the results queue: a re-run would deliver them
+            # twice, so the item completes as delivered
+            logger.warning('Worker %d failed on item %s AFTER publishing; completing the item '
+                           'rather than re-running it: %s', worker.worker_id, kwargs, exc)
+            self._put((MSG_DONE, None))
+            return
+        if self._policy.should_retry_error(attempts):
+            logger.warning('Worker %d failed on item %s (attempt %d/%d); requeueing: %s',
+                           worker.worker_id, kwargs, attempts,
+                           self._policy.max_item_retries + 1, exc)
+            with self._counter_lock:
+                self._items_requeued += 1
+                nd = self._dispatch_ids.next()
+            self._task_queue.put((nd, args, kwargs, attempts))
+            return
+        if self._policy.quarantines():
+            record = quarantine_record(d, attempts, 'error', error=exc,
+                                       tb=format_exception_tb(exc), worker_id=worker.worker_id,
+                                       item={'args': args, 'kwargs': kwargs})
+            with self._counter_lock:
+                self._quarantined.append(record)
+            logger.error('Quarantining item %s after %d failed attempts: %s', kwargs, attempts,
+                         record['error'])
+            self._put((MSG_DONE, None))
+            return
+        attach_remote_context(exc, format_exception_tb(exc), worker_id=worker.worker_id, seq=d)
+        self._put((MSG_ERROR, exc))
+        self._put((MSG_DONE, None))
+
     def _worker_loop(self, worker):
         try:
             while not self._stop_event.is_set():
                 try:
-                    kwargs = self._task_queue.get(timeout=0.05)
+                    d, args, kwargs, attempts = self._task_queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
+                self._tls.published = False
                 try:
                     try:
-                        worker.process(**kwargs)
+                        worker.process(*args, **kwargs)
                     except _Stopping:
                         raise
-                    except Exception as exc:  # noqa: BLE001 - re-raised on the consumer thread
-                        self._put((_ERROR, exc))
-                    self._put((_DONE, None))
+                    except Exception:  # noqa: BLE001 - routed through the error policy
+                        self._handle_item_failure(worker, d, args, kwargs, attempts + 1)
+                    else:
+                        self._put((MSG_DONE, None))
                 except _Stopping:
                     return
         finally:

@@ -161,8 +161,8 @@ def test_thread_pool_stress_loses_and_repeats_nothing(jax_store):
 def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
     with pytest.raises(NotImplementedError, match='predicates/selectors/ngram'):
         make_reader(jax_store, predicate=lambda row: True)
-    with pytest.raises(NotImplementedError, match='process pool'):
-        make_reader(jax_store, reader_pool_type='process')
+    with pytest.raises(NotImplementedError, match='observability'):
+        make_reader(jax_store, protocol_monitor=True)
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_reader(jax_store, no_such_argument=1)
     with pytest.raises(ValueError, match='requires cache_location'):
