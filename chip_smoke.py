@@ -9,7 +9,8 @@ Phases, each printed as one JSON line:
 1. device: the card, its power limit, and the TF32 settings used;
 2. kernel checks: every hand-written kernel of the main path against its plain
    PyTorch version on the card (shapes, types and tolerances below), and the
-   times of both (CUDA events, median of 25 runs);
+   times of both and of the one PyTorch call that computes the same function
+   (CUDA events, median of 25 runs);
 3. stores: a raw uint8 store, an ImageNet-shaped PNG store, a fixed-shape
    PNG store of the raw store's images and, where the host can encode and
    decode JPEG, a JPEG store, written by the port's ``materialize_dataset``
@@ -32,7 +33,18 @@ Phases, each printed as one JSON line:
    (``PSTPU_DISABLE_FUSED``); each route counted in ``native.read_routes``
    as named; the host's read rate of each pair on one core and on a pool of
    one thread per core;
-6. pool checks: the process pool's shared-memory ring (built from
+6. filter checks: every row group of the fixed-shape PNG store read by the
+   row worker through the fused predicate call (``in_set``, ``in_range``,
+   ``in_negate``, ``in_reduce`` on the label) equals the rows the predicate
+   keeps as written and the same read with the fused read switched off (the
+   Python pushdown), with every row group through the fused predicate call,
+   the rows it selected and the pages it skipped by their statistics
+   counted, and no fallback; a row-group index of the PNG store's synsets
+   built over a copy of it (its seconds), whose selector picks exactly the
+   row groups of the synsets it names; ``shuffle_row_drop_partitions=2``
+   over the PNG store delivers every row once in one epoch; the host's
+   filtered read rate on one core against the unfiltered fused read;
+7. pool checks: the process pool's shared-memory ring (built from
    ``native/shm_ring.cpp``) in one process: ``write2``, ``writev``,
    ``reserve``/``commit``/``abort``, ``try_read_zero_copy``/``release``;
    a ``ProcessPool`` of one spawned worker per core on the shm transport
@@ -46,7 +58,7 @@ Phases, each printed as one JSON line:
    size is ``ProcessPool``'s 64 MiB unless ``/dev/shm`` cannot hold one per
    worker: then what fits, if that still holds what a consumer can pin
    (:func:`ring_bytes_for`), else the run fails naming the sizes;
-7. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
+8. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
    160 px, SGD 0.1 momentum 0.9, ``random_flip`` and ``normalize_images``
    inside it) fed by ``make_reader(output='columnar')`` (thread pool, one
    worker per core) -> ``TorchDataLoader`` (shuffle 512, seed 7) ->
@@ -85,16 +97,29 @@ Phases, each printed as one JSON line:
      publish rides the ``/dev/shm`` blob channel.
 
    Each fails on another transport than shm, a restart, a quarantined item or
-   a ``/dev/shm/pstpu_*`` entry of this process left behind;
-8. profile: three more steps of the raw path under ``torch.profiler``, the
+   a ``/dev/shm/pstpu_*`` entry of this process left behind. Two more read
+   a filtered store through the thread pool:
+
+   - ``png_fixed_pred``: the fixed-shape PNG store with
+     ``predicate=in_set(range(100), 'label')`` (124 of 1024 rows an epoch,
+     from 9 of 64 row groups): every row group through the fused predicate
+     call, pages skipped by their statistics, every delivered label below
+     100;
+   - ``png_select``: the ``png`` path over the indexed copy of the PNG store
+     with ``rowgroup_selector=SingleIndexSelector('noun_id_idx', <the first
+     16 of 32 synsets>)`` and ``shuffle_row_drop_partitions=2`` (512 rows an
+     epoch, read as 64 half row groups through Arrow), every delivered label
+     that of a selected synset;
+9. profile: three more steps of the raw path under ``torch.profiler``, the
    device's busy time per step by kernel and its idle share;
-9. model check: the trained model on the card (bf16) against a float32 copy
+10. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-10. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+11. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, max error, its time, the plain version's time,
-   the least time the card could take and what bounds it), the card's name
-   and power limit as ``nvidia-smi`` gives them, and last
-   ``{"ok": true, "device": {...}}``.
+   the least time the card could take and what bounds it, and the time of
+   the one PyTorch call that computes the same function,
+   ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
+   gives them, and last ``{"ok": true, "device": {...}}``.
 
 No failure is caught: any exception ends the run with a non-zero exit code and
 no result line. Without CUDA the run fails at once. The native libraries
@@ -105,6 +130,7 @@ stores and the disk cache live under ``.torch_build/`` in the checkout.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -298,17 +324,39 @@ def phase_kernels(torch):
     def plain(x):
         return nk.normalize_reference(x, mean, inv_std)
 
-    # in turns: plain, kernel, kernel, plain
+    # the one PyTorch call that computes the function: x * inv_std + shift,
+    # with shift = -mean * inv_std, uint8 in, float32 math, bf16 out
+    shift = -mean * inv_std
+    library_out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+    def library(x):
+        return torch.addcmul(shift, x, inv_std, out=library_out)
+
+    library_err, library_ok = 0.0, True
+    for x in inputs[:4]:
+        ref = plain(x).float()
+        diff = (library(x).float() - ref).abs()
+        library_err = max(library_err, float(diff.max()))
+        library_ok = library_ok and bool((diff <= 2.0 ** -7 * ref.abs() + 1e-6).all())
+    # in turns: plain, kernel, library, library, kernel, plain
     plain_ms = [cuda_ms(torch, plain, inputs)]
-    kernel_ms = [cuda_ms(torch, kernel, inputs), cuda_ms(torch, kernel, inputs)]
+    kernel_ms = [cuda_ms(torch, kernel, inputs)]
+    library_ms = [cuda_ms(torch, library, inputs), cuda_ms(torch, library, inputs)]
+    kernel_ms.append(cuda_ms(torch, kernel, inputs))
     plain_ms.append(cuda_ms(torch, plain, inputs))
     # back to back without holding the device: the rate at which the host
     # can launch the wrapper, which is what a caller's loop sees
     host_rate_ms = cuda_ms(torch, kernel, inputs, hold_device=False)
     bound_ms, bound_by = normalize_bound_ms(shape, torch.uint8, torch.bfloat16, torch)
+    library_check = {'call': 'torch.addcmul(shift_c, x_uint8, inv_std_c, out=out_bf16)',
+                     'max_abs_err': library_err, 'tolerance': '1 bf16 ulp', 'ok': library_ok,
+                     'ms_runs': library_ms}
+    if not library_ok:
+        library_check['why_not_counted'] = ('the call does not compute the function within 1 '
+                                            'bf16 ulp of the plain version on these inputs')
     emit({'phase': 'kernel_checks', 'kernel': 'normalize', 'checks': checks,
           'timing_shape': list(shape), 'ms_runs': kernel_ms, 'plain_ms_runs': plain_ms,
-          'launch_rate_ms': host_rate_ms,
+          'library': library_check, 'launch_rate_ms': host_rate_ms,
           # the bytes the bound counts, over the kernel's time
           'hbm_gb_per_s': bound_ms / statistics.median(kernel_ms) * HBM_BYTES_PER_S / 1e9})
     del inputs
@@ -319,9 +367,7 @@ def phase_kernels(torch):
              'ms': statistics.median(kernel_ms),
              'plain_ms': statistics.median(plain_ms),
              'bound_ms': bound_ms, 'bound_by': bound_by,
-             # no single PyTorch call computes cast + per-channel
-             # subtract-and-scale + cast
-             'library_ms': None}]
+             'library_ms': statistics.median(library_ms) if library_ok else None}]
 
 
 def _photo(rng, h, w):
@@ -802,7 +848,7 @@ def _row_worker(url, route):
 
 def _load(worker, piece):
     """One row group's decoded block, as the reader's workers load it."""
-    return worker._load_block(piece, list(worker.args['schema'].fields), {}, {}, writable=False)
+    return worker._load_block(piece, list(worker.args['schema'].fields))
 
 
 def _blocks_equal(a, b):
@@ -905,6 +951,152 @@ def phase_read_checks(raw_url, fixed_url):
                     'one_core': one, 'pool': _read_rate(url, route, os.cpu_count() or 1)}
     emit({'phase': 'read_checks', 'checks': checks, 'rates': rates, 'host': _host_cpu()})
     read_routes.reset()
+
+
+# -- the filter checks -----------------------------------------------------------
+
+#: the png_fixed_pred path's predicate keeps these labels: a fixed 100-class
+#: list, as ImageNet-100 subsets are drawn from ImageNet-1k
+PRED_CLASSES = 100
+#: the png_select path reads the first half of the store's synsets
+SELECT_SYNSETS = ROWS // IMAGES_PER_SYNSET // 2
+ROW_DROP_PARTITIONS = 2
+
+
+def filter_predicates():
+    """``name -> predicate``: the four predicates the filter checks hold the
+    fused filtered read to, each evaluated natively on the int64 label."""
+    from petastorm_tpu_torch.predicates import in_negate, in_range, in_reduce, in_set
+
+    return {'in_set': in_set(range(PRED_CLASSES), 'label'),
+            'in_range': in_range('label', lo=100, hi=299),
+            'in_negate': in_negate(in_set(range(PRED_CLASSES), 'label')),
+            'in_reduce': in_reduce([in_range('label', lo=100, hi=299),
+                                    in_set(range(0, NUM_CLASSES, 2), 'label')], all)}
+
+
+def selected_synsets():
+    return ['n{:08d}'.format(s) for s in range(SELECT_SYNSETS)]
+
+
+def _filtered_load(worker, piece, predicate):
+    """One row group's filtered block, as the reader's workers load it
+    (None when no row survives)."""
+    return worker._load_block_with_predicate(piece, list(worker.args['schema'].fields),
+                                             predicate, None)
+
+
+def _filtered_rate(url, predicate):
+    """Row groups and kept rows per second of the row worker's filtered
+    load (``predicate``) or plain fused load (None) of every row group of
+    ``url``, on one thread and one image thread."""
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+
+    pieces = load_row_groups(url)
+    worker = _row_worker(url, 'native')
+    with _env(PSTPU_IMG_THREADS='1'):
+        t0 = time.perf_counter()
+        blocks = [_load(worker, piece) if predicate is None
+                  else _filtered_load(worker, piece, predicate) for piece in pieces]
+        seconds = time.perf_counter() - t0
+    rows = sum(len(b['label']) for b in blocks if b)
+    return {'row_groups': len(pieces), 'rows': rows, 'row_groups_per_s': len(pieces) / seconds,
+            'rows_per_s': rows / seconds}
+
+
+def phase_filter_checks(fixed_url, png_url, png_images, work_dir):
+    """The fused filtered read on the fixed-shape PNG store against the
+    images as written and against the Python pushdown (the fused read
+    switched off), for four predicates, with the routes each read took; the
+    row-group index over a copy of the PNG store (the ``png_select`` path
+    reads that copy) and its selector; shuffle-row-drop partitions on the PNG
+    store, one epoch; the host's filtered read rate on one core against the
+    unfiltered fused read. Returns the URL of the indexed copy."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.etl import SingleFieldIndexer, build_rowgroup_index
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+    from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+    from petastorm_tpu_torch.native import read_routes
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+
+    import pyarrow.parquet as pq
+
+    checks = {}
+    pieces = load_row_groups(fixed_url)
+    worker = _row_worker(fixed_url, 'native')
+    labels = np.arange(ROWS) % NUM_CLASSES
+    for name, predicate in filter_predicates().items():
+        read_routes.reset()
+        fused = [_filtered_load(worker, piece, predicate) for piece in pieces]
+        routes = {k: v for k, v in read_routes.snapshot().items() if v}
+        with _env(PSTPU_DISABLE_FUSED='1'):
+            unfused = [_filtered_load(worker, piece, predicate) for piece in pieces]
+        kept = [i for i in range(ROWS) if predicate.do_include({'label': labels[i]})]
+        got_images = [img for b in fused if b for img in b['image']]
+        got_labels = [int(v) for b in fused if b for v in b['label']]
+        exact = (got_labels == [int(labels[i]) for i in kept] and len(got_images) == len(kept)
+                 and all(np.array_equal(img, _image(i)) for img, i in zip(got_images, kept)))
+        differ = [k for k, (a, b) in enumerate(zip(fused, unfused))
+                  if (a is None) != (b is None) or (a is not None and not _blocks_equal(a, b))]
+        n = len(pieces)
+        checks[name] = {'rows': len(kept), 'row_groups_with_rows': sum(1 for b in fused if b),
+                        'exact_vs_written': exact, 'differing_row_groups_vs_unfused': differ,
+                        'routes': routes}
+        if (not exact or differ or routes.get('fused_pred_batches_total') != n
+                or routes.get('fused_batches_total') != n
+                or routes.get('fused_columns_total') != 2 * n
+                or routes.get('fused_pred_rows_selected') != len(kept)
+                or any(k.startswith('fused_fallback') or k in (
+                    'arrow_fallback_columns_total', 'pagescan_columns_total') for k in routes)):
+            raise AssertionError('filtered read of the fixed-shape PNG store, {}: {}'.format(
+                name, checks[name]))
+    if not checks['in_set']['routes'].get('fused_pred_pages_skipped_total'):
+        raise AssertionError('no page skipped by its statistics: {}'.format(checks['in_set']))
+
+    # the row-group index, over a copy of the PNG store
+    indexed = os.path.join(work_dir, 'png_indexed')
+    shutil.copytree(png_url[len('file://'):], indexed)
+    indexed_url = 'file://' + indexed
+    t0 = time.perf_counter()
+    build_rowgroup_index(indexed_url, [SingleFieldIndexer('noun_id_idx', 'noun_id')])
+    index_s = time.perf_counter() - t0
+    synsets = selected_synsets()
+    picked = SingleIndexSelector('noun_id_idx', synsets).select_row_groups(
+        get_row_group_indexes(indexed_url))
+    # the store's row groups that hold a named synset
+    nouns = pq.read_table(png_url[len('file://'):], columns=['noun_id']).column(
+        'noun_id').to_pylist()
+    expected = {i // IMAGE_ROWS_PER_ROW_GROUP for i, noun in enumerate(nouns) if noun in synsets}
+    checks['index'] = {'build_s': index_s, 'synsets': len(synsets), 'row_groups': len(picked),
+                       'exact': picked == expected}
+    if picked != expected:
+        raise AssertionError('the selector picked {} row groups, expected {}'.format(
+            sorted(picked), sorted(expected)))
+
+    # shuffle-row-drop partitions: every row of every row group once an epoch
+    written = collections.Counter((noun, img.tobytes()) for noun, img in zip(nouns, png_images))
+    t0 = time.perf_counter()
+    with make_reader(png_url, output='columnar', schema_fields=['noun_id', 'image'],
+                     shuffle_row_drop_partitions=ROW_DROP_PARTITIONS, seed=SEED, num_epochs=1,
+                     workers_count=os.cpu_count() or 1) as reader:
+        delivered = collections.Counter()
+        items = 0
+        for block in reader:
+            items += 1
+            delivered.update((noun, img.tobytes()) for noun, img in zip(block.noun_id,
+                                                                        block.image))
+    checks['row_drop'] = {'partitions': ROW_DROP_PARTITIONS, 'items': items,
+                          'rows': sum(delivered.values()), 'exact': delivered == written,
+                          'seconds': time.perf_counter() - t0}
+    if delivered != written or items != ROW_DROP_PARTITIONS * len(load_row_groups(png_url)):
+        raise AssertionError('row-drop partitions: {}'.format(checks['row_drop']))
+
+    rates = {'filtered_in_set': _filtered_rate(fixed_url, filter_predicates()['in_set']),
+             'unfiltered_fused': _filtered_rate(fixed_url, None)}
+    emit({'phase': 'filter_checks', 'checks': checks, 'rates_one_core': rates,
+          'host': _host_cpu()})
+    read_routes.reset()
+    return indexed_url
 
 
 # -- the pool checks ------------------------------------------------------------
@@ -1243,7 +1435,12 @@ def check_read_routes(path, counts):
     and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
     ``png_cached`` no read at all; ``png_fixed`` fused only; ``png_process``
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
-    place into a ring slot, two columns each."""
+    place into a ring slot, two columns each; ``png_fixed_pred`` every row
+    group through the fused predicate call, two columns each, with pages
+    skipped by their statistics; ``png_select`` all three columns through
+    Arrow (a shuffle-row-drop partition is a row subset, which the row
+    worker reads through Arrow's ``take`` without planning a fused read, so
+    no fallback reason is counted)."""
     def c(key):
         return counts.get(key, 0)
 
@@ -1259,6 +1456,13 @@ def check_read_routes(path, counts):
               and arrow == 3 * n and not (fused or pagescan))
     elif path == 'png_cached':
         ok = not any(counts.values())
+    elif path == 'png_fixed_pred':
+        ok = (fused > 0 and c('fused_pred_batches_total') == fused
+              and c('fused_columns_total') == 2 * fused and c('fused_pred_pages_skipped_total') > 0
+              and not any(':predicate' in k for k in counts)
+              and not (fallback or arrow or pagescan or reasons))
+    elif path == 'png_select':
+        ok = arrow > 0 and arrow % 3 == 0 and not (fused or fallback or pagescan or reasons)
     elif path == 'raw_process':
         ok = (fused > 0 and c('fused_inplace_batches_total') == fused
               and c('fused_columns_total') == 2 * fused
@@ -1270,6 +1474,17 @@ def check_read_routes(path, counts):
         raise AssertionError('{}: columns read by unexpected routes: {}'.format(path, counts))
 
 
+def check_labels(what, ok):
+    """A check of every label a filtered path delivered: ``ok(labels)`` is a
+    boolean mask over them."""
+    def check(labels):
+        bad = labels[~np.asarray(ok(labels), dtype=bool)]
+        if len(bad) or not len(labels):
+            raise AssertionError('{} labels delivered, {} not {}: {}'.format(
+                len(labels), len(bad), what, sorted(set(bad.tolist()))[:10]))
+    return check
+
+
 def new_train_state(torch):
     from petastorm_tpu_torch.models import resnet50
     from petastorm_tpu_torch.models.train import create_train_state
@@ -1278,10 +1493,12 @@ def new_train_state(torch):
     return create_train_state(resnet50(num_classes=NUM_CLASSES, dtype=torch.bfloat16))
 
 
-def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
+def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None):
     """One path: a fresh model from the seed, 3 warm-up and 10 measured steps
     through ``pipeline_duty_cycle``. The normalize launches, the image route
-    counts and the read route counts cover this path's run alone."""
+    counts and the read route counts cover this path's run alone.
+    ``label_check`` is handed every label the steps saw, after the run (the
+    labels stay on the card until then: no synchronisation in the steps)."""
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
     from petastorm_tpu_torch.ops import normalize_images, random_flip
@@ -1297,6 +1514,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
     train_step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED)
     losses = []
     first_batch = []
+    seen_labels = []
 
     def step_fn(images, labels):
         if not losses:
@@ -1309,6 +1527,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
             first_batch.extend([images, labels])
         _, metrics = train_step(state, images, labels)
         losses.append(metrics['loss'])
+        if label_check is not None:
+            seen_labels.append(labels)
 
     kwargs = {'seed': SEED, 'shuffle_row_groups': True,
               'workers_count': max(1, os.cpu_count() or 1), **(reader_kwargs or {})}
@@ -1347,6 +1567,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None):
         if count < WARMUP_STEPS + STEPS:
             raise AssertionError('{}: kernel {} launched {} times in {} steps'.format(
                 name, kernel, count, WARMUP_STEPS + STEPS))
+    if label_check is not None:
+        label_check(torch.cat(seen_labels).cpu().numpy())
     check_routes(counts, routes)
     check_read_routes(name, result.extra['read_routes'])
     check_pool(name, result.extra['pool'], result.extra['read_routes'])
@@ -1470,6 +1692,8 @@ def main():
                   'build_s': time.perf_counter() - t0})
         phase_decode_checks(urls['png'], stores['png'], urls.get('jpeg'), probe)
         phase_read_checks(urls['raw'], urls['png_fixed'])
+        indexed_url = phase_filter_checks(urls['png_fixed'], urls['png'], stores['png'],
+                                          work_dir)
         ring = phase_pool_checks(urls['raw'], urls['png_fixed'], probe, work_dir)
         check_no_leftovers()
 
@@ -1525,6 +1749,23 @@ def main():
             for kernel, count in path_launches.items():
                 total[kernel] += count
             check_no_leftovers()
+        # row filtering: a predicate on the fixed-shape PNG store, and a
+        # row-group selector with shuffle-row-drop partitions on the PNG store
+        from petastorm_tpu_torch.selectors import SingleIndexSelector
+        selected_labels = {label_of(s) for s in selected_synsets()}
+        for name, url, check, kwargs, named, label_check in (
+                ('png_fixed_pred', urls['png_fixed'], check_batch,
+                 {'predicate': filter_predicates()['in_set']}, None,
+                 check_labels('below {}'.format(PRED_CLASSES), lambda v: v < PRED_CLASSES)),
+                ('png_select', indexed_url, png_check,
+                 dict(image_kwargs, shuffle_row_drop_partitions=ROW_DROP_PARTITIONS,
+                      rowgroup_selector=SingleIndexSelector('noun_id_idx', selected_synsets())),
+                 routes['png'], check_labels('of a selected synset',
+                                             lambda v: np.isin(v, sorted(selected_labels))))):
+            path_launches, _, _, _, _ = run_path(torch, name, url, check, reader_kwargs=kwargs,
+                                                 routes=named, label_check=label_check)
+            for kernel, count in path_launches.items():
+                total[kernel] += count
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     phase_profile(torch, state, train_step, images, labels, raw.extra['median_step_ms'])

@@ -87,6 +87,11 @@ def rows_to_block(rows):
     return {name: stack_cells([r[name] for r in rows]) for name in rows[0]}
 
 
+def take_block(block, indices):
+    """Select rows of every column (numpy fancy indexing; object columns too)."""
+    return {name: col[indices] for name, col in block.items()}
+
+
 def concat_columns(parts):
     """Concatenate per-segment arrays of one logical column; mixed layouts
     degrade to one object column."""

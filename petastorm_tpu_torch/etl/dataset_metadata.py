@@ -6,9 +6,11 @@ per-file row-group counts live in ``_common_metadata`` under
 ``petastorm_tpu.unischema.v1`` / ``petastorm_tpu.num_row_groups_per_file.v1``,
 so a store written by either package is read by the other; columns whose
 codec stores compressed cells (images, ``compressed_ndarray``) are written
-uncompressed, as the JAX writer does. Not ported yet:
-hive partitioning, append/publish, the ``_metadata`` summary-file and legacy
-petastorm fallbacks, row-group indexes.
+uncompressed, as the JAX writer does. Row-group indexes live under
+``petastorm_tpu.rowgroups_index.v1`` (:func:`add_dataset_metadata` rewrites
+the footer keeping every other key). Not ported yet: hive partitioning
+(pieces carry an empty ``partition_keys`` mapping), append/publish, the
+``_metadata`` summary-file and legacy petastorm fallbacks.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from petastorm_tpu_torch.unischema import Unischema, encode_row
 
 UNISCHEMA_KEY = b'petastorm_tpu.unischema.v1'
 ROW_GROUPS_PER_FILE_KEY = b'petastorm_tpu.num_row_groups_per_file.v1'
+ROW_GROUP_INDEX_KEY = b'petastorm_tpu.rowgroups_index.v1'
 
 _COMMON_METADATA = '_common_metadata'
 
@@ -39,14 +42,16 @@ class PetastormMetadataError(PetastormTpuError):
 
 class RowGroupPiece(object):
     """One row group of one Parquet file: the unit of work ventilated to
-    decode workers and the unit of shard assignment."""
+    decode workers and the unit of shard assignment. ``partition_keys`` is
+    always empty: hive-partitioned stores are not ported yet."""
 
-    __slots__ = ('path', 'row_group', 'num_rows')
+    __slots__ = ('path', 'row_group', 'num_rows', 'partition_keys')
 
     def __init__(self, path, row_group, num_rows=None):
         self.path = path
         self.row_group = row_group
         self.num_rows = num_rows
+        self.partition_keys = {}
 
     def __repr__(self):
         return 'RowGroupPiece({!r}, rg={}, rows={})'.format(self.path, self.row_group, self.num_rows)
@@ -204,13 +209,39 @@ def _write_dataset_metadata(dataset_url, schema, row_groups_per_file):
         pq.write_metadata(schema.as_arrow_schema().with_metadata(metadata), sink)
 
 
-def _read_common_metadata(fs, root):
-    """The KV metadata stored in ``_common_metadata``, or ``{}``."""
+def _read_common_schema(fs, root):
+    """The Arrow schema (with its KV metadata) stored in ``_common_metadata``,
+    or None."""
     meta_path = posixpath.join(root, _COMMON_METADATA)
     if fs.get_file_info([meta_path])[0].type == pafs.FileType.NotFound:
-        return {}
+        return None
     with fs.open_input_file(meta_path) as f:
-        return dict(pq.read_schema(f).metadata or {})
+        return pq.read_schema(f)
+
+
+def _read_common_metadata(fs, root):
+    """The KV metadata stored in ``_common_metadata``, or ``{}``."""
+    arrow_schema = _read_common_schema(fs, root)
+    return dict(arrow_schema.metadata or {}) if arrow_schema is not None else {}
+
+
+def add_dataset_metadata(dataset_url, key, value_bytes):
+    """Rewrite ``_common_metadata`` with ``key`` set to ``value_bytes``,
+    keeping its schema and every other key."""
+    resolver = FilesystemResolver(dataset_url)
+    fs, root = resolver.filesystem(), resolver.get_dataset_path()
+    existing = _read_common_schema(fs, root)
+    arrow_schema = existing if existing is not None else pa.schema([])
+    metadata = dict(arrow_schema.metadata or {})
+    metadata[key] = value_bytes
+    with fs.open_output_stream(posixpath.join(root, _COMMON_METADATA)) as sink:
+        pq.write_metadata(arrow_schema.with_metadata(metadata), sink)
+
+
+def read_metadata_dict(dataset_url):
+    """All KV metadata of ``_common_metadata`` as a dict (one footer read)."""
+    resolver = FilesystemResolver(dataset_url)
+    return _read_common_metadata(resolver.filesystem(), resolver.get_dataset_path())
 
 
 def _list_parquet_files(fs, root):

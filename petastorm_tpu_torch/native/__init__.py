@@ -26,9 +26,11 @@ mode the fused read writes a whole row group into the shm-ring slot the
 consumer maps (:meth:`NativeParquetFile.fused_read_into`), counted as
 ``fused_inplace_batches_total``. The ring itself is
 :mod:`~petastorm_tpu_torch.native.shm_ring`, and the lifetime of views into
-it :mod:`~petastorm_tpu_torch.native.lifetime`. Not ported yet: the
-predicate kernel, the blob fused publish of the serve plane and the
-chunk-cached remote reader.
+it :mod:`~petastorm_tpu_torch.native.lifetime`. A filtered read
+(:meth:`NativeParquetFile.read_fused_predicate`) evaluates a predicate,
+skips pages by their statistics and decodes only the surviving rows in the
+same kind of single call. Not ported yet: the blob fused publish of the
+serve plane and the chunk-cached remote reader.
 """
 
 from __future__ import annotations
@@ -71,8 +73,11 @@ class RouteCounts(object):
 #: ``pagescan_columns_total`` (columns served as views) and
 #: ``arrow_fallback_columns_total`` (columns decoded by Arrow C++); in a
 #: process pool's in-place mode also ``fused_inplace_batches_total`` (fused
-#: batches decoded straight into a ring slot). A process pool adds its
-#: workers' counts to the consumer's as they arrive
+#: batches decoded straight into a ring slot); for filtered reads
+#: ``fused_pred_batches_total``, ``fused_pred_pages_skipped_total`` and
+#: ``fused_pred_rows_selected``; ``fused_fallback_column:<name>:<reason>``
+#: names each column that was not fused. A process pool adds its workers'
+#: counts to the consumer's as they arrive
 read_routes = RouteCounts(('fused_batches_total', 'fused_columns_total', 'fused_fallback_total',
                            'pagescan_columns_total', 'arrow_fallback_columns_total'))
 
@@ -199,6 +204,14 @@ class NativeParquetFile(object):
                     if '.' not in self._pq_meta.schema.column(idx).path}
         return self._pq_meta
 
+    @property
+    def metadata(self):
+        """The file's footer as a ``pyarrow`` ``FileMetaData``, as
+        ``pq.ParquetFile.metadata`` gives it."""
+        if self._ensure_pq_meta() is False:
+            raise IOError('unreadable Parquet footer: {}'.format(self.path))
+        return self._pq_meta
+
     def _zerocopy_columns(self, i, columns):
         """``{name: ChunkedArray}`` of the columns servable as views over the
         mmapped file (``pagescan.py``); each view holds the mapping alive."""
@@ -256,6 +269,40 @@ class NativeParquetFile(object):
             return {}, list(columns)
         block, _reasons = fused.read_block(self._lib, self._fused_chunks(plan.columns), plan)
         return block, [c for c in columns if c not in block]
+
+    def read_fused_predicate(self, i, columns, pred_fields, clauses, schema_fields=None,
+                             decode_hints=None, resize_hints=None):
+        """Filtered fused read of one row group: the predicate's evaluation
+        (with min/max page-stat skipping), the row selection and the decode
+        of ONLY the surviving rows run in one GIL-released call. ``clauses``
+        is the ``PredicateBase.native_clauses()`` list. Returns ``(block,
+        rest, sel_mask, n_selected, pages_skipped)``, where the ``rest``
+        columns are for the caller to read through Arrow and filter with
+        ``sel_mask``; or None when the predicate or its columns cannot be
+        evaluated natively (reason ``predicate`` counted for each predicate
+        column) or the kernel declined."""
+        from petastorm_tpu_torch.native import fused
+        plan = self.fused_plan(i, columns, schema_fields, decode_hints, resize_hints,
+                               include_pagescan=True)
+        if plan is None or not plan.columns:
+            return None
+        got = fused.plan_predicate_columns(self._pq_meta, self._flat_index, i, pred_fields,
+                                           schema_fields)
+        if got is None:
+            fused.count_fallbacks({f: 'predicate' for f in pred_fields})
+            return None
+        pred_plans, pred_index = got
+        compiled = fused.compile_predicate(clauses, pred_index)
+        if isinstance(compiled, str):
+            fused.count_fallbacks({f: compiled for f in pred_fields})
+            return None
+        preds, keepalive = compiled
+        res = fused.read_block_pred(self._lib, self._fused_chunks(plan.columns), plan,
+                                    self._fused_chunks(pred_plans), pred_plans, preds, keepalive)
+        if res is None:
+            return None
+        block, _reasons, sel_mask, n_selected, pages_skipped = res
+        return block, [c for c in columns if c not in block], sel_mask, n_selected, pages_skipped
 
     def fused_read_into(self, plan, out_buf, offsets):
         """Run a prepared fused plan writing each column at its offset in

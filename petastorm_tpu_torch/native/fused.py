@@ -1,6 +1,6 @@
 """Fused native read→decode→collate: one native call per row group.
 
-Twin of ``petastorm_tpu/native/fused.py`` without its predicate half. It drives
+Twin of ``petastorm_tpu/native/fused.py``. It drives
 the ``pstpu_read_fused`` kernel (``rowgroup_reader.cpp``): a row group's
 qualifying column chunks are page-walked, decompressed (first-party snappy,
 ZSTD and LZ4), PLAIN- and dictionary/RLE-decoded, and written straight into
@@ -28,8 +28,17 @@ Two places the batch lands: a fresh heap buffer (:func:`read_block`), or, in
 the process pool's in-place mode, the shm-ring slot the consumer maps
 (:func:`read_into` over a reserved region, planned with
 ``include_pagescan=True`` so that the columns the page scan would serve as
-views are copied once, into the slot). Not ported yet: the predicate half
-(the "predicates/selectors/ngram" item).
+views are copied once, into the slot).
+
+The predicate half drives ``pstpu_read_fused_pred`` (:func:`read_block_pred`):
+the clauses of a predicate's ``native_clauses()`` are compiled onto
+``FusedPred`` descriptors (:func:`compile_predicate`), and one GIL-released
+call evaluates them over the predicate columns, skips whole pages whose
+min/max statistics exclude every row, and decodes only the selected rows of
+the output columns. It counts ``fused_pred_batches_total``,
+``fused_pred_pages_skipped_total`` and ``fused_pred_rows_selected``; a
+predicate the kernel cannot evaluate counts reason ``predicate`` for each of
+its columns.
 """
 
 from __future__ import annotations
@@ -73,6 +82,12 @@ CODEC_BY_NAME = {
     'LZ4_RAW': CODEC_LZ4_RAW,
     'LZ4': CODEC_LZ4,
 }
+
+# predicate ops / comparison dtypes: keep in sync with rowgroup_reader.cpp
+PRED_IN = 0
+PRED_RANGE = 1
+_PRED_DTYPE_CODES = {('i', 4): 0, ('i', 8): 1, ('u', 4): 2, ('u', 8): 3,
+                     ('f', 4): 4, ('f', 8): 5}
 
 #: native per-column status -> fallback reason label (rowgroup_reader.cpp)
 REASON_BY_STATUS = {
@@ -120,12 +135,40 @@ class FusedColStruct(ctypes.Structure):
     ]
 
 
+class FusedPredStruct(ctypes.Structure):
+    """Field-for-field mirror of ``struct FusedPred`` (the batch-buffer ABI)."""
+
+    _fields_ = [
+        ('values', ctypes.c_void_p),
+        ('values_cap', ctypes.c_uint64),
+        ('count', ctypes.c_int64),
+        ('col', ctypes.c_int32),
+        ('op', ctypes.c_int32),
+        ('dtype', ctypes.c_int32),
+        ('negate', ctypes.c_int32),
+        ('has_lo', ctypes.c_int32),
+        ('has_hi', ctypes.c_int32),
+        ('lo_incl', ctypes.c_int32),
+        ('hi_incl', ctypes.c_int32),
+        ('status', ctypes.c_int32),
+        ('pages_skipped', ctypes.c_int32),
+    ]
+
+
 def register_abi(lib):
-    """ctypes signature of the fused entry point (called by the loader)."""
+    """ctypes signatures of the fused entry points (called by the loader)."""
     lib.pstpu_read_fused.restype = ctypes.c_longlong
     lib.pstpu_read_fused.argtypes = [
         ctypes.POINTER(FusedColStruct), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.pstpu_read_fused_pred.restype = ctypes.c_longlong
+    lib.pstpu_read_fused_pred.argtypes = [
+        ctypes.POINTER(FusedColStruct), ctypes.c_int,
+        ctypes.POINTER(FusedColStruct), ctypes.c_int,
+        ctypes.POINTER(FusedPredStruct), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong)]
 
 
 class ColumnPlan(object):
@@ -392,14 +435,145 @@ def plan_row_group(pq_meta, flat_index, row_group, column_names, schema_fields,
 
 
 def count_fallbacks(reasons):
-    """One ``fused_fallback_total`` and one ``fused_fallback_reason:<reason>``
-    per column that was not fused. ``pagescan`` is not a fallback: those
-    columns are served as views."""
-    for reason in reasons.values():
+    """One ``fused_fallback_total``, one ``fused_fallback_reason:<reason>``
+    and one ``fused_fallback_column:<name>:<reason>`` per column that was not
+    fused. ``pagescan`` is not a fallback: those columns are served as
+    views."""
+    for name, reason in reasons.items():
         if reason == 'pagescan':
             continue
         read_routes.add('fused_fallback_total')
         read_routes.add('fused_fallback_reason:{}'.format(reason))
+        read_routes.add('fused_fallback_column:{}:{}'.format(name, reason))
+
+
+def _pred_domain(plan):
+    """``(dtype_code, comparison dtype, logical dtype)`` for one predicate
+    column plan, or None when the column's values cannot be compared natively
+    (binary modes, FLBA tensors, non-numeric logicals). Integer comparisons
+    run at the PHYSICAL width; they go unsigned only when the logical dtype is
+    unsigned at full physical width: narrower unsigned logicals zero-extend
+    into the positive signed range, where the signed compare is already
+    exact."""
+    phys = plan.phys_dtype
+    if plan.mode != MODE_FIXED or phys is None or phys.itemsize != plan.itemsize:
+        return None
+    logical = plan.field_dtype or phys
+    if logical.kind == 'u' and logical.itemsize == phys.itemsize:
+        cmp_dtype = np.dtype('u{}'.format(phys.itemsize))
+    else:
+        cmp_dtype = phys
+    code = _PRED_DTYPE_CODES.get((cmp_dtype.kind, cmp_dtype.itemsize))
+    if code is None:
+        return None
+    return code, cmp_dtype, logical
+
+
+def _pred_operand(value, logical, cmp_dtype):
+    """``value`` encoded as ``cmp_dtype`` bytes, or None when it is not
+    EXACTLY representable in the column's logical domain: the native compare
+    must agree bit for bit with the numpy route, so a rounding cast is never
+    acceptable."""
+    try:
+        v0 = np.asarray(value)
+        if v0.shape != () or v0.dtype.kind not in 'iufb':
+            return None
+        with np.errstate(all='ignore'):
+            c = v0.astype(logical)
+            if not bool(c == v0):
+                return None
+            return c.astype(cmp_dtype).tobytes()
+    except (TypeError, ValueError, OverflowError):
+        return None
+
+
+def compile_predicate(clauses, pred_index):
+    """Map the clause dicts of ``PredicateBase.native_clauses`` onto a ctypes
+    ``FusedPred`` array. ``pred_index`` maps a predicate column's name to
+    ``(descriptor index, ColumnPlan)``. Returns ``(preds, keepalive)``, the
+    struct array and the operand buffers it points into (they MUST stay
+    referenced across the kernel call), or the string ``'predicate'`` when a
+    clause's shape is not natively evaluable (the caller counts the fallback
+    and takes the Python predicate route)."""
+    entries = []
+    keepalive = []
+    for cl in clauses or ():
+        hit = pred_index.get(cl.get('field'))
+        if hit is None:
+            return 'predicate'
+        idx, plan = hit
+        dom = _pred_domain(plan)
+        if dom is None:
+            return 'predicate'
+        code, cmp_dtype, logical = dom
+        w = cmp_dtype.itemsize
+        e = {'col': idx, 'dtype': code, 'negate': 1 if cl.get('negate') else 0,
+             'has_lo': 0, 'has_hi': 0, 'lo_incl': 0, 'hi_incl': 0}
+        op = cl.get('op')
+        if op == 'in':
+            packed = set()
+            for v in cl.get('values', ()):
+                b = _pred_operand(v, logical, cmp_dtype)
+                # an unrepresentable operand can never equal a column value:
+                # dropping it is exact, as the numpy route agrees
+                if b is not None:
+                    packed.add(b)
+            data = b''.join(sorted(packed))
+            buf = np.frombuffer(bytearray(data or b'\x00'), dtype=np.uint8)
+            e.update(op=PRED_IN, count=len(data) // w, values=buf)
+        elif op == 'range':
+            bounds = []
+            for key, flag, incl in (('lo', 'has_lo', 'lo_incl'), ('hi', 'has_hi', 'hi_incl')):
+                v = cl.get(key)
+                if v is None:
+                    bounds.append(b'\x00' * w)
+                    continue
+                b = _pred_operand(v, logical, cmp_dtype)
+                if b is None:
+                    return 'predicate'
+                bounds.append(b)
+                e[flag] = 1
+                e[incl] = 1 if cl.get(key + '_incl', True) else 0
+            buf = np.frombuffer(bytearray(b''.join(bounds)), dtype=np.uint8)
+            e.update(op=PRED_RANGE, count=0, values=buf)
+        else:
+            return 'predicate'
+        keepalive.append(e['values'])
+        entries.append(e)
+    if not entries:
+        return 'predicate'
+    preds = (FusedPredStruct * len(entries))()
+    for p, e in zip(preds, entries):
+        buf = e['values']
+        p.values = buf.ctypes.data
+        p.values_cap = buf.nbytes
+        p.count = e['count']
+        p.col = e['col']
+        p.op = e['op']
+        p.dtype = e['dtype']
+        p.negate = e['negate']
+        p.has_lo = e['has_lo']
+        p.has_hi = e['has_hi']
+        p.lo_incl = e['lo_incl']
+        p.hi_incl = e['hi_incl']
+    return preds, keepalive
+
+
+def plan_predicate_columns(pq_meta, flat_index, row_group, pred_fields, schema_fields):
+    """ColumnPlans of the predicate columns (always planned with
+    ``include_pagescan``: a view cannot gate the collation) and the
+    name -> (descriptor index, plan) map :func:`compile_predicate` takes.
+    None when a predicate column does not qualify natively."""
+    plan = plan_row_group(pq_meta, flat_index, row_group, list(pred_fields), schema_fields,
+                          include_pagescan=True)
+    if plan is None or plan.rest:
+        return None
+    index = {}
+    for i, p in enumerate(plan.columns):
+        if _pred_domain(p) is None:
+            return None
+        index[p.name] = (i, p)
+    return plan.columns, index
 
 
 def _invoke_read_fused(lib, descs, n_cols, n_threads, img_probe, img_decode):
@@ -490,6 +664,160 @@ def read_block(lib, chunks, plan):
         read_routes.add('fused_batches_total')
     count_fallbacks({n: r for n, r in reasons.items() if n not in block})
     return block, reasons
+
+
+def _invoke_read_fused_pred(lib, descs, n_cols, pred_descs, n_pred_cols, preds, n_preds,
+                            sel_ptr, sel_cap, total_rows, n_threads, img_probe, img_decode,
+                            out_selected, out_skipped):
+    """THE single Python->C transition of a filtered fused batch: predicate
+    evaluation, page-stat skipping and the selected rows' collation all run
+    in this one GIL-released call. Kept apart so a test can count the
+    calls."""
+    return lib.pstpu_read_fused_pred(
+        descs, n_cols, pred_descs, n_pred_cols, preds, n_preds, sel_ptr, sel_cap, total_rows,
+        n_threads, MAX_PAGES, img_probe, img_decode, out_selected, out_skipped)
+
+
+def _fill_desc(d, plan, chunk, out_ptr, out_cap, aux, expected_rows):
+    d.chunk = chunk.ctypes.data
+    d.chunk_len = plan.chunk_len
+    d.out = out_ptr
+    d.out_cap = out_cap
+    if aux is not None:
+        d.aux_buf = aux.ctypes.data
+        d.aux_cap = aux.nbytes
+    d.expected_rows = expected_rows
+    d.mode = plan.mode
+    d.codec = plan.codec
+    d.itemsize = plan.itemsize
+    d.has_def_levels = 1 if plan.has_def else 0
+    d.strip_npy = 1 if plan.strip_npy else 0
+    if plan.img is not None:
+        d.img_h, d.img_w, d.img_c = plan.img
+    d.status = 0
+
+
+def _narrow_plan(plan, full_rows, n_selected):
+    """Shallow copy of ``plan`` with the row-dependent bounds rescaled from
+    the planned full row group to the ``n_selected`` rows the gather kept."""
+    q = ColumnPlan(plan.name)
+    for slot in ColumnPlan.__slots__:
+        setattr(q, slot, getattr(plan, slot))
+    if plan.out_shape is not None:
+        q.out_shape = (n_selected,) + tuple(plan.out_shape[1:])
+    if plan.known_size and full_rows:
+        q.out_bound = plan.out_bound // full_rows * n_selected
+    return q
+
+
+def read_block_pred(lib, chunks, plan, pred_chunks, pred_plans, preds, keepalive):
+    """Filtered fused batch: evaluate the compiled predicate clauses over the
+    predicate column chunks (skipping whole pages by their min/max
+    statistics first), then collate ONLY the selected rows of every output
+    column, in one GIL-released call.
+
+    Returns ``(block, reasons, sel_mask, n_selected, pages_skipped)``, where
+    ``sel_mask`` is the boolean row mask over the full row group that the
+    caller filters the other routes' columns with; or None when the kernel
+    declined (a clause or a predicate column failed natively): the caller
+    then takes the unfused predicate route for the whole block."""
+    rows = plan.expected_rows
+    offsets, total = [], 0
+    for p in plan.columns:
+        offsets.append(total)
+        total += p.out_bound
+    out = np.empty(total, dtype=np.uint8)
+    n = len(plan.columns)
+    npred = len(pred_plans)
+    if n == 0 or npred == 0 or len(preds) == 0:
+        return None
+    descs = (FusedColStruct * n)()
+    pred_descs = (FusedColStruct * npred)()
+    aux_bufs = []
+    has_img = any(p.mode == MODE_BINARY_IMG for p in plan.columns)
+    probe_addr = decode_addr = None
+    if has_img:
+        from petastorm_tpu_torch.native import image_codec
+        addrs = image_codec.batch_fn_addrs()
+        if addrs is None:
+            return None
+        probe_addr, decode_addr = addrs
+    for i, p in enumerate(plan.columns):
+        aux = np.zeros(_AUX_BYTES, dtype=np.uint8)
+        aux_bufs.append(aux)
+        chunk = chunks[i]
+        if chunk is None or chunk.nbytes != p.chunk_len:
+            return None
+        _fill_desc(descs[i], p, chunk, out.ctypes.data + offsets[i], p.out_bound, aux, rows)
+    for i, p in enumerate(pred_plans):
+        chunk = pred_chunks[i]
+        if chunk is None or chunk.nbytes != p.chunk_len:
+            return None
+        _fill_desc(pred_descs[i], p, chunk, None, 0, None, rows)
+    sel = np.zeros((rows + 7) // 8 or 1, dtype=np.uint8)
+    out_selected = ctypes.c_longlong(0)
+    out_skipped = ctypes.c_longlong(0)
+    if has_img:
+        from petastorm_tpu_torch.native import image_codec
+        with image_codec._thread_grant(None) as grant:
+            for i in range(n):
+                descs[i].img_threads = grant
+            ret = _invoke_read_fused_pred(
+                lib, descs, n, pred_descs, npred, preds, len(preds), sel.ctypes.data, sel.nbytes,
+                rows, _column_threads(n), probe_addr, decode_addr, ctypes.byref(out_selected),
+                ctypes.byref(out_skipped))
+    else:
+        ret = _invoke_read_fused_pred(
+            lib, descs, n, pred_descs, npred, preds, len(preds), sel.ctypes.data, sel.nbytes,
+            rows, _column_threads(n), None, None, ctypes.byref(out_selected),
+            ctypes.byref(out_skipped))
+    # chunks, aux_bufs and the keepalive operand buffers were anchored
+    # through the call
+    del keepalive
+    # the return counts FAILED OUTPUT COLUMNS: those fall back one by one to
+    # the Arrow route below, as in the unfiltered read. Only a failed
+    # predicate stage (a clause or a predicate column with a nonzero status)
+    # voids the selection itself, and with it the whole block.
+    if ret < 0:
+        return None
+    if any(pred_descs[i].status != 0 for i in range(npred)):
+        return None
+    if any(pr.status != 0 for pr in preds):
+        return None
+    n_selected = int(out_selected.value)
+    pages_skipped = int(out_skipped.value)
+    sel_mask = np.unpackbits(sel, bitorder='little')[:rows].astype(bool)
+    block = {}
+    reasons = dict(plan.reasons)
+    if n_selected == 0:
+        for p in plan.columns:
+            if p.out_shape is None:
+                # npy-stripped cells: the row shape shows only in a decoded
+                # cell, and there is none; Arrow serves the column (zero rows
+                # either way)
+                reasons[p.name] = 'post-validate'
+                continue
+            dtype = p.field_dtype if p.field_dtype is not None else p.out_dtype
+            block[p.name] = np.empty((0,) + tuple(p.out_shape[1:]), dtype=dtype)
+    else:
+        for i, p in enumerate(plan.columns):
+            res = (descs[i].status, descs[i].out_used, descs[i].aux0, descs[i].aux1,
+                   bytes(aux_bufs[i][:descs[i].aux1]) if descs[i].aux1 else b'')
+            col = build_column(_narrow_plan(p, rows, n_selected), res, out, offsets[i],
+                               n_selected)
+            if col is None:
+                reasons[p.name] = REASON_BY_STATUS.get(res[0], 'post-validate')
+            else:
+                block[p.name] = col
+    count_fallbacks({n: r for n, r in reasons.items() if n not in block})
+    if not block:
+        return None  # nothing fused: the unfused predicate route is simpler
+    read_routes.add('fused_pred_batches_total')
+    read_routes.add('fused_pred_pages_skipped_total', pages_skipped)
+    read_routes.add('fused_pred_rows_selected', n_selected)
+    read_routes.add('fused_columns_total', len(block))
+    read_routes.add('fused_batches_total')
+    return block, reasons, sel_mask, n_selected, pages_skipped
 
 
 def _column_threads(n_cols):

@@ -1,21 +1,27 @@
 """Reader factory and orchestrator: the framework's main read path.
 
 Trimmed twin of ``make_reader`` / ``Reader`` in ``petastorm_tpu/reader.py``:
-list the row groups, select columns, shard round-robin, ventilate
-(piece index) items in the seeded per-epoch order into a thread, process or
-dummy pool, and deliver rows or per-row-group column blocks, optionally
-through a local-disk cache of decoded blocks. For a given seed the
-row-group order is the JAX package's. The arguments of the JAX
-``make_reader`` that are not ported yet raise :class:`NotImplementedError`
-naming their ROADMAP item when given a non-default value.
+list the row groups, select columns, filter the row groups through a
+row-group selector's stored indexes, then a predicate (row groups of a
+partition key; never, while hive stores are not ported), shard round-robin,
+ventilate one item per (row group, shuffle-row-drop partition) in the seeded
+per-epoch order into a thread, process or dummy pool, and deliver rows or
+column blocks, optionally through a local-disk cache of decoded blocks. The
+workers filter rows by the predicate. For a given seed the item order is the
+JAX package's. The arguments of the JAX ``make_reader`` that are not ported
+yet raise :class:`NotImplementedError` naming their ROADMAP item when given a
+non-default value.
 """
 
 from __future__ import annotations
+
+import pickle
 
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import BatchResultsQueueReader
 from petastorm_tpu_torch.errors import EmptyResultError, NoDataAvailableError, PetastormTpuError
 from petastorm_tpu_torch.etl import dataset_metadata
+from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
 from petastorm_tpu_torch.fs import FilesystemResolver
 from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
 from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker, RowResultsQueueReader
@@ -31,10 +37,7 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 #: make_reader arguments of the JAX package not ported yet:
 #: name -> (JAX default, ROADMAP item that ports it)
 _NOT_YET_PORTED = {
-    'shuffle_row_drop_partitions': (1, 'predicates/selectors/ngram'),
-    'predicate': (None, 'predicates/selectors/ngram'),
-    'rowgroup_selector': (None, 'predicates/selectors/ngram'),
-    'ngram': (None, 'predicates/selectors/ngram'),
+    'ngram': (None, 'long context'),
     'batch_size': (None, 'loader state_dict/resume'),
     'drop_last': (False, 'loader state_dict/resume'),
     'resume_state': (None, 'loader state_dict/resume'),
@@ -76,6 +79,36 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, serializer=N
         reader_pool_type))
 
 
+def build_work_items(num_pieces, shuffle_row_drop_partitions, worker_predicate):
+    """The ventilation item list of a filtered piece set, the JAX package's
+    (``petastorm_tpu/serve/plan.py``): one kwargs dict per (piece, row-drop
+    partition), carrying the worker predicate when one is left after the
+    piece-level pushdown."""
+    items = []
+    for piece_index in range(num_pieces):
+        for drop_part in range(shuffle_row_drop_partitions):
+            item = {'piece_index': piece_index}
+            if worker_predicate is not None:
+                item['worker_predicate'] = worker_predicate
+            if shuffle_row_drop_partitions > 1:
+                item['shuffle_row_drop_partition'] = (drop_part, shuffle_row_drop_partitions)
+            items.append(item)
+    return items
+
+
+def _check_picklable(predicate):
+    """A process pool's items reach its spawned workers pickled: refuse a
+    predicate that cannot be (a lambda, a local function) before any item is
+    sent, where the ventilator's thread would otherwise fail unseen."""
+    try:
+        pickle.dumps(predicate)
+    except (pickle.PicklingError, AttributeError, TypeError) as e:
+        raise pickle.PicklingError(
+            'predicate {!r} cannot be pickled for the process pool\'s spawned workers ({}); '
+            'define its functions at module level, or read with '
+            "reader_pool_type='thread'".format(predicate, e)) from e
+
+
 def _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate):
     if cache_type in (None, 'null'):
         return NullCache()
@@ -95,7 +128,9 @@ def make_reader(dataset_url,
                 schema_fields=None,
                 reader_pool_type='thread', workers_count=10, results_queue_size=50,
                 seed=None,
-                shuffle_row_groups=True,
+                shuffle_row_groups=True, shuffle_row_drop_partitions=1,
+                predicate=None,
+                rowgroup_selector=None,
                 num_epochs=1,
                 cur_shard=None, shard_count=None,
                 cache_type='null', cache_location=None, cache_size_limit=None,
@@ -113,6 +148,17 @@ def make_reader(dataset_url,
         :class:`~petastorm_tpu_torch.workers.ProcessPool`) or ``'dummy'``
         (the consumer thread)
     :param seed: seeds the per-epoch row-group shuffle; ``None`` = nondeterministic
+    :param shuffle_row_drop_partitions: split each row group into this many
+        contiguous row slices, each its own work item (more items shuffled
+        per epoch, fewer rows of one row group in a row); every row is still
+        read once per epoch
+    :param predicate: a :class:`~petastorm_tpu_torch.predicates.PredicateBase`
+        row filter, evaluated by the workers (natively, with page-stat
+        skipping, where its ``native_clauses`` allow)
+    :param rowgroup_selector: a
+        :class:`~petastorm_tpu_torch.selectors.RowGroupSelectorBase` that
+        keeps the row groups its stored indexes name
+        (:func:`~petastorm_tpu_torch.etl.build_rowgroup_index`)
     :param num_epochs: passes over the dataset; ``None`` = infinite
     :param cur_shard/shard_count: keep row groups where
         ``index % shard_count == cur_shard``
@@ -170,7 +216,9 @@ def make_reader(dataset_url,
     results_reader = BatchResultsQueueReader if output == 'columnar' else RowResultsQueueReader
     cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
     return Reader(dataset_url, schema, pool, results_reader, schema_fields=schema_fields,
-                  seed=seed, shuffle_row_groups=shuffle_row_groups, num_epochs=num_epochs,
+                  seed=seed, shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
+                  rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec)
 
@@ -178,17 +226,21 @@ def make_reader(dataset_url,
 class Reader(object):
     """Orchestrates piece listing, sharding, the ventilator and the pool."""
 
-    #: NGram windows are not ported; the loader reads this attribute
+    #: NGram windows are not ported (the long-context item); the loader
+    #: reads this attribute
     ngram = None
 
     def __init__(self, dataset_url, schema, pool, results_reader_factory, schema_fields=None,
-                 seed=None, shuffle_row_groups=True, num_epochs=1, cur_shard=None,
+                 seed=None, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
+                 predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=NullCache(), transform_spec=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
             raise ValueError('cur_shard {} out of range for shard_count {}'.format(
                 cur_shard, shard_count))
+        if shuffle_row_drop_partitions < 1:
+            raise ValueError('shuffle_row_drop_partitions must be >= 1')
         self.schema = schema
         #: the decoded-block cache (``stats()`` counts its hits and misses)
         self.cache = cache
@@ -200,16 +252,24 @@ class Reader(object):
         self.transformed_schema = (transform_schema(output_schema, transform_spec)
                                    if transform_spec is not None else output_schema)
 
+        # selector (its index sets refer to the unfiltered enumeration, so it
+        # runs first) -> predicate -> shard
         pieces = dataset_metadata.load_row_groups(dataset_url)
+        if rowgroup_selector is not None:
+            pieces = self._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector)
+        pieces, worker_predicate = self._apply_predicate_to_pieces(pieces, predicate)
         if cur_shard is not None:
             pieces = [p for i, p in enumerate(pieces) if i % shard_count == cur_shard]
         if not pieces:
             raise NoDataAvailableError(
-                'No row groups selected for reading (dataset={}, shard {}/{}). Reduce '
-                'shard_count.'.format(dataset_url, cur_shard, shard_count))
+                'No row groups selected for reading (dataset={}, shard {}/{}). Check predicate/'
+                'selector, or reduce shard_count.'.format(dataset_url, cur_shard, shard_count))
+        if worker_predicate is not None and isinstance(pool, ProcessPool):
+            _check_picklable(worker_predicate)
         self._pieces = pieces
         self._ventilator = ConcurrentVentilator(
-            pool.ventilate, [{'piece_index': i} for i in range(len(pieces))],
+            pool.ventilate, build_work_items(len(pieces), shuffle_row_drop_partitions,
+                                             worker_predicate),
             iterations=num_epochs,
             max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
             randomize_item_order=shuffle_row_groups, random_seed=seed)
@@ -226,6 +286,34 @@ class Reader(object):
                     'transform_spec': transform_spec,
                     'transformed_schema': self.transformed_schema},
                    ventilator=self._ventilator)
+
+    @staticmethod
+    def _apply_predicate_to_pieces(pieces, predicate):
+        """Piece-level pushdown: when every predicate field is a partition
+        key, whole pieces are dropped with no I/O and no worker predicate is
+        left. Pieces carry no partition keys while hive stores are not
+        ported, so the workers always filter."""
+        if predicate is None:
+            return pieces, None
+        predicate_fields = set(predicate.get_fields())
+        if pieces and predicate_fields and all(
+                predicate_fields <= set(p.partition_keys) for p in pieces):
+            kept = [p for p in pieces
+                    if predicate.do_include({f: p.partition_keys[f] for f in predicate_fields})]
+            return kept, None
+        return pieces, predicate
+
+    @staticmethod
+    def _apply_rowgroup_selector(dataset_url, pieces, selector):
+        """Filter pieces through the stored row-group indexes. Their index
+        sets refer to the unfiltered piece enumeration, so this runs before
+        any other filter."""
+        indexes = get_row_group_indexes(dataset_url)
+        for name in selector.get_index_names():
+            if name not in indexes:
+                raise PetastormTpuError('Index {!r} does not exist in the dataset'.format(name))
+        selected = selector.select_row_groups(indexes)
+        return [p for i, p in enumerate(pieces) if i in selected]
 
     @property
     def batched_output(self):

@@ -1,28 +1,37 @@
 """Row-group decode worker: loads ONE row group per task, decodes by column.
 
-Trimmed twin of ``RowGroupDecoderWorker.process`` in
-``petastorm_tpu/row_worker.py``. Each task opens its file through
-:func:`~petastorm_tpu_torch.native.open_parquet` (the native reader for a
-local file, else ``pyarrow.parquet``) and serves the row group's columns in
-the JAX package's order: first the columns the fused native read decodes in
-one call (:meth:`NativeParquetFile.read_fused`), adopted as they are; then
-the rest through ``read_row_group``, which gives page-scan views where it can
-and Arrow C++ for the others, each decoded through its codec: image codecs
-take the decode hints and the resize target of the ``TransformSpec``
-(``decode_column``, then ``decode_batch``), other codecs their whole-column
-``decode_column``, and per-cell ``decode`` + stack when that declines. The
-decoded block goes through the reader's cache (keyed by piece, columns,
-decode hints and resize target), then the optional transform runs and one
-column block is published.
+Twin of ``RowGroupDecoderWorker.process`` in ``petastorm_tpu/row_worker.py``.
+Each task opens its file through :func:`~petastorm_tpu_torch.native.open_parquet`
+(the native reader for a local file, else ``pyarrow.parquet``) and serves the
+row group's columns in the JAX package's order: first the columns the fused
+native read decodes in one call (:meth:`NativeParquetFile.read_fused`),
+adopted as they are; then the rest through ``read_row_group``, which gives
+page-scan views where it can and Arrow C++ for the others, each decoded
+through its codec: image codecs take the decode hints and the resize target
+of the ``TransformSpec`` (``decode_column``, then ``decode_batch``), other
+codecs their whole-column ``decode_column``, and per-cell ``decode`` + stack
+when that declines. The decoded block goes through the reader's cache (keyed
+by piece, columns, decode hints and resize target), then the optional
+transform runs and one column block is published.
+
+A work item may carry a predicate (``worker_predicate``) and a
+shuffle-row-drop partition (``shuffle_row_drop_partition``). With a
+predicate, the fused native read evaluates it, skips pages by their
+statistics and decodes only the surviving rows in one call
+(:meth:`RowGroupDecoderWorker._fused_predicate_block`); where it cannot, the
+predicate columns are read and decoded first, the mask evaluated, and the
+other columns read for the surviving rows only (Arrow ``take``). A partition
+keeps one of ``n`` contiguous slices of the row group's rows. Filtered and
+divided items bypass the cache and the in-place publish; an item that keeps
+no row publishes nothing.
 
 In a process pool on the shm transport the publish function offers
-``reserve_block``: with no transform and no cache (the JAX package's gate;
-predicates and NGram windows are not ported), the whole row group is then
-decoded by the fused native call straight into the ring slot the consumer
-maps, page-scan columns included, and published with a header write
-(:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not ported yet:
-predicates, NGram windows, shuffle-row-drop partitions and the serve plane's
-fused blob publish.
+``reserve_block``: with no transform, no cache, no predicate and no
+partition (the JAX package's gate; NGram windows are not ported), the whole
+row group is then decoded by the fused native call straight into the ring
+slot the consumer maps, page-scan columns included, and published with a
+header write (:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not
+ported yet: NGram windows and the serve plane's fused blob publish.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ import numpy as np
 
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import (block_num_rows, block_to_rows, column_cells,
-                                          rows_to_block, stack_cells)
+                                          rows_to_block, stack_cells, take_block)
 from petastorm_tpu_torch.native import open_parquet, read_routes
+from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
 
 logger = logging.getLogger(__name__)
@@ -57,6 +67,25 @@ def _cache_key(dataset_path, piece, column_names, decode_hints=None, resize_hint
     # 'b1': the payloads are column blocks, as the JAX package's
     return '{}:{}:rg{}:b1:{}'.format(
         hashlib.md5(dataset_path.encode()).hexdigest(), piece.path, piece.row_group, cols)
+
+
+def select_row_drop_indices(num_rows, partition_spec, ngram=None):
+    """Row indices kept for one shuffle-row-drop partition.
+
+    ``partition_spec`` is ``(partition_index, num_partitions)``. With an NGram,
+    each partition spills over by ``length - 1`` rows so windows spanning the
+    partition boundary are not lost (kept for the long-context item, which
+    ports NGram windows).
+    """
+    if partition_spec is None:
+        return np.arange(num_rows)
+    part, n_parts = partition_spec
+    chunks = np.array_split(np.arange(num_rows), n_parts)
+    chunk = chunks[part]
+    if ngram is not None and len(chunk) and chunk[-1] < num_rows - 1:
+        spill = np.arange(chunk[-1] + 1, min(chunk[-1] + ngram.length, num_rows))
+        chunk = np.concatenate([chunk, spill])
+    return chunk
 
 
 class RowGroupDecoderWorker(WorkerBase):
@@ -81,29 +110,36 @@ class RowGroupDecoderWorker(WorkerBase):
             pf.close()
         self._open_files.clear()
 
-    def process(self, piece_index):
+    def process(self, piece_index, worker_predicate=None, shuffle_row_drop_partition=None):
         args = self.args
         piece = args['pieces'][piece_index]
         names = list(args['output_schema'].fields)
         transform = args['transform_spec']
-        if (transform is None and isinstance(args['cache'], NullCache)
-                and self._publish_fused_inplace(piece, names)):
-            # the batch was decoded into the ring slot the consumer maps
+        cache = args['cache']
+        if worker_predicate is None and shuffle_row_drop_partition is None:
+            if (transform is None and isinstance(cache, NullCache)
+                    and self._publish_fused_inplace(piece, names)):
+                # the batch was decoded into the ring slot the consumer maps
+                return
+            key = _cache_key(args['dataset_path'], piece, names,
+                             getattr(transform, 'image_decode_hints', None),
+                             getattr(transform, 'image_resize', None))
+            # the cache holds decoded (and resized) blocks, taken before the
+            # transform, which runs on every pass
+            block = cache.get(key, lambda: self._load_block(piece, names))
+        elif worker_predicate is not None:
+            block = self._load_block_with_predicate(piece, names, worker_predicate,
+                                                    shuffle_row_drop_partition)
+        else:
+            block = self._load_block(piece, names, shuffle_row_drop_partition)
+        if block is None or block_num_rows(block) == 0:
             return
-        decode_hints = getattr(transform, 'image_decode_hints', None) or {}
-        resize_hints = getattr(transform, 'image_resize', None) or {}
-        key = _cache_key(args['dataset_path'], piece, names, decode_hints, resize_hints)
-        # the cache holds decoded (and resized) blocks, taken before the
-        # transform, which runs on every pass
-        block = args['cache'].get(key, lambda: self._load_block(
-            piece, names, decode_hints, resize_hints,
-            writable=transform is not None and transform.func is not None))
         if transform is not None:
             block = self._apply_transform(block, transform)
         if block and block_num_rows(block):
             self.publish(block)
 
-    def _fused_columns(self, piece, names, decode_hints, resize_hints):
+    def _fused_columns(self, piece, names):
         """``{name: decoded column}`` of the columns the fused native read
         serves in one call; ``{}`` when none qualifies, on the pyarrow route,
         or when the native read fails (the other routes then serve them all).
@@ -111,9 +147,11 @@ class RowGroupDecoderWorker(WorkerBase):
         pf = self._parquet_file(piece.path)
         if not hasattr(pf, 'read_fused'):
             return {}
+        transform = self.args.get('transform_spec')
         try:
             block, _rest = pf.read_fused(piece.row_group, names, self.args['schema'].fields,
-                                         decode_hints, resize_hints)
+                                         getattr(transform, 'image_decode_hints', None),
+                                         getattr(transform, 'image_resize', None))
         except Exception:  # noqa: BLE001 - any surprise: the Arrow route serves it all
             logger.warning('fused read of %s rg=%s failed; Arrow route', piece.path,
                            piece.row_group, exc_info=True)
@@ -171,12 +209,38 @@ class RowGroupDecoderWorker(WorkerBase):
         read_routes.add('fused_inplace_batches_total')
         return True
 
-    def _load_block(self, piece, names, decode_hints, resize_hints, writable):
-        pre = self._fused_columns(piece, names, decode_hints, resize_hints)
+    def _num_rows(self, piece):
+        if piece.num_rows is not None:
+            return piece.num_rows
+        return self._parquet_file(piece.path).metadata.row_group(piece.row_group).num_rows
+
+    def _read_table(self, piece, names, row_indices=None):
+        """The named columns of the piece's row group as an Arrow table, only
+        the rows ``row_indices`` when given."""
+        table = self._parquet_file(piece.path).read_row_group(piece.row_group, columns=names)
+        return table.take(row_indices) if row_indices is not None else table
+
+    def _load_block(self, piece, names, shuffle_row_drop_partition=None):
+        indices = None
+        if shuffle_row_drop_partition is not None:
+            indices = select_row_drop_indices(self._num_rows(piece), shuffle_row_drop_partition)
+        # a row subset needs Arrow's take; the whole row group serves fused
+        # columns first and Arrow only the rest
+        pre = self._fused_columns(piece, names) if indices is None else {}
         rest = [name for name in names if name not in pre]
-        table = (self._parquet_file(piece.path).read_row_group(piece.row_group, columns=rest)
-                 if rest else None)
+        table = self._read_table(piece, rest, indices) if rest else None
+        return self._decode_table(table, names, pre)
+
+    def _decode_table(self, table, names, pre=None):
+        """Arrow table -> column block. Columns the fused read decoded
+        (``pre``) are adopted as they are; ``table`` may be None when ``pre``
+        covers every column."""
         schema = self.args['schema']
+        transform = self.args.get('transform_spec')
+        decode_hints = getattr(transform, 'image_decode_hints', None) or {}
+        resize_hints = getattr(transform, 'image_resize', None) or {}
+        writable = transform is not None and transform.func is not None
+        pre = pre or {}
         block = {}
         for name in names:
             if name in pre:
@@ -206,6 +270,86 @@ class RowGroupDecoderWorker(WorkerBase):
                 decoded = decoded.copy()
             block[name] = decoded
         return block
+
+    def _fused_predicate_block(self, pf, piece, names, predicate_fields, predicate,
+                               drop_indices):
+        """Native predicate pushdown: clause evaluation, min/max page-stat
+        skipping, row selection and the decode of ONLY the surviving rows run
+        in one GIL-released fused call; Arrow reads just the columns the
+        kernel cannot serve, their rows filtered by the same selection.
+        Returns the decoded block (``{}`` when no row survives), or None when
+        the predicate or its columns are not natively evaluable: the caller
+        then takes the Python route."""
+        if not hasattr(pf, 'read_fused_predicate'):
+            return None
+        clauses = getattr(predicate, 'native_clauses', lambda: None)()
+        if clauses is None:
+            return None
+        schema = self.args['schema']
+        if any(f in piece.partition_keys or f not in schema.fields for f in predicate_fields):
+            return None
+        transform = self.args.get('transform_spec')
+        try:
+            res = pf.read_fused_predicate(piece.row_group, names, predicate_fields, clauses,
+                                          schema.fields,
+                                          getattr(transform, 'image_decode_hints', None),
+                                          getattr(transform, 'image_resize', None))
+        except Exception:  # noqa: BLE001 - any surprise: the Python route serves it
+            logger.warning('fused predicate read of %s rg=%s failed; Python route', piece.path,
+                           piece.row_group, exc_info=True)
+            return None
+        if res is None:
+            return None
+        block, _rest, sel_mask, _n_selected, _pages_skipped = res
+        kept_global = np.flatnonzero(sel_mask)
+        if drop_indices is not None:
+            # the kernel selected over the WHOLE row group: narrow the fused
+            # block and the surviving rows' indices to this partition
+            keep = np.isin(kept_global, drop_indices)
+            block = take_block(block, np.flatnonzero(keep))
+            kept_global = kept_global[keep]
+        if not len(kept_global):
+            return {}
+        remaining = [name for name in names if name not in block]
+        rem_block = (self._decode_table(self._read_table(piece, remaining, kept_global),
+                                        remaining) if remaining else {})
+        return {name: (block[name] if name in block else rem_block[name]) for name in names}
+
+    def _load_block_with_predicate(self, piece, names, predicate, shuffle_row_drop_partition):
+        """Predicate pushdown: the fused native route where it applies, else
+        decode the predicate columns first, mask, leave early when no row
+        survives, then read and decode the other columns for the surviving
+        rows only."""
+        predicate_fields = sorted(predicate.get_fields())
+        schema = self.args['schema']
+        unknown = [f for f in predicate_fields
+                   if f not in schema.fields and f not in piece.partition_keys]
+        if unknown:
+            raise ValueError('Predicate fields {} are not in the dataset schema'.format(unknown))
+        pf = self._parquet_file(piece.path)
+        num_rows = self._num_rows(piece)
+        drop_indices = select_row_drop_indices(num_rows, shuffle_row_drop_partition)
+        fast = self._fused_predicate_block(pf, piece, names, predicate_fields, predicate,
+                                           drop_indices if shuffle_row_drop_partition else None)
+        if fast is not None:
+            return fast or None
+        pred_table = self._read_table(piece, predicate_fields,
+                                      drop_indices if shuffle_row_drop_partition else None)
+        pred_block = self._decode_table(pred_table, predicate_fields)
+        mask = evaluate_predicate_mask(predicate, dict(pred_block), block_num_rows(pred_block))
+        if mask is None:  # no batch path: per-row semantics
+            mask = [predicate.do_include(r) for r in block_to_rows(pred_block)]
+        if not np.any(mask):
+            return None
+        kept_local = np.flatnonzero(mask)
+        base = drop_indices if shuffle_row_drop_partition else np.arange(num_rows)
+        kept_global = base[kept_local]
+        remaining = [name for name in names if name not in predicate_fields]
+        rem_block = (self._decode_table(self._read_table(piece, remaining, kept_global),
+                                        remaining) if remaining else {})
+        kept_pred = take_block(pred_block, kept_local)
+        return {name: (kept_pred[name] if name in kept_pred else rem_block[name])
+                for name in names if name in kept_pred or name in rem_block}
 
     def _apply_transform(self, block, transform):
         """Row transforms get per-row dicts; ``batched=True`` transforms get

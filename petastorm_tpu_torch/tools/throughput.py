@@ -56,9 +56,10 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     kwargs = {'num_epochs': None, 'output': 'columnar', **(reader_kwargs or {})}
     routes_before = read_routes.snapshot()
     reader = make_reader(dataset_url, **kwargs)
+    it = None
     try:
         loader = TorchDataLoader(reader, batch_size=batch_size, **(loader_kwargs or {}))
-        it = iter(prefetch_to_device(loader, device, size=2))
+        it = prefetch_to_device(loader, device, size=2)
         for _ in range(warmup_steps):
             step_fn(*batch_to_args(next(it)))
         _sync(device)
@@ -90,5 +91,10 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
             samples_per_second=steps * batch_size / duration, duration_s=duration,
             samples=steps * batch_size, input_stall_fraction=wait / duration, extra=extra)
     finally:
+        # the prefetcher's thread first, while the reader still feeds it: its
+        # pump then leaves the loader with the next batch; stopping the
+        # reader ends a pump that is still waiting in it
+        if it is not None:
+            it.close()
         reader.stop()
         reader.join()

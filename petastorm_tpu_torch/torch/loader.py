@@ -102,7 +102,7 @@ class TorchDataLoader(object):
             raise ValueError('batch_size must be >= 1')
         if getattr(reader, 'ngram', None) is not None:
             raise NotImplementedError('NGram windows are not yet ported to petastorm_tpu_torch '
-                                      '(ROADMAP.md, "predicates/selectors/ngram")')
+                                      '(ROADMAP.md, "long context")')
         self.reader = reader
         self.batch_size = batch_size
         self._drop_last = drop_last

@@ -207,6 +207,18 @@ def encode_row(schema, row_dict):
     return encoded
 
 
+def decode_row(row_dict, schema):
+    """Decode a storage row dict into the in-memory representation."""
+    decoded = {}
+    for field_name, encoded in row_dict.items():
+        field = schema.fields.get(field_name)
+        if field is None:
+            raise SchemaError('Row contains field {!r} not present in schema {}'.format(
+                field_name, schema.name))
+        decoded[field_name] = None if encoded is None else field.codec.decode(field, encoded)
+    return decoded
+
+
 def match_unischema_fields(schema, field_regex):
     """Fields whose names fully match any of the given regex patterns."""
     if isinstance(field_regex, str):

@@ -70,12 +70,15 @@ class ThreadPool(object):
 
     def get_results(self):
         """Block until a result is available; raise :class:`EmptyResultError`
-        when all ventilated items are processed and no more will come."""
+        when all ventilated items are processed and no more will come, or
+        once the pool was stopped and its queued results are drained (a
+        stopped pool's unfinished items never complete, so a consumer thread
+        still waiting here would wait forever)."""
         while True:
             try:
                 kind, payload = self._results_queue.get(timeout=0.05)
             except queue.Empty:
-                if self._all_done():
+                if self._stop_event.is_set() or self._all_done():
                     raise EmptyResultError()
                 continue
             if kind == MSG_DATA:

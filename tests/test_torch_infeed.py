@@ -84,10 +84,15 @@ def test_prefetch_stops_its_thread_when_closed():
         while True:
             yield _batch()
 
+    before = set(threading.enumerate())
     it = prefetch_to_device(endless(), 'cpu', size=2)
     next(it)
+    started = [t for t in threading.enumerate()
+               if t not in before and t.name == 'pstpu-torch-prefetch']
+    assert len(started) == 1
     it.close()
-    names = [t.name for t in threading.enumerate()]
-    assert 'pstpu-torch-prefetch' not in names
+    # the thread this iterator started, by identity: threads of other
+    # iterators in the same process are not this test's
+    assert not started[0].is_alive()
     with pytest.raises(ValueError, match='size'):
         prefetch_to_device(iter([]), 'cpu', size=0)

@@ -158,9 +158,48 @@ def test_thread_pool_stress_loses_and_repeats_nothing(jax_store):
     assert rows == sorted(r['image'].tobytes() for r in _rows() for _ in range(3))
 
 
+def test_a_consumer_waiting_on_a_stopped_thread_pool_gets_empty_result():
+    """A thread still waiting in ``get_results`` when the pool stops, with
+    items ventilated that will never complete, is released."""
+    import threading
+
+    from petastorm_tpu_torch.errors import EmptyResultError
+    from petastorm_tpu_torch.workers import ThreadPool
+
+    class Blocked(object):
+        def __init__(self, worker_id, publish_func, args):
+            self._release = args
+
+        def process(self, **kwargs):
+            self._release.wait(30)
+
+        def shutdown(self):
+            pass
+
+    release = threading.Event()
+    pool = ThreadPool(1)
+    pool.start(Blocked, release)
+    pool.ventilate(piece_index=0)
+    outcome = []
+    consumer = threading.Thread(target=lambda: outcome.append(_result_or_error(pool)))
+    consumer.start()
+    pool.stop()
+    consumer.join(timeout=10)
+    assert not consumer.is_alive() and outcome == [EmptyResultError]
+    release.set()
+    pool.join()
+
+
+def _result_or_error(pool):
+    try:
+        return pool.get_results()
+    except Exception as e:  # noqa: BLE001 - the test compares the type
+        return type(e)
+
+
 def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
-    with pytest.raises(NotImplementedError, match='predicates/selectors/ngram'):
-        make_reader(jax_store, predicate=lambda row: True)
+    with pytest.raises(NotImplementedError, match='long context'):
+        make_reader(jax_store, ngram=object())
     with pytest.raises(NotImplementedError, match='observability'):
         make_reader(jax_store, protocol_monitor=True)
     with pytest.raises(TypeError, match='unexpected keyword'):

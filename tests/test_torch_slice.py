@@ -141,6 +141,29 @@ def test_pipeline_duty_cycle_on_cpu(raw_store):
     assert all(np.isfinite(losses))
 
 
+def test_pipeline_duty_cycle_leaves_no_prefetch_thread(raw_store):
+    # the prefetcher is closed before the reader stops: its pump thread ends
+    # with the run, on success and when a step raises
+    import threading
+
+    def prefetch_threads():
+        return {t for t in threading.enumerate() if t.name == 'pstpu-torch-prefetch'}
+
+    before = prefetch_threads()
+    pipeline_duty_cycle(raw_store, lambda images, labels: None, lambda b: (b['image'], b['label']),
+                        batch_size=BATCH, steps=2, warmup_steps=1, device='cpu',
+                        reader_kwargs={'seed': 7, 'workers_count': 2})
+
+    def failing_step(images, labels):
+        raise KeyError('step failed')
+
+    with pytest.raises(KeyError, match='step failed'):
+        pipeline_duty_cycle(raw_store, failing_step, lambda b: (b['image'], b['label']),
+                            batch_size=BATCH, steps=2, warmup_steps=1, device='cpu',
+                            reader_kwargs={'seed': 7, 'workers_count': 2})
+    assert not {t for t in prefetch_threads() - before if t.is_alive()}
+
+
 def test_port_imports_nothing_of_jax():
     # every module of the port, and chip_smoke.py, in a fresh interpreter
     code = '\n'.join([
@@ -155,7 +178,10 @@ def test_port_imports_nothing_of_jax():
         # the decode slice's modules, the native decoder's bindings and build
         # among them, and the native read path's
         'for m in ("native.image_codec", "native.build", "codecs", "local_disk_cache", "cache",',
-        '          "native", "native.fused", "native.pagescan", "row_worker"):',
+        '          "native", "native.fused", "native.pagescan", "row_worker",',
+        # the row filtering slice's
+        '          "predicates", "selectors", "etl.indexer_base", "etl.rowgroup_indexers",',
+        '          "etl.rowgroup_indexing"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
@@ -167,7 +193,7 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 39
+    assert int(out.stdout.split()[-1]) >= 52
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
