@@ -14,7 +14,9 @@ Phases, each printed as one JSON line:
 3. stores: a raw uint8 store, an ImageNet-shaped PNG store, a fixed-shape
    PNG store of the raw store's images and, where the host can encode and
    decode JPEG, a JPEG store, written by the port's ``materialize_dataset``
-   from a seed;
+   from a seed; and the plain store: the raw store's images as PNG bytes in
+   a ``binary`` column with an ``int64`` label, written by
+   ``pyarrow.parquet.write_table`` with no petastorm metadata;
 4. decode checks: what the host offers for image decode (OpenCV, the image
    libraries' headers and shared objects) and what the port's native decoder
    built with; the route that decodes and the route that resizes each
@@ -59,11 +61,18 @@ Phases, each printed as one JSON line:
    worker: then what fits, if that still holds what a consumer can pin
    (:func:`ring_bytes_for`), else the run fails naming the sizes;
 8. paths, each a full-width ResNet-50 bf16 train step (1000 classes, batch 64,
-   160 px, SGD 0.1 momentum 0.9, ``random_flip`` and ``normalize_images``
-   inside it) fed by ``make_reader(output='columnar')`` (thread pool, one
-   worker per core) -> ``TorchDataLoader`` (shuffle 512, seed 7) ->
-   ``prefetch_to_device(size=2)``, 3 warm-up and 10 measured steps through
-   ``pipeline_duty_cycle``, a fresh model from one seed each:
+   160 px, SGD 0.1 momentum 0.9, the step's flip mask and
+   ``normalize_images`` inside it) fed by ``make_reader(output='columnar')``
+   (thread pool, one worker per core) -> ``TorchDataLoader`` (shuffle 512,
+   seed 7) -> ``prefetch_to_device(size=2)``, 3 warm-up and 10 measured
+   steps through ``pipeline_duty_cycle``, a fresh model from one seed each.
+   Every path runs twice in the call: with the eager step and with the
+   graphed one (``make_train_step(graphed=True)``: two eager warm-up steps,
+   then the whole step captured in one CUDA graph and replayed), one line
+   each; then a ``graph_check`` line: a fresh eager step from the seed on
+   the graphed run's first four staged batches gives its losses, the first
+   within 1e-3 (both eager forwards of one model), the capture's and the
+   replay's within 1e-2 (bf16 convolutions need not be bit-reproducible):
 
    - ``raw``: the raw store, no decode;
    - ``png``: the PNG store with ``TransformSpec(image_resize=160x160)`` and a
@@ -109,13 +118,47 @@ Phases, each printed as one JSON line:
      with ``rowgroup_selector=SingleIndexSelector('noun_id_idx', <the first
      16 of 32 synsets>)`` and ``shuffle_row_drop_partitions=2`` (512 rows an
      epoch, read as 64 half row groups through Arrow), every delivered label
-     that of a selected synset;
-9. profile: three more steps of the raw path under ``torch.profiler``, the
-   device's busy time per step by kernel and its idle share;
-10. model check: the trained model on the card (bf16) against a float32 copy
+     that of a selected synset.
+
+   One more reads the plain store through ``make_batch_reader``:
+
+   - ``plain_batch``: ``make_batch_reader(batch_size=64)`` (the reader
+     rebatches its 16-row row groups) with a batched ``TransformSpec`` that
+     decodes the ``image`` column's PNG bytes with the port's native decoder
+     (``edit_fields``: uint8 160x160x3): every block the loader received has
+     64 rows, the schema was inferred (``image``, ``label``), the ``label``
+     column came from the fused read and the ``binary`` image column through
+     Arrow (reason ``codec``), and the first staged batch is rows of the
+     store;
+9. ``plain_resume``, once with each step: the ``plain_batch`` reader and
+   loader on the dummy pool with the loader's ``to_device`` (no prefetch
+   queue), so the run is deterministic: 13 steps uninterrupted; then 5 from
+   the seed, the model's, the optimizer's and the loader's states through
+   ``torch.save`` to bytes, the reader stopped and joined, and 8 more steps
+   from a new model, optimizer, reader and loader built from those states.
+   Each resumed batch must hold exactly the rows (images and labels) of the
+   uninterrupted batch at that step; the loader's state keeps rows, not the
+   shuffling buffer's blocks, so their order within a batch may differ (the
+   JAX loader's resume does the same), and the step trains on them in the
+   uninterrupted order; the losses agree within 1e-2; the line gives the
+   pickled loader state's size and how many batches kept their order. The
+   eager and the graphed run's first losses agree within 1e-3;
+10. ``resume_checks``: on the thread pool over one epoch of the plain store,
+   checkpointed at batch 5 and resumed, the rows delivered before and after
+   are the epoch's 1024 rows, each once; version-2 states of shards 0 and 1
+   of 2, merged with ``merge_resume_states`` and restored on one reader,
+   read every unfinished row group once; a state resumed by a reader over
+   another item list is refused with the reference's error; a
+   ``batch_size=64, drop_last=True`` state of shard 0 of 3 reads the rows
+   the drop left undelivered again after the resume;
+11. profile: three more steps of the raw path under ``torch.profiler``, with
+   the eager and with the graphed step, each on its own state: the device's
+   busy time per step by kernel and its idle share;
+12. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-11. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
-   launches over all paths, max error, its time, the plain version's time,
+13. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+   launches over all paths, both steps, where a graph replay counts the
+   launches it captured, max error, its time, the plain version's time,
    the least time the card could take and what bounds it, and the time of
    the one PyTorch call that computes the same function,
    ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
@@ -516,6 +559,47 @@ def build_png_fixed_store(url, encoder):
     with materialize_dataset(url, schema, rows_per_row_group=IMAGE_ROWS_PER_ROW_GROUP) as writer:
         for i in range(ROWS):
             writer.write({'image': _image(i), 'label': np.int64(i % NUM_CLASSES)})
+
+
+def build_plain_store(url, rows=None, image=None):
+    """The plain store (``BASELINE.json`` config 2, a plain ImageNet-style
+    Parquet dump as Spark jobs and dataset hubs write them): the raw store's
+    images (:func:`_image`, or ``image(i)``) as PNG bytes in a ``binary``
+    column ``image`` and an ``int64`` column ``label``, written by
+    ``pyarrow.parquet.write_table`` with no petastorm metadata, snappy,
+    ``IMAGE_ROWS_PER_ROW_GROUP`` rows per row group."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rows = rows or ROWS
+    image = image or _image
+    path = url[len('file://'):]
+    os.makedirs(path, exist_ok=True)
+    table = pa.table({'image': pa.array([png_bytes(image(i)) for i in range(rows)], pa.binary()),
+                      'label': pa.array(np.arange(rows, dtype=np.int64) % NUM_CLASSES)})
+    pq.write_table(table, os.path.join(path, 'part-00000.parquet'),
+                   row_group_size=IMAGE_ROWS_PER_ROW_GROUP, compression='snappy')
+
+
+class DecodePngColumn(object):
+    """The plain paths' batched transform: the ``image`` column's PNG bytes
+    decoded by the port's native decoder in one call and stacked (module
+    level, so it pickles)."""
+
+    def __call__(self, block):
+        from petastorm_tpu_torch.native import image_codec
+
+        block['image'] = np.stack(image_codec.decode_images(list(block['image'])))
+        return block
+
+
+def plain_transform(size=None):
+    from petastorm_tpu_torch import TransformSpec
+    from petastorm_tpu_torch.unischema import UnischemaField
+
+    size = size or IMAGE_SIZE
+    return TransformSpec(DecodePngColumn(), edit_fields=[
+        UnischemaField('image', np.uint8, (size, size, 3), None, False)])
 
 
 def label_of(noun_id):
@@ -1440,7 +1524,10 @@ def check_read_routes(path, counts):
     skipped by their statistics; ``png_select`` all three columns through
     Arrow (a shuffle-row-drop partition is a row subset, which the row
     worker reads through Arrow's ``take`` without planning a fused read, so
-    no fallback reason is counted)."""
+    no fallback reason is counted); ``plain_batch`` the raw ``label`` column
+    through the fused read with no schema (one column each) and the
+    ``binary`` image column through Arrow (reason ``codec``: not a
+    fixed-width numeric column)."""
     def c(key):
         return counts.get(key, 0)
 
@@ -1463,6 +1550,9 @@ def check_read_routes(path, counts):
               and not (fallback or arrow or pagescan or reasons))
     elif path == 'png_select':
         ok = arrow > 0 and arrow % 3 == 0 and not (fused or fallback or pagescan or reasons)
+    elif path == 'plain_batch':
+        ok = (fused > 0 and c('fused_columns_total') == fused and reasons == {'codec': fused}
+              and fallback == fused and arrow == fused and not pagescan)
     elif path == 'raw_process':
         ok = (fused > 0 and c('fused_inplace_batches_total') == fused
               and c('fused_columns_total') == 2 * fused
@@ -1493,27 +1583,31 @@ def new_train_state(torch):
     return create_train_state(resnet50(num_classes=NUM_CLASSES, dtype=torch.bfloat16))
 
 
-def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None):
+#: staged batches of a graphed run that an eager step from the same seed
+#: runs again: the first two are the graphed step's eager warm-up steps, the
+#: third its capture and first replay, the fourth a replay
+SAME_BATCHES = 4
+
+
+def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None,
+             graphed=False, reader_factory=None):
     """One path: a fresh model from the seed, 3 warm-up and 10 measured steps
-    through ``pipeline_duty_cycle``. The normalize launches, the image route
-    counts and the read route counts cover this path's run alone.
-    ``label_check`` is handed every label the steps saw, after the run (the
-    labels stay on the card until then: no synchronisation in the steps)."""
+    through ``pipeline_duty_cycle``, with the eager step or (``graphed``) the
+    graphed one. The normalize launches (a graph replay adds the launches it
+    captured), the image route counts and the read route counts cover this
+    run alone. ``label_check`` is handed every label the steps saw, after the
+    run (the labels stay on the card until then: no synchronisation in the
+    steps). Returns the launches, the state, the step, the first
+    :data:`SAME_BATCHES` staged batches and the result."""
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
-    from petastorm_tpu_torch.ops import normalize_images, random_flip
     from petastorm_tpu_torch.ops.kernels import normalize as nk
     from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
 
     state = new_train_state(torch)
-
-    def preprocess(images, generator):
-        return normalize_images(random_flip(images, generator), IMAGENET_MEAN, IMAGENET_STD,
-                                out_dtype=torch.bfloat16)
-
-    train_step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED)
+    train_step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
     losses = []
-    first_batch = []
+    first_batches = []
     seen_labels = []
 
     def step_fn(images, labels):
@@ -1524,7 +1618,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
                 raise AssertionError('staged batch: {} {} on {}'.format(
                     images.dtype, tuple(images.shape), images.device))
             check(images.cpu().numpy(), labels.cpu().numpy())
-            first_batch.extend([images, labels])
+        if len(first_batches) < SAME_BATCHES:
+            first_batches.append((images, labels))
         _, metrics = train_step(state, images, labels)
         losses.append(metrics['loss'])
         if label_check is not None:
@@ -1532,6 +1627,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
 
     kwargs = {'seed': SEED, 'shuffle_row_groups': True,
               'workers_count': max(1, os.cpu_count() or 1), **(reader_kwargs or {})}
+    factory = {} if reader_factory is None else {'reader_factory': reader_factory}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     image_routes.reset()
@@ -1540,12 +1636,13 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     result = pipeline_duty_cycle(
         url, step_fn, lambda b: (b['image'], b['label']), batch_size=BATCH, steps=STEPS,
         warmup_steps=WARMUP_STEPS, reader_kwargs=kwargs,
-        loader_kwargs={'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED})
+        loader_kwargs={'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED}, **factory)
     wall_s = time.perf_counter() - t0
     launches = {'normalize': nk.launches}
     counts = image_routes.snapshot()
     losses = [float(x) for x in losses]
-    emit({'phase': 'path', 'path': name, 'model': 'resnet50', 'dtype': 'bfloat16',
+    emit({'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager',
+          'model': 'resnet50', 'dtype': 'bfloat16',
           'num_classes': NUM_CLASSES, 'batch_size': BATCH, 'image_size': IMAGE_SIZE,
           'rows': ROWS, 'warmup_steps': WARMUP_STEPS, 'steps': STEPS,
           'examples_per_sec': result.samples_per_second,
@@ -1572,13 +1669,320 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     check_routes(counts, routes)
     check_read_routes(name, result.extra['read_routes'])
     check_pool(name, result.extra['pool'], result.extra['read_routes'])
-    return launches, state, train_step, first_batch, result
+    return launches, state, train_step, first_batches, result, losses
 
 
-def phase_profile(torch, state, train_step, images, labels, step_ms):
-    """Three more train steps on one staged batch under ``torch.profiler``:
-    the device's busy time per step by kernel, and its idle share against
-    the main path's median step time (taken without the profiler)."""
+def preprocess(images, mask):
+    """The paths' on-device input ops: the step's flip mask, then normalize
+    (the Triton kernel) to bf16."""
+    from petastorm_tpu_torch.ops import normalize_images
+    from petastorm_tpu_torch.ops.augment import flip_with_mask
+
+    return normalize_images(flip_with_mask(images, mask), IMAGENET_MEAN, IMAGENET_STD)
+
+
+#: the graphed step against the eager one on the same batches: the first
+#: losses (both eager forwards of one fresh model) within the slice tests'
+#: 1e-3; a replay's within 1e-2, since bf16 convolutions on the card need not
+#: be bit-reproducible
+FIRST_LOSS_TOL = 1e-3
+REPLAY_LOSS_TOL = 1e-2
+
+
+def check_graphed_losses(torch, name, graphed_losses, batches):
+    """A fresh eager state from the seed trains on the graphed run's first
+    staged batches: its losses must be the graphed run's."""
+    from petastorm_tpu_torch.models.train import make_train_step
+
+    state = new_train_state(torch)
+    step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED)
+    eager = [float(step(state, images, labels)[1]['loss']) for images, labels in batches]
+    diffs = [abs(a - b) for a, b in zip(eager, graphed_losses)]
+    emit({'phase': 'graph_check', 'path': name, 'eager_losses': eager,
+          'graphed_losses': graphed_losses[:len(eager)], 'abs_diff': diffs,
+          'tolerance': {'first': FIRST_LOSS_TOL, 'replays': REPLAY_LOSS_TOL}})
+    if diffs[0] > FIRST_LOSS_TOL or max(diffs) > REPLAY_LOSS_TOL:
+        raise AssertionError('{}: the graphed step\'s losses {} are not the eager step\'s {} '
+                             'on the same batches'.format(name, graphed_losses[:len(eager)], eager))
+
+
+def run_path_both_ways(torch, name, url, check, **kwargs):
+    """The path with the eager step, then with the graphed step, in one call
+    (host numbers move between calls), then the graphed run's first batches
+    through a fresh eager step. Returns the launches over both runs and each
+    run's ``(state, step, first batches, result)``."""
+    runs = {}
+    total = collections.Counter()
+    for graphed in (False, True):
+        launches, state, step, batches, result, losses = run_path(
+            torch, name, url, check, graphed=graphed, **kwargs)
+        total.update(launches)
+        runs['graphed' if graphed else 'eager'] = (state, step, batches, result)
+    check_graphed_losses(torch, name, losses, runs['graphed'][2])
+    return total, runs
+
+
+class BlockSizes(object):
+    """The reader a path's loader iterates, counting the rows of every block
+    it hands over; every other attribute is the reader's."""
+
+    def __init__(self, reader):
+        self._reader = reader
+        self.sizes = collections.Counter()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        block = next(self._reader)
+        self.sizes[len(block[0])] += 1
+        return block
+
+    def __getattr__(self, name):
+        return getattr(self._reader, name)
+
+
+def plain_batch_factory(readers):
+    """``make_batch_reader`` behind a :class:`BlockSizes`, appended to
+    ``readers``: the ``plain_batch`` path's reader factory."""
+    def factory(url, **kwargs):
+        from petastorm_tpu_torch import make_batch_reader
+
+        reader = BlockSizes(make_batch_reader(url, **kwargs))
+        readers.append(reader)
+        return reader
+    return factory
+
+
+def check_plain_reader(reader):
+    """``plain_batch``: every block the loader received had ``BATCH`` rows,
+    and the schema was inferred from the plain store's Arrow schema."""
+    schema = reader.schema
+    if (set(reader.sizes) != {BATCH} or schema.name != 'inferred'
+            or list(schema.fields) != ['image', 'label']):
+        raise AssertionError('plain_batch: blocks of {} rows, schema {}'.format(
+            dict(reader.sizes), schema))
+
+
+def _row_keys(images, labels):
+    """One key per row of a batch (host or card tensors, or numpy): its label
+    and the crc32 of its image's bytes."""
+    images = images.cpu().numpy() if hasattr(images, 'cpu') else np.asarray(images)
+    labels = labels.cpu().numpy() if hasattr(labels, 'cpu') else np.asarray(labels)
+    return [(int(label), zlib.crc32(image.tobytes())) for image, label in zip(images, labels)]
+
+
+def store_row_keys():
+    """The keys of the plain store's rows (the raw store's images and labels)."""
+    return collections.Counter((i % NUM_CLASSES, zlib.crc32(_image(i).tobytes()))
+                               for i in range(ROWS))
+
+
+#: plain_resume: steps of the uninterrupted run, and the step after which the
+#: interrupted run checkpoints
+RESUME_STEPS = WARMUP_STEPS + STEPS
+RESUME_AT = 5
+
+
+def phase_plain_resume(torch, url, graphed):
+    """``plain_resume``: the plain reader and loader on the dummy pool, with
+    the loader's ``to_device`` and no prefetch queue, so the run is
+    deterministic. :data:`RESUME_STEPS` steps uninterrupted; then the same
+    from the seed for :data:`RESUME_AT` steps, the model's, the optimizer's
+    and the loader's states through ``torch.save`` to bytes, the reader
+    stopped, and a new model, optimizer, reader and loader from those states
+    for the remaining steps. Each resumed batch must hold exactly the rows of
+    the uninterrupted run's batch at that step: the loader's state keeps its
+    buffered rows, not the buffer's blocks, so the rows of a batch may come
+    in another order (the JAX loader's resume does the same); the step trains
+    on them in the uninterrupted order, and its loss must be the
+    uninterrupted one's within 1e-2 (bf16 convolutions need not be
+    bit-reproducible). Returns the normalize launches and the first loss."""
+    import io
+    import pickle
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.models.train import make_train_step
+    from petastorm_tpu_torch.ops.kernels import normalize as nk
+    from petastorm_tpu_torch.torch import TorchDataLoader
+
+    reader_kwargs = {'batch_size': BATCH, 'seed': SEED, 'shuffle_row_groups': True,
+                     'num_epochs': None, 'reader_pool_type': 'dummy',
+                     'transform_spec': plain_transform()}
+    loader_kwargs = {'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED,
+                     'to_device': torch.device(DEVICE_TYPE)}
+
+    def train(state, step, loader, count, order=None):
+        keys, losses, same_order = [], [], 0
+        it = iter(loader)
+        for i in range(count):
+            batch = next(it)
+            images, labels = batch['image'], batch['label']
+            row_keys = _row_keys(images, labels)
+            if order is not None:
+                if sorted(row_keys) != sorted(order[i]):
+                    raise AssertionError('plain_resume: resumed batch {} holds other rows than '
+                                         'the uninterrupted run\'s'.format(RESUME_AT + i))
+                same_order += row_keys == order[i]
+                perm = torch.tensor([row_keys.index(k) for k in order[i]], device=images.device)
+                images, labels = images[perm], labels[perm]
+                row_keys = list(order[i])
+            keys.append(row_keys)
+            losses.append(step(state, images, labels)[1]['loss'])
+        return keys, [float(x) for x in losses], same_order
+
+    nk.launches = 0
+    with make_batch_reader(url, **reader_kwargs) as reader:
+        state = new_train_state(torch)
+        step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
+        keys, losses, _ = train(state, step, TorchDataLoader(reader, BATCH, **loader_kwargs),
+                                RESUME_STEPS)
+    with make_batch_reader(url, **reader_kwargs) as reader:
+        state = new_train_state(torch)
+        step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
+        loader = TorchDataLoader(reader, BATCH, **loader_kwargs)
+        keys_a, losses_a, _ = train(state, step, loader, RESUME_AT)
+        loader_state = loader.state_dict()
+        state_bytes = len(pickle.dumps(loader_state))
+        buf = io.BytesIO()
+        torch.save({'model': state.model.state_dict(), 'optimizer': state.optimizer.state_dict(),
+                    'step': state.step, 'loader': loader_state}, buf)
+    del state, step, loader, loader_state
+    ckpt = torch.load(io.BytesIO(buf.getvalue()), weights_only=False)
+    state = new_train_state(torch)
+    state.model.load_state_dict(ckpt['model'])
+    state.optimizer.load_state_dict(ckpt['optimizer'])
+    state.step = ckpt['step']
+    step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
+    with make_batch_reader(url, resume_state=ckpt['loader']['reader'], **reader_kwargs) as reader:
+        loader = TorchDataLoader(reader, BATCH, resume_state=ckpt['loader'], **loader_kwargs)
+        keys_b, losses_b, same_order = train(state, step, loader, RESUME_STEPS - RESUME_AT,
+                                             order=keys[RESUME_AT:])
+    launches = {'normalize': nk.launches}
+    resumed = losses_a + losses_b
+    diffs = [abs(a - b) for a, b in zip(resumed, losses)]
+    emit({'phase': 'path', 'path': 'plain_resume', 'step': 'graphed' if graphed else 'eager',
+          'steps': RESUME_STEPS, 'resume_at': RESUME_AT, 'losses': losses,
+          'resumed_losses': resumed, 'max_abs_loss_diff': max(diffs),
+          'batches_equal_as_rows': RESUME_STEPS - RESUME_AT,
+          'batches_in_the_same_row_order': same_order,
+          'loader_state_pickled_bytes': state_bytes, 'checkpoint_bytes': len(buf.getvalue()),
+          'launches': launches})
+    if keys_a != keys[:RESUME_AT]:
+        raise AssertionError('plain_resume: the run before the checkpoint is not deterministic')
+    if not all(math.isfinite(x) for x in resumed) or abs(losses[0] - math.log(NUM_CLASSES)) > 1.0:
+        raise AssertionError('plain_resume: losses {}'.format(losses))
+    if max(diffs) > REPLAY_LOSS_TOL:
+        raise AssertionError('plain_resume: resumed losses {} against {}'.format(resumed, losses))
+    if launches['normalize'] < 2 * RESUME_STEPS:
+        raise AssertionError('plain_resume: normalize launched {} times'.format(launches))
+    return launches, losses[0]
+
+
+def check_thread_epoch_once(url):
+    """One epoch of the plain path on the thread pool, checkpointed at batch
+    :data:`RESUME_AT` and resumed: the rows delivered before and after, as a
+    multiset, are the epoch's rows, each exactly once."""
+    import pickle
+
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.torch import TorchDataLoader
+
+    kwargs = {'batch_size': BATCH, 'seed': SEED, 'shuffle_row_groups': True, 'num_epochs': 1,
+              'workers_count': max(1, os.cpu_count() or 1), 'transform_spec': plain_transform()}
+    loader_kwargs = {'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED,
+                     'drop_last': False}
+    with make_batch_reader(url, **kwargs) as reader:
+        loader = TorchDataLoader(reader, BATCH, **loader_kwargs)
+        it = iter(loader)
+        before = [k for batch in (next(it) for _ in range(RESUME_AT))
+                  for k in _row_keys(batch['image'], batch['label'])]
+        state = pickle.loads(pickle.dumps(loader.state_dict()))
+    with make_batch_reader(url, resume_state=state['reader'], **kwargs) as resumed:
+        after = [k for batch in TorchDataLoader(resumed, BATCH, resume_state=state, **loader_kwargs)
+                 for k in _row_keys(batch['image'], batch['label'])]
+    delivered = collections.Counter(before + after)
+    ok = delivered == store_row_keys()
+    out = {'checkpoint_at_batch': RESUME_AT, 'rows_before': len(before), 'rows_after': len(after),
+           'rows_buffered_in_state': len(state['rows']), 'each_row_once': ok}
+    if not ok:
+        raise AssertionError('thread-pool epoch across a resume: {}'.format(out))
+    return out
+
+
+def phase_resume_checks(url, epoch_once):
+    """``resume_checks``: a version-2 state merged from two shards restored
+    on one reader reads every unfinished row group once; a state resumed by
+    a reader over another item list is refused with the reference's error;
+    a ``batch_size``/``drop_last`` state re-reads the rows the drop left
+    undelivered. Rows are told apart by the crc32 of their PNG bytes."""
+    from petastorm_tpu_torch import make_batch_reader, merge_resume_states
+
+    def keys(reader, limit=None):
+        out = []
+        for n, block in enumerate(reader):
+            out.extend(zlib.crc32(cell) for cell in block.image)
+            if limit is not None and n + 1 >= limit:
+                break
+        return out
+
+    base = {'reader_pool_type': 'dummy', 'seed': SEED, 'schema_fields': ['image']}
+    with make_batch_reader(url, **base) as reader:
+        every = keys(reader)
+        finished = reader.state_dict()
+    if len(set(every)) != ROWS:
+        raise AssertionError('the plain store\'s PNG cells are not unique')
+    first, states = [], []
+    for shard in range(2):
+        with make_batch_reader(url, cur_shard=shard, shard_count=2, **base) as reader:
+            first.extend(keys(reader, limit=3 + shard))
+            states.append(reader.state_dict())
+    merged = merge_resume_states(states)
+    with make_batch_reader(url, resume_state=merged, **base) as reader:
+        rest = keys(reader)
+    merged_ok = sorted(first + rest) == sorted(every)
+    try:
+        make_batch_reader(url, shuffle_row_drop_partitions=2, resume_state=finished, **base)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    drop = dict(base, cur_shard=0, shard_count=3, batch_size=BATCH)
+    with make_batch_reader(url, **drop) as reader:
+        shard_rows = keys(reader)
+    with make_batch_reader(url, drop_last=True, **drop) as reader:
+        kept = keys(reader)
+        drop_state = reader.state_dict()
+    with make_batch_reader(url, resume_state=drop_state, **drop) as reader:
+        reread = keys(reader)
+    dropped = len(shard_rows) - len(kept)
+    drop_ok = (dropped > 0 and len(kept) % BATCH == 0 and set(reread) <= set(shard_rows)
+               and sorted(set(kept) | set(reread)) == sorted(shard_rows)
+               and len(set(kept) & set(reread)) == 0)
+    out = {'phase': 'resume_checks',
+           'merged': {'shards': 2, 'rows_before': len(first), 'rows_after_merge': len(rest),
+                      'remaining_row_groups': len(merged['remaining_global_parts']),
+                      'each_row_once': merged_ok},
+           'mismatch_refused': refused,
+           'drop_last': {'shard_rows': len(shard_rows), 'kept': len(kept), 'dropped': dropped,
+                         're_read_after_resume': len(reread), 'none_lost': drop_ok},
+           'thread_pool_epoch': epoch_once}
+    emit(out)
+    if not (merged_ok and drop_ok and refused and 'does not match' in refused):
+        raise AssertionError('resume checks failed: {}'.format(out))
+
+
+def phase_profile(torch, runs, images, labels):
+    """For the raw path's eager and graphed step, each on its own state:
+    three more train steps on one staged batch under ``torch.profiler``, the
+    device's busy time per step by kernel and its idle share against that
+    step's median step time on the path (taken without the profiler)."""
+    for kind in ('eager', 'graphed'):
+        state, train_step, _, result = runs[kind]
+        _profile_step(torch, kind, state, train_step, images, labels,
+                      result.extra['median_step_ms'])
+
+
+def _profile_step(torch, kind, state, train_step, images, labels, step_ms):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1617,7 +2021,7 @@ def phase_profile(torch, state, train_step, images, labels, step_ms):
             end = stop
     busy_ms = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({'phase': 'profile', 'steps': steps, 'device_busy_ms_per_step': busy_ms,
+    emit({'phase': 'profile', 'step': kind, 'steps': steps, 'device_busy_ms_per_step': busy_ms,
           'median_step_ms': step_ms, 'staged_step_ms': staged_ms,
           'median_staged_step_ms': statistics.median(staged_ms),
           # no device activity in the trace means the profiler saw none
@@ -1675,7 +2079,7 @@ def main():
     try:
         probe = probe_host(builds)
         urls, stores = {}, {}
-        for name in ('raw', 'png', 'png_fixed', 'jpeg'):
+        for name in ('raw', 'png', 'png_fixed', 'jpeg', 'plain'):
             if name == 'jpeg' and probe['routes']['jpeg'] is None:
                 continue
             path = os.path.join(work_dir, name)
@@ -1685,6 +2089,8 @@ def main():
                 build_store(urls[name])
             elif name == 'png_fixed':
                 build_png_fixed_store(urls[name], probe['encoder'])
+            elif name == 'plain':
+                build_plain_store(urls[name])
             else:
                 stores[name] = build_image_store(urls[name], name, JPEG_DIMS if name == 'jpeg'
                                                  else PNG_DIMS, probe['encoder'])
@@ -1697,9 +2103,7 @@ def main():
         ring = phase_pool_checks(urls['raw'], urls['png_fixed'], probe, work_dir)
         check_no_leftovers()
 
-        launches, state, train_step, (images, labels), raw = run_path(
-            torch, 'raw', urls['raw'], check_batch)
-        total = dict(launches)
+        total, raw = run_path_both_ways(torch, 'raw', urls['raw'], check_batch)
         routes = probe['routes']
         cache_kwargs = {'cache_type': 'local-disk',
                         'cache_location': os.path.join(work_dir, 'disk_cache'),
@@ -1714,7 +2118,7 @@ def main():
                 continue
             kwargs = dict(image_kwargs)
             if name == 'png_cached':
-                # one epoch fills the cache, so the run below sees every
+                # one epoch fills the cache, so the runs below see every
                 # later epoch: no decode, the transform still runs
                 kwargs.update(cache_kwargs)
                 from petastorm_tpu_torch import make_reader
@@ -1724,19 +2128,17 @@ def main():
             fmt = 'jpeg' if name == 'jpeg' else 'png'
             check = png_check if fmt == 'png' else check_image_batch(
                 expected_images(urls['jpeg'], None, routes['jpeg']['decode']))
-            path_launches, _, _, _, result = run_path(
-                torch, name, urls[fmt], check, reader_kwargs=kwargs, routes=routes[fmt])
+            path_launches, runs = run_path_both_ways(torch, name, urls[fmt], check,
+                                                     reader_kwargs=kwargs, routes=routes[fmt])
             if name == 'png_cached':
-                cache = result.extra['cache']
-                if cache['misses'] or not cache['hits']:
-                    raise AssertionError('png_cached read {} row groups past the cache '
-                                         '({} hits)'.format(cache['misses'], cache['hits']))
-            for kernel, count in path_launches.items():
-                total[kernel] += count
+                for _, _, _, result in runs.values():
+                    cache = result.extra['cache']
+                    if cache['misses'] or not cache['hits']:
+                        raise AssertionError('png_cached read {} row groups past the cache '
+                                             '({} hits)'.format(cache['misses'], cache['hits']))
+            total.update(path_launches)
         # the pre-resized PNG store: every image decoded by the fused native read
-        path_launches, _, _, _, _ = run_path(torch, 'png_fixed', urls['png_fixed'], check_batch)
-        for kernel, count in path_launches.items():
-            total[kernel] += count
+        total.update(run_path_both_ways(torch, 'png_fixed', urls['png_fixed'], check_batch)[0])
         # the process pool: one spawned worker per core, shm rings
         process = {'reader_pool_type': 'process',
                    'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm'}}
@@ -1744,10 +2146,8 @@ def main():
                 ('raw_process', urls['raw'], check_batch, dict(process, zero_copy=True), None),
                 ('png_process', urls['png'], png_check, dict(process, **image_kwargs),
                  routes['png'])):
-            path_launches, _, _, _, _ = run_path(torch, name, url, check, reader_kwargs=kwargs,
-                                                 routes=named)
-            for kernel, count in path_launches.items():
-                total[kernel] += count
+            total.update(run_path_both_ways(torch, name, url, check, reader_kwargs=kwargs,
+                                            routes=named)[0])
             check_no_leftovers()
         # row filtering: a predicate on the fixed-shape PNG store, and a
         # row-group selector with shuffle-row-drop partitions on the PNG store
@@ -1762,14 +2162,30 @@ def main():
                       rowgroup_selector=SingleIndexSelector('noun_id_idx', selected_synsets())),
                  routes['png'], check_labels('of a selected synset',
                                              lambda v: np.isin(v, sorted(selected_labels))))):
-            path_launches, _, _, _, _ = run_path(torch, name, url, check, reader_kwargs=kwargs,
-                                                 routes=named, label_check=label_check)
-            for kernel, count in path_launches.items():
-                total[kernel] += count
+            total.update(run_path_both_ways(torch, name, url, check, reader_kwargs=kwargs,
+                                            routes=named, label_check=label_check)[0])
+        # the plain store through make_batch_reader: rebatched to BATCH rows
+        # on the reader side, the PNG bytes decoded by a batched transform
+        readers = []
+        total.update(run_path_both_ways(
+            torch, 'plain_batch', urls['plain'], check_batch,
+            reader_kwargs={'batch_size': BATCH, 'transform_spec': plain_transform()},
+            reader_factory=plain_batch_factory(readers))[0])
+        for reader in readers:
+            check_plain_reader(reader)
+        first_losses = {}
+        for graphed in (False, True):
+            launches, first_losses[graphed] = phase_plain_resume(torch, urls['plain'], graphed)
+            total.update(launches)
+        if abs(first_losses[False] - first_losses[True]) > FIRST_LOSS_TOL:
+            raise AssertionError('plain_resume: first losses {}'.format(first_losses))
+        phase_resume_checks(urls['plain'], check_thread_epoch_once(urls['plain']))
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    phase_profile(torch, state, train_step, images, labels, raw.extra['median_step_ms'])
-    phase_model_check(torch, state.model, images)
+    # the raw path's first staged batch (eager run)
+    images, labels = raw['eager'][2][0]
+    phase_profile(torch, raw, images, labels)
+    phase_model_check(torch, raw['eager'][0].model, images)
     for entry in kernels:
         entry['launches'] = total[entry['name']]
     emit({'kernels': kernels})

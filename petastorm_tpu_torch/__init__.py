@@ -8,11 +8,13 @@ hand-written Hopper kernel here (``ops/kernels``), beside a plain PyTorch
 version. Entry points that touch a device default to CUDA and raise without
 it unless the caller passes ``device='cpu'``.
 
-Top-level API: ``make_reader``, ``TransformSpec``, ``NoDataAvailableError``.
+Top-level API: ``make_reader``, ``make_batch_reader``,
+``merge_resume_states``, ``TransformSpec``, ``NoDataAvailableError``.
 """
 
 from petastorm_tpu_torch.errors import NoDataAvailableError  # noqa: F401
-from petastorm_tpu_torch.reader import make_reader  # noqa: F401
+from petastorm_tpu_torch.reader import (make_batch_reader, make_reader,  # noqa: F401
+                                        merge_resume_states)
 from petastorm_tpu_torch.transform import TransformSpec  # noqa: F401
 
 __version__ = '0.1.0'

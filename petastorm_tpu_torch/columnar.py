@@ -8,7 +8,10 @@ or non-numeric cells. Workers publish blocks; the loader slices batches out of
 them with numpy, so rows never become Python objects on the hot path.
 
 The buffers draw from ``np.random.default_rng(seed)`` exactly as the JAX
-package's do, so a seed gives the same batches in both packages.
+package's do, so a seed gives the same batches in both packages. For
+checkpoints the results readers report each item delivered as its last row
+leaves (``delivered_callback``), and the loader's buffers give their rows back
+as plain row dicts (``snapshot_rows``) and their RNG state (``rng_state``).
 """
 
 from __future__ import annotations
@@ -106,47 +109,108 @@ def concat_columns(parts):
     return _object_column(rows)
 
 
-class BatchResultsQueueReader(object):
-    """Consumer side of ``make_reader(output='columnar')``: one namedtuple of
-    column arrays per published row group."""
+def concat_blocks(blocks):
+    """Concatenate blocks row-wise (all blocks share one field set)."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return {name: concat_columns([b[name] for b in blocks]) for name in blocks[0]}
+
+
+class BlockResultsReaderBase(object):
+    """Consumer side of a pool that publishes one block per item: one
+    payload per ``read_next``. An item counts as delivered the moment its
+    payload is returned; an item that published nothing is delivered by the
+    pool's completion (``on_item_done``). Subclasses convert the payload."""
 
     batched_output = True
 
     def __init__(self, schema):
         self._schema = schema
+        self.delivered_callback = None
+
+    def on_item_done(self, seq):
+        if self.delivered_callback is not None:
+            self.delivered_callback(seq)
+
+    def _convert(self, payload):
+        return payload
 
     def read_next(self, pool):
-        return self._schema.make_namedtuple(**pool.get_results())
+        payload = pool.get_results()
+        seq = getattr(pool, 'last_result_seq', None)
+        if seq is not None and self.delivered_callback is not None:
+            self.delivered_callback(seq)
+        return self._convert(payload)
 
 
-class FifoColumnarBuffer(object):
-    """FIFO of column blocks with fixed-size batch extraction (no shuffling).
-    Rows are buffered as views and concatenated only where a batch crosses a
-    block boundary."""
+class BatchResultsQueueReader(BlockResultsReaderBase):
+    """Consumer side of ``make_reader(output='columnar')`` and
+    ``make_batch_reader``: one namedtuple of column arrays per published
+    block."""
 
-    def __init__(self):
-        self._segments = deque()
-        self._head = 0  # rows of the head segment already emitted
-        self._size = 0
+    def _convert(self, payload):
+        return self._schema.make_namedtuple(**payload)
 
-    @property
-    def size(self):
-        return self._size
 
-    def add_block(self, block):
-        n = block_num_rows(block)
-        if n:
-            self._segments.append(block)
-            self._size += n
+class BatchingColumnQueue(object):
+    """FIFO of column blocks re-chunked to a fixed row count: the one block
+    buffer behind ``make_batch_reader(batch_size=)`` rebatching
+    (``rebatch.RebatchingResultsQueueReader``) and the loader's
+    :class:`FifoColumnarBuffer`. Input row order is kept; blocks are buffered
+    as views and concatenated only where a batch crosses a block boundary.
+    A block may carry a ``tag``, returned by :meth:`pop_drained_tags` once
+    all its rows have left (checkpoint bookkeeping)."""
 
-    def can_emit(self, batch_size):
-        return self._size >= batch_size
+    def __init__(self, batch_size):
+        if batch_size < 1:
+            raise ValueError('batch_size must be >= 1, got {}'.format(batch_size))
+        self._batch_size = batch_size
+        self._segments = deque()  # (block, tag)
+        self._head = 0  # rows of the head segment already taken
+        self._buffered = 0
+        self._drained_tags = []
 
-    def emit(self, count):
+    def __len__(self):
+        return self._buffered
+
+    def put(self, batch, tag=None):
+        lengths = {len(v) for v in batch.values()}
+        if len(lengths) != 1:
+            raise ValueError('ragged batch: column lengths {}'.format(sorted(lengths)))
+        n = lengths.pop()
+        if n == 0:
+            if tag is not None:
+                self._drained_tags.append(tag)
+            return
+        self._segments.append((batch, tag))
+        self._buffered += n
+
+    def pop_drained_tags(self):
+        """Tags of the blocks whose rows have all been taken since the last call."""
+        tags, self._drained_tags = self._drained_tags, []
+        return tags
+
+    def empty(self):
+        """True when a full ``batch_size`` batch cannot be taken yet."""
+        return self._buffered < self._batch_size
+
+    def get(self):
+        if self.empty():
+            raise ValueError('{} rows buffered, fewer than batch_size {}'.format(
+                self._buffered, self._batch_size))
+        return self.take(self._batch_size)
+
+    def drain(self):
+        """All remaining rows as one final (possibly short) batch, or None."""
+        if self._buffered == 0:
+            return None
+        return self.take(self._buffered)
+
+    def take(self, count):
         parts = []
         taken = 0
         while taken < count:
-            head = self._segments[0]
+            head, tag = self._segments[0]
             head_len = block_num_rows(head)
             take = min(count - taken, head_len - self._head)
             parts.append({k: v[self._head:self._head + take] for k, v in head.items()})
@@ -155,18 +219,55 @@ class FifoColumnarBuffer(object):
             if self._head == head_len:
                 self._segments.popleft()
                 self._head = 0
-        self._size -= count
-        if len(parts) == 1:
-            return parts[0]
-        return {name: concat_columns([p[name] for p in parts]) for name in parts[0]}
+                if tag is not None:
+                    self._drained_tags.append(tag)
+        self._buffered -= count
+        return concat_blocks(parts)
+
+    def clear(self):
+        self._segments.clear()
+        self._head = 0
+        self._buffered = 0
+        self._drained_tags = []
+
+    def snapshot_rows(self):
+        """The buffered rows as plain row dicts, in order (loader checkpoints)."""
+        rows = []
+        for i, (seg, _) in enumerate(self._segments):
+            cols = list(seg.items())
+            for r in range(self._head if i == 0 else 0, block_num_rows(seg)):
+                rows.append({k: v[r] for k, v in cols})
+        return rows
+
+
+class FifoColumnarBuffer(object):
+    """The loader's FIFO of column blocks with fixed-size batch extraction
+    (no shuffling): a facade over :class:`BatchingColumnQueue`."""
+
+    def __init__(self):
+        self._q = BatchingColumnQueue(1)
+
+    @property
+    def size(self):
+        return len(self._q)
+
+    def add_block(self, block):
+        self._q.put(block)
+
+    def can_emit(self, batch_size):
+        return len(self._q) >= batch_size
+
+    def emit(self, count):
+        return self._q.take(count)
 
     def finish(self):
         pass
 
     def clear(self):
-        self._segments.clear()
-        self._head = 0
-        self._size = 0
+        self._q.clear()
+
+    def snapshot_rows(self):
+        return self._q.snapshot_rows()
 
 
 class ShuffledColumnarBuffer(object):
@@ -194,6 +295,15 @@ class ShuffledColumnarBuffer(object):
     @property
     def size(self):
         return (len(self._order_seg) - self._cursor) + self._staged_rows
+
+    @property
+    def rng_state(self):
+        """The RNG's picklable state, for loader checkpoints."""
+        return self._rng.bit_generator.state
+
+    @rng_state.setter
+    def rng_state(self, state):
+        self._rng.bit_generator.state = state
 
     def add_block(self, block):
         n = block_num_rows(block)
@@ -283,3 +393,11 @@ class ShuffledColumnarBuffer(object):
         self._cursor = 0
         self._staged_ids = []
         self._staged_rows = 0
+
+    def snapshot_rows(self):
+        """The rows not yet emitted as plain row dicts: the permuted ones in
+        emit order, then the staged ones (loader checkpoints)."""
+        pending = list(zip(self._order_seg[self._cursor:], self._order_row[self._cursor:]))
+        for sid in self._staged_ids:
+            pending.extend((sid, r) for r in range(self._seg_remaining[sid]))
+        return [{k: v[r] for k, v in self._segments[sid].items()} for sid, r in pending]

@@ -8,9 +8,11 @@ so a store written by either package is read by the other; columns whose
 codec stores compressed cells (images, ``compressed_ndarray``) are written
 uncompressed, as the JAX writer does. Row-group indexes live under
 ``petastorm_tpu.rowgroups_index.v1`` (:func:`add_dataset_metadata` rewrites
-the footer keeping every other key). Not ported yet: hive partitioning
-(pieces carry an empty ``partition_keys`` mapping), append/publish, the
-``_metadata`` summary-file and legacy petastorm fallbacks.
+the footer keeping every other key). A plain Parquet store's schema is
+inferred from its first file (:func:`infer_or_load_unischema`). Not ported
+yet: hive partitioning (pieces carry an empty ``partition_keys`` mapping),
+append/publish, the ``_metadata`` summary-file and legacy petastorm
+fallbacks.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from petastorm_tpu_torch.unischema import Unischema, encode_row
 UNISCHEMA_KEY = b'petastorm_tpu.unischema.v1'
 ROW_GROUPS_PER_FILE_KEY = b'petastorm_tpu.num_row_groups_per_file.v1'
 ROW_GROUP_INDEX_KEY = b'petastorm_tpu.rowgroups_index.v1'
+#: the unischema key of stores written by the original petastorm library
+LEGACY_UNISCHEMA_KEY = b'dataset-toolkit.unischema.v1'
 
 _COMMON_METADATA = '_common_metadata'
 
@@ -297,3 +301,25 @@ def get_schema(dataset_url):
             'petastorm_tpu / petastorm_tpu_torch, or its _common_metadata file was lost.'.format(
                 dataset_url))
     return Unischema.from_json(json.loads(meta[UNISCHEMA_KEY].decode('utf-8')))
+
+
+def infer_or_load_unischema(dataset_url):
+    """The stored Unischema, else one inferred from the first data file's
+    Arrow schema (:meth:`Unischema.from_arrow_schema`: columns of types it
+    cannot map are left out). Hive-partitioned stores and stores written by
+    the original petastorm library are refused: neither is ported yet."""
+    resolver = FilesystemResolver(dataset_url)
+    fs, root = resolver.filesystem(), resolver.get_dataset_path()
+    meta = _read_common_metadata(fs, root)
+    if UNISCHEMA_KEY in meta:
+        return Unischema.from_json(json.loads(meta[UNISCHEMA_KEY].decode('utf-8')))
+    if LEGACY_UNISCHEMA_KEY in meta:
+        raise NotImplementedError('stores written by the original petastorm library are not yet '
+                                  'ported to petastorm_tpu_torch (ROADMAP.md, "remote '
+                                  'filesystems"): {}'.format(dataset_url))
+    files = _list_parquet_files(fs, root)
+    if not files:
+        raise PetastormMetadataError('No parquet files found at {}'.format(dataset_url))
+    _check_unpartitioned(posixpath.relpath(files[0], root))
+    with fs.open_input_file(files[0]) as f:
+        return Unischema.from_arrow_schema(pq.ParquetFile(f).schema_arrow)

@@ -4,8 +4,10 @@ ported yet.
 
 Randomness comes from an explicit ``torch.Generator`` on the images' device.
 It cannot reproduce ``jax.random``'s bits, so the tests feed
-:func:`_flip_with_mask` the mask the JAX op drew and check the sampling rate
-for its statistics only.
+:func:`flip_with_mask` the mask the JAX op drew and check the sampling rate
+for its statistics only. The mask is drawn apart from the flip
+(:func:`flip_mask`), so that a train step captured in a CUDA graph can draw
+it outside the graph and feed it to the captured flip.
 """
 
 from __future__ import annotations
@@ -13,10 +15,16 @@ from __future__ import annotations
 import torch
 
 
-def _flip_with_mask(images, mask):
+def flip_with_mask(images, mask):
     """Mirror along the width axis the images of ``(B, H, W, C)`` ``images``
     where the boolean ``(B,)`` ``mask`` is set."""
     return torch.where(mask.to(images.device)[:, None, None, None], images.flip(2), images)
+
+
+def flip_mask(batch, generator, prob=0.5):
+    """The ``(batch,)`` boolean mask of :func:`random_flip`: one uniform draw
+    per image from ``generator`` (on its device), set below ``prob``."""
+    return torch.rand(batch, generator=generator, device=generator.device) < prob
 
 
 def random_flip(images, generator, prob=0.5):
@@ -27,5 +35,4 @@ def random_flip(images, generator, prob=0.5):
     """
     if images.dim() != 4:
         raise ValueError('images must be (B, H, W, C), got shape {}'.format(tuple(images.shape)))
-    mask = torch.rand(images.shape[0], generator=generator, device=images.device) < prob
-    return _flip_with_mask(images, mask)
+    return flip_with_mask(images, flip_mask(images.shape[0], generator, prob))

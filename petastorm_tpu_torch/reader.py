@@ -1,22 +1,31 @@
-"""Reader factory and orchestrator: the framework's main read path.
+"""Reader factories and orchestrator: the framework's main read path.
 
-Trimmed twin of ``make_reader`` / ``Reader`` in ``petastorm_tpu/reader.py``:
-list the row groups, select columns, filter the row groups through a
-row-group selector's stored indexes, then a predicate (row groups of a
-partition key; never, while hive stores are not ported), shard round-robin,
-ventilate one item per (row group, shuffle-row-drop partition) in the seeded
-per-epoch order into a thread, process or dummy pool, and deliver rows or
-column blocks, optionally through a local-disk cache of decoded blocks. The
-workers filter rows by the predicate. For a given seed the item order is the
-JAX package's. The arguments of the JAX ``make_reader`` that are not ported
-yet raise :class:`NotImplementedError` naming their ROADMAP item when given a
+Trimmed twin of ``make_reader`` / ``make_batch_reader`` / ``Reader`` /
+``merge_resume_states`` in ``petastorm_tpu/reader.py``: list the row groups,
+select columns, filter the row groups through a row-group selector's stored
+indexes, then a predicate (row groups of a partition key; never, while hive
+stores are not ported), shard round-robin, ventilate one item per (row group,
+shuffle-row-drop partition) in the seeded per-epoch order into a thread,
+process or dummy pool, and deliver rows, column blocks or fixed-size batches,
+optionally through a local-disk cache of decoded blocks. The workers filter
+rows by the predicate. ``make_reader`` decodes a petastorm store through its
+Unischema's codecs; ``make_batch_reader`` reads any Parquet store as raw
+columns, its schema inferred when the store has none.
+
+For a given seed the item order is the JAX package's, and so is the read
+position a reader checkpoints (:meth:`Reader.state_dict`, ``resume_state=``):
+a plain dict of ints, lists and a numpy bit-generator state, which either
+package resumes. The arguments of the JAX factories that are not ported yet
+raise :class:`NotImplementedError` naming their ROADMAP item when given a
 non-default value.
 """
 
 from __future__ import annotations
 
 import pickle
+import warnings
 
+from petastorm_tpu_torch.batch_worker import ArrowBatchWorker
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import BatchResultsQueueReader
 from petastorm_tpu_torch.errors import EmptyResultError, NoDataAvailableError, PetastormTpuError
@@ -24,6 +33,7 @@ from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
 from petastorm_tpu_torch.fs import FilesystemResolver
 from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
+from petastorm_tpu_torch.rebatch import RebatchingResultsQueueReader
 from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker, RowResultsQueueReader
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.serializers import NumpyBlockSerializer
@@ -34,13 +44,11 @@ from petastorm_tpu_torch.workers import (ConcurrentVentilator, DummyPool, ErrorP
 # memory while keeping workers busy
 _VENTILATE_EXTRA_ROWGROUPS = 2
 
-#: make_reader arguments of the JAX package not ported yet:
-#: name -> (JAX default, ROADMAP item that ports it)
+#: arguments of the JAX reader factories not ported yet:
+#: name -> (JAX default, ROADMAP item that ports it); make_batch_reader has
+#: every one but ngram
 _NOT_YET_PORTED = {
     'ngram': (None, 'long context'),
-    'batch_size': (None, 'loader state_dict/resume'),
-    'drop_last': (False, 'loader state_dict/resume'),
-    'resume_state': (None, 'loader state_dict/resume'),
     'storage_retry_policy': (None, 'remote filesystems'),
     'chunk_cache': (None, 'remote filesystems'),
     'chunk_cache_size_limit': (None, 'remote filesystems'),
@@ -52,6 +60,36 @@ _NOT_YET_PORTED = {
     'elastic': (None, 'DDP/mesh'),
     'piece_filter': (None, 'DDP/mesh'),
 }
+
+
+def _refuse_not_yet_ported(factory, not_yet_ported):
+    """Raise for an argument of the JAX ``factory`` that is not ported yet
+    and was given a non-default value, and for one the JAX factory lacks."""
+    for name, value in not_yet_ported.items():
+        if name not in _NOT_YET_PORTED or (factory == 'make_batch_reader' and name == 'ngram'):
+            raise TypeError('{}() got an unexpected keyword argument {!r}'.format(factory, name))
+        default, item = _NOT_YET_PORTED[name]
+        if value != default:
+            raise NotImplementedError(
+                '{}({}=...) is not yet ported to petastorm_tpu_torch '
+                '(ROADMAP.md, "{}")'.format(factory, name, item))
+
+
+def _columnar_results_reader_factory(output, batch_size, drop_last, rows_factory):
+    """The results reader of the output mode: rows, one block per row group,
+    or blocks rebatched to ``batch_size`` rows."""
+    if output == 'rows':
+        if drop_last:
+            raise ValueError('drop_last requires batch_size (without rebatching there is '
+                             'no "last short batch" to drop)')
+        return rows_factory
+    if batch_size is not None:
+        return lambda schema: RebatchingResultsQueueReader(schema, batch_size,
+                                                           drop_last=drop_last)
+    if drop_last:
+        raise ValueError('drop_last requires batch_size (without rebatching, batches are '
+                         'row-group-sized and there is no "last short batch" to drop)')
+    return BatchResultsQueueReader
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, serializer=None,
@@ -136,7 +174,8 @@ def make_reader(dataset_url,
                 cache_type='null', cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None,
                 transform_spec=None,
-                output='rows',
+                output='rows', batch_size=None, drop_last=False,
+                resume_state=None,
                 on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
                 **not_yet_ported):
     """Reader for datasets written by :func:`materialize_dataset`.
@@ -170,6 +209,14 @@ def make_reader(dataset_url,
     :param output: ``'rows'`` yields one schema namedtuple per row;
         ``'columnar'`` yields one namedtuple of column arrays per row group
         (the hot path :class:`TorchDataLoader` slices batches from)
+    :param batch_size: (columnar only) rebatch the blocks to exactly this
+        many rows; the last batch of a pass is shorter unless ``drop_last``
+    :param drop_last: (columnar with ``batch_size`` only) drop that batch;
+        its rows are not delivered, so a checkpoint re-reads them
+    :param resume_state: a dict from :meth:`Reader.state_dict` (of either
+        package): continue from that read position. Construct the reader
+        with otherwise the same arguments; ``cur_shard``/``shard_count`` may
+        differ for version-2 states (see :func:`merge_resume_states`)
     :param on_error: item-failure policy, the same on every pool type:
         ``'raise'`` surfaces the first worker error on the iterating thread
         with the worker-side traceback attached; ``'retry'`` re-runs a failed
@@ -194,16 +241,14 @@ def make_reader(dataset_url,
         ...); the JAX ``make_reader`` has no such argument and always takes
         the pool's defaults
     """
-    for name, value in not_yet_ported.items():
-        if name not in _NOT_YET_PORTED:
-            raise TypeError('make_reader() got an unexpected keyword argument {!r}'.format(name))
-        default, item = _NOT_YET_PORTED[name]
-        if value != default:
-            raise NotImplementedError(
-                'make_reader({}=...) is not yet ported to petastorm_tpu_torch '
-                '(ROADMAP.md, "{}")'.format(name, item))
+    _refuse_not_yet_ported('make_reader', not_yet_ported)
     if output not in ('rows', 'columnar'):
         raise ValueError("output must be 'rows' or 'columnar', got {!r}".format(output))
+    if output == 'rows' and batch_size is not None:
+        raise ValueError("batch_size requires output='columnar' (row output is one row "
+                         'per iteration; batch with TorchDataLoader instead)')
+    results_reader = _columnar_results_reader_factory(output, batch_size, drop_last,
+                                                      RowResultsQueueReader)
     # the pool is built, not started, before any IO: a bad policy or pool
     # type fails first
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
@@ -212,15 +257,55 @@ def make_reader(dataset_url,
     try:
         schema = dataset_metadata.get_schema(dataset_url)
     except dataset_metadata.PetastormMetadataError:
-        raise PetastormTpuError('Dataset at {} is missing unischema metadata.'.format(dataset_url))
-    results_reader = BatchResultsQueueReader if output == 'columnar' else RowResultsQueueReader
+        raise PetastormTpuError(
+            'Dataset at {} is missing unischema metadata. If it is a plain Parquet store, '
+            'use make_batch_reader instead.'.format(dataset_url))
     cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
     return Reader(dataset_url, schema, pool, results_reader, schema_fields=schema_fields,
                   seed=seed, shuffle_row_groups=shuffle_row_groups,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
-                  transform_spec=transform_spec)
+                  transform_spec=transform_spec, resume_state=resume_state)
+
+
+def make_batch_reader(dataset_url,
+                      schema_fields=None,
+                      reader_pool_type='thread', workers_count=10, results_queue_size=50,
+                      seed=None,
+                      shuffle_row_groups=True, shuffle_row_drop_partitions=1,
+                      predicate=None,
+                      num_epochs=1,
+                      cur_shard=None, shard_count=None,
+                      cache_type='null', cache_location=None, cache_size_limit=None,
+                      cache_row_size_estimate=None,
+                      transform_spec=None,
+                      batch_size=None, drop_last=False,
+                      resume_state=None,
+                      on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
+                      **not_yet_ported):
+    """Columnar reader for ANY Parquet store: one namedtuple of numpy column
+    arrays per row group, or per ``batch_size`` rows with ``batch_size``
+    (the last batch of a pass shorter unless ``drop_last``). The columns are
+    raw, with no codec decode: a binary column (an encoded image) comes out
+    as an object array of bytes, for a batched ``TransformSpec`` to decode.
+    The schema is the stored Unischema when the store has one, else it is
+    inferred from the Arrow schema (:func:`~petastorm_tpu_torch.etl.
+    dataset_metadata.infer_or_load_unischema`). The other arguments are
+    :func:`make_reader`'s; ``TransformSpec.func`` gets the column dict."""
+    _refuse_not_yet_ported('make_batch_reader', not_yet_ported)
+    results_reader = _columnar_results_reader_factory('columnar', batch_size, drop_last, None)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
+                      max_item_retries=max_item_retries, zero_copy=zero_copy,
+                      pool_kwargs=pool_kwargs)
+    schema = dataset_metadata.infer_or_load_unischema(dataset_url)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
+    return Reader(dataset_url, schema, pool, results_reader, schema_fields=schema_fields,
+                  seed=seed, shuffle_row_groups=shuffle_row_groups,
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
+                  num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
+                  cache=cache, transform_spec=transform_spec, resume_state=resume_state,
+                  worker_class=ArrowBatchWorker)
 
 
 class Reader(object):
@@ -233,7 +318,8 @@ class Reader(object):
     def __init__(self, dataset_url, schema, pool, results_reader_factory, schema_fields=None,
                  seed=None, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
-                 shard_count=None, cache=NullCache(), transform_spec=None):
+                 shard_count=None, cache=NullCache(), transform_spec=None, resume_state=None,
+                 worker_class=RowGroupDecoderWorker):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -241,6 +327,8 @@ class Reader(object):
                 cur_shard, shard_count))
         if shuffle_row_drop_partitions < 1:
             raise ValueError('shuffle_row_drop_partitions must be >= 1')
+        self._dataset_url = dataset_url
+        #: the full stored (or inferred) schema
         self.schema = schema
         #: the decoded-block cache (``stats()`` counts its hits and misses)
         self.cache = cache
@@ -258,8 +346,13 @@ class Reader(object):
         if rowgroup_selector is not None:
             pieces = self._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector)
         pieces, worker_predicate = self._apply_predicate_to_pieces(pieces, predicate)
-        if cur_shard is not None:
-            pieces = [p for i, p in enumerate(pieces) if i % shard_count == cur_shard]
+        # the enumeration before sharding is the same on every host, so a
+        # version-2 state's cursor in these global piece indices resumes on
+        # any shard count (state_dict, merge_resume_states)
+        self._num_global_pieces = len(pieces)
+        self._global_piece_indices = (list(range(len(pieces))) if cur_shard is None else
+                                      list(range(cur_shard, len(pieces), shard_count)))
+        pieces = [pieces[i] for i in self._global_piece_indices]
         if not pieces:
             raise NoDataAvailableError(
                 'No row groups selected for reading (dataset={}, shard {}/{}). Check predicate/'
@@ -267,16 +360,28 @@ class Reader(object):
         if worker_predicate is not None and isinstance(pool, ProcessPool):
             _check_picklable(worker_predicate)
         self._pieces = pieces
+        self._cur_shard = cur_shard
+        self._shard_count = shard_count
+        self._shuffle_row_drop_partitions = shuffle_row_drop_partitions
+        items = build_work_items(len(pieces), shuffle_row_drop_partitions, worker_predicate)
+        self._num_items = len(items)
+        ventilator_resume = (None if resume_state is None else
+                             self._resolve_resume_state(resume_state, dataset_url))
         self._ventilator = ConcurrentVentilator(
-            pool.ventilate, build_work_items(len(pieces), shuffle_row_drop_partitions,
-                                             worker_predicate),
-            iterations=num_epochs,
+            pool.ventilate, items, iterations=num_epochs,
             max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
-            randomize_item_order=shuffle_row_groups, random_seed=seed)
+            randomize_item_order=shuffle_row_groups, random_seed=seed, tag_items=True,
+            resume_state=ventilator_resume)
         self._results_reader = results_reader_factory(self.transformed_schema)
+        # checkpoint wiring, before the pool starts (items may flow at once):
+        # the results reader marks an item delivered when its last row is
+        # yielded; the pool's completions cover items that published nothing
+        self._results_reader.delivered_callback = self._ventilator.mark_delivered
+        pool.done_callback = self._results_reader.on_item_done
         self._pool = pool
+        self.last_row_consumed = False
         self._stopped = False
-        pool.start(RowGroupDecoderWorker,
+        pool.start(worker_class,
                    {'filesystem': resolver.filesystem(),
                     'dataset_path': resolver.get_dataset_path(),
                     'cache': self.cache,
@@ -326,7 +431,98 @@ class Reader(object):
         try:
             return self._results_reader.read_next(self._pool)
         except EmptyResultError:
+            self.last_row_consumed = True
             raise StopIteration
+
+    # -- checkpoint / resume ------------------------------------------------
+
+    def _resolve_resume_state(self, state, dataset_url):
+        """Validate ``resume_state`` and return the ventilator's part of it.
+
+        A state taken over the same pieces and items on the same shard (v2
+        states record it; v1 states predate the field and are trusted)
+        resumes exactly: replay order and RNG state. A v2 state over the
+        same global pieces with other shard arithmetic resumes portably: its
+        global cursor is mapped onto this shard's items, and the remaining
+        epochs reshuffle from this reader's seed. Anything else is refused."""
+        if not isinstance(state, dict) or state.get('version') not in (1, 2):
+            raise ValueError('Unrecognized resume_state (expected a dict produced by '
+                             'Reader.state_dict())')
+        if state.get('dataset_url') not in (None, dataset_url):
+            warnings.warn('resume_state was taken from {} but this reader opens {}; resuming '
+                          'anyway since piece counts match (dataset may have moved)'.format(
+                              state.get('dataset_url'), dataset_url))
+        ckpt_shard = state.get('shard')
+        shard_matches = (ckpt_shard is None
+                         or list(ckpt_shard) == [self._cur_shard, self._shard_count])
+        if (state.get('num_pieces') == len(self._pieces)
+                and state.get('num_items') == self._num_items and shard_matches):
+            return state['ventilator']
+        sdp = self._shuffle_row_drop_partitions
+        if (state.get('version') == 2
+                and state.get('num_global_pieces') == self._num_global_pieces
+                and state.get('shuffle_row_drop_partitions') == sdp):
+            local_of = {g: lp for lp, g in enumerate(self._global_piece_indices)}
+            replay = sorted(local_of[g] * sdp + part
+                            for g, part in state.get('remaining_global_parts', ())
+                            if g in local_of)
+            return {'replay_indices': replay,
+                    'iterations_remaining': state.get('iterations_remaining'),
+                    'rng_state': None}
+        if not shard_matches:
+            raise ValueError(
+                'resume_state was taken on shard {}/{} but this reader is shard {}/{}, and '
+                'the state carries no matching portable cursor to remap — an exact resume '
+                'would replay the other shard\'s positions. Restore each state onto its own '
+                'shard, or merge all hosts\' states with merge_resume_states.'.format(
+                    ckpt_shard[0], ckpt_shard[1], self._cur_shard, self._shard_count))
+        raise ValueError(
+            'resume_state does not match this reader: it was taken over {} pieces / {} work '
+            'items ({} dataset-wide), but this reader selected {} / {} ({} dataset-wide). '
+            'Construct the resumed reader with the same arguments (dataset, predicate, '
+            'selector, shuffle_row_drop_partitions) as the checkpointed one; only the '
+            'cur_shard/shard_count split may differ for v2 states.'.format(
+                state.get('num_pieces'), state.get('num_items'),
+                state.get('num_global_pieces'), len(self._pieces), self._num_items,
+                self._num_global_pieces))
+
+    def state_dict(self):
+        """The read position as a picklable dict (version 2, the JAX
+        package's layout): pass it as ``resume_state=`` to a reader built
+        with otherwise the same arguments to continue from here.
+
+        Row groups whose rows were all yielded are never read again; row
+        groups in flight, a partly yielded one included, are read again
+        whole. At an epoch boundary the resume is exact, and the remaining
+        epochs reshuffle from the saved RNG state. The cursor is also kept in
+        global piece indices (``remaining_global_parts``), so the states of
+        N shards, merged with :func:`merge_resume_states`, resume on M."""
+        vent = self._ventilator.state_dict()
+        sdp = self._shuffle_row_drop_partitions
+        remaining = sorted({(int(self._global_piece_indices[i // sdp]), int(i % sdp))
+                            for i in vent['replay_indices']})
+        return {
+            'version': 2,
+            'dataset_url': self._dataset_url,
+            'num_pieces': len(self._pieces),
+            'num_items': self._num_items,
+            'ventilator': vent,
+            'num_global_pieces': self._num_global_pieces,
+            'shard': [self._cur_shard, self._shard_count],
+            'shuffle_row_drop_partitions': sdp,
+            'remaining_global_parts': [list(cell) for cell in remaining],
+            'iterations_remaining': vent['iterations_remaining'],
+        }
+
+    def reset(self):
+        """Read the dataset again for another ``num_epochs``. Only valid
+        after the previous pass was read to its end."""
+        if not self.last_row_consumed:
+            raise PetastormTpuError(
+                'reset() called mid-epoch. Consume all rows (or use num_epochs=None) '
+                'before resetting.')
+        self._ventilator.reset()
+        self.last_row_consumed = False
 
     @property
     def diagnostics(self):
@@ -356,3 +552,57 @@ class Reader(object):
         if not self._stopped:
             self.stop()
             self.join()
+
+
+def merge_resume_states(states):
+    """One portable ``resume_state`` from the states of every shard of a run.
+
+    Take :meth:`Reader.state_dict` on every host, merge them here, and pass
+    the result as ``resume_state=`` to readers of ANY shard count (1
+    included): it holds the run's unfinished row groups in global piece
+    indices, and each restoring shard replays exactly the ones that land on
+    it. The states must come from readers over the same dataset-wide
+    selection (dataset, predicate, selector, ``shuffle_row_drop_partitions``),
+    and every host's must be given: a missing host's unfinished row groups
+    count as read. The shuffle RNG does not carry over to another item list,
+    so the remaining epochs reshuffle from the restoring readers' seed."""
+    states = list(states)
+    if not states:
+        raise ValueError('merge_resume_states needs at least one state')
+    base = None
+    cells = set()
+    iterations = ()
+    for state in states:
+        if not isinstance(state, dict) or state.get('version') != 2:
+            raise ValueError('merge_resume_states needs version-2 dicts from '
+                             'Reader.state_dict(); got {!r}'.format(
+                                 state.get('version') if isinstance(state, dict)
+                                 else type(state).__name__))
+        if base is None:
+            base = state
+        if (state.get('num_global_pieces') != base.get('num_global_pieces')
+                or state.get('shuffle_row_drop_partitions')
+                != base.get('shuffle_row_drop_partitions')):
+            raise ValueError(
+                'resume states disagree on the dataset-wide selection '
+                '({} pieces x {} drop parts vs {} x {}): they were not taken '
+                'over the same dataset/predicate/selector'.format(
+                    base.get('num_global_pieces'), base.get('shuffle_row_drop_partitions'),
+                    state.get('num_global_pieces'), state.get('shuffle_row_drop_partitions')))
+        cells.update((int(g), int(part)) for g, part in state.get('remaining_global_parts', ()))
+        iterations += (state.get('iterations_remaining'),)
+    finite = [it for it in iterations if it is not None]
+    return {
+        'version': 2,
+        'dataset_url': base.get('dataset_url'),
+        # None: a merged state never takes the exact path, it always maps
+        # through the global cursor
+        'num_pieces': None,
+        'num_items': None,
+        'ventilator': None,
+        'num_global_pieces': base.get('num_global_pieces'),
+        'shard': None,
+        'shuffle_row_drop_partitions': base.get('shuffle_row_drop_partitions'),
+        'remaining_global_parts': [list(cell) for cell in sorted(cells)],
+        'iterations_remaining': None if len(finite) < len(iterations) else min(finite),
+    }

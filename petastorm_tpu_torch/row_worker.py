@@ -366,7 +366,11 @@ class RowGroupDecoderWorker(WorkerBase):
 
 class RowResultsQueueReader(object):
     """Consumer side of ``make_reader(output='rows')``: slices schema
-    namedtuples out of published column blocks, one row per ``read_next``."""
+    namedtuples out of published column blocks, one row per ``read_next``.
+
+    Checkpoints: the block being sliced remembers the seq of the item it came
+    from, and ``delivered_callback(seq)`` fires when its last row is yielded,
+    so a reader's state never counts a partly yielded row group as read."""
 
     batched_output = False
 
@@ -376,6 +380,15 @@ class RowResultsQueueReader(object):
         self._cols = None
         self._n = 0
         self._i = 0
+        self._seq = None
+        self.delivered_callback = None
+
+    def on_item_done(self, seq):
+        """The pool consumed the completion of ``seq``. A completion comes
+        after its item's payloads, so that item's rows were all yielded
+        already, or it published none: it is delivered either way."""
+        if self.delivered_callback is not None:
+            self.delivered_callback(seq)
 
     def read_next(self, pool):
         while self._cols is None:
@@ -384,8 +397,11 @@ class RowResultsQueueReader(object):
             if n:
                 self._cols = [block[name] for name in self._field_order]
                 self._n, self._i = n, 0
+                self._seq = getattr(pool, 'last_result_seq', None)
         row = self._namedtuple(*[col[self._i] for col in self._cols])
         self._i += 1
         if self._i == self._n:
             self._cols = None
+            if self._seq is not None and self.delivered_callback is not None:
+                self.delivered_callback(self._seq)
         return row

@@ -2,7 +2,8 @@
 
 The RNG draws are the JAX package's (``np.random.default_rng(seed)``, one
 ``integers(0, size)`` per retrieve), so a seed gives the same row order in
-both packages.
+both packages. A loader checkpoint keeps the random buffer's RNG state
+(``rng_state``) beside its rows.
 """
 
 from __future__ import annotations
@@ -92,6 +93,15 @@ class RandomShufflingBuffer(object):
     @property
     def size(self):
         return len(self._items)
+
+    @property
+    def rng_state(self):
+        """The RNG's picklable state, for loader checkpoints."""
+        return self._rng.bit_generator.state
+
+    @rng_state.setter
+    def rng_state(self, state):
+        self._rng.bit_generator.state = state
 
     def finish(self):
         self._done_adding = True

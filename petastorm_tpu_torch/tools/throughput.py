@@ -37,7 +37,8 @@ def _sync(device):
 
 
 def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, steps=50,
-                        warmup_steps=5, loader_kwargs=None, reader_kwargs=None, device=None):
+                        warmup_steps=5, loader_kwargs=None, reader_kwargs=None, device=None,
+                        reader_factory=make_reader):
     """Run ``step_fn(*batch_to_args(batch))`` on ``warmup_steps`` then
     ``steps`` batches; stall = time blocked in ``next()`` / wall time of the
     measured steps. On CUDA, ``extra['step_ms']`` holds each measured step's
@@ -51,11 +52,16 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     process pool adds its workers' counts as they arrive). ``extra['pool']``
     holds the pool's ``diagnostics`` at the end of the run: for a process
     pool its transport, restarts, quarantined items, publishes per channel
-    and live zero-copy borrows."""
+    and live zero-copy borrows. ``reader_factory`` opens the reader:
+    :func:`make_reader` (with ``output='columnar'`` unless ``reader_kwargs``
+    say otherwise) or ``make_batch_reader``."""
     device = resolve_device(device)
-    kwargs = {'num_epochs': None, 'output': 'columnar', **(reader_kwargs or {})}
+    kwargs = {'num_epochs': None}
+    if reader_factory is make_reader:
+        kwargs['output'] = 'columnar'
+    kwargs.update(reader_kwargs or {})
     routes_before = read_routes.snapshot()
-    reader = make_reader(dataset_url, **kwargs)
+    reader = reader_factory(dataset_url, **kwargs)
     it = None
     try:
         loader = TorchDataLoader(reader, batch_size=batch_size, **(loader_kwargs or {}))

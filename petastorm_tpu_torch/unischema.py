@@ -4,6 +4,8 @@ Trimmed twin of ``petastorm_tpu/unischema.py``: the same JSON layout
 (``to_json``/``from_json``) and field semantics, so a schema stored by either
 package loads in the other. A field given no codec gets ``ScalarCodec`` when
 it is a scalar and ``NdarrayCodec`` otherwise, as in the JAX package.
+:meth:`Unischema.from_arrow_schema` infers a schema for a plain Parquet store
+with the JAX package's type mapping.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from decimal import Decimal
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.codecs import DataFieldCodec, NdarrayCodec, ScalarCodec, codec_from_json
+from petastorm_tpu_torch.codecs import (DataFieldCodec, NdarrayCodec, ScalarCodec, ScalarListCodec,
+                                        codec_from_json)
 from petastorm_tpu_torch.errors import SchemaError
 
 _SPECIAL_DTYPE_TOKENS = {
@@ -183,6 +186,55 @@ class Unischema(object):
         """Physical Arrow schema of the Parquet files this Unischema writes."""
         return pa.schema([pa.field(f.name, f.codec.arrow_type(f), f.nullable)
                           for f in self._fields.values()])
+
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema, name='inferred', omit_unsupported_fields=True):
+        """A Unischema for a plain (non-petastorm) Parquet store: scalar
+        columns become scalar fields, ``list`` columns 1-D variable-length
+        fields. A column of another type (``fixed_size_list``, struct, map,
+        ...) is left out, or raises without ``omit_unsupported_fields``."""
+        fields = []
+        for arrow_field in arrow_schema:
+            try:
+                fields.append(_unischema_field_from_arrow(arrow_field))
+            except SchemaError:
+                if not omit_unsupported_fields:
+                    raise
+        return cls(name, fields)
+
+
+_ARROW_TO_NUMPY = {
+    pa.int8(): np.int8, pa.uint8(): np.uint8,
+    pa.int16(): np.int16, pa.uint16(): np.uint16,
+    pa.int32(): np.int32, pa.uint32(): np.uint32,
+    pa.int64(): np.int64, pa.uint64(): np.uint64,
+    pa.float16(): np.float16, pa.float32(): np.float32, pa.float64(): np.float64,
+    pa.bool_(): np.bool_,
+    pa.string(): np.str_, pa.large_string(): np.str_,
+    pa.binary(): np.bytes_, pa.large_binary(): np.bytes_,
+    pa.date32(): np.datetime64, pa.date64(): np.datetime64,
+}
+
+
+def _numpy_from_arrow_type(arrow_type):
+    if arrow_type in _ARROW_TO_NUMPY:
+        return _ARROW_TO_NUMPY[arrow_type]
+    if pa.types.is_timestamp(arrow_type):
+        return np.datetime64
+    if pa.types.is_decimal(arrow_type):
+        return Decimal
+    if pa.types.is_dictionary(arrow_type):
+        return _numpy_from_arrow_type(arrow_type.value_type)
+    raise SchemaError('Cannot map Arrow type {} to numpy'.format(arrow_type))
+
+
+def _unischema_field_from_arrow(arrow_field):
+    t = arrow_field.type
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        return UnischemaField(arrow_field.name, _numpy_from_arrow_type(t.value_type), (None,),
+                              ScalarListCodec(), arrow_field.nullable)
+    return UnischemaField(arrow_field.name, _numpy_from_arrow_type(t), (), ScalarCodec(),
+                          arrow_field.nullable)
 
 
 def encode_row(schema, row_dict):

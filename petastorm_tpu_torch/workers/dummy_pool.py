@@ -7,6 +7,13 @@ the ventilator's seed (what the parity tests compare). Item failures follow
 the same ``on_error``/``max_item_retries`` policy as the other pools
 (``workers/supervision.py``), so a pipeline behaves the same when dropped
 onto this pool for debugging.
+
+Checkpoint plumbing, as the JAX pool's: ``ventilate`` keeps the ventilator's
+``_seq`` tag with the item, :attr:`DummyPool.last_result_seq` names the item
+whose payload :meth:`DummyPool.get_results` returned last, and a delivered
+item's completion enters the results queue behind its payloads, where
+``done_callback(seq)`` fires as it is consumed; a failed or quarantined item
+completes undelivered.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from collections import deque
 
 from petastorm_tpu_torch.errors import EmptyResultError
 from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
-from petastorm_tpu_torch.workers.protocol import DispatchIds
+from petastorm_tpu_torch.workers.protocol import MSG_DATA, MSG_DONE, DispatchIds
 from petastorm_tpu_torch.workers.supervision import (ErrorPolicy, attach_remote_context,
                                                      format_exception_tb, quarantine_record)
 
@@ -28,18 +35,23 @@ logger = logging.getLogger(__name__)
 class DummyPool(object):
     def __init__(self, on_error='raise', max_item_retries=None):
         self.workers_count = 1
-        self._results = deque()
-        self._pending = deque()  # (dispatch id, args, kwargs, failed attempts)
+        self._results = deque()  # (MSG_DATA, seq, payload) | (MSG_DONE, seq, None)
+        self._pending = deque()  # (dispatch id, args, kwargs, failed attempts); _seq rides kwargs
         self._lock = threading.Lock()
         self._worker = None
         self._ventilator = None
         self._policy = ErrorPolicy.resolve(on_error, max_item_retries)
         self._dispatch_ids = DispatchIds()
         self._published = False
+        self._current_seq = None
         self._ventilated_items = 0
         self._completed_items = 0
         self._items_requeued = 0
         self._quarantined = []
+        #: seq of the item whose payload get_results returned last
+        self.last_result_seq = None
+        #: callable(seq) fired when a delivered item's completion is consumed
+        self.done_callback = None
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._worker is not None:
@@ -51,7 +63,7 @@ class DummyPool(object):
 
     def _publish(self, data):
         self._published = True
-        self._results.append(data)
+        self._results.append((MSG_DATA, self._current_seq, data))
 
     def ventilate(self, *args, **kwargs):
         with self._lock:
@@ -63,13 +75,17 @@ class DummyPool(object):
         with self._lock:
             if not self._pending or self._worker is None:
                 return False
-            d, args, kwargs, attempts = self._pending.popleft()
+            d, args, orig_kwargs, attempts = self._pending.popleft()
+        kwargs = dict(orig_kwargs)
+        self._current_seq = kwargs.pop('_seq', None)
         self._published = False
         try:
             self._worker.process(*args, **kwargs)
         except Exception as exc:  # noqa: BLE001 - routed through the error policy
-            if not self._handle_item_failure(exc, d, args, kwargs, attempts + 1):
+            if not self._handle_item_failure(exc, d, args, orig_kwargs, attempts + 1):
                 return True  # requeued: not complete yet
+        else:
+            self._results.append((MSG_DONE, self._current_seq, None))
         self._complete()
         return True
 
@@ -77,7 +93,7 @@ class DummyPool(object):
         with self._lock:
             self._completed_items += 1
         if self._ventilator is not None:
-            self._ventilator.processed_item()
+            self._ventilator.processed_item(self._current_seq)
 
     def _handle_item_failure(self, exc, d, args, kwargs, attempts):
         """Apply the policy; False when the item was requeued. Under
@@ -86,6 +102,7 @@ class DummyPool(object):
             # its rows are already delivered: a re-run would deliver them twice
             logger.warning('Item %s failed AFTER publishing; completing the item rather than '
                            're-running it: %s', kwargs, exc)
+            self._results.append((MSG_DONE, self._current_seq, None))
             return True
         if self._policy.should_retry_error(attempts):
             logger.warning('Item %s failed (attempt %d/%d); requeueing: %s', kwargs, attempts,
@@ -108,10 +125,23 @@ class DummyPool(object):
             self._ventilator.stop()
         raise attach_remote_context(exc, format_exception_tb(exc), worker_id=0, seq=d)
 
+    def _pop_ready(self):
+        """Pop queued entries until a payload; completions met on the way
+        fire ``done_callback``. The payload, or None when the queue ran dry."""
+        while self._results:
+            kind, seq, payload = self._results.popleft()
+            if kind == MSG_DATA:
+                self.last_result_seq = seq
+                return payload
+            if seq is not None and self.done_callback is not None:
+                self.done_callback(seq)
+        return None
+
     def get_results(self):
         while True:
-            if self._results:
-                return self._results.popleft()
+            payload = self._pop_ready()
+            if payload is not None:
+                return payload
             if self._process_one():
                 continue
             if self._ventilator is None or self._ventilator.completed():
@@ -119,8 +149,9 @@ class DummyPool(object):
                 # emptiness check and completed() flipping true
                 if self._process_one():
                     continue
-                if self._results:
-                    return self._results.popleft()
+                payload = self._pop_ready()
+                if payload is not None:
+                    return payload
                 raise EmptyResultError()
             time.sleep(0.0001)
 

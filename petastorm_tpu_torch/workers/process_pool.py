@@ -32,6 +32,11 @@ exactly once. Items that keep failing follow the ``on_error`` /
 ``max_item_retries`` policy (``workers/supervision.py``). When respawning a
 slot keeps failing the slot is shed; only a pool with no slot left fails.
 
+The ventilator's ``_seq`` tag stays in the consumer's record of an item,
+which a requeue moves to the new dispatch id, so ``last_result_seq`` and
+``done_callback`` (fired once, when a delivered item completes) serve
+checkpoints exactly once across worker deaths, as in the other pools.
+
 Each worker ships a cumulative snapshot of its process's route counts
 (``native.read_routes``, ``codecs.image_routes``) and of its publishes per
 channel after every item; the pool adds the increase to the consumer's
@@ -249,6 +254,10 @@ class ProcessPool(object):
         self._run_id = uuid.uuid4().hex[:12]
         # pid -> the worker's latest cumulative counts snapshot
         self._metrics_by_pid = {}
+        #: seq of the item whose payload get_results returned last
+        self.last_result_seq = None
+        #: callable(seq) fired when a delivered item completes
+        self.done_callback = None
 
     @property
     def transport(self):
@@ -461,10 +470,13 @@ class ProcessPool(object):
     # -- items ----------------------------------------------------------------
 
     def ventilate(self, *args, **kwargs):
+        # the ventilator's tag stays in the consumer's item record, never
+        # crosses to a worker, and so survives a requeue after a death
+        seq = kwargs.pop('_seq', None)
         with self._state_lock:
             self._ventilated_items += 1
             d = self._dispatch_ids.next()
-            self._inflight[d] = {'args': args, 'kwargs': kwargs, 'attempts': 0,
+            self._inflight[d] = {'seq': seq, 'args': args, 'kwargs': kwargs, 'attempts': 0,
                                  'published': False}
         with self._vent_lock:
             self._ventilator_send.send_pyobj((d, args, kwargs))
@@ -485,15 +497,20 @@ class ProcessPool(object):
         with self._vent_lock:
             self._ventilator_send.send_pyobj((nd, rec['args'], rec['kwargs']))
 
-    def _complete(self, d, rec):
+    def _complete(self, d, rec, delivered):
         """Completion of one logical item, exactly once: the epoch's
-        completed count and the ventilator's in-flight budget advance."""
+        completed count and the ventilator's in-flight budget advance, and a
+        ``delivered`` item (its payload reached the consumer) fires
+        ``done_callback``; an undelivered one is re-read by a checkpoint."""
         with self._state_lock:
             if d is not None and self._inflight.pop(d, None) is None:
                 return  # stale duplicate
             self._completed_items += 1
+        seq = rec['seq'] if rec is not None else None
         if self._ventilator is not None:
-            self._ventilator.processed_item()
+            self._ventilator.processed_item(seq)
+        if delivered and seq is not None and self.done_callback is not None:
+            self.done_callback(seq)
 
     def get_results(self, timeout_s=None):
         timeout_s = timeout_s if timeout_s is not None else self._results_timeout_s
@@ -531,6 +548,7 @@ class ProcessPool(object):
                     continue
                 if rec is not None:
                     rec['published'] = True
+                self.last_result_seq = rec['seq'] if rec is not None else None
                 if kind == MSG_DATA:
                     result = self._serializer.deserialize(payload)
                     if slot is not None:
@@ -550,7 +568,7 @@ class ProcessPool(object):
                     rec = self._inflight.get(d) if d is not None else None
                 if d is not None and rec is None:
                     continue  # stale duplicate
-                self._complete(d, rec)
+                self._complete(d, rec, delivered=True)
             elif kind == MSG_METRICS:
                 self._absorb_metrics(payload)
             elif kind == MSG_HEARTBEAT:
@@ -586,7 +604,7 @@ class ProcessPool(object):
             logger.warning('Worker %s failed on item %s AFTER its payload was delivered; '
                            'completing the item rather than re-running it: %s',
                            worker_id, rec['kwargs'], exc)
-            self._complete(d, rec)
+            self._complete(d, rec, delivered=True)
             return None
         if rec is not None and self._policy.should_retry_error(attempts):
             logger.warning('Worker %s failed on item %s (attempt %d/%d); requeueing: %s',
@@ -597,7 +615,7 @@ class ProcessPool(object):
         if rec is not None and self._policy.quarantines():
             self._quarantine(d, rec, kind='error', error=exc, tb=tb, worker_id=worker_id)
             return None
-        self._complete(d, rec)
+        self._complete(d, rec, delivered=False)
         return attach_remote_context(exc, tb, worker_id=worker_id, seq=d, pid=pid)
 
     def _quarantine(self, d, rec, kind, error=None, tb=None, worker_id=None):
@@ -608,7 +626,7 @@ class ProcessPool(object):
             self._quarantined.append(record)
         logger.error('Quarantining item %s after %d failed attempts (%s): %s', rec['kwargs'],
                      record['attempts'], kind, record['error'])
-        self._complete(d, rec)
+        self._complete(d, rec, delivered=False)
 
     # -- supervision ------------------------------------------------------------
 
@@ -758,7 +776,7 @@ class ProcessPool(object):
             if rec is None:
                 continue  # its MSG_DONE landed during the grace window
             if rec['published']:
-                self._complete(d, rec)  # only the completion sentinel was lost
+                self._complete(d, rec, delivered=True)  # only the completion sentinel was lost
                 continue
             self._fail_crashed_item(d, rec)
 
@@ -773,7 +791,7 @@ class ProcessPool(object):
             self._quarantine(d, rec, kind='crash', error=RuntimeError(
                 'item killed {} consecutive worker processes'.format(attempts)))
             return
-        self._complete(d, rec)
+        self._complete(d, rec, delivered=False)
         raise PoisonItemError(
             'Item (kwargs={}) killed {} consecutive worker processes; use on_error=\'skip\' to '
             'quarantine poison items instead'.format(rec['kwargs'], attempts))
@@ -812,7 +830,7 @@ class ProcessPool(object):
         logger.warning("Sweeping %d item(s) lost in dead workers' dispatch pipes", len(lost))
         for d, rec in lost:
             if rec['published']:
-                self._complete(d, rec)
+                self._complete(d, rec, delivered=True)
             else:
                 self._fail_crashed_item(d, rec)
 

@@ -9,6 +9,12 @@ budget so the epoch completes. An item that fails after it published is
 completed as delivered, never re-run (that would deliver its rows twice).
 Threads cannot die the way processes can, so there is no heartbeat or
 respawn here. Slot grow/retire and the protocol monitor are not ported yet.
+
+Checkpoint plumbing, as the JAX pool's: ``ventilate`` pops the ventilator's
+``_seq`` tag, :attr:`ThreadPool.last_result_seq` names the item whose payload
+:meth:`ThreadPool.get_results` returned last, and ``done_callback(seq)``
+fires when an item's completion is consumed, if it was delivered (a failed
+or quarantined item completes undelivered, so a checkpoint re-reads it).
 """
 
 from __future__ import annotations
@@ -47,7 +53,11 @@ class ThreadPool(object):
         self._completed_items = 0
         self._items_requeued = 0
         self._quarantined = []
-        self._tls = threading.local()  # per worker thread: whether the item published
+        self._tls = threading.local()  # per worker thread: the item's seq, whether it published
+        #: seq of the item whose payload get_results returned last
+        self.last_result_seq = None
+        #: callable(seq) fired when a delivered item's completion is consumed
+        self.done_callback = None
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._threads:
@@ -63,10 +73,11 @@ class ThreadPool(object):
             ventilator.start()
 
     def ventilate(self, *args, **kwargs):
+        seq = kwargs.pop('_seq', None)
         with self._counter_lock:
             self._ventilated_items += 1
             d = self._dispatch_ids.next()
-        self._task_queue.put((d, args, kwargs, 0))
+        self._task_queue.put((d, seq, args, kwargs, 0))
 
     def get_results(self):
         """Block until a result is available; raise :class:`EmptyResultError`
@@ -76,18 +87,22 @@ class ThreadPool(object):
         still waiting here would wait forever)."""
         while True:
             try:
-                kind, payload = self._results_queue.get(timeout=0.05)
+                kind, seq, payload = self._results_queue.get(timeout=0.05)
             except queue.Empty:
                 if self._stop_event.is_set() or self._all_done():
                     raise EmptyResultError()
                 continue
             if kind == MSG_DATA:
+                self.last_result_seq = seq
                 return payload
             if kind == MSG_DONE:
+                # the payload is the delivered flag
                 with self._counter_lock:
                     self._completed_items += 1
                 if self._ventilator is not None:
-                    self._ventilator.processed_item()
+                    self._ventilator.processed_item(seq)
+                if payload and seq is not None and self.done_callback is not None:
+                    self.done_callback(seq)
             else:
                 raise payload
 
@@ -143,7 +158,7 @@ class ThreadPool(object):
 
     def _publish(self, data):
         self._tls.published = True
-        self._put((MSG_DATA, data))
+        self._put((MSG_DATA, self._tls.seq, data))
 
     def _put(self, record):
         """Bounded put that gives up when the pool stops, so a worker never
@@ -156,7 +171,7 @@ class ThreadPool(object):
                 continue
         raise _Stopping()
 
-    def _handle_item_failure(self, worker, d, args, kwargs, attempts):
+    def _handle_item_failure(self, worker, d, seq, args, kwargs, attempts):
         """Apply the policy to the item that just raised (``attempts``
         counts this failure), on the worker thread."""
         exc = sys.exc_info()[1]
@@ -165,7 +180,7 @@ class ThreadPool(object):
             # twice, so the item completes as delivered
             logger.warning('Worker %d failed on item %s AFTER publishing; completing the item '
                            'rather than re-running it: %s', worker.worker_id, kwargs, exc)
-            self._put((MSG_DONE, None))
+            self._put((MSG_DONE, seq, True))
             return
         if self._policy.should_retry_error(attempts):
             logger.warning('Worker %d failed on item %s (attempt %d/%d); requeueing: %s',
@@ -174,7 +189,7 @@ class ThreadPool(object):
             with self._counter_lock:
                 self._items_requeued += 1
                 nd = self._dispatch_ids.next()
-            self._task_queue.put((nd, args, kwargs, attempts))
+            self._task_queue.put((nd, seq, args, kwargs, attempts))
             return
         if self._policy.quarantines():
             record = quarantine_record(d, attempts, 'error', error=exc,
@@ -184,19 +199,21 @@ class ThreadPool(object):
                 self._quarantined.append(record)
             logger.error('Quarantining item %s after %d failed attempts: %s', kwargs, attempts,
                          record['error'])
-            self._put((MSG_DONE, None))
+            # completes undelivered: a checkpoint re-reads it
+            self._put((MSG_DONE, seq, False))
             return
         attach_remote_context(exc, format_exception_tb(exc), worker_id=worker.worker_id, seq=d)
-        self._put((MSG_ERROR, exc))
-        self._put((MSG_DONE, None))
+        self._put((MSG_ERROR, None, exc))
+        self._put((MSG_DONE, seq, False))
 
     def _worker_loop(self, worker):
         try:
             while not self._stop_event.is_set():
                 try:
-                    d, args, kwargs, attempts = self._task_queue.get(timeout=0.05)
+                    d, seq, args, kwargs, attempts = self._task_queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
+                self._tls.seq = seq
                 self._tls.published = False
                 try:
                     try:
@@ -204,9 +221,9 @@ class ThreadPool(object):
                     except _Stopping:
                         raise
                     except Exception:  # noqa: BLE001 - routed through the error policy
-                        self._handle_item_failure(worker, d, args, kwargs, attempts + 1)
+                        self._handle_item_failure(worker, d, seq, args, kwargs, attempts + 1)
                     else:
-                        self._put((MSG_DONE, None))
+                        self._put((MSG_DONE, seq, True))
                 except _Stopping:
                     return
         finally:

@@ -3,12 +3,23 @@
 Trimmed twin of ``ConcurrentVentilator`` in
 ``petastorm_tpu/workers/ventilator.py``. The per-epoch reshuffle is the same
 ``np.random.default_rng(seed).permutation`` draw, so a seed gives the JAX
-package's row-group order. Checkpoint tagging and resume are not ported yet.
+package's row-group order.
+
+Read-position checkpoints: with ``tag_items`` every ventilated item carries a
+``_seq`` kwarg, the ventilator keeps the items not yet *delivered* to the
+consumer (the results reader calls :meth:`ConcurrentVentilator.mark_delivered`
+when an item's last row is yielded), and :meth:`ConcurrentVentilator.state_dict`
+/ ``resume_state`` capture and restore the position: undelivered items and
+the unventilated tail of the current epoch replay first, then the remaining
+epochs continue from the saved RNG state. The states are the JAX package's
+plain dicts, so either package resumes the other's. The multi-tenant
+``FairShareVentilator`` is not ported yet (ROADMAP.md, "DDP/mesh").
 """
 
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 
 import numpy as np
 
@@ -21,23 +32,55 @@ class ConcurrentVentilator(object):
     :param max_ventilation_queue_size: max in-flight (ventilated - processed) items
     :param randomize_item_order: reshuffle item order before each epoch
     :param random_seed: seed of the reshuffle RNG (``None`` = nondeterministic)
+    :param tag_items: ventilate each item with a ``_seq`` kwarg and track its
+        delivery, for checkpoints (the pools pop ``_seq``; plain callables
+        need not understand it, so it is off by default)
+    :param resume_state: a dict from :meth:`state_dict` (needs
+        ``tag_items``); ``iterations`` is then ignored: the saved replay
+        indices are ventilated first, in their order, then the saved number
+        of remaining epochs with the saved RNG state. ``items_to_ventilate``
+        must be the list the state was taken over.
     """
 
     def __init__(self, ventilate_fn, items_to_ventilate, iterations=1,
-                 max_ventilation_queue_size=None, randomize_item_order=False, random_seed=None):
+                 max_ventilation_queue_size=None, randomize_item_order=False, random_seed=None,
+                 tag_items=False, resume_state=None):
         if iterations is not None and (not isinstance(iterations, int) or iterations < 1):
             raise ValueError('iterations must be a positive integer or None, got {!r}'.format(iterations))
+        if resume_state is not None and not tag_items:
+            raise ValueError('resume_state requires tag_items=True')
         self._ventilate_fn = ventilate_fn
         self._items = list(items_to_ventilate)
-        self._iterations_remaining = iterations
+        self._requested_iterations = iterations
+        self._tag_items = tag_items
         self._randomize_item_order = randomize_item_order
         self._rng = np.random.default_rng(random_seed)
+        if resume_state is not None:
+            self._replay_indices = list(resume_state['replay_indices'])
+            bad = [i for i in self._replay_indices if not 0 <= i < len(self._items)]
+            if bad:
+                raise ValueError('resume_state replay indices {} out of range for {} work '
+                                 'items'.format(bad, len(self._items)))
+            self._iterations_remaining = resume_state['iterations_remaining']
+            if resume_state.get('rng_state') is not None:
+                self._rng.bit_generator.state = resume_state['rng_state']
+        else:
+            self._replay_indices = None
+            self._iterations_remaining = iterations
         self._max_in_flight = (max_ventilation_queue_size if max_ventilation_queue_size is not None
                                else max(1, len(self._items)))
         self._in_flight = 0
+        # every field below is guarded by _cv's lock; items are tracked by
+        # their index into the item list, so states stay small and picklable
+        # whatever the items hold (a predicate may be a lambda)
         self._cv = threading.Condition()
+        self._seq = 0
+        self._undelivered = OrderedDict()  # seq -> item index: ventilated, not delivered
+        self._epoch_indices = []           # the current pass's item indices, in order
+        self._epoch_pos = 0                # next position of _epoch_indices to ventilate
+        self._epochs_after_current = self._iterations_remaining
         self._stop_requested = False
-        self._completed = not self._items
+        self._completed = not self._items and not self._replay_indices
         self._thread = None
 
     def start(self):
@@ -49,16 +92,61 @@ class ConcurrentVentilator(object):
                                         name='pstpu-torch-ventilator')
         self._thread.start()
 
-    def processed_item(self):
-        """Called by the pool once per ventilated item that finished."""
+    def processed_item(self, seq=None):
+        """Called by the pool exactly once per ventilated item that finished
+        (``seq``: the item's ``_seq``, which this ventilator's global budget
+        does not need)."""
         with self._cv:
             self._in_flight -= 1
             self._cv.notify()
+
+    def mark_delivered(self, seq):
+        """The item ventilated with ``_seq == seq`` was fully delivered (its
+        last row yielded, or it produced none). Idempotent; ``None`` and
+        unknown seqs are ignored."""
+        if seq is None:
+            return
+        with self._cv:
+            self._undelivered.pop(seq, None)
+
+    def state_dict(self):
+        """The read position as a picklable dict: resuming from it ventilates
+        every item not fully delivered now (in-flight row groups are re-read
+        whole), then the unventilated tail of the current epoch, then the
+        remaining epochs with the RNG state restored."""
+        if not self._tag_items:
+            raise RuntimeError('state_dict() requires tag_items=True (delivery is not tracked '
+                               'otherwise, so the read position is unknown)')
+        with self._cv:
+            replay = list(self._undelivered.values()) + self._epoch_indices[self._epoch_pos:]
+            return {'replay_indices': replay,
+                    'iterations_remaining': self._epochs_after_current,
+                    'rng_state': self._rng.bit_generator.state}
 
     def completed(self):
         """True when no more items will ever be ventilated."""
         with self._cv:
             return self._completed
+
+    def reset(self):
+        """Ventilate the requested number of iterations again. Only valid
+        after the previous run completed."""
+        if not self.completed():
+            raise RuntimeError('Cannot reset ventilator while ventilation is still in progress')
+        if self._thread is not None:
+            self._thread.join()
+        self._thread = None
+        with self._cv:
+            self._replay_indices = None
+            self._completed = not self._items
+            self._stop_requested = False
+            self._iterations_remaining = self._requested_iterations
+            self._in_flight = 0
+            self._undelivered.clear()
+            self._epoch_indices = []
+            self._epoch_pos = 0
+            self._epochs_after_current = self._requested_iterations
+        self.start()
 
     def stop(self):
         with self._cv:
@@ -69,26 +157,54 @@ class ConcurrentVentilator(object):
         with self._cv:
             self._completed = True
 
+    def _lay_out_pass(self, first_pass):
+        """Under the lock: the next pass's item indices and whether it counts
+        as an epoch, or None when no pass is left. A resumed run's first pass
+        replays the saved items in their order and consumes no epoch (it is
+        the rest of the interrupted one)."""
+        if first_pass and self._replay_indices is not None:
+            indices, counted = list(self._replay_indices), False
+        else:
+            if self._iterations_remaining is not None and self._iterations_remaining <= 0:
+                return None
+            indices, counted = list(range(len(self._items))), True
+            if self._randomize_item_order:
+                indices = [int(i) for i in self._rng.permutation(len(self._items))]
+        self._epoch_indices = indices
+        self._epoch_pos = 0
+        self._epochs_after_current = (self._iterations_remaining - 1
+                                      if counted and self._iterations_remaining is not None
+                                      else self._iterations_remaining)
+        return indices, counted
+
     def _ventilate_loop(self):
+        first_pass = True
         while True:
             with self._cv:
                 if self._stop_requested:
                     break
-                if self._iterations_remaining is not None and self._iterations_remaining <= 0:
-                    break
-                order = range(len(self._items))
-                if self._randomize_item_order:
-                    order = [int(i) for i in self._rng.permutation(len(self._items))]
-            for index in order:
+                laid_out = self._lay_out_pass(first_pass)
+            if laid_out is None:
+                break
+            first_pass = False
+            indices, counted = laid_out
+            for index in indices:
                 with self._cv:
                     while self._in_flight >= self._max_in_flight and not self._stop_requested:
                         self._cv.wait(timeout=0.1)
                     if self._stop_requested:
                         return
                     self._in_flight += 1
-                self._ventilate_fn(**self._items[index])
+                    self._epoch_pos += 1
+                    seq = None
+                    if self._tag_items:
+                        seq = self._seq
+                        self._seq += 1
+                        self._undelivered[seq] = index
+                item = self._items[index]
+                self._ventilate_fn(**(dict(item, _seq=seq) if self._tag_items else item))
             with self._cv:
-                if self._iterations_remaining is not None:
+                if counted and self._iterations_remaining is not None:
                     self._iterations_remaining -= 1
         with self._cv:
             self._completed = True

@@ -111,3 +111,47 @@ def test_kernel_wrapper_checks_its_inputs(cuda):
         normalize_kernel.normalize_triton(images, mean[:2], inv_std)
     with pytest.raises(ValueError, match='out_dtype'):
         normalize_kernel.normalize_triton(images, mean, inv_std, torch.float16)
+
+
+@pytest.mark.gpu
+def test_graphed_step_losses_equal_the_eager_steps(cuda):
+    # five steps of a small ResNet from one seed on the same batches: the
+    # graphed step (two eager warm-up steps, then capture and replays) gives
+    # the eager step's losses within 1e-3 (the same kernels; float32 sums of
+    # the backward may come in another order), counts the normalize kernel
+    # once per replay, and its metrics survive the later replays
+    from petastorm_tpu_torch.models import BottleneckBlock, ResNet
+    from petastorm_tpu_torch.models.train import (GRAPH_WARMUP_STEPS, create_train_state,
+                                                  make_train_step)
+    from petastorm_tpu_torch.ops.augment import flip_with_mask
+
+    steps = 5
+    gen = np.random.default_rng(2)
+    batches = [(_images((8, 32, 32, 3), torch.uint8, cuda, seed=s),
+                torch.from_numpy(gen.integers(0, 10, 8)).to(cuda)) for s in range(steps)]
+
+    def preprocess(images, mask):
+        return normalize_images(flip_with_mask(images, mask), MEAN, STD, out_dtype=torch.float32)
+
+    def run(graphed):
+        torch.manual_seed(0)
+        model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
+                       dtype=torch.float32)
+        state = create_train_state(model, cuda)
+        step = make_train_step(preprocess_fn=preprocess, preprocess_seed=3, graphed=graphed)
+        before = normalize_kernel.launches
+        losses = [step(state, images, labels)[1]['loss'] for images, labels in batches]
+        torch.cuda.synchronize()
+        assert state.step == steps
+        return [float(x) for x in losses], normalize_kernel.launches - before, step
+
+    eager, eager_launches, _ = run(False)
+    graphed, graphed_launches, step = run(True)
+    assert steps > GRAPH_WARMUP_STEPS + 1
+    np.testing.assert_allclose(graphed, eager, atol=1e-3, rtol=0)
+    assert len(set(graphed)) == steps
+    assert eager_launches == graphed_launches == steps
+    with pytest.raises(ValueError, match='captured for images'):
+        model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
+                       dtype=torch.float32)
+        step(create_train_state(model, cuda), batches[0][0][:4], batches[0][1][:4])

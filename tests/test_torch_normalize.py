@@ -13,7 +13,7 @@ import torch
 from petastorm_tpu.ops import normalize_images as jax_normalize_images
 from petastorm_tpu.ops import random_flip as jax_random_flip
 from petastorm_tpu_torch.ops import normalize_images, random_flip
-from petastorm_tpu_torch.ops.augment import _flip_with_mask
+from petastorm_tpu_torch.ops.augment import flip_with_mask
 
 MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -89,7 +89,7 @@ def test_flip_with_mask_matches_jax_random_flip(rng):
     # the mask random_flip draws: bernoulli(key, 0.5, (B,))
     mask = np.array(jax.random.bernoulli(key, 0.5, (images.shape[0],)))
     assert 0 < mask.sum() < len(mask)
-    out = _flip_with_mask(torch.from_numpy(images), torch.from_numpy(mask))
+    out = flip_with_mask(torch.from_numpy(images), torch.from_numpy(mask))
     np.testing.assert_array_equal(out.numpy(), expected)
 
 
