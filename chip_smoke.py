@@ -151,12 +151,43 @@ Phases, each printed as one JSON line:
    another item list is refused with the reference's error; a
    ``batch_size=64, drop_last=True`` state of shard 0 of 3 reads the rows
    the drop left undelivered again after the resume;
-11. profile: three more steps of the raw path under ``torch.profiler``, with
+11. ``telemetry_checks``: ``raw`` with the graphed step at each telemetry
+   level (``off``, ``counters``, ``spans``) and ``raw_process`` at ``off``
+   and ``counters`` in one call, the cost of telemetry beside ``off`` (on
+   the process pool it includes each item's registry snapshot in its
+   metrics frame); then ``png_fixed`` at ``spans``: the Chrome
+   traces of both ``spans`` runs under ``.torch_build/``, the span names
+   ``ventilate``, ``read``, ``fused_decode``, ``pool_wait``,
+   ``shuffle.add_block``, ``shuffle.emit``, ``collate`` and ``infeed``
+   between them (``png_fixed`` fuses both its columns, so its own spans have
+   no ``read``/``decode``), a span tree linking ``ventilate`` to ``infeed``
+   in each, the ring within its capacity, and the slowest batch's stage
+   breakdown. Every path line (all at ``counters`` unless named) carries the
+   stall report of the loader's diagnostics (``stall``), checked against
+   the path's routes, and every stage timer's seconds and count;
+12. ``autotune_checks``: ``raw_process`` and then ``raw`` (thread pool)
+   with the graphed step under the autotuner (``interval_s=0.5``, workers
+   1 to the core count, starting at 2) for 3 + 60 steps: every decision,
+   the worker count over time, each epoch's rows at most once and every
+   complete epoch's rows exactly once across the resizes, no restart, no
+   ``/dev/shm`` entry left;
+13. ``collate_checks``: ``bench.py``'s token store (4096 rows of
+   ``min(zipf(1.6), 256)`` tokens, 256 per row group) through the padded
+   loader, the bucketed loader and ``PackedSequenceLoader``, each batch
+   staged to the card and equal to its host collation, every real token
+   delivered once, bucketing wasting less padding, two packed runs
+   bit-exact, and each consumer's real tokens/s;
+14. ``flight_checks``: a child process runs ``raw_process`` (eager, 3 + 6
+   steps) with ``PSTPU_FLIGHT_DIR`` under ``.torch_build/``: its flight file
+   and one per worker exist while it runs, and after its exit
+   ``postmortem_report`` names every process, all exited cleanly, with the
+   loader's closing stall record;
+15. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
-12. model check: the trained model on the card (bf16) against a float32 copy
+16. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-13. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+17. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, both steps, where a graph replay counts the
    launches it captured, max error, its time, the plain version's time,
    the least time the card could take and what bounds it, and the time of
@@ -1322,7 +1353,8 @@ def _read_blocks(url, epochs, warm, check, **kwargs):
             blocks += 1
             if blocks % per_epoch == 0:
                 marks.append((time.perf_counter(), rows))
-        diagnostics = reader.diagnostics
+        # the pool's own counters (the reader's add the metrics registry)
+        diagnostics = reader._pool.diagnostics
     (t_warm, rows_warm), (t_end, _) = marks[warm], marks[-1]
     return {'epochs': epochs, 'warm_epochs': warm, 'blocks': blocks, 'rows': rows,
             'start_s': marks[0][0] - t0,
@@ -1589,16 +1621,51 @@ def new_train_state(torch):
 SAME_BATCHES = 4
 
 
+#: the stall report's stages each path's routes imply: ``(named, absent)``
+#: (``read_io`` is the Arrow/page-scan read, ``decode`` the codec decode,
+#: ``fused_decode``/``fused_predicate`` the fused native call)
+STALL_STAGES = {
+    'raw': ({'worker.read_io'}, {'worker.fused_decode'}),
+    'png': ({'worker.decode', 'worker.read_io'}, {'worker.fused_decode'}),
+    'jpeg': ({'worker.decode'}, {'worker.fused_decode'}),
+    'png_process': ({'worker.decode'}, {'worker.fused_decode'}),
+    'png_select': ({'worker.decode'}, {'worker.fused_decode'}),
+    'png_fixed': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
+    'raw_process': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
+    'png_fixed_pred': ({'worker.fused_predicate'}, {'worker.decode', 'worker.read_io'}),
+    'png_cached': (set(), {'worker.decode', 'worker.read_io', 'worker.fused_decode'}),
+}
+
+
+def check_stall(name, stall):
+    """A path's stall report names the stages of its routes, and none of
+    the routes it does not take (``STALL_STAGES``); its pool wait falls on
+    timed worker stages (no ``pool.unattributed``: the workers' timers
+    reached the consumer)."""
+    named, absent = STALL_STAGES.get(name, (set(), set()))
+    stages = set(stall['stages'])
+    if not named <= stages or stages & (absent | {'pool.unattributed'}):
+        raise AssertionError('{}: the stall report names {}; its routes imply {} and not '
+                             '{}'.format(name, sorted(stages), sorted(named),
+                                         sorted(absent | {'pool.unattributed'})))
+
+
 def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None,
-             graphed=False, reader_factory=None):
-    """One path: a fresh model from the seed, 3 warm-up and 10 measured steps
-    through ``pipeline_duty_cycle``, with the eager step or (``graphed``) the
-    graphed one. The normalize launches (a graph replay adds the launches it
-    captured), the image route counts and the read route counts cover this
-    run alone. ``label_check`` is handed every label the steps saw, after the
-    run (the labels stay on the card until then: no synchronisation in the
-    steps). Returns the launches, the state, the step, the first
-    :data:`SAME_BATCHES` staged batches and the result."""
+             graphed=False, reader_factory=None, telemetry='counters', steps=STEPS, tag=None,
+             on_step=None):
+    """One path: a fresh model from the seed, 3 warm-up and ``steps``
+    measured steps through ``pipeline_duty_cycle``, with the eager step or
+    (``graphed``) the graphed one, at the ``telemetry`` level. The normalize
+    launches (a graph replay adds the launches it captured), the image route
+    counts, the read route counts and the telemetry registry and span ring
+    cover this run alone. ``label_check`` is handed every label the steps
+    saw, after the run (the labels stay on the card until then: no
+    synchronisation in the steps); ``on_step`` is called after each step.
+    The line carries the stall report of the loader's diagnostics
+    (``stall``), checked against the path's routes. Returns the launches,
+    the state, the step, the first :data:`SAME_BATCHES` staged batches, the
+    result and the losses."""
+    from petastorm_tpu_torch import observability as obs
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
     from petastorm_tpu_torch.ops.kernels import normalize as nk
@@ -1624,6 +1691,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
         losses.append(metrics['loss'])
         if label_check is not None:
             seen_labels.append(labels)
+        if on_step is not None:
+            on_step()
 
     kwargs = {'seed': SEED, 'shuffle_row_groups': True,
               'workers_count': max(1, os.cpu_count() or 1), **(reader_kwargs or {})}
@@ -1631,20 +1700,25 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     image_routes.reset()
+    obs.get_registry().reset()
+    obs.get_ring().clear()
     nk.launches = 0
     t0 = time.perf_counter()
     result = pipeline_duty_cycle(
-        url, step_fn, lambda b: (b['image'], b['label']), batch_size=BATCH, steps=STEPS,
+        url, step_fn, lambda b: (b['image'], b['label']), batch_size=BATCH, steps=steps,
         warmup_steps=WARMUP_STEPS, reader_kwargs=kwargs,
-        loader_kwargs={'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED}, **factory)
+        loader_kwargs={'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED},
+        telemetry=telemetry, **factory)
     wall_s = time.perf_counter() - t0
     launches = {'normalize': nk.launches}
     counts = image_routes.snapshot()
     losses = [float(x) for x in losses]
+    stall = result.extra['stall']
     emit({'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager',
+          'tag': tag, 'telemetry': getattr(telemetry, 'level', telemetry),
           'model': 'resnet50', 'dtype': 'bfloat16',
           'num_classes': NUM_CLASSES, 'batch_size': BATCH, 'image_size': IMAGE_SIZE,
-          'rows': ROWS, 'warmup_steps': WARMUP_STEPS, 'steps': STEPS,
+          'rows': ROWS, 'warmup_steps': WARMUP_STEPS, 'steps': steps,
           'examples_per_sec': result.samples_per_second,
           'input_stall_fraction': result.input_stall_fraction,
           'median_step_ms': result.extra['median_step_ms'],
@@ -1652,8 +1726,23 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
           'peak_memory_bytes': torch.cuda.max_memory_allocated(),
           'losses': losses, 'launches': launches, 'image_routes': counts,
           'named_routes': routes, 'read_routes': result.extra['read_routes'],
-          'cache': result.extra['cache'], 'pool': result.extra['pool'], 'wall_s': wall_s})
-    if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses):
+          'cache': result.extra['cache'], 'pool': result.extra['pool'],
+          'stall': stall, 'wall_s': wall_s,
+          # every stage timer's seconds over the run: the workers' and the
+          # loader's and infeed's, which run on the prefetch thread outside
+          # the reader wait the stall report splits
+          'stage_s': {k[len('stage_'):-2]: v
+                      for k, v in sorted(result.extra['diagnostics'].items())
+                      if k.startswith('stage_') and k.endswith('_s')},
+          'stage_count': {k[len('stage_'):-6]: v
+                          for k, v in sorted(result.extra['diagnostics'].items())
+                          if k.startswith('stage_') and k.endswith('_count')}})
+    if telemetry == 'off':
+        if stall is not None:
+            raise AssertionError('{}: a stall report with telemetry off'.format(name))
+    else:
+        check_stall(name, stall)
+    if len(losses) != WARMUP_STEPS + steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError('{}: losses {}'.format(name, losses))
     # zero-initialised last batch norms make the fresh model's logits small:
     # the first loss is close to log(classes)
@@ -1661,9 +1750,9 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
         raise AssertionError('{}: first loss {} is far from log({}) = {}'.format(
             name, losses[0], NUM_CLASSES, math.log(NUM_CLASSES)))
     for kernel, count in launches.items():
-        if count < WARMUP_STEPS + STEPS:
+        if count < WARMUP_STEPS + steps:
             raise AssertionError('{}: kernel {} launched {} times in {} steps'.format(
-                name, kernel, count, WARMUP_STEPS + STEPS))
+                name, kernel, count, WARMUP_STEPS + steps))
     if label_check is not None:
         label_check(torch.cat(seen_labels).cpu().numpy())
     check_routes(counts, routes)
@@ -1971,6 +2060,481 @@ def phase_resume_checks(url, epoch_once):
         raise AssertionError('resume checks failed: {}'.format(out))
 
 
+# -- telemetry, the autotuner, ragged collation and the flight recorder ---------
+
+#: the span ring of the spans-level runs: small enough that a path's run may
+#: rotate it, so the bound is exercised
+SPAN_RING_CAPACITY = 4096
+#: the span names the spans-level runs must show between them (``read`` and
+#: ``decode`` come from ``raw``'s page-scan route: ``png_fixed`` fuses both
+#: of its columns, so it reads and decodes in ``fused_decode`` alone)
+SPAN_NAMES = ('ventilate', 'read', 'fused_decode', 'pool_wait', 'shuffle.add_block',
+              'shuffle.emit', 'collate', 'infeed')
+
+
+def _tree_names(tree):
+    names, stack = set(), list(tree['children'])
+    while stack:
+        node = stack.pop()
+        names.add(node['name'])
+        stack.extend(node['children'])
+    return names
+
+
+def _spans_summary(name, events, max_ring, top=1):
+    """The spans of one run: names, traced batches, the trees that link the
+    dispatch (``ventilate``) to the staging (``infeed``), the ring's most
+    events against its capacity, and the slowest batch's breakdown."""
+    from petastorm_tpu_torch import observability as obs
+
+    trees = [obs.span_tree(events, t) for t in obs.traces_in(events)]
+    linked = [t for t in trees if {'ventilate', 'infeed'} <= _tree_names(t)]
+    slowest = obs.slowest_batches(events, top=top)
+    busy = collections.Counter()
+    for e in events:
+        busy[e['name']] += e['dur']
+    summary = {'path': name, 'events': len(events), 'names': sorted({e['name'] for e in events}),
+               'busy_us_by_name': dict(busy.most_common()),
+               'traced_batches': len(trees), 'ventilate_to_infeed_trees': len(linked),
+               'ring_capacity': obs.get_ring().capacity, 'ring_max_events': max_ring,
+               'ring_dropped': obs.get_ring().dropped,
+               'slowest_batch': None if not slowest else {
+                   'trace': slowest[0]['trace'], 'makespan_us': slowest[0]['makespan_us'],
+                   'stage_breakdown_us': slowest[0]['stages'],
+                   'critical_path': slowest[0]['critical_path']}}
+    if not linked:
+        raise AssertionError('{}: no batch\'s span tree links ventilate to infeed ({} trees)'
+                             .format(name, len(trees)))
+    if max_ring > summary['ring_capacity'] or len(events) > summary['ring_capacity']:
+        raise AssertionError('{}: the span ring held {} events over its capacity {}'.format(
+            name, max_ring, summary['ring_capacity']))
+    return summary
+
+
+def phase_telemetry_checks(torch, raw_url, fixed_url, process):
+    """``raw`` graphed at each telemetry level and ``raw_process`` graphed
+    at ``off`` and ``counters`` (``process``: its reader arguments), in one
+    call (the cost of telemetry on the card's host; on the process pool,
+    of each item's registry snapshot in its metrics frame), then
+    ``png_fixed`` graphed at ``spans``:
+    its Chrome trace under ``.torch_build/``, the span names of both spans
+    runs, a span tree linking ``ventilate`` to ``infeed``, the ring within
+    its capacity and the slowest batch's stage breakdown. Returns the
+    launches."""
+    from petastorm_tpu_torch import observability as obs
+
+    total = collections.Counter()
+    levels, spans = {'raw': {}, 'raw_process': {}}, {}
+    for level, name, url in (('off', 'raw', raw_url), ('counters', 'raw', raw_url),
+                             ('spans', 'raw', raw_url), ('off', 'raw_process', raw_url),
+                             ('counters', 'raw_process', raw_url),
+                             ('spans', 'png_fixed', fixed_url)):
+        config = (obs.TelemetryConfig('spans', trace_capacity=SPAN_RING_CAPACITY)
+                  if level == 'spans' else level)
+        ring = {'max': 0}
+
+        def on_step(ring=ring):
+            ring['max'] = max(ring['max'], len(obs.get_ring()))
+
+        launches, _, _, _, result, _ = run_path(
+            torch, name, url, check_batch, graphed=True, telemetry=config,
+            reader_kwargs=process if name == 'raw_process' else None, tag='telemetry_checks',
+            on_step=on_step)
+        total.update(launches)
+        if name == 'raw_process':
+            check_no_leftovers()
+        if name in levels:
+            levels[name][level] = {'examples_per_sec': result.samples_per_second,
+                                   'input_stall_fraction': result.input_stall_fraction,
+                                   'median_step_ms': result.extra['median_step_ms'],
+                                   'stall': result.extra['stall']}
+        if level == 'spans':
+            events = obs.get_ring().snapshot()
+            spans[name] = _spans_summary(name, events, max(ring['max'], len(events)))
+            path = os.path.join(BUILD_DIR, 'trace_{}.json'.format(name))
+            spans[name]['chrome_trace'] = os.path.relpath(path, ROOT)
+            spans[name]['chrome_trace_events'] = obs.export_chrome_trace(path, events)
+    obs.configure('counters')
+    seen = set(spans['raw']['names']) | set(spans['png_fixed']['names'])
+    missing = [n for n in SPAN_NAMES if n not in seen]
+    fixed_names = set(spans['png_fixed']['names'])
+    emit({'phase': 'telemetry_checks', 'levels': levels, 'spans': spans,
+          'span_names_required': list(SPAN_NAMES), 'missing': missing,
+          'cost_vs_off': {name: {level: {'examples_per_sec': v['examples_per_sec']
+                                         / runs['off']['examples_per_sec'],
+                                         'median_step_ms': v['median_step_ms']
+                                         / runs['off']['median_step_ms']}
+                                 for level, v in runs.items()}
+                          for name, runs in levels.items()}})
+    if missing or not {'fused_decode', 'ventilate', 'pool_wait', 'collate', 'infeed'} \
+            <= fixed_names or fixed_names & {'read', 'decode'}:
+        raise AssertionError('span names: missing {}; png_fixed has {}'.format(
+            missing, sorted(fixed_names)))
+    return total
+
+
+def raw_row_groups():
+    """The raw store's row groups by their label column (``i % 1000`` of
+    rows ``i``: each row group's labels differ from every other's), as the
+    rows each holds."""
+    groups = {}
+    for start in range(0, ROWS, ROWS_PER_ROW_GROUP):
+        rows = range(start, min(start + ROWS_PER_ROW_GROUP, ROWS))
+        groups[tuple(i % NUM_CLASSES for i in rows)] = rows
+    if len(groups) * ROWS_PER_ROW_GROUP < ROWS:
+        raise AssertionError('the raw store\'s label columns do not tell its row groups apart')
+    return groups
+
+
+class EpochRows(object):
+    """The reader a path's loader iterates, recording the rows of every
+    block (a raw row group, known by its label column: reading the 512-byte
+    label column costs microseconds, where keying the images would put
+    milliseconds into the loader's reader wait, which the autotuner reads)
+    by the epoch of the item it came from (the ventilator's ``_seq`` over the
+    items of an epoch), and the pool's worker count over time; every other
+    attribute is the reader's."""
+
+    def __init__(self, reader, items_per_epoch):
+        self._reader = reader
+        self._items_per_epoch = items_per_epoch
+        self._groups = raw_row_groups()
+        self.epochs = collections.defaultdict(collections.Counter)
+        self.workers = []
+        self._t0 = time.perf_counter()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        block = next(self._reader)
+        seq = self._reader._pool.last_result_seq
+        self.epochs[seq // self._items_per_epoch].update(self._groups[tuple(block.label.tolist())])
+        count = self._reader._pool.workers_count
+        if not self.workers or self.workers[-1][1] != count:
+            self.workers.append((round(time.perf_counter() - self._t0, 3), count))
+        return block
+
+    def __getattr__(self, name):
+        return getattr(self._reader, name)
+
+
+def check_epochs_once(name, epochs, keys):
+    """Every epoch delivered each row at most once, and every epoch that
+    delivered as many rows as the store holds delivered each row once."""
+    complete = 0
+    for epoch, counts in sorted(epochs.items()):
+        if max(counts.values()) > 1 or set(counts) - set(keys):
+            raise AssertionError('{}: epoch {} delivered a row twice or an unknown row'.format(
+                name, epoch))
+        if sum(counts.values()) == len(keys):
+            complete += 1
+            if counts != keys:
+                raise AssertionError('{}: epoch {} is not the store\'s rows'.format(name, epoch))
+    if not complete:
+        raise AssertionError('{}: no epoch completed'.format(name))
+    return complete
+
+
+AUTOTUNE_STEPS = 60
+AUTOTUNE_START_WORKERS = 2
+
+
+def phase_autotune_checks(torch, raw_url, ring):
+    """``raw_process`` graphed with the autotuner on (``interval_s=0.5``,
+    workers 1 to the core count, starting at 2), for 3 + 60 steps, then the
+    same on the thread pool: every decision (knob, action, before, after,
+    bottleneck), the worker count over time, each epoch's rows once across
+    every resize, no restart and no ``/dev/shm`` entry left. A decision is
+    evidence, not a pass condition. Returns the launches."""
+    from petastorm_tpu_torch import AutotuneConfig, make_reader
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+
+    items = len(load_row_groups(raw_url))
+    keys = collections.Counter(range(ROWS))
+    total = collections.Counter()
+    runs = {}
+    for name, pool_kwargs in (('raw_process', {'reader_pool_type': 'process', 'zero_copy': True,
+                                               'pool_kwargs': {'ring_bytes': ring,
+                                                               'transport': 'shm'}}),
+                              ('raw', {'reader_pool_type': 'thread'})):
+        readers = []
+
+        def factory(url, **kwargs):
+            reader = EpochRows(make_reader(url, output='columnar', **kwargs), items)
+            readers.append(reader)
+            return reader
+
+        config = AutotuneConfig(interval_s=0.5, min_workers=1, max_workers=os.cpu_count() or 1)
+        kwargs = dict(pool_kwargs, autotune=config, workers_count=AUTOTUNE_START_WORKERS)
+        launches, _, _, _, result, _ = run_path(
+            torch, name, raw_url, check_batch, reader_kwargs=kwargs, graphed=True,
+            steps=AUTOTUNE_STEPS, tag='autotune_checks', reader_factory=factory)
+        total.update(launches)
+        (reader,) = readers
+        decisions = [{'knob': d['knob'], 'action': d['action'], 'from': d['from'],
+                      'to': d['to'], 'bottleneck': d['window']['bottleneck'],
+                      'wait_fraction': d['window']['reader_wait_fraction'],
+                      'reason': d['reason']} for d in reader.autotuner.decision_records()]
+        pool = result.extra['pool']
+        runs[name] = {'pool': pool_kwargs['reader_pool_type'],
+                      'start_workers': AUTOTUNE_START_WORKERS, 'max_workers': config.max_workers,
+                      'decisions': decisions, 'workers_over_time_s': reader.workers,
+                      'final_workers': pool['workers_count'],
+                      'history_snapshots': len(reader.autotuner.history),
+                      'examples_per_sec': result.samples_per_second,
+                      'input_stall_fraction': result.input_stall_fraction,
+                      'median_step_ms': result.extra['median_step_ms'],
+                      'epochs_complete': check_epochs_once(name, reader.epochs, keys),
+                      'epochs_seen': len(reader.epochs),
+                      'worker_restarts': pool['worker_restarts'],
+                      'items_requeued': pool['items_requeued']}
+        if not decisions:
+            runs[name]['note'] = 'no decision fired in this run'
+        if pool['worker_restarts'] or pool['items_quarantined']:
+            raise AssertionError('{} under the autotuner: {}'.format(name, pool))
+        del readers, reader
+        check_no_leftovers()
+    emit({'phase': 'autotune_checks', 'interval_s': 0.5, 'steps': WARMUP_STEPS + AUTOTUNE_STEPS,
+          'runs': runs})
+    return total
+
+
+TOKENS_ROWS = 4096
+TOKENS_ROWS_PER_GROUP = 256
+TOKENS_MAX_LEN = 256
+TOKENS_SEED = 1234
+TOKENS_PADDED_BATCH = 32
+TOKENS_PAD_TO = 16
+TOKENS_BUCKETS = (16, 32, 64, 128, 256)
+TOKENS_PER_BATCH = 256
+TOKENS_SLOTS = 8
+TOKENS_POOL_ROWS = 512
+
+
+def build_token_store(url):
+    """``bench.py``'s token store: 4096 rows, 256 per row group, an int64 id
+    and int32 tokens of ``min(zipf(1.6), 256)`` lengths, from a seed."""
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema('TokensSchema', [
+        UnischemaField('id', np.int64, (), ScalarCodec(np.int64), False),
+        UnischemaField('tokens', np.int32, (None,), NdarrayCodec(), False)])
+    rng = np.random.default_rng(TOKENS_SEED)
+    rows = []
+    with materialize_dataset(url, schema, rows_per_row_group=TOKENS_ROWS_PER_GROUP) as writer:
+        for i in range(TOKENS_ROWS):
+            tokens = rng.integers(0, 32000, int(min(rng.zipf(1.6), TOKENS_MAX_LEN)),
+                                  dtype=np.int32)
+            writer.write({'id': np.int64(i), 'tokens': tokens})
+            rows.append(tokens)
+    return rows
+
+
+def _staged_equal(staged, host):
+    for name, value in host.items():
+        got = staged[name]
+        if hasattr(got, 'cpu'):
+            if got.device.type != DEVICE_TYPE:
+                raise AssertionError('{} staged on {}'.format(name, got.device))
+            got = got.cpu().numpy()
+        if not np.array_equal(got, value):
+            raise AssertionError('a staged {} differs from its host collation'.format(name))
+
+
+def _token_consumer(torch, url, kind, digest=None):
+    """One pass of the token store through a consumer, each batch staged to
+    the card through ``prefetch_to_device`` and held against its host
+    collation. Returns the real tokens, the delivered sequences (by id, or
+    as a multiset for packing), the rate and the consumer's waste or
+    efficiency."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.sequence import CollateSpec, PackedSequenceLoader, PadSpec
+    from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+
+    hosts = collections.deque()
+    delivered = collections.Counter() if kind == 'packed' else {}
+    real = batches = 0
+    t0 = time.perf_counter()
+    with make_reader(url, reader_pool_type='dummy', shuffle_row_groups=True, seed=0) as reader:
+        if kind == 'packed':
+            consumer = PackedSequenceLoader(reader, tokens_per_batch=TOKENS_PER_BATCH,
+                                            sequence_fields=['tokens'],
+                                            slots_per_batch=TOKENS_SLOTS,
+                                            pool_rows=TOKENS_POOL_ROWS)
+        else:
+            consumer = TorchDataLoader(
+                reader, batch_size=TOKENS_PADDED_BATCH, drop_last=False,
+                collate_spec=CollateSpec({'tokens': PadSpec(pad_to=TOKENS_PAD_TO)}),
+                bucket_boundaries=TOKENS_BUCKETS if kind == 'bucketed' else None)
+
+        def host_batches():
+            for batch in consumer:
+                hosts.append(batch)
+                yield batch
+
+        for staged in prefetch_to_device(host_batches(), torch.device(DEVICE_TYPE), size=2):
+            host = hosts.popleft()
+            _staged_equal(staged, host)
+            batches += 1
+            if kind == 'packed':
+                seg, tokens = host['segment_ids'], host['tokens']
+                real += int((seg > 0).sum())
+                for slot in range(seg.shape[0]):
+                    for s in range(1, int(host['num_segments'][slot]) + 1):
+                        delivered[tokens[slot][seg[slot] == s].tobytes()] += 1
+                if digest is not None:
+                    digest.update(tokens.tobytes())
+                    digest.update(seg.tobytes())
+            else:
+                real += int(host['tokens_lengths'].sum())
+                for row_id, n, padded in zip(host['id'], host['tokens_lengths'],
+                                             host['tokens']):
+                    if int(row_id) in delivered:
+                        raise AssertionError('{}: row {} delivered twice'.format(kind, row_id))
+                    delivered[int(row_id)] = padded[:n].tobytes()
+                    if padded[n:].any():
+                        raise AssertionError('{}: nonzero padding'.format(kind))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        measure = (consumer.packing_efficiency if kind == 'packed'
+                   else consumer.diagnostics['padding_waste_fraction'])
+    return real, delivered, batches, seconds, measure
+
+
+def phase_collate_checks(torch, work_dir):
+    """The token store of ``bench.py`` under ``.torch_build/``, read (dummy
+    pool, ``shuffle_row_groups=True``, seed 0) through the padded loader
+    (``CollateSpec({'tokens': PadSpec(pad_to=16)})``, batch 32), the same
+    with ``bucket_boundaries`` and ``PackedSequenceLoader(256 tokens, 8
+    slots, 512 pooled rows)``, each staged to the card through
+    ``prefetch_to_device``: each staged batch equals its host collation,
+    every real token is delivered once, bucketing wastes less padding, and
+    two same-seed packed runs are bit-exact."""
+    import hashlib
+
+    url = 'file://' + os.path.join(work_dir, 'tokens')
+    t0 = time.perf_counter()
+    rows = build_token_store(url)
+    build_s = time.perf_counter() - t0
+    total_real = sum(len(r) for r in rows)
+    by_id = {i: r.tobytes() for i, r in enumerate(rows)}
+    sequences = collections.Counter(by_id.values())
+    out = {}
+    for kind in ('padded', 'bucketed', 'packed'):
+        digest = hashlib.sha256() if kind == 'packed' else None
+        real, delivered, batches, seconds, measure = _token_consumer(torch, url, kind, digest)
+        ok = real == total_real and (delivered == sequences if kind == 'packed'
+                                     else delivered == by_id)
+        out[kind] = {'batches': batches, 'real_tokens': real, 'seconds': seconds,
+                     'real_tokens_per_s': real / seconds, 'every_token_once': ok,
+                     ('packing_efficiency' if kind == 'packed'
+                      else 'padding_waste_fraction'): measure}
+        if not ok:
+            raise AssertionError('{}: {} of {} real tokens, rows delivered as written: {}'.format(
+                kind, real, total_real, ok))
+        if digest is not None:
+            again = hashlib.sha256()
+            _token_consumer(torch, url, kind, again)
+            out[kind]['bit_exact_rerun'] = digest.hexdigest() == again.hexdigest()
+    emit({'phase': 'collate_checks', 'rows': TOKENS_ROWS, 'rows_per_row_group':
+          TOKENS_ROWS_PER_GROUP, 'real_tokens': total_real, 'build_s': build_s, 'consumers': out})
+    if not out['packed']['bit_exact_rerun']:
+        raise AssertionError('two same-seed packed runs differ')
+    if not out['bucketed']['padding_waste_fraction'] < out['padded']['padding_waste_fraction']:
+        raise AssertionError('bucketing did not cut the padding waste: {} vs {}'.format(
+            out['bucketed']['padding_waste_fraction'], out['padded']['padding_waste_fraction']))
+
+
+FLIGHT_STEPS = 6
+
+
+def flight_child(url, ring, run_dir):
+    """The flight checks' child process: ``raw_process`` (eager, 3 + 6
+    steps) with its flight files in ``run_dir``; after the warm-up it lists
+    the files and prints them with the pids of this process and its workers
+    as one JSON line. Called by :func:`phase_flight_checks`."""
+    import torch
+
+    from petastorm_tpu_torch import make_reader
+
+    readers, seen = [], {}
+
+    def factory(url, **kwargs):
+        readers.append(make_reader(url, output='columnar', **kwargs))
+        return readers[0]
+
+    def on_step():
+        if not seen:
+            seen['files'] = sorted(f for f in os.listdir(run_dir) if f.endswith('.bin'))
+            seen['consumer_pid'] = os.getpid()
+            seen['worker_pids'] = sorted(p.pid for p in readers[0]._pool._processes
+                                         if p is not None)
+
+    kwargs = {'reader_pool_type': 'process', 'zero_copy': True,
+              'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm'}}
+    run_path(torch, 'raw_process', url, check_batch, reader_kwargs=kwargs, steps=FLIGHT_STEPS,
+             tag='flight_checks', reader_factory=factory, on_step=on_step)
+    print(json.dumps({'flight_child': seen}), flush=True)
+
+
+def phase_flight_checks(raw_url, ring):
+    """A child process runs ``raw_process`` with ``PSTPU_FLIGHT_DIR`` inside
+    ``.torch_build/``: while it runs, its own flight file and one per worker
+    exist; after its clean exit, ``postmortem_report`` parses every file,
+    names each process, finds the loader's closing stall record, and finds
+    every process exited cleanly (no file of a process that died, was
+    killed or is still running)."""
+    from petastorm_tpu_torch.observability import blackbox
+
+    run_dir = os.path.join(BUILD_DIR, 'flight', 'child')
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    env = dict(os.environ, PSTPU_FLIGHT_DIR=run_dir, PSTPU_FLIGHT_INTERVAL='0.2')
+    env.pop('PSTPU_FLIGHT', None)
+    code = 'import chip_smoke; chip_smoke.flight_child({!r}, {!r}, {!r})'.format(
+        raw_url, ring, run_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError('flight child exited {}: {}'.format(proc.returncode,
+                                                                 proc.stderr[-3000:]))
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{')]
+    seen = next(line['flight_child'] for line in lines if 'flight_child' in line)
+    path_line = next(line for line in lines if line.get('phase') == 'path')
+    report = blackbox.postmortem_report(run_dir)
+    procs = {p['pid']: p for p in report['processes']}
+    expected = [seen['consumer_pid']] + seen['worker_pids']
+    during = {int(f.rsplit('-', 2)[-2]) for f in seen['files']}
+    consumer = procs.get(seen['consumer_pid'])
+    stale = [p for p in report['processes'] if p['status'] != 'exited']
+    sidecars = [f for f in os.listdir(run_dir) if f.endswith('.crash')
+                and os.path.getsize(os.path.join(run_dir, f))]
+    out = {'phase': 'flight_checks', 'run_dir': os.path.relpath(run_dir, ROOT),
+           'child_s': child_s, 'files_during_run': seen['files'],
+           'processes': [{'label': p['label'], 'pid': p['pid'], 'status': p['status'],
+                          'records': p['records_total'], 'torn': p['torn_records'],
+                          'stall_record': p['last_stall_report'] is not None}
+                         for p in report['processes']],
+           'probable_cause': report['probable_cause'], 'skipped': report['skipped'],
+           'stale': [p['path'] for p in stale], 'crash_sidecars': sidecars,
+           'child_stall': path_line['stall'],
+           'consumer_stall_record': None if consumer is None else consumer['last_stall_report']}
+    emit(out)
+    if not set(expected) <= during:
+        raise AssertionError('flight files during the run: {} for processes {}'.format(
+            seen['files'], expected))
+    if (set(procs) != set(expected) or report['skipped'] or stale or sidecars
+            or consumer is None or consumer['label'] != 'consumer'
+            or consumer['last_stall_report'] is None
+            or any(not procs[p]['label'].startswith('worker') for p in seen['worker_pids'])):
+        raise AssertionError('post-mortem of the flight files: {}'.format(out))
+
+
 def phase_profile(torch, runs, images, labels):
     """For the raw path's eager and graphed step, each on its own state:
     three more train steps on one staged batch under ``torch.profiler``, the
@@ -2065,6 +2629,11 @@ def _dir_bytes(path):
 def main():
     os.makedirs(BUILD_DIR, exist_ok=True)
     os.environ.setdefault('TRITON_CACHE_DIR', os.path.join(BUILD_DIR, 'triton'))
+    # the flight files of this process and its pools' workers (the recorder
+    # is on at the default counters level)
+    flight_dir = os.path.join(BUILD_DIR, 'flight', 'main')
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    os.environ['PSTPU_FLIGHT_DIR'] = flight_dir
     import torch
 
     import petastorm_tpu_torch  # noqa: F401 - fails here when run outside a checkout
@@ -2180,6 +2749,11 @@ def main():
         if abs(first_losses[False] - first_losses[True]) > FIRST_LOSS_TOL:
             raise AssertionError('plain_resume: first losses {}'.format(first_losses))
         phase_resume_checks(urls['plain'], check_thread_epoch_once(urls['plain']))
+        total.update(phase_telemetry_checks(torch, urls['raw'], urls['png_fixed'],
+                                            dict(process, zero_copy=True)))
+        total.update(phase_autotune_checks(torch, urls['raw'], ring))
+        phase_collate_checks(torch, work_dir)
+        phase_flight_checks(urls['raw'], ring)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     # the raw path's first staged batch (eager run)

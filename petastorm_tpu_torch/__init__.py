@@ -9,9 +9,11 @@ version. Entry points that touch a device default to CUDA and raise without
 it unless the caller passes ``device='cpu'``.
 
 Top-level API: ``make_reader``, ``make_batch_reader``,
-``merge_resume_states``, ``TransformSpec``, ``NoDataAvailableError``.
+``merge_resume_states``, ``TransformSpec``, ``NoDataAvailableError`` and
+``AutotuneConfig``.
 """
 
+from petastorm_tpu_torch.autotune import AutotuneConfig  # noqa: F401
 from petastorm_tpu_torch.errors import NoDataAvailableError  # noqa: F401
 from petastorm_tpu_torch.reader import (make_batch_reader, make_reader,  # noqa: F401
                                         merge_resume_states)

@@ -10,6 +10,10 @@ carry a predicate, evaluated by the fused native call where its clauses
 allow and on the column block otherwise, and a shuffle-row-drop partition
 (Arrow ``take``). The ``TransformSpec``'s ``func`` runs on the whole column
 block.
+
+Telemetry, as the JAX worker: ``read`` (the Arrow read), ``decode`` (the
+columns to numpy) and ``transform`` stages, and
+``worker_rows_decoded_total``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import logging
 import numpy as np
 import pyarrow as pa
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.native import open_parquet
 from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.row_worker import _MAX_OPEN_FILES, _cache_key, select_row_drop_indices
@@ -109,9 +114,11 @@ class ArrowBatchWorker(WorkerBase):
         transform = args['transform_spec']
         if transform is not None:
             if transform.func is not None:
-                batch = transform.func(batch)
+                with obs.stage('transform', cat='worker'):
+                    batch = transform.func(batch)
             final_fields = set(args['transformed_schema'].fields)
             batch = {k: v for k, v in batch.items() if k in final_fields}
+        obs.count('worker_rows_decoded_total', len(next(iter(batch.values()))) if batch else 0)
         self.publish(batch)
 
     def _load_batch(self, piece, column_names, shuffle_row_drop_partition):
@@ -131,16 +138,18 @@ class ArrowBatchWorker(WorkerBase):
                 pre = {}
         rest = [c for c in physical if c not in pre]
         if rest or not pre:
-            table = pf.read_row_group(piece.row_group, columns=rest)
-            if shuffle_row_drop_partition is not None:
-                table = table.take(select_row_drop_indices(table.num_rows,
-                                                           shuffle_row_drop_partition))
+            with obs.stage('read', cat='worker', piece=piece.path, row_group=piece.row_group):
+                table = pf.read_row_group(piece.row_group, columns=rest)
+                if shuffle_row_drop_partition is not None:
+                    table = table.take(select_row_drop_indices(table.num_rows,
+                                                               shuffle_row_drop_partition))
             num_rows = table.num_rows
         else:
             table = None
             num_rows = len(next(iter(pre.values())))
-        batch = {name: pre[name] if name in pre else _column_to_numpy(table.column(name))
-                 for name in physical}
+        with obs.stage('decode', cat='worker', rows=num_rows):
+            batch = {name: pre[name] if name in pre else _column_to_numpy(table.column(name))
+                     for name in physical}
         for key, value in piece.partition_keys.items():
             if key in column_names:
                 batch[key] = np.full(num_rows, value)
@@ -180,9 +189,11 @@ class ArrowBatchWorker(WorkerBase):
             return {}
         batch = dict(block)
         if rest:
-            table = pf.read_row_group(piece.row_group, columns=rest).take(kept)
-            for name in rest:
-                batch[name] = _column_to_numpy(table.column(name))
+            with obs.stage('read', cat='worker', piece=piece.path, row_group=piece.row_group):
+                table = pf.read_row_group(piece.row_group, columns=rest).take(kept)
+            with obs.stage('decode', cat='worker', rows=len(kept)):
+                for name in rest:
+                    batch[name] = _column_to_numpy(table.column(name))
         for key, value in piece.partition_keys.items():
             if key in needed:
                 batch[key] = np.full(len(kept), value)

@@ -280,6 +280,7 @@ class ShuffledColumnarBuffer(object):
         if min_after >= capacity:
             raise ValueError('min_after ({}) must be smaller than capacity ({})'.format(
                 min_after, capacity))
+        self._capacity = capacity
         self._min_after = min_after
         self._rng = np.random.default_rng(seed)
         self._segments = {}       # seg_id -> block
@@ -304,6 +305,16 @@ class ShuffledColumnarBuffer(object):
     @rng_state.setter
     def rng_state(self, state):
         self._rng.bit_generator.state = state
+
+    def resize(self, capacity, min_after):
+        """Set the capacity and the decorrelation floor at run time (the
+        autotuner's shuffle knob). Buffered rows are kept; :meth:`can_emit`
+        follows the new bounds from its next call."""
+        if min_after >= capacity:
+            raise ValueError('min_after ({}) must be smaller than capacity ({})'.format(
+                min_after, capacity))
+        self._capacity = capacity
+        self._min_after = min_after
 
     def add_block(self, block):
         n = block_num_rows(block)

@@ -31,6 +31,11 @@ it :mod:`~petastorm_tpu_torch.native.lifetime`. A filtered read
 skips pages by their statistics and decodes only the surviving rows in the
 same kind of single call. Not ported yet: the blob fused publish of the
 serve plane and the chunk-cached remote reader.
+
+Telemetry, as the JAX package's: each fused call is a ``fused_decode`` (or
+``fused_predicate``) stage, the page scan a ``pagescan`` stage and the
+Arrow C++ read an ``arrow_decode`` stage; the route counters also go to the
+metrics registry (:func:`count_route`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import ctypes
 import logging
 import os
 import threading
+
+from petastorm_tpu_torch import observability as obs
 
 logger = logging.getLogger(__name__)
 
@@ -80,6 +87,15 @@ class RouteCounts(object):
 #: counts to the consumer's as they arrive
 read_routes = RouteCounts(('fused_batches_total', 'fused_columns_total', 'fused_fallback_total',
                            'pagescan_columns_total', 'arrow_fallback_columns_total'))
+
+
+def count_route(key, n=1):
+    """Count ``n`` on the read route ``key``: in :data:`read_routes` and, as
+    the JAX package counts it, in the telemetry registry (the counter of the
+    same name in ``Reader.diagnostics``). A process pool adds its workers'
+    route counts to ``read_routes`` only: their registries arrive whole."""
+    read_routes.add(key, n)
+    obs.count(key, n)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -267,7 +283,8 @@ class NativeParquetFile(object):
         if not plan.columns:
             fused.count_fallbacks(plan.reasons)
             return {}, list(columns)
-        block, _reasons = fused.read_block(self._lib, self._fused_chunks(plan.columns), plan)
+        block, _reasons = fused.read_block(self._lib, self._fused_chunks(plan.columns), plan,
+                                           stage_args={'row_group': i})
         return block, [c for c in columns if c not in block]
 
     def read_fused_predicate(self, i, columns, pred_fields, clauses, schema_fields=None,
@@ -298,7 +315,8 @@ class NativeParquetFile(object):
             return None
         preds, keepalive = compiled
         res = fused.read_block_pred(self._lib, self._fused_chunks(plan.columns), plan,
-                                    self._fused_chunks(pred_plans), pred_plans, preds, keepalive)
+                                    self._fused_chunks(pred_plans), pred_plans, preds, keepalive,
+                                    stage_args={'row_group': i})
         if res is None:
             return None
         block, _reasons, sel_mask, n_selected, pages_skipped = res
@@ -309,8 +327,9 @@ class NativeParquetFile(object):
         ``out_buf`` (in the in-place mode, the ring slot the consumer maps).
         Returns the per-column native results of :func:`fused.read_into`."""
         from petastorm_tpu_torch.native import fused
-        return fused.read_into(self._lib, self._fused_chunks(plan.columns), plan.columns,
-                               plan.expected_rows, out_buf, offsets)
+        with obs.stage('fused_decode', cat='native', rows=plan.expected_rows):
+            return fused.read_into(self._lib, self._fused_chunks(plan.columns), plan.columns,
+                                   plan.expected_rows, out_buf, offsets)
 
     def read_row_group(self, i, columns=None):
         """One row group as a ``pyarrow.Table``. Columns that qualify for the
@@ -319,12 +338,16 @@ class NativeParquetFile(object):
         The table keeps the requested column order."""
         import pyarrow as pa
 
-        fast = self._zerocopy_columns(i, columns) if columns else {}
+        if columns:
+            with obs.stage('pagescan', cat='native'):
+                fast = self._zerocopy_columns(i, columns)
+        else:
+            fast = {}
         rest = [c for c in columns if c not in fast] if columns is not None else None
         if fast:
-            read_routes.add('pagescan_columns_total', len(fast))
+            count_route('pagescan_columns_total', len(fast))
         if rest:
-            read_routes.add('arrow_fallback_columns_total', len(rest))
+            count_route('arrow_fallback_columns_total', len(rest))
         # columns=[] keeps the Arrow path's 0-column N-row table
         if columns and not rest:
             return pa.table({c: fast[c] for c in columns})
@@ -340,13 +363,16 @@ class NativeParquetFile(object):
             n = len(indices)
         else:
             arr, n = None, -1
-        # an ArrowArrayStream is 4 pointers and private fields: 256 bytes is ample
-        stream_buf = ctypes.create_string_buffer(256)
-        rc = self._lib.pstpu_read_row_group(self._handle, i, arr, n, ctypes.byref(stream_buf))
-        if rc != 0:
-            raise IOError('pstpu_read_row_group({}, rg={}): {}'.format(
-                self.path, i, _last_error(self._lib)))
-        table = pa.RecordBatchReader._import_from_c(ctypes.addressof(stream_buf)).read_all()
+        with obs.stage('arrow_decode', cat='native'):
+            # an ArrowArrayStream is 4 pointers and private fields: 256 bytes
+            # is ample
+            stream_buf = ctypes.create_string_buffer(256)
+            rc = self._lib.pstpu_read_row_group(self._handle, i, arr, n,
+                                                ctypes.byref(stream_buf))
+            if rc != 0:
+                raise IOError('pstpu_read_row_group({}, rg={}): {}'.format(
+                    self.path, i, _last_error(self._lib)))
+            table = pa.RecordBatchReader._import_from_c(ctypes.addressof(stream_buf)).read_all()
         if not fast:
             return table
         return pa.table({c: (fast[c] if c in fast else table.column(c)) for c in columns})

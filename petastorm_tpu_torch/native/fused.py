@@ -49,7 +49,8 @@ import os
 
 import numpy as np
 
-from petastorm_tpu_torch.native import read_routes
+from petastorm_tpu_torch import observability as obs
+from petastorm_tpu_torch.native import count_route
 
 logger = logging.getLogger(__name__)
 
@@ -442,9 +443,9 @@ def count_fallbacks(reasons):
     for name, reason in reasons.items():
         if reason == 'pagescan':
             continue
-        read_routes.add('fused_fallback_total')
-        read_routes.add('fused_fallback_reason:{}'.format(reason))
-        read_routes.add('fused_fallback_column:{}:{}'.format(name, reason))
+        count_route('fused_fallback_total')
+        count_route('fused_fallback_reason:{}'.format(reason))
+        count_route('fused_fallback_column:{}:{}'.format(name, reason))
 
 
 def _pred_domain(plan):
@@ -640,7 +641,7 @@ def read_into(lib, chunks, plans, expected_rows, out_buf, offsets):
             for i in range(n)]
 
 
-def read_block(lib, chunks, plan):
+def read_block(lib, chunks, plan, stage_args=None):
     """Allocate one contiguous batch buffer, run the fused kernel and build
     the numpy columns. Returns ``(block, reasons)``: the decoded columns, and
     the fallback reason of every column that did not decode (at planning or
@@ -650,7 +651,8 @@ def read_block(lib, chunks, plan):
         offsets.append(total)
         total += p.out_bound
     out = np.empty(total, dtype=np.uint8)
-    results = read_into(lib, chunks, plan.columns, plan.expected_rows, out, offsets)
+    with obs.stage('fused_decode', cat='native', rows=plan.expected_rows, **(stage_args or {})):
+        results = read_into(lib, chunks, plan.columns, plan.expected_rows, out, offsets)
     block = {}
     reasons = dict(plan.reasons)
     for p, res, off in zip(plan.columns, results, offsets):
@@ -660,8 +662,8 @@ def read_block(lib, chunks, plan):
         else:
             block[p.name] = col
     if block:
-        read_routes.add('fused_columns_total', len(block))
-        read_routes.add('fused_batches_total')
+        count_route('fused_columns_total', len(block))
+        count_route('fused_batches_total')
     count_fallbacks({n: r for n, r in reasons.items() if n not in block})
     return block, reasons
 
@@ -710,7 +712,8 @@ def _narrow_plan(plan, full_rows, n_selected):
     return q
 
 
-def read_block_pred(lib, chunks, plan, pred_chunks, pred_plans, preds, keepalive):
+def read_block_pred(lib, chunks, plan, pred_chunks, pred_plans, preds, keepalive,
+                    stage_args=None):
     """Filtered fused batch: evaluate the compiled predicate clauses over the
     predicate column chunks (skipping whole pages by their min/max
     statistics first), then collate ONLY the selected rows of every output
@@ -757,20 +760,21 @@ def read_block_pred(lib, chunks, plan, pred_chunks, pred_plans, preds, keepalive
     sel = np.zeros((rows + 7) // 8 or 1, dtype=np.uint8)
     out_selected = ctypes.c_longlong(0)
     out_skipped = ctypes.c_longlong(0)
-    if has_img:
-        from petastorm_tpu_torch.native import image_codec
-        with image_codec._thread_grant(None) as grant:
-            for i in range(n):
-                descs[i].img_threads = grant
+    with obs.stage('fused_predicate', cat='native', rows=rows, **(stage_args or {})):
+        if has_img:
+            from petastorm_tpu_torch.native import image_codec
+            with image_codec._thread_grant(None) as grant:
+                for i in range(n):
+                    descs[i].img_threads = grant
+                ret = _invoke_read_fused_pred(
+                    lib, descs, n, pred_descs, npred, preds, len(preds), sel.ctypes.data,
+                    sel.nbytes, rows, _column_threads(n), probe_addr, decode_addr,
+                    ctypes.byref(out_selected), ctypes.byref(out_skipped))
+        else:
             ret = _invoke_read_fused_pred(
                 lib, descs, n, pred_descs, npred, preds, len(preds), sel.ctypes.data, sel.nbytes,
-                rows, _column_threads(n), probe_addr, decode_addr, ctypes.byref(out_selected),
+                rows, _column_threads(n), None, None, ctypes.byref(out_selected),
                 ctypes.byref(out_skipped))
-    else:
-        ret = _invoke_read_fused_pred(
-            lib, descs, n, pred_descs, npred, preds, len(preds), sel.ctypes.data, sel.nbytes,
-            rows, _column_threads(n), None, None, ctypes.byref(out_selected),
-            ctypes.byref(out_skipped))
     # chunks, aux_bufs and the keepalive operand buffers were anchored
     # through the call
     del keepalive
@@ -812,11 +816,11 @@ def read_block_pred(lib, chunks, plan, pred_chunks, pred_plans, preds, keepalive
     count_fallbacks({n: r for n, r in reasons.items() if n not in block})
     if not block:
         return None  # nothing fused: the unfused predicate route is simpler
-    read_routes.add('fused_pred_batches_total')
-    read_routes.add('fused_pred_pages_skipped_total', pages_skipped)
-    read_routes.add('fused_pred_rows_selected', n_selected)
-    read_routes.add('fused_columns_total', len(block))
-    read_routes.add('fused_batches_total')
+    count_route('fused_pred_batches_total')
+    count_route('fused_pred_pages_skipped_total', pages_skipped)
+    count_route('fused_pred_rows_selected', n_selected)
+    count_route('fused_columns_total', len(block))
+    count_route('fused_batches_total')
     return block, reasons, sel_mask, n_selected, pages_skipped
 
 

@@ -70,8 +70,8 @@ def _note_scan_failure(lib, where):
     err = lib.pstpu_last_error().decode('utf-8', 'replace')
     if 'max_pages' not in err:
         return
-    from petastorm_tpu_torch.native import read_routes
-    read_routes.add('pagescan_fallback_reason:page-cap')
+    from petastorm_tpu_torch.native import count_route
+    count_route('pagescan_fallback_reason:page-cap')
     if not _page_cap_warned:
         _page_cap_warned = True
         logger.warning(

@@ -18,6 +18,13 @@ a plain dict of ints, lists and a numpy bit-generator state, which either
 package resumes. The arguments of the JAX factories that are not ported yet
 raise :class:`NotImplementedError` naming their ROADMAP item when given a
 non-default value.
+
+Telemetry (``telemetry=``, the process's level, ``'counters'`` by default)
+and the autotuner (``autotune=``) are the JAX package's: the level is applied
+process-wide and shipped to process-pool workers, :attr:`Reader.diagnostics`
+merges the metrics registry, the workers' snapshots and the pool's counters,
+and :attr:`Reader.last_trace` links the loader's spans to the item a block
+came from.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import pickle
 import warnings
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.batch_worker import ArrowBatchWorker
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import BatchResultsQueueReader
@@ -52,9 +60,7 @@ _NOT_YET_PORTED = {
     'storage_retry_policy': (None, 'remote filesystems'),
     'chunk_cache': (None, 'remote filesystems'),
     'chunk_cache_size_limit': (None, 'remote filesystems'),
-    'telemetry': (None, 'observability'),
-    'autotune': (None, 'observability'),
-    'protocol_monitor': (None, 'observability'),
+    'protocol_monitor': (None, 'protocol monitor'),
     'serve': (None, 'DDP/mesh'),
     'serve_weight': (1, 'DDP/mesh'),
     'elastic': (None, 'DDP/mesh'),
@@ -176,6 +182,7 @@ def make_reader(dataset_url,
                 transform_spec=None,
                 output='rows', batch_size=None, drop_last=False,
                 resume_state=None,
+                telemetry=None, autotune=None,
                 on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
                 **not_yet_ported):
     """Reader for datasets written by :func:`materialize_dataset`.
@@ -217,6 +224,20 @@ def make_reader(dataset_url,
         package): continue from that read position. Construct the reader
         with otherwise the same arguments; ``cur_shard``/``shard_count`` may
         differ for version-2 states (see :func:`merge_resume_states`)
+    :param telemetry: ``'off'``, ``'counters'`` (the process default: stage
+        timers and counters, read by :attr:`Reader.diagnostics` and
+        :func:`~petastorm_tpu_torch.observability.stall_report`), ``'spans'``
+        (also one Chrome-trace event per stage execution,
+        :func:`~petastorm_tpu_torch.observability.export_chrome_trace`), or a
+        :class:`~petastorm_tpu_torch.observability.TelemetryConfig`; ``None``
+        keeps the process's level. Applied process-wide and shipped to the
+        process pool's workers
+    :param autotune: ``True`` or an
+        :class:`~petastorm_tpu_torch.autotune.AutotuneConfig` starts the
+        feedback controller (:attr:`Reader.autotuner`): it grows and retires
+        worker slots and, once a loader attaches, shrinks its shuffle buffer,
+        within the config's bounds, each move a recorded decision. Off by
+        default
     :param on_error: item-failure policy, the same on every pool type:
         ``'raise'`` surfaces the first worker error on the iterating thread
         with the worker-side traceback attached; ``'retry'`` re-runs a failed
@@ -266,7 +287,8 @@ def make_reader(dataset_url,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
-                  transform_spec=transform_spec, resume_state=resume_state)
+                  transform_spec=transform_spec, resume_state=resume_state,
+                  telemetry=telemetry, autotune=autotune)
 
 
 def make_batch_reader(dataset_url,
@@ -282,6 +304,7 @@ def make_batch_reader(dataset_url,
                       transform_spec=None,
                       batch_size=None, drop_last=False,
                       resume_state=None,
+                      telemetry=None, autotune=None,
                       on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
                       **not_yet_ported):
     """Columnar reader for ANY Parquet store: one namedtuple of numpy column
@@ -305,7 +328,7 @@ def make_batch_reader(dataset_url,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
-                  worker_class=ArrowBatchWorker)
+                  worker_class=ArrowBatchWorker, telemetry=telemetry, autotune=autotune)
 
 
 class Reader(object):
@@ -314,12 +337,14 @@ class Reader(object):
     #: NGram windows are not ported (the long-context item); the loader
     #: reads this attribute
     ngram = None
+    #: the feedback controller when ``autotune`` is on
+    autotuner = None
 
     def __init__(self, dataset_url, schema, pool, results_reader_factory, schema_fields=None,
                  seed=None, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=NullCache(), transform_spec=None, resume_state=None,
-                 worker_class=RowGroupDecoderWorker):
+                 worker_class=RowGroupDecoderWorker, telemetry=None, autotune=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -327,6 +352,9 @@ class Reader(object):
                 cur_shard, shard_count))
         if shuffle_row_drop_partitions < 1:
             raise ValueError('shuffle_row_drop_partitions must be >= 1')
+        # the requested level, process-wide (None keeps it); the effective
+        # config rides the workers' setup args into spawned processes
+        self._telemetry_config = obs.configure(telemetry)
         self._dataset_url = dataset_url
         #: the full stored (or inferred) schema
         self.schema = schema
@@ -389,8 +417,19 @@ class Reader(object):
                     'schema': schema,
                     'output_schema': output_schema,
                     'transform_spec': transform_spec,
-                    'transformed_schema': self.transformed_schema},
+                    'transformed_schema': self.transformed_schema,
+                    'telemetry': self._telemetry_config},
                    ventilator=self._ventilator)
+        # the autotuner starts after the pool, so its first window sees a
+        # running pipeline; no chunk cache is ported, so it has no prefetch
+        # knob
+        self.autotuner = None
+        from petastorm_tpu_torch.autotune import Autotuner, resolve_autotune
+        autotune_config = resolve_autotune(autotune)
+        if autotune_config is not None:
+            self.autotuner = Autotuner(autotune_config, pool=pool, ventilator=self._ventilator,
+                                       diagnostics_fn=lambda: self.diagnostics)
+            self.autotuner.start()
 
     @staticmethod
     def _apply_predicate_to_pieces(pieces, predicate):
@@ -525,13 +564,26 @@ class Reader(object):
         self.last_row_consumed = False
 
     @property
+    def last_trace(self):
+        """The virtual-root :class:`~petastorm_tpu_torch.observability.TraceContext`
+        of the item the last returned block came from; None below the
+        ``'spans'`` level or before the first read. The loader's collate and
+        the infeed link their spans to it."""
+        return getattr(self._pool, 'last_result_trace', None)
+
+    @property
     def diagnostics(self):
-        """The pool's diagnostics: items ventilated, completed and in
-        flight, the recovery counters (``worker_restarts``,
+        """The metrics registry of this process merged with the process
+        pool's workers' snapshots (stage timers ``stage_*_s``/``_count``,
+        counters, gauges), then the pool's diagnostics: items ventilated,
+        completed and in flight, the recovery counters (``worker_restarts``,
         ``items_requeued``, ``items_quarantined``), the ``lifetime_*``
         borrow counters and, for a process pool, its transport and
         publishes per channel."""
-        return self._pool.diagnostics
+        snapshots = [obs.snapshot()] + list(self._pool.telemetry_snapshots())
+        diag = obs.flatten_snapshot(obs.merge_snapshots(snapshots))
+        diag.update(self._pool.diagnostics)
+        return diag
 
     @property
     def quarantined_items(self):
@@ -539,6 +591,8 @@ class Reader(object):
         return self._pool.quarantined_items
 
     def stop(self):
+        if self.autotuner is not None:
+            self.autotuner.stop()
         self._pool.stop()
         self._stopped = True
 

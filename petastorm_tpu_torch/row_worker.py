@@ -32,6 +32,14 @@ row group is then decoded by the fused native call straight into the ring
 slot the consumer maps, page-scan columns included, and published with a
 header write (:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not
 ported yet: NGram windows and the serve plane's fused blob publish.
+
+Telemetry, as the JAX worker: a ``read`` stage around each Arrow/page-scan
+read (the fused call is its own ``fused_decode``/``fused_predicate`` stage,
+in ``native``), ``decode`` around the codec decode, ``transform`` around a
+``TransformSpec`` function, and ``worker_rows_decoded_total``. One change:
+a block whose columns the fused read decoded all has nothing left to
+decode, so it opens no ``decode`` stage (the JAX worker opens an empty
+one), and a fused path's stall report names ``fused_decode`` alone.
 """
 
 from __future__ import annotations
@@ -42,10 +50,11 @@ from collections import OrderedDict
 
 import numpy as np
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import (block_num_rows, block_to_rows, column_cells,
                                           rows_to_block, stack_cells, take_block)
-from petastorm_tpu_torch.native import open_parquet, read_routes
+from petastorm_tpu_torch.native import count_route, open_parquet
 from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
 
@@ -137,6 +146,7 @@ class RowGroupDecoderWorker(WorkerBase):
         if transform is not None:
             block = self._apply_transform(block, transform)
         if block and block_num_rows(block):
+            obs.count('worker_rows_decoded_total', block_num_rows(block))
             self.publish(block)
 
     def _fused_columns(self, piece, names):
@@ -204,9 +214,10 @@ class RowGroupDecoderWorker(WorkerBase):
             fused.count_fallbacks(failed)
             return False
         commit(total)
-        read_routes.add('fused_columns_total', len(plan.columns))
-        read_routes.add('fused_batches_total')
-        read_routes.add('fused_inplace_batches_total')
+        count_route('fused_columns_total', len(plan.columns))
+        count_route('fused_batches_total')
+        count_route('fused_inplace_batches_total')
+        obs.count('worker_rows_decoded_total', plan.expected_rows)
         return True
 
     def _num_rows(self, piece):
@@ -217,8 +228,10 @@ class RowGroupDecoderWorker(WorkerBase):
     def _read_table(self, piece, names, row_indices=None):
         """The named columns of the piece's row group as an Arrow table, only
         the rows ``row_indices`` when given."""
-        table = self._parquet_file(piece.path).read_row_group(piece.row_group, columns=names)
-        return table.take(row_indices) if row_indices is not None else table
+        pf = self._parquet_file(piece.path)
+        with obs.stage('read', cat='worker', piece=piece.path, row_group=piece.row_group):
+            table = pf.read_row_group(piece.row_group, columns=names)
+            return table.take(row_indices) if row_indices is not None else table
 
     def _load_block(self, piece, names, shuffle_row_drop_partition=None):
         indices = None
@@ -235,12 +248,18 @@ class RowGroupDecoderWorker(WorkerBase):
         """Arrow table -> column block. Columns the fused read decoded
         (``pre``) are adopted as they are; ``table`` may be None when ``pre``
         covers every column."""
-        schema = self.args['schema']
         transform = self.args.get('transform_spec')
         decode_hints = getattr(transform, 'image_decode_hints', None) or {}
         resize_hints = getattr(transform, 'image_resize', None) or {}
         writable = transform is not None and transform.func is not None
         pre = pre or {}
+        if all(name in pre for name in names):
+            return {name: pre[name] for name in names}
+        with obs.stage('decode', cat='worker', rows=table.num_rows):
+            return self._decode_columns(table, names, pre, decode_hints, resize_hints, writable)
+
+    def _decode_columns(self, table, names, pre, decode_hints, resize_hints, writable):
+        schema = self.args['schema']
         block = {}
         for name in names:
             if name in pre:
@@ -357,10 +376,12 @@ class RowGroupDecoderWorker(WorkerBase):
         final_fields = set(self.args['transformed_schema'].fields)
         if transform.func is None:
             return {k: v for k, v in block.items() if k in final_fields}
-        if transform.batched:
-            return {k: v for k, v in transform.func(dict(block)).items() if k in final_fields}
-        rows = [transform.func(r) for r in block_to_rows(block)]
-        rows = [{k: v for k, v in r.items() if k in final_fields} for r in rows]
+        with obs.stage('transform', cat='worker'):
+            if transform.batched:
+                return {k: v for k, v in transform.func(dict(block)).items()
+                        if k in final_fields}
+            rows = [transform.func(r) for r in block_to_rows(block)]
+            rows = [{k: v for k, v in r.items() if k in final_fields} for r in rows]
         return rows_to_block(rows) if rows else None
 
 

@@ -103,5 +103,15 @@ class RandomShufflingBuffer(object):
     def rng_state(self, state):
         self._rng.bit_generator.state = state
 
+    def resize(self, capacity, min_after):
+        """Set the capacity and the decorrelation floor at run time (the
+        autotuner's shuffle knob). Buffered items are kept: a shrink stops
+        accepting adds until retrieval drains below the new capacity."""
+        if min_after >= capacity:
+            raise ValueError('min_after ({}) must be smaller than capacity ({})'.format(
+                min_after, capacity))
+        self._capacity = capacity
+        self._min_after_retrieve = min_after
+
     def finish(self):
         self._done_adding = True

@@ -5,7 +5,8 @@ reader -> :class:`TorchDataLoader` -> :func:`prefetch_to_device` -> ``step_fn``,
 measuring examples/sec and the input-stall fraction (the share of wall time
 the training loop spent blocked waiting for the next batch). Where the JAX
 version calls ``jax.block_until_ready``, this one calls
-``torch.cuda.synchronize``.
+``torch.cuda.synchronize``. ``telemetry=`` sets the reader's level, and the
+result carries the loader's stall attribution (``extra['stall']``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.native import read_routes
 from petastorm_tpu_torch.reader import make_reader
@@ -38,7 +40,7 @@ def _sync(device):
 
 def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, steps=50,
                         warmup_steps=5, loader_kwargs=None, reader_kwargs=None, device=None,
-                        reader_factory=make_reader):
+                        reader_factory=make_reader, telemetry=None):
     """Run ``step_fn(*batch_to_args(batch))`` on ``warmup_steps`` then
     ``steps`` batches; stall = time blocked in ``next()`` / wall time of the
     measured steps. On CUDA, ``extra['step_ms']`` holds each measured step's
@@ -54,15 +56,24 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     pool its transport, restarts, quarantined items, publishes per channel
     and live zero-copy borrows. ``reader_factory`` opens the reader:
     :func:`make_reader` (with ``output='columnar'`` unless ``reader_kwargs``
-    say otherwise) or ``make_batch_reader``."""
+    say otherwise) or ``make_batch_reader``. ``telemetry`` is the reader's
+    level (``None``: the process's). ``extra['stall']`` is the
+    :func:`~petastorm_tpu_torch.observability.stall_report` of the loader's
+    diagnostics at the end of the measured steps (its wait and the stage
+    timers cover the whole run, warm-up included; None when telemetry is
+    off), and ``extra['diagnostics']`` those diagnostics. The loader is
+    stopped at the end, which writes its stall record into the flight
+    file."""
     device = resolve_device(device)
     kwargs = {'num_epochs': None}
     if reader_factory is make_reader:
         kwargs['output'] = 'columnar'
     kwargs.update(reader_kwargs or {})
+    if telemetry is not None:
+        kwargs['telemetry'] = telemetry
     routes_before = read_routes.snapshot()
     reader = reader_factory(dataset_url, **kwargs)
-    it = None
+    it = loader = None
     try:
         loader = TorchDataLoader(reader, batch_size=batch_size, **(loader_kwargs or {}))
         it = prefetch_to_device(loader, device, size=2)
@@ -87,9 +98,13 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
         _sync(device)
         duration = time.perf_counter() - t0
         routes = read_routes.snapshot()
+        diagnostics = loader.diagnostics
         extra = {'steps': steps, 'cache': reader.cache.stats(),
                  'read_routes': {k: v - routes_before.get(k, 0) for k, v in routes.items()},
-                 'pool': reader.diagnostics}
+                 # the pool's own counters (the reader's diagnostics add the
+                 # whole metrics registry)
+                 'pool': reader._pool.diagnostics, 'diagnostics': diagnostics,
+                 'stall': obs.stall_report(diagnostics) if obs.counters_on() else None}
         if events:
             extra['step_ms'] = [s.elapsed_time(e) for s, e in events]
             extra['median_step_ms'] = statistics.median(extra['step_ms'])
@@ -102,5 +117,5 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
         # reader ends a pump that is still waiting in it
         if it is not None:
             it.close()
-        reader.stop()
+        (loader or reader).stop()
         reader.join()

@@ -6,6 +6,12 @@ sent with ``.to(device, non_blocking=True)`` on a side CUDA stream, and an
 event recorded after its copies makes the consumer's stream wait for exactly
 that batch. So the copy of batch N+1 overlaps compute on batch N, and the
 consumer never reads a batch before it has landed.
+
+Telemetry, as the JAX infeed's: each staging is an ``infeed`` stage, which
+times the host's part (the copy into pinned memory and the enqueue of the
+non-blocking copy; it adds no synchronisation). When the iterator is a
+loader, the staging runs under the loader's ``last_trace``, read on the
+thread that pulled the batch, so the span joins that batch's tree.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.device import resolve_device
 
 #: numpy dtype kinds that can live on the device; everything else (strings,
@@ -71,10 +78,12 @@ def stage_batch(batch, device=None, stream=None):
             return _to_tensor(x, device)
         return x
 
-    if device.type == 'cuda' and stream is not None:
-        with torch.cuda.stream(stream):
-            return put(batch)
-    return put(batch)
+    # the host's part of staging (async copies): what can stall the pipeline
+    with obs.stage('infeed', cat='infeed'):
+        if device.type == 'cuda' and stream is not None:
+            with torch.cuda.stream(stream):
+                return put(batch)
+        return put(batch)
 
 
 def _tensors(batch):
@@ -99,7 +108,10 @@ def prefetch_to_device(iterator, device=None, size=2, background=True):
     side = torch.cuda.Stream(device) if device.type == 'cuda' else None
 
     def stage(batch):
-        staged = stage_batch(batch, device, stream=side)
+        # the loader's last_trace, read on the thread that just pulled the
+        # batch: the infeed span joins that batch's tree
+        with obs.use_trace(getattr(iterator, 'last_trace', None)):
+            staged = stage_batch(batch, device, stream=side)
         event = None
         if side is not None:
             event = torch.cuda.Event()

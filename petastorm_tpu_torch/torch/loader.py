@@ -14,19 +14,37 @@ other's (``resume_state=``). Batches that ``prefetch_to_device`` has staged
 count as delivered: a checkpoint that must resume exactly uses the loader's
 own ``to_device`` with no prefetch queue.
 
-Not ported yet: ``collate_spec`` and length buckets, NGram windows, the
-autotuner hook, ``diagnostics`` and tracing.
+Variable-length rows: ``collate_spec=`` pads the named fields per batch
+(:mod:`petastorm_tpu_torch.sequence.collate`), and ``bucket_boundaries=``
+batches rows by length bucket (:class:`~petastorm_tpu_torch.sequence.bucket.
+BucketBatchBuffer`), as the JAX loader does.
+
+Telemetry, as the JAX loader's: the time spent waiting on the reader
+(``reader_wait_s``), :attr:`TorchDataLoader.diagnostics` with its full key
+set from construction (feed it to
+:func:`~petastorm_tpu_torch.observability.stall_report`), the
+``shuffle.add_block``/``shuffle.emit`` spans and the ``collate`` stage (at
+block granularity, never per row), ``loader_batches_total``,
+:attr:`TorchDataLoader.last_trace`, the flight recorder's progress source
+and the closing stall record, and the autotuner's shuffle knob
+(:meth:`TorchDataLoader.set_shuffle_capacity`).
+
+Not ported yet: NGram windows.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from decimal import Decimal
 
 import numpy as np
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.columnar import FifoColumnarBuffer, ShuffledColumnarBuffer, rows_to_block
 from petastorm_tpu_torch.errors import PetastormTpuError
+from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
+from petastorm_tpu_torch.observability import blackbox
 from petastorm_tpu_torch.shuffling_buffer import default_min_after, make_shuffling_buffer_factory
 from petastorm_tpu_torch.torch.infeed import stage_batch
 
@@ -61,9 +79,11 @@ def collate_rows(rows, field_names=None):
             shapes = {np.shape(v) for v in values}
             if len(shapes) > 1:
                 raise PetastormTpuError(
-                    'Field {!r} has non-uniform shapes {} within a batch; use a TransformSpec '
-                    'to crop/pad it to a fixed shape, or exclude it via '
-                    'schema_fields.'.format(name, sorted(shapes)))
+                    'Field {!r} has non-uniform shapes {} within a batch. For variable-length '
+                    'sequences, pass collate_spec=CollateSpec({{{!r}: PadSpec(...)}}) for '
+                    'per-batch ragged padding (petastorm_tpu_torch.sequence); otherwise use a '
+                    'TransformSpec to crop/pad it to a fixed shape, or exclude it via '
+                    'schema_fields.'.format(name, sorted(shapes), name))
             raise
     return batch
 
@@ -104,7 +124,8 @@ class TorchDataLoader(object):
     :param shuffling_queue_capacity: > 0 enables a client-side shuffling
         buffer of that capacity
     :param min_after_retrieve: decorrelation floor (default capacity // 2)
-    :param seed: shuffling buffer RNG seed
+    :param seed: shuffling buffer RNG seed (with ``bucket_boundaries``, the
+        within-bucket shuffle's)
     :param drop_last: drop the ragged final batch (default True: static shapes)
     :param to_device: ``None`` -> numpy host batches; a device -> torch
         tensors staged there (use :func:`prefetch_to_device` to overlap the
@@ -113,11 +134,22 @@ class TorchDataLoader(object):
         the rows buffered client-side at the checkpoint are restored, with
         the shuffling buffer's RNG state. Build the reader with its own
         ``resume_state=state['reader']``.
+    :param collate_spec: a :class:`~petastorm_tpu_torch.sequence.CollateSpec`:
+        each batch pads the named fields to a per-batch length (``pad_to``
+        rounding, a ``buckets`` ladder, a ``max_length`` cap), adds
+        ``<field>_lengths`` and accounts its padding waste
+        (``diagnostics['padding_waste_fraction']``). Row readers only.
+    :param bucket_boundaries: with ``collate_spec``, batch by length bucket:
+        rows leave the buffer only in same-bucket runs of ``batch_size``, so
+        a padded batch mixes near-equal lengths. Deterministic and
+        checkpoint-compatible (``seed`` drives the within-bucket shuffle);
+        it replaces the shuffling buffer: pass
+        ``shuffling_queue_capacity=0``.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0,
                  min_after_retrieve=None, seed=None, drop_last=True, to_device=None,
-                 resume_state=None):
+                 resume_state=None, collate_spec=None, bucket_boundaries=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         if getattr(reader, 'ngram', None) is not None:
@@ -128,6 +160,26 @@ class TorchDataLoader(object):
         self._drop_last = drop_last
         self._to_device = to_device
         self._columnar = bool(reader.batched_output)
+        # ragged collation and bucket-by-length batching, with the JAX
+        # loader's argument checks
+        self._collate_spec = collate_spec
+        self._bucket_boundaries = tuple(bucket_boundaries) if bucket_boundaries else None
+        self._pad_stats = {'real_tokens': 0, 'padded_tokens': 0}
+        if collate_spec is not None and self._columnar:
+            raise ValueError(
+                "collate_spec requires a row-oriented reader (output='rows'): "
+                'ragged collation pads per-row cells, and columnar blocks are '
+                'already stacked')
+        if self._bucket_boundaries is not None:
+            if collate_spec is None:
+                raise ValueError('bucket_boundaries requires collate_spec: bucketing '
+                                 "batches by the spec's length field")
+            if shuffling_queue_capacity > 0:
+                raise ValueError('bucket_boundaries replaces the shuffling buffer '
+                                 '(seed drives the within-bucket shuffle); pass '
+                                 'shuffling_queue_capacity=0')
+        # the shuffle knob: _make_buffer reads these live, so a run-time
+        # set_shuffle_capacity applies to later epochs' buffers too
         self._shuffle_capacity = shuffling_queue_capacity
         self._min_after_retrieve = min_after_retrieve
         self._shuffle_seed = seed
@@ -139,15 +191,39 @@ class TorchDataLoader(object):
         self._pending = []
         self._resume_rows = None
         self._resume_rng = None
+        # the diagnostics keys exist from construction (zeros before the
+        # first batch)
+        self._iter_start = None
+        self._reader_wait_s = 0.0
+        self._rows_out = 0
+        #: virtual-root trace context of the last reader item folded into an
+        #: emitted batch (a shuffled batch mixes items: the last one stands
+        #: for the batch); the collate and infeed spans link to it
+        self.last_trace = None
         if resume_state is not None:
             if not isinstance(resume_state, dict) or resume_state.get('version') != 1:
                 raise ValueError('Unrecognized resume_state (expected a dict produced by '
                                  'TorchDataLoader.state_dict())')
             self._resume_rows = list(resume_state['rows'])
             self._resume_rng = resume_state.get('buffer_rng')
+        # an autotuned reader's controller reads this loader's diagnostics
+        # (they carry the consumer's wait) and gains the shuffle knob
+        tuner = getattr(reader, 'autotuner', None)
+        if tuner is not None:
+            tuner.attach_loader(self)
+        # the flight recorder's progress source: batches emitted
+        if blackbox.maybe_enable('loader') is not None:
+            blackbox.watch_progress('loader_batches', lambda: obs.get_registry()
+                                    .value('loader_batches_total'))
 
     def _make_buffer(self):
+        """The client-side buffer from the current shuffle knob values (one
+        construction site for the first iteration and every later epoch)."""
         capacity = self._shuffle_capacity
+        if self._bucket_boundaries is not None:
+            from petastorm_tpu_torch.sequence.bucket import BucketBatchBuffer
+            return BucketBatchBuffer(self._bucket_boundaries, self.batch_size,
+                                     self._collate_spec.length_of, seed=self._shuffle_seed)
         if self._columnar:
             if capacity > 0:
                 return ShuffledColumnarBuffer(
@@ -156,6 +232,34 @@ class TorchDataLoader(object):
             return FifoColumnarBuffer()
         return make_shuffling_buffer_factory(capacity, self._min_after_retrieve,
                                              self._shuffle_seed, self.batch_size)()
+
+    @property
+    def shuffle_capacity(self):
+        """The live shuffle-buffer capacity (0: no shuffling buffer)."""
+        return self._shuffle_capacity
+
+    def set_shuffle_capacity(self, capacity):
+        """Resize the shuffling buffer at run time (the autotuner's shuffle
+        knob): the live buffer keeps its rows, and later epochs' buffers are
+        built at the new capacity. Only for a loader built with a shuffling
+        buffer: switching shuffling on or off mid-run would change what is
+        delivered, not only how fast."""
+        capacity = int(capacity)
+        if capacity < 2:
+            raise ValueError('shuffle capacity must be >= 2 (the decorrelation '
+                             'floor must stay below it)')
+        if self._shuffle_capacity <= 0:
+            raise RuntimeError('loader has no shuffling buffer (constructed with '
+                               'shuffling_queue_capacity=0); the shuffle knob is '
+                               'unavailable')
+        with self._state_lock:
+            self._shuffle_capacity = capacity
+            # an explicit floor may exceed the new capacity: derive it again
+            self._min_after_retrieve = None
+            buffer = self._buffer
+            if buffer is not None and hasattr(buffer, 'resize'):
+                buffer.resize(capacity, default_min_after(capacity))
+        return capacity
 
     def __iter__(self):
         # eager, not in the generator: a second iter() while rows are
@@ -181,10 +285,25 @@ class TorchDataLoader(object):
         return (self._iterate_columnar(buffer) if self._columnar
                 else self._iterate(buffer, self._pending))
 
+    def _next_item(self, reader_it):
+        """The reader's next item, or None at its end; the wait counts in
+        ``reader_wait_s``."""
+        w0 = time.perf_counter()
+        try:
+            return next(reader_it, None)
+        finally:
+            self._reader_wait_s += time.perf_counter() - w0
+
+    def _start_iteration(self):
+        self._iter_start = time.perf_counter()
+        self._reader_wait_s = 0.0
+        self._rows_out = 0
+
     def _iterate_columnar(self, buffer):
         # the state lock is held around buffer changes and batch extraction,
         # never across the blocking next(reader_it); exactly one batch leaves
         # the buffer per yield, so a checkpoint never misses rows
+        self._start_iteration()
         bs = self.batch_size
         reader_it = iter(self.reader)
         exhausted = False
@@ -193,11 +312,11 @@ class TorchDataLoader(object):
                 batch = None
                 if not exhausted:
                     if buffer.can_emit(bs):
-                        batch = self._emit(buffer.emit(bs))
+                        batch = self._emit_columnar(self._buffer_emit(buffer, bs))
                 elif buffer.size >= bs:
-                    batch = self._emit(buffer.emit(bs))
+                    batch = self._emit_columnar(self._buffer_emit(buffer, bs))
                 elif buffer.size and not self._drop_last:
-                    batch = self._emit(buffer.emit(buffer.size))
+                    batch = self._emit_columnar(self._buffer_emit(buffer, buffer.size))
                 else:
                     # drop_last leftovers are dropped: clear, so an
                     # exhausted loader can be iterated again
@@ -206,18 +325,38 @@ class TorchDataLoader(object):
             if batch is not None:
                 yield batch
                 continue
-            item = next(reader_it, None)
+            item = self._next_item(reader_it)
             with self._state_lock:
                 if item is None:
                     buffer.finish()
                     exhausted = True
                 else:
-                    buffer.add_block(dict(item._asdict()))
+                    # block granularity (a row group), never per row
+                    with obs.span('shuffle.add_block', cat='loader', occupancy=buffer.size):
+                        buffer.add_block(dict(item._asdict()))
+                    obs.gauge_set('shuffle_buffer_occupancy', buffer.size)
+
+    @staticmethod
+    def _buffer_emit(buffer, count):
+        """One batch out of the shuffling buffer, traced with its occupancy
+        before the emit."""
+        with obs.span('shuffle.emit', cat='loader', occupancy=buffer.size, rows=count):
+            return buffer.emit(count)
+
+    def _emit_columnar(self, batch):
+        n = len(next(iter(batch.values()))) if batch else 0
+        self._rows_out += n
+        self.last_trace = getattr(self.reader, 'last_trace', None)
+        with obs.stage('collate', cat='loader', rows=n) as sp:
+            sp.link(self.last_trace)
+            batch = _sanitize_batch_columns(batch)
+        return self._finish_batch(batch)
 
     def _iterate(self, buffer, pending):
         # one batch per yield, collated under the lock before the yield: a
         # checkpoint taken while the consumer holds a batch does not count
         # its rows as pending
+        self._start_iteration()
         bs = self.batch_size
         reader_it = iter(self.reader)
         exhausted = False
@@ -227,39 +366,59 @@ class TorchDataLoader(object):
                 while buffer.can_retrieve() and len(pending) < bs:
                     pending.append(buffer.retrieve())
                 if len(pending) == bs:
-                    batch = self._emit(collate_rows(pending))
+                    batch = self._emit_rows(pending)
                     pending.clear()
                 elif exhausted:
                     if pending and not self._drop_last:
-                        batch = self._emit(collate_rows(pending))
+                        batch = self._emit_rows(pending)
                     pending.clear()
                     if batch is None:
                         return
             if batch is not None:
                 yield batch
                 continue
-            item = next(reader_it, None)
+            item = self._next_item(reader_it)
             with self._state_lock:
                 if item is None:
                     buffer.finish()
                     exhausted = True
                 else:
+                    # one row: no telemetry here (the occupancy gauge rides
+                    # the per-batch emit)
                     buffer.add_many([item])
 
-    def _emit(self, batch):
-        batch = _sanitize_batch_columns(batch)
+    def _emit_rows(self, rows):
+        self._rows_out += len(rows)
+        self.last_trace = getattr(self.reader, 'last_trace', None)
+        with obs.stage('collate', cat='loader', rows=len(rows)) as sp:
+            sp.link(self.last_trace)
+            if self._collate_spec is not None:
+                from petastorm_tpu_torch.sequence.collate import (collate_ragged_rows,
+                                                                  padding_waste_fraction)
+                batch = collate_ragged_rows(rows, self._collate_spec, self._pad_stats)
+                obs.gauge_set('padding_waste_fraction', padding_waste_fraction(self._pad_stats))
+            else:
+                batch = collate_rows(rows)
+            batch = _sanitize_batch_columns(batch)
+        if self._buffer is not None:
+            obs.gauge_set('shuffle_buffer_occupancy', self._buffer.size)
+        return self._finish_batch(batch)
+
+    def _finish_batch(self, batch):
+        obs.count('loader_batches_total')
         if self._to_device is not None:
-            batch = stage_batch(batch, self._to_device)
+            with obs.use_trace(self.last_trace):
+                batch = stage_batch(batch, self._to_device)
         return batch
 
     def state_dict(self):
         """The loader's read position (version 1, the JAX loader's layout):
         the reader's :meth:`~petastorm_tpu_torch.reader.Reader.state_dict`,
-        every row buffered client-side (shuffling buffer and partial batch)
-        as a plain row, and the shuffling buffer's RNG state, so a seeded
-        resume reproduces the stream. The state holds the buffered rows:
-        with a large ``shuffling_queue_capacity`` it is as large. Resume
-        with::
+        every row buffered client-side (shuffling or bucket buffer and
+        partial batch) as a plain row, and the buffer's RNG state, so a
+        seeded resume reproduces the stream. The state holds the buffered
+        rows: with a large ``shuffling_queue_capacity`` it is as large.
+        Resume with::
 
             reader = make_reader(url, ..., resume_state=state['reader'])
             loader = TorchDataLoader(reader, ..., resume_state=state)
@@ -282,7 +441,51 @@ class TorchDataLoader(object):
                     'buffer_rng': rng,
                     'rows': [_to_plain_row(r) for r in rows]}
 
+    @property
+    def diagnostics(self):
+        """The reader's diagnostics (the metrics registry with the workers'
+        snapshots, and the pool's counters) and the loader's: rows emitted,
+        seconds blocked on the reader and their share of the wall time since
+        iteration started, the padding waste of ``collate_spec``, and the
+        ``lifetime_*`` borrow counters (the shuffle buffer's and the staged
+        batches' borrows). Every loader key is present from construction
+        (zeros before the first batch). Feed it to
+        :func:`~petastorm_tpu_torch.observability.stall_report`."""
+        out = dict(self.reader.diagnostics)
+        if self._iter_start is not None:
+            elapsed = max(time.perf_counter() - self._iter_start, 1e-9)
+            wait_fraction = round(self._reader_wait_s / elapsed, 4)
+        else:
+            wait_fraction = 0.0
+        if self._collate_spec is not None:
+            from petastorm_tpu_torch.sequence.collate import padding_waste_fraction
+            waste = padding_waste_fraction(self._pad_stats)
+        else:
+            waste = 0.0
+        out.update({
+            'rows_emitted': self._rows_out,
+            'reader_wait_s': round(self._reader_wait_s, 4),
+            'reader_wait_fraction': wait_fraction,
+            'padding_waste_fraction': waste,
+        })
+        out.update(lifetime_registry().counters())
+        return out
+
+    @property
+    def quarantined_items(self):
+        """The reader's records of row groups quarantined under
+        ``on_error='skip'``."""
+        return getattr(self.reader, 'quarantined_items', [])
+
     def stop(self):
+        # the closing stall attribution goes into the flight file, so a
+        # post-mortem names the last bottleneck
+        if blackbox.get_recorder() is not None:
+            try:
+                blackbox.record_stall(obs.stall_report(self.diagnostics))
+            except Exception:  # noqa: BLE001 - teardown forensics must never mask stop()
+                pass
+            blackbox.unwatch_progress('loader_batches')
         self.reader.stop()
 
     def join(self):

@@ -37,14 +37,32 @@ which a requeue moves to the new dispatch id, so ``last_result_seq`` and
 ``done_callback`` (fired once, when a delivered item completes) serve
 checkpoints exactly once across worker deaths, as in the other pools.
 
-Each worker ships a cumulative snapshot of its process's route counts
-(``native.read_routes``, ``codecs.image_routes``) and of its publishes per
-channel after every item; the pool adds the increase to the consumer's
-counters, so route counts taken inside workers show in the consumer process.
+Each worker ships, after every item and in one ``MSG_METRICS`` frame, a
+cumulative snapshot of its process's route counts (``native.read_routes``,
+``codecs.image_routes``), its publishes per channel, its telemetry registry
+and, at the ``'spans'`` level, its drained span events. The pool adds the
+route counts' increase to the consumer's counters, keeps the latest registry
+snapshot of every spawned process (:meth:`ProcessPool.telemetry_snapshots`;
+keyed by spawn, so a respawned worker's fresh registry never double-counts
+its predecessor's) and merges the span events into the consumer's ring. The
+worker configures its telemetry level from the setup args and enables its
+own flight recorder in the consumer's run directory.
 
-Not ported yet: the autotuner's slot grow/retire and the protocol monitor
-(ROADMAP.md, "observability"), fault injection, the chunk fabric and the
-flight recorder.
+The autotuner's worker knob: :meth:`ProcessPool.add_worker_slot` and
+:meth:`ProcessPool.retire_worker_slot` only move the target worker count,
+from any thread; the consumer thread's next :meth:`ProcessPool.get_results`
+tick applies the requests, so every spawn and all slot bookkeeping stay on
+that one thread (the JAX pool spawns on the caller's thread). A grow spawns a
+supervised slot on a fresh ring; a retire asks one worker to exit after its
+current item (``CONTROL_RETIRE``; the JAX pool terminates it), and the slot
+then goes through the death path, which sheds it instead of respawning it. Its ring is closed through the borrow
+ledger, so ring slots the loader still borrows outlive it. Items left in a
+departed worker's dispatch pipe are found by the dispatch watermarks
+(:meth:`ProcessPool._sweep_stranded_items`) and requeued, so every item is
+still delivered once.
+
+Not ported yet: the protocol monitor (ROADMAP.md), fault injection and the
+chunk fabric.
 
 Scripts that create a pool at module level must guard that code with
 ``if __name__ == '__main__':``: spawned children re-import ``__main__``.
@@ -66,11 +84,14 @@ import uuid
 
 import zmq
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.errors import (EmptyResultError, PoisonItemError,
                                         TimeoutWaitingForResultError, WorkerPoolDepletedError)
 from petastorm_tpu_torch.native.lifetime import RingBorrowLedger
 from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
-from petastorm_tpu_torch.workers.protocol import (CONTROL_FINISHED, MSG_BLOB, MSG_DATA,
+from petastorm_tpu_torch.observability import blackbox
+from petastorm_tpu_torch.workers.protocol import (CONTROL_FINISHED, CONTROL_RETIRE, MSG_BLOB,
+                                                  MSG_DATA,
                                                   MSG_DONE, MSG_ERROR, MSG_HEARTBEAT,
                                                   MSG_METRICS, MSG_STARTED, RING_HEADER_LEN,
                                                   DispatchIds, ring_header, ring_unpack)
@@ -230,8 +251,9 @@ class ProcessPool(object):
         self._ring_lock = threading.Lock()
         self._idle_wait = IdleWait()
         # item ownership and accounting, touched by the ventilator thread
-        # (ventilate) and the consumer thread (get_results, supervise);
-        # callbacks into the ventilator run with it released
+        # (ventilate) and the consumer thread (get_results, supervise), and
+        # the resize requests of the autotuner's thread; callbacks into the
+        # ventilator run with it released
         self._state_lock = threading.Lock()
         self._dispatch_ids = DispatchIds()
         self._inflight = {}         # dispatch id -> item record
@@ -240,8 +262,10 @@ class ProcessPool(object):
         self._items_requeued = 0
         self._worker_restarts = 0
         # zmq sockets are not thread-safe: the ventilator thread and the
-        # consumer's requeue both send on _ventilator_send
+        # consumer's requeue both send on _ventilator_send; stop() and the
+        # consumer's supervision both send control messages
         self._vent_lock = threading.Lock()
+        self._control_lock = threading.Lock()
         # supervision bookkeeping (consumer thread only)
         self._worker_state = {}     # worker_id -> {'pid', 'busy', 'last_hb', 'claimed_since_spawn'}
         self._heartbeats_received = 0
@@ -251,11 +275,18 @@ class ProcessPool(object):
         self._idle_sweep_since = None
         self._last_supervise = 0.0
         self._spawn_info = None
+        self._spawns = 0            # spawns so far: each process's token
+        self._retiring = set()      # worker_ids asked to exit: shed, not respawned
+        # slots asked for (+) or asked to retire (-), not yet applied by the
+        # consumer thread (under _state_lock)
+        self._slot_requests = 0
         self._run_id = uuid.uuid4().hex[:12]
-        # pid -> the worker's latest cumulative counts snapshot
-        self._metrics_by_pid = {}
+        # spawn token -> the process's latest cumulative counts snapshot
+        self._metrics_by_spawn = {}
         #: seq of the item whose payload get_results returned last
         self.last_result_seq = None
+        #: virtual-root trace context of that item (None below the spans level)
+        self.last_result_trace = None
         #: callable(seq) fired when a delivered item completes
         self.done_callback = None
 
@@ -272,12 +303,86 @@ class ProcessPool(object):
         return sum(1 for p in self._processes if p is not None and p.is_alive())
 
     def add_worker_slot(self):
-        raise NotImplementedError('ProcessPool.add_worker_slot (the autotuner) is not yet ported '
-                                  'to petastorm_tpu_torch (ROADMAP.md, "observability")')
+        """Ask for one more supervised worker slot, from any thread. The
+        consumer thread spawns it (a fresh ring on the shm transport) at its
+        next :meth:`get_results` tick, under the same heartbeats, claims and
+        respawns as the others. Slot ids are never reused. Returns the new
+        target ``workers_count``."""
+        if self._spawn_info is None or self._stopped:
+            raise RuntimeError('Pool not started (or already stopped)')
+        with self._state_lock:
+            self._workers_count += 1
+            self._slot_requests += 1
+            return self._workers_count
 
     def retire_worker_slot(self):
-        raise NotImplementedError('ProcessPool.retire_worker_slot (the autotuner) is not yet '
-                                  'ported to petastorm_tpu_torch (ROADMAP.md, "observability")')
+        """Ask for one worker slot to retire, from any thread (the target
+        never drops below 1). The consumer thread picks the slot at its next
+        :meth:`get_results` tick, an idle one when the heartbeats show one:
+        it is asked to exit after its current item, and its exit goes through
+        the death path, which sheds the slot instead of respawning it. Items
+        still in its dispatch pipe are requeued by
+        :meth:`_sweep_stranded_items`. Returns the new target
+        ``workers_count``."""
+        with self._state_lock:
+            if self._stopped or self._workers_count <= 1:
+                return self._workers_count
+            self._workers_count -= 1
+            self._slot_requests -= 1
+            return self._workers_count
+
+    def _apply_slot_requests(self):
+        """On the consumer thread: spawn or retire the slots that
+        :meth:`add_worker_slot`/:meth:`retire_worker_slot` asked for."""
+        with self._state_lock:
+            n, self._slot_requests = self._slot_requests, 0
+        if self._stopped:
+            return
+        for _ in range(n):
+            self._grow_slot()
+        for _ in range(-n):
+            self._retire_slot()
+
+    def _grow_slot(self):
+        worker_id = len(self._processes)
+        ring = ring_name = None
+        try:
+            if self._transport == 'shm':
+                from petastorm_tpu_torch.native.shm_ring import ShmRing
+                ring_name = self._ring_name(worker_id, 0)
+                ring = ShmRing.create(ring_name, self._ring_bytes)
+            process = self._spawn_worker(worker_id, ring_name)
+        except Exception as e:  # noqa: BLE001 - a failed grow leaves the pool as it was, never kills the consumer
+            if ring is not None:
+                ring.close()
+            with self._state_lock:
+                self._workers_count -= 1
+            logger.error('Growing the process pool failed (%s); staying at %d workers', e,
+                         self._workers_count)
+            return
+        with self._ring_lock:
+            self._rings.append(ring)
+        self._processes.append(process)
+        logger.info('process pool grew to %d workers (slot %d)', self._workers_count, worker_id)
+
+    def _retire_slot(self):
+        live = [w for w, p in enumerate(self._processes)
+                if p is not None and p.is_alive() and w not in self._retiring
+                and w not in self._dying]
+        if len(live) <= 1:
+            with self._state_lock:
+                self._workers_count += 1  # declined: the last live worker stays
+            return
+        idle = [w for w in live if self._worker_state.get(w, {}).get('busy') is None]
+        worker_id = (idle or live)[-1]
+        self._retiring.add(worker_id)
+        self._send_control(CONTROL_RETIRE + str(worker_id).encode())
+        logger.info('process pool retiring worker slot %d (target %d workers)', worker_id,
+                    self._workers_count)
+
+    def _send_control(self, msg):
+        with self._control_lock:
+            self._control_send.send(msg)
 
     def _all_slots_shed(self):
         """True when every slot was given up on: the only state in which the
@@ -304,19 +409,37 @@ class ProcessPool(object):
     def _spawn_worker(self, worker_id, ring_name):
         setup_blob, vent_addr, result_addr, control_addr = self._spawn_info
         ctx = multiprocessing.get_context('spawn')
+        self._spawns += 1
+        # the items a new process can hold are those dispatched from now on
+        # (the dispatch watermarks of _sweep_stranded_items)
+        with self._vent_lock:
+            first = self._dispatch_ids.peek()
         p = ctx.Process(
             target=_worker_bootstrap,
             args=(worker_id, os.getpid(), setup_blob, vent_addr, result_addr, control_addr,
                   self._results_hwm, ring_name, self._blob_dir, self._blob_threshold,
                   self._workers_count,
-                  self._heartbeat_interval_s if self._supervision else None),
+                  self._heartbeat_interval_s if self._supervision else None, self._spawns),
             daemon=True)
         p.start()
+        self._worker_state[worker_id] = {'pid': p.pid, 'busy': None,
+                                         'last_hb': time.monotonic(),
+                                         'claimed_since_spawn': False,
+                                         'first_dispatch': first, 'max_claimed': -1}
         return p
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         if self._processes:
             raise RuntimeError('Pool already started')
+        # the flight recorder: on by default at the counters level; every
+        # worker's recorder goes to the consumer's run directory
+        flight = blackbox.maybe_enable('consumer')
+        if flight is not None:
+            flight.register_lock('process_pool.state_lock', self._state_lock)
+            flight.watch('pool_completed', lambda: self._completed_items)
+            if isinstance(worker_setup_args, dict) and 'flight_dir' not in worker_setup_args:
+                worker_setup_args = dict(worker_setup_args,
+                                         flight_dir=os.path.dirname(flight.path))
         self._context = zmq.Context()
         self._ipc_dir = tempfile.mkdtemp(prefix='pstpu_pool_')
         vent_addr = 'ipc://' + os.path.join(self._ipc_dir, 'vent')
@@ -473,29 +596,37 @@ class ProcessPool(object):
         # the ventilator's tag stays in the consumer's item record, never
         # crosses to a worker, and so survives a requeue after a death
         seq = kwargs.pop('_seq', None)
-        with self._state_lock:
-            self._ventilated_items += 1
-            d = self._dispatch_ids.next()
-            self._inflight[d] = {'seq': seq, 'args': args, 'kwargs': kwargs, 'attempts': 0,
-                                 'published': False}
+        # called inside the ventilator's mint block: the item's trace context
+        # rides the ventilation tuple
+        ctx = obs.current_trace()
+        # ids are allocated and sent under one lock, so every dispatch pipe
+        # holds its items in id order (what the watermarks rely on)
         with self._vent_lock:
-            self._ventilator_send.send_pyobj((d, args, kwargs))
+            with self._state_lock:
+                self._ventilated_items += 1
+                d = self._dispatch_ids.next()
+                self._inflight[d] = {'seq': seq, 'args': args, 'kwargs': kwargs, 'attempts': 0,
+                                     'published': False, 'claimed': False, 'trace': ctx}
+            self._ventilator_send.send_pyobj((d, args, kwargs, ctx))
 
     def _requeue(self, d, rec):
         """Dispatch an in-flight item again under a new id (messages tagged
         with the old one are then stale). The ventilated/completed counters
         stay: it is the same logical item."""
-        with self._state_lock:
-            if self._inflight.get(d) is not rec:
-                return  # resolved concurrently
-            del self._inflight[d]
-            nd = self._dispatch_ids.next()
-            rec['attempts'] += 1
-            rec['published'] = False
-            self._inflight[nd] = rec
-            self._items_requeued += 1
         with self._vent_lock:
-            self._ventilator_send.send_pyobj((nd, rec['args'], rec['kwargs']))
+            with self._state_lock:
+                if self._inflight.get(d) is not rec:
+                    return  # resolved concurrently
+                del self._inflight[d]
+                nd = self._dispatch_ids.next()
+                rec['attempts'] += 1
+                rec['published'] = False
+                rec['claimed'] = False
+                self._inflight[nd] = rec
+                self._items_requeued += 1
+            # a retry keeps the item's trace context: one item, one tree
+            self._ventilator_send.send_pyobj((nd, rec['args'], rec['kwargs'], rec['trace']))
+        obs.count('items_requeued')
 
     def _complete(self, d, rec, delivered):
         """Completion of one logical item, exactly once: the epoch's
@@ -513,9 +644,20 @@ class ProcessPool(object):
             self.done_callback(seq)
 
     def get_results(self, timeout_s=None):
+        """The next payload, timed as the ``pool_wait`` stage."""
+        with obs.stage('pool_wait', cat='pool') as sp:
+            payload = self._get_results(timeout_s)
+            # the item is known only once its frame arrives: the wait span
+            # joins its tree afterwards
+            sp.link(self.last_result_trace)
+            return payload
+
+    def _get_results(self, timeout_s=None):
         timeout_s = timeout_s if timeout_s is not None else self._results_timeout_s
         deadline = (time.monotonic() + timeout_s) if timeout_s is not None else None
         while True:
+            if self._slot_requests:
+                self._apply_slot_requests()
             msg = self._poll_message(50)
             if self._supervision and self._processes and (
                     msg is None or time.monotonic() - self._last_supervise > 0.2):
@@ -549,6 +691,8 @@ class ProcessPool(object):
                 if rec is not None:
                     rec['published'] = True
                 self.last_result_seq = rec['seq'] if rec is not None else None
+                # from the in-flight record: the frame carries no trace bytes
+                self.last_result_trace = obs.root_of(rec['trace']) if rec is not None else None
                 if kind == MSG_DATA:
                     result = self._serializer.deserialize(payload)
                     if slot is not None:
@@ -624,6 +768,7 @@ class ProcessPool(object):
                                    item={'args': rec['args'], 'kwargs': rec['kwargs']})
         with self._state_lock:
             self._quarantined.append(record)
+        obs.count('items_quarantined')
         logger.error('Quarantining item %s after %d failed attempts (%s): %s', rec['kwargs'],
                      record['attempts'], kind, record['error'])
         self._complete(d, rec, delivered=False)
@@ -651,10 +796,15 @@ class ProcessPool(object):
         self._heartbeats_received += 1
         state = self._worker_state.setdefault(worker_id, {})
         state['pid'] = hb.get('pid')
-        state['busy'] = hb.get('busy')
+        state['busy'] = busy = hb.get('busy')
         state['last_hb'] = time.monotonic()
-        if state['busy'] is not None:
+        if busy is not None:
             state['claimed_since_spawn'] = True
+            state['max_claimed'] = max(state.get('max_claimed', -1), busy)
+            with self._state_lock:
+                rec = self._inflight.get(busy)
+                if rec is not None:
+                    rec['claimed'] = True
 
     def _supervise(self, idle):
         """The supervisor tick, on the consumer thread: poll exitcodes,
@@ -669,12 +819,48 @@ class ProcessPool(object):
             if self._death_drained(worker_id, now):
                 info = self._dying.pop(worker_id)
                 self._finish_worker_death(worker_id, info, time.monotonic())
+        if self._worker_state:
+            ages = [now - s['last_hb'] for s in self._worker_state.values() if 'last_hb' in s]
+            if ages:
+                obs.gauge_set('heartbeat_age_s', round(max(ages), 3))
         if self._orphans:
             self._resolve_orphans(now)
+        # a PUB message reaches only subscribers already connected: a retire
+        # is sent again until its worker is gone (a worker spawned a moment
+        # ago may not have subscribed yet)
+        for worker_id in list(self._retiring):
+            p = self._processes[worker_id]
+            if p is not None and p.exitcode is None:
+                self._send_control(CONTROL_RETIRE + str(worker_id).encode())
+        if self._deaths_seen and not self._dying:
+            self._sweep_stranded_items()
         if idle:
             self._sweep_lost_items(now)
         else:
             self._idle_sweep_since = None
+
+    def _sweep_stranded_items(self):
+        """Requeue the unclaimed items no live worker can hold any more. A
+        worker takes its dispatch pipe in id order (ids are sent in order),
+        so it can hold item ``d`` only if it was spawned before ``d`` was
+        sent and has claimed no id above ``d``. An unclaimed, unpublished
+        item that no live worker can hold was in the pipe of a worker that
+        died or retired: it is requeued under a new id. This finds such
+        items while the pipeline keeps the others busy, where the quiet
+        window of :meth:`_sweep_lost_items` never comes."""
+        live = [self._worker_state.get(w) for w, p in enumerate(self._processes)
+                if p is not None and p.exitcode is None and w not in self._retiring]
+        if not live or any(s is None or 'first_dispatch' not in s for s in live):
+            return
+        with self._state_lock:
+            candidates = [(d, rec) for d, rec in self._inflight.items()
+                          if not rec['claimed'] and not rec['published']
+                          and d not in self._orphans]
+        for d, rec in candidates:
+            if all(d < s['first_dispatch'] or s['max_claimed'] > d for s in live):
+                logger.warning('Requeueing item %s stranded in a departed worker\'s dispatch '
+                               'pipe', rec['kwargs'])
+                self._requeue(d, rec)
 
     def _begin_worker_death(self, worker_id, p, now):
         """Stage 1: retire the dead worker's ring so the poll loop drains its
@@ -682,8 +868,16 @@ class ProcessPool(object):
         writer commits by advancing the index). Ownership and respawn wait
         until the ring is drained: the worker's last claim may sit in it."""
         p.join()  # reap the zombie
-        logger.warning('Worker %d (pid %s) died with exitcode %s; draining its results',
-                       worker_id, p.pid, p.exitcode)
+        if worker_id in self._retiring:
+            logger.info('Retired worker %d (pid %s) exited; draining its results', worker_id,
+                        p.pid)
+        else:
+            logger.warning('Worker %d (pid %s) died with exitcode %s; draining its results',
+                           worker_id, p.pid, p.exitcode)
+            # a negative exitcode names the signal even when the worker's own
+            # flight file got no footer
+            blackbox.record_event({'event': 'worker_death', 'worker_id': worker_id,
+                                   'pid': p.pid, 'exitcode': p.exitcode})
         self._deaths_seen = True
         with self._ring_lock:
             old_ring = self._rings[worker_id] if worker_id < len(self._rings) else None
@@ -710,7 +904,17 @@ class ProcessPool(object):
         if owned is not None:
             logger.warning('Dead worker %d owned item dispatch=%s; scheduling requeue',
                            worker_id, owned)
+            blackbox.record_event({'event': 'worker_owned_item', 'worker_id': worker_id,
+                                   'pid': info['proc'].pid, 'dispatch': owned})
             self._orphans.setdefault(owned, now)
+        if worker_id in self._retiring:
+            # a deliberate retire sheds the slot: no respawn, no restart
+            self._retiring.discard(worker_id)
+            self._processes[worker_id] = None
+            self._worker_state.pop(worker_id, None)
+            logger.info('Worker slot %d retired; pool at %d live workers', worker_id,
+                        self.workers_alive())
+            return
         # a death before any claim counts toward the slot's respawn budget; a
         # death while working is the item's and resets it
         if state.get('claimed_since_spawn'):
@@ -746,8 +950,9 @@ class ProcessPool(object):
             self._worker_state.pop(worker_id, None)
             return
         self._worker_restarts += 1
-        self._worker_state[worker_id] = {'pid': self._processes[worker_id].pid, 'busy': None,
-                                         'last_hb': now, 'claimed_since_spawn': False}
+        obs.count('worker_restarts')
+        blackbox.record_event({'event': 'worker_respawned', 'worker_id': worker_id,
+                               'pid': self._processes[worker_id].pid})
         logger.warning('Respawned worker %d as pid %s', worker_id, self._processes[worker_id].pid)
 
     def _retired_rings_drained(self):
@@ -863,24 +1068,33 @@ class ProcessPool(object):
     # -- counts shipped by the workers ------------------------------------------
 
     def _absorb_metrics(self, payload):
-        """Add the increase of a worker's cumulative counts since its last
-        snapshot to this process's ``read_routes`` and ``image_routes``, and
-        keep its publish counts for :attr:`diagnostics`."""
+        """A worker's ``MSG_METRICS`` frame: add the increase of its
+        cumulative route counts since its last frame to this process's
+        ``read_routes`` and ``image_routes``, keep its publish counts and its
+        registry snapshot (the latest supersedes the earlier ones), and merge
+        its span events into this process's ring."""
         from petastorm_tpu_torch.codecs import image_routes
         from petastorm_tpu_torch.native import read_routes
         try:
             rec = pickle.loads(bytes(payload))
-            pid = rec['pid']
+            key = rec.get('spawn', rec['pid'])
         except Exception as e:  # noqa: BLE001 - malformed counts must not stop the read loop
             logger.debug('dropping malformed worker counts: %s', e)
             return
-        last = self._metrics_by_pid.get(pid, {})
+        last = self._metrics_by_spawn.get(key, {})
         for name, counter in (('read_routes', read_routes), ('image_routes', image_routes)):
             before = last.get(name, {})
-            for key, value in rec.get(name, {}).items():
-                if value != before.get(key, 0):
-                    counter.add(key, value - before.get(key, 0))
-        self._metrics_by_pid[pid] = rec
+            for k, value in rec.get(name, {}).items():
+                if value != before.get(k, 0):
+                    counter.add(k, value - before.get(k, 0))
+        obs.absorb_trace_events(rec.pop('events', None))
+        self._metrics_by_spawn[key] = rec
+
+    def telemetry_snapshots(self):
+        """The latest registry snapshot of every worker process this pool
+        ran (for :func:`~petastorm_tpu_torch.observability.merge_snapshots`)."""
+        return [rec['metrics'] for rec in list(self._metrics_by_spawn.values())
+                if rec.get('metrics')]
 
     def publish_counts(self):
         """Publishes per channel (``publish_inplace``: fused batches decoded
@@ -888,7 +1102,7 @@ class ProcessPool(object):
         ``publish_blob``; ``publish_zmq``), summed over every worker process
         this pool ran."""
         out = dict.fromkeys(PUBLISH_CHANNELS, 0)
-        for rec in self._metrics_by_pid.values():
+        for rec in list(self._metrics_by_spawn.values()):
             for key, value in rec.get('publishes', {}).items():
                 out[key] = out.get(key, 0) + value
         return out
@@ -909,7 +1123,7 @@ class ProcessPool(object):
         if self._control_send is not None:
             # a worker that connects after this send misses it: join() sends
             # it again while draining
-            self._control_send.send(CONTROL_FINISHED)
+            self._send_control(CONTROL_FINISHED)
 
     def join(self):
         if not self._stopped:
@@ -917,7 +1131,7 @@ class ProcessPool(object):
         deadline = time.monotonic() + 10
         while any(p is not None and p.is_alive() for p in self._processes) \
                 and time.monotonic() < deadline:
-            self._control_send.send(CONTROL_FINISHED)
+            self._send_control(CONTROL_FINISHED)
             # drain so workers blocked on a full transport can exit
             if self._transport == 'zmq':
                 while self._results_receive.poll(0):
@@ -994,10 +1208,11 @@ class ProcessPool(object):
 
 def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, control_addr,
                       results_hwm, ring_name=None, blob_dir=None, blob_threshold=0,
-                      workers_count=1, heartbeat_interval_s=None):
+                      workers_count=1, heartbeat_interval_s=None, spawn=None):
     """Entry point of a spawned worker process. ``ring_name`` selects the shm
     results transport (None: zmq PUSH); ``blob_dir`` enables the blob
-    sidechannel; ``heartbeat_interval_s`` enables the supervision beacons."""
+    sidechannel; ``heartbeat_interval_s`` enables the supervision beacons;
+    ``spawn`` is this process's token in its ``MSG_METRICS`` frames."""
     # the native image decode thread budget is per process, and siblings
     # cannot see each other's grants: each worker takes an equal share of
     # the cores unless the user set the variable (children inherit it)
@@ -1005,6 +1220,15 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
         os.environ['PSTPU_IMG_THREADS'] = str(max(1, (os.cpu_count() or 1) // max(1, workers_count)))
 
     worker_class, worker_setup_args, serializer = pickle.loads(setup_blob)
+    # the reader's telemetry config rides the setup args: this process's
+    # level and span ring match the consumer's before any stage runs
+    if isinstance(worker_setup_args, dict) and worker_setup_args.get('telemetry') is not None:
+        obs.configure(worker_setup_args['telemetry'])
+    # this worker's flight recorder, in the consumer's run directory (the key
+    # is pool plumbing, not the worker's setup args)
+    flight_dir = (worker_setup_args.pop('flight_dir', None)
+                  if isinstance(worker_setup_args, dict) else None)
+    blackbox.maybe_enable('worker{}'.format(worker_id), run_dir=flight_dir)
     _start_orphan_monitor(main_pid)
 
     context = zmq.Context()
@@ -1014,14 +1238,23 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
     control_recv.setsockopt(zmq.SUBSCRIBE, b'')
     control_recv.connect(control_addr)
 
-    finished = {'flag': False}
+    finished = {'flag': False, 'retire': False}
+    retire_msg = CONTROL_RETIRE + str(worker_id).encode()
+
+    def read_control():
+        """One control message: FINISHED stops the worker at once; a retire
+        addressed to it stops it after the current item."""
+        msg = control_recv.recv()
+        if msg == CONTROL_FINISHED:
+            finished['flag'] = True
+        elif msg == retire_msg:
+            finished['retire'] = True
 
     def check_finished():
         """Also polled while blocked on a full ring, so shutdown never waits
         on an unconsumed transport."""
-        if not finished['flag'] and control_recv.poll(0):
-            if control_recv.recv() == CONTROL_FINISHED:
-                finished['flag'] = True
+        while not finished['flag'] and control_recv.poll(0):
+            read_control()
         return finished['flag']
 
     ring = None
@@ -1194,17 +1427,22 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
     publish.reserve_block = reserve_block
 
     def send_counts():
-        """This process's cumulative route and publish counts, sent before
-        each item's completion message, so the consumer holds them once it
-        sees the item complete. Best effort: a failure here must not resend
-        the completion."""
+        """One ``MSG_METRICS`` frame: this process's cumulative route and
+        publish counts, its registry snapshot and (at the spans level) its
+        drained span events, sent before each item's completion message, so
+        the consumer holds them once it sees the item complete. Cumulative,
+        so the latest frame supersedes the earlier ones. Best effort: a
+        failure here must not resend the completion."""
         from petastorm_tpu_torch.codecs import image_routes
         from petastorm_tpu_torch.native import read_routes
         try:
-            send(MSG_METRICS, None, pickle.dumps(
-                {'pid': os.getpid(), 'read_routes': read_routes.snapshot(),
-                 'image_routes': image_routes.snapshot(), 'publishes': dict(publishes)},
-                protocol=pickle.HIGHEST_PROTOCOL))
+            rec = {'pid': os.getpid(), 'spawn': spawn, 'read_routes': read_routes.snapshot(),
+                   'image_routes': image_routes.snapshot(), 'publishes': dict(publishes)}
+            if obs.counters_on():
+                rec['metrics'] = obs.snapshot()
+                if obs.spans_on():
+                    rec['events'] = obs.drain_trace_events()
+            send(MSG_METRICS, None, pickle.dumps(rec, protocol=pickle.HIGHEST_PROTOCOL))
         except Exception as e:  # noqa: BLE001 - counts are best effort
             logger.debug('sending counts failed: %s', e)
 
@@ -1219,17 +1457,23 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
     try:
         while True:
             events = dict(poller.poll(100))
-            if control_recv in events or finished['flag']:
-                if finished['flag'] or control_recv.recv() == CONTROL_FINISHED:
-                    break
+            if control_recv in events and not finished['flag']:
+                read_control()
+            if finished['flag'] or finished['retire']:
+                break
             if vent_recv in events:
-                dispatch, args, kwargs = vent_recv.recv_pyobj()
+                dispatch, args, kwargs, trace_ctx = vent_recv.recv_pyobj()
                 current['seq'] = dispatch
                 # claim first: if this item kills the process, the supervisor
                 # knows what to requeue
                 send_heartbeat(dispatch, blocking=True)
                 try:
-                    worker.process(*args, **kwargs)
+                    # the item stage keeps the flight recorder's activity slot
+                    # set for the whole item; the item's trace context (minted
+                    # in the consumer) parents the worker's stages
+                    with obs.stage('item', cat='worker', dispatch=dispatch):
+                        with obs.use_trace(trace_ctx):
+                            worker.process(*args, **kwargs)
                 except Exception:  # noqa: BLE001 - forwarded to the consumer process
                     exc = sys.exc_info()[1]
                     logger.exception('Worker %d failed', worker_id)

@@ -23,6 +23,9 @@ import struct
 
 #: control-channel (PUB/SUB) shutdown broadcast; not a results-channel kind
 CONTROL_FINISHED = b'FINISHED'
+#: control-channel prefix retiring one worker slot: ``CONTROL_RETIRE + b'<id>'``
+#: (the port's graceful retire; the JAX pool terminates the process)
+CONTROL_RETIRE = b'RETIRE:'
 
 # -- results-channel message kinds (the first byte of every message) --------
 
@@ -31,7 +34,7 @@ MSG_DATA = b'D'       #: an item's serialized payload, in-band
 MSG_DONE = b'F'       #: item completion sentinel (releases the claim)
 MSG_ERROR = b'E'      #: pickled worker-side exception report (releases the claim)
 MSG_BLOB = b'B'       #: an item's payload parked in a /dev/shm blob; payload = path
-MSG_METRICS = b'M'    #: cumulative route-count snapshot piggyback
+MSG_METRICS = b'M'    #: cumulative counts, metrics snapshot and span events piggyback
 MSG_HEARTBEAT = b'H'  #: liveness + item-ownership beacon (claim when busy is set)
 
 # -- shm-ring framing -------------------------------------------------------
@@ -66,6 +69,10 @@ class DispatchIds(object):
 
     def __init__(self, start=0):
         self._next = start
+
+    def peek(self):
+        """The id :meth:`next` returns next."""
+        return self._next
 
     def next(self):
         d = self._next

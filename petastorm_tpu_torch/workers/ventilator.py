@@ -14,14 +14,23 @@ the unventilated tail of the current epoch replay first, then the remaining
 epochs continue from the saved RNG state. The states are the JAX package's
 plain dicts, so either package resumes the other's. The multi-tenant
 ``FairShareVentilator`` is not ported yet (ROADMAP.md, "DDP/mesh").
+
+Telemetry: each dispatch is a ``ventilate`` stage; a tagged item's dispatch
+runs inside :func:`~petastorm_tpu_torch.observability.mint_trace` keyed on
+``(trace_ns, _seq)``, so the pool captures the item's trace context as it
+ventilates. :meth:`ConcurrentVentilator.set_max_queue_size` is the
+autotuner's in-flight budget.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 
 import numpy as np
+
+from petastorm_tpu_torch import observability as obs
 
 
 class ConcurrentVentilator(object):
@@ -82,6 +91,8 @@ class ConcurrentVentilator(object):
         self._stop_requested = False
         self._completed = not self._items and not self._replay_indices
         self._thread = None
+        #: the trace-id namespace of this ventilator's items ('<ns>:<seq>')
+        self.trace_ns = os.urandom(4).hex()
 
     def start(self):
         if self._thread is not None:
@@ -122,6 +133,14 @@ class ConcurrentVentilator(object):
             return {'replay_indices': replay,
                     'iterations_remaining': self._epochs_after_current,
                     'rng_state': self._rng.bit_generator.state}
+
+    def set_max_queue_size(self, n):
+        """Set the in-flight item budget at run time (the autotuner follows
+        the pool's size with it). A smaller budget cancels nothing: the
+        thread waits until completions bring the in-flight count under it."""
+        with self._cv:
+            self._max_in_flight = max(1, int(n))
+            self._cv.notify_all()
 
     def completed(self):
         """True when no more items will ever be ventilated."""
@@ -202,7 +221,15 @@ class ConcurrentVentilator(object):
                         self._seq += 1
                         self._undelivered[seq] = index
                 item = self._items[index]
-                self._ventilate_fn(**(dict(item, _seq=seq) if self._tag_items else item))
+                if self._tag_items:
+                    # the item's trace: the ventilate span is the root's first
+                    # child, and the pool's ventilate captures the context
+                    with obs.mint_trace(self.trace_ns, seq):
+                        with obs.stage('ventilate', cat='ventilator'):
+                            self._ventilate_fn(**dict(item, _seq=seq))
+                else:
+                    with obs.stage('ventilate', cat='ventilator'):
+                        self._ventilate_fn(**item)
             with self._cv:
                 if counted and self._iterations_remaining is not None:
                     self._iterations_remaining -= 1

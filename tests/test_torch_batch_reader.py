@@ -218,8 +218,8 @@ def test_rebatching_arguments_are_checked(written_stores):
         make_reader(url, batch_size=8)
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_batch_reader(url, ngram=object())
-    with pytest.raises(NotImplementedError, match='observability'):
-        make_batch_reader(url, telemetry='spans')
+    with pytest.raises(NotImplementedError, match='protocol monitor'):
+        make_batch_reader(url, protocol_monitor=True)
 
 
 def test_make_reader_refuses_a_plain_store(plain_store):

@@ -553,9 +553,9 @@ def test_make_reader_takes_the_pool_arguments(stores):
         make_reader('file:///nonexistent', max_item_retries=-1)
     with pytest.raises(ValueError, match="reader_pool_type='process' only"):
         make_reader(stores['raw'], pool_kwargs=TIMEOUT)
-    with pytest.raises(NotImplementedError, match='observability'):
+    with pytest.raises(NotImplementedError, match='protocol monitor'):
         make_reader(stores['raw'], protocol_monitor=True)
-    with pytest.raises(NotImplementedError, match='observability'):
+    with pytest.raises(RuntimeError, match='not started'):
         ProcessPool(1).add_worker_slot()
 
 

@@ -200,7 +200,7 @@ def _result_or_error(pool):
 def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
     with pytest.raises(NotImplementedError, match='long context'):
         make_reader(jax_store, ngram=object())
-    with pytest.raises(NotImplementedError, match='observability'):
+    with pytest.raises(NotImplementedError, match='protocol monitor'):
         make_reader(jax_store, protocol_monitor=True)
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_reader(jax_store, no_such_argument=1)

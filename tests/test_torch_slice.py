@@ -183,7 +183,13 @@ def test_port_imports_nothing_of_jax():
         '          "predicates", "selectors", "etl.indexer_base", "etl.rowgroup_indexers",',
         '          "etl.rowgroup_indexing",',
         # the batch reader and checkpoint slice's
-        '          "batch_worker", "rebatch", "torch.loader", "workers.ventilator"):',
+        '          "batch_worker", "rebatch", "torch.loader", "workers.ventilator",',
+        # the telemetry, flight recorder, autotuner and sequence slice's
+        '          "observability", "observability.metrics", "observability.trace",',
+        '          "observability.report", "observability.critical_path",',
+        '          "observability.exporters", "observability.history", "observability.blackbox",',
+        '          "autotune", "autotune.controller", "sequence", "sequence.collate",',
+        '          "sequence.bucket", "sequence.packing"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
@@ -195,7 +201,7 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 54
+    assert int(out.stdout.split()[-1]) >= 68
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
