@@ -75,6 +75,14 @@ Phases, each printed as one JSON line:
    replay's within 1e-2 (bf16 convolutions need not be bit-reproducible):
 
    - ``raw``: the raw store, no decode;
+   - ``raw_mesh``: ``raw`` through the example's mesh flow
+     (``jax_resnet_example.py:81-102``): ``make_mesh(('data',))`` (a world
+     of one over NCCL), ``shard_train_state``, the reader on
+     ``reader_shard_for_process(mesh)``, the batches staged onto
+     ``data_sharding(mesh)``; after each run a ``mesh_vs_plain`` line: a
+     fresh unsharded state with the same kind of step on the run's first
+     four staged batches gives its losses to the last bit (no DDP and no
+     collective at a world of one);
    - ``png``: the PNG store with ``TransformSpec(image_resize=160x160)`` and a
      batched label transform (crc32 of the synset id);
    - ``png_cached``: the same with ``cache_type='local-disk'``, after one
@@ -182,14 +190,34 @@ Phases, each printed as one JSON line:
    and one per worker exist while it runs, and after its exit
    ``postmortem_report`` names every process, all exited cleanly, with the
    loader's closing stall record;
-15. profile: three more steps of the raw path under ``torch.profiler``, with
+15. ``mesh_checks``: four spawned ranks on the one card over gloo with CUDA
+   tensors (NCCL refuses two ranks on one card), a ``(2, 2)``
+   ``('data', 'model')`` mesh and the dry run's configuration (resnet18, 64
+   filters, 16 classes, 32x32 uint8 images of a 64-row store, float32, TF32
+   off, 2 rows per data shard, flip and normalize in the step; PyTorch's own
+   convolutions, not cuDNN's, on both sides: ``MESH_CUDNN``): each rank
+   reads its data coordinate's shard through a 2-worker thread pool and
+   ``prefetch_to_device`` onto the data sharding, and takes three sharded
+   steps (synchronised batch norm, the column-parallel head, DDP over the
+   data group). This process steps one model from the same seed on the
+   global batches: the losses, every parameter (the head gathered) and
+   every batch statistic of every rank within 1e-4 after steps 1 and 3,
+   the head's gradient after step 1 its slice on every rank, and the two
+   ranks of each model group on identical batches; the spawn seconds and
+   each rank's seconds per step;
+16. ``entry_checks``: ``petastorm_tpu_torch.entry.entry()``'s ResNet-50 bf16
+   forward on the card (shape, dtype, finite values) and
+   ``dryrun_multichip(1)`` over NCCL (the dp/tp and process-pool legs; the
+   legs not yet ported named);
+17. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
-16. model check: the trained model on the card (bf16) against a float32 copy
+18. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-17. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+19. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, both steps, where a graph replay counts the
-   launches it captured, max error, its time, the plain version's time,
+   launches it captured, and the spawned ranks' of ``mesh_checks`` and
+   ``entry_checks``, max error, its time, the plain version's time,
    the least time the card could take and what bounds it, and the time of
    the one PyTorch call that computes the same function,
    ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
@@ -1567,7 +1595,7 @@ def check_read_routes(path, counts):
                if k.startswith('fused_fallback_reason:') and v}
     fused, fallback = c('fused_batches_total'), c('fused_fallback_total')
     pagescan, arrow = c('pagescan_columns_total'), c('arrow_fallback_columns_total')
-    if path == 'raw':
+    if path in ('raw', 'raw_mesh'):
         ok = pagescan > 0 and not (fused or fallback or arrow or reasons)
     elif path in ('png', 'jpeg', 'png_process'):
         n = reasons.get('image-hints', 0)
@@ -1626,6 +1654,7 @@ SAME_BATCHES = 4
 #: ``fused_decode``/``fused_predicate`` the fused native call)
 STALL_STAGES = {
     'raw': ({'worker.read_io'}, {'worker.fused_decode'}),
+    'raw_mesh': ({'worker.read_io'}, {'worker.fused_decode'}),
     'png': ({'worker.decode', 'worker.read_io'}, {'worker.fused_decode'}),
     'jpeg': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_process': ({'worker.decode'}, {'worker.fused_decode'}),
@@ -1652,7 +1681,7 @@ def check_stall(name, stall):
 
 def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None,
              graphed=False, reader_factory=None, telemetry='counters', steps=STEPS, tag=None,
-             on_step=None):
+             on_step=None, mesh=None):
     """One path: a fresh model from the seed, 3 warm-up and ``steps``
     measured steps through ``pipeline_duty_cycle``, with the eager step or
     (``graphed``) the graphed one, at the ``telemetry`` level. The normalize
@@ -1664,7 +1693,10 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     The line carries the stall report of the loader's diagnostics
     (``stall``), checked against the path's routes. Returns the launches,
     the state, the step, the first :data:`SAME_BATCHES` staged batches, the
-    result and the losses."""
+    result and the losses. With a ``mesh``, the example's mesh flow: the
+    state sharded onto it, the reader on this rank's shard
+    (``reader_shard_for_process``) and the batches staged onto its data
+    sharding."""
     from petastorm_tpu_torch import observability as obs
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
@@ -1672,6 +1704,16 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
 
     state = new_train_state(torch)
+    kwargs = {'seed': SEED, 'shuffle_row_groups': True,
+              'workers_count': max(1, os.cpu_count() or 1), **(reader_kwargs or {})}
+    factory = {} if reader_factory is None else {'reader_factory': reader_factory}
+    if mesh is not None:
+        from petastorm_tpu_torch.models.train import shard_train_state
+        from petastorm_tpu_torch.parallel import data_sharding, reader_shard_for_process
+
+        state = shard_train_state(state, mesh)
+        kwargs['cur_shard'], kwargs['shard_count'] = reader_shard_for_process(mesh)
+        factory['to_device'] = data_sharding(mesh)
     train_step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
     losses = []
     first_batches = []
@@ -1694,9 +1736,6 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
         if on_step is not None:
             on_step()
 
-    kwargs = {'seed': SEED, 'shuffle_row_groups': True,
-              'workers_count': max(1, os.cpu_count() or 1), **(reader_kwargs or {})}
-    factory = {} if reader_factory is None else {'reader_factory': reader_factory}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     image_routes.reset()
@@ -1809,6 +1848,186 @@ def run_path_both_ways(torch, name, url, check, **kwargs):
         runs['graphed' if graphed else 'eager'] = (state, step, batches, result)
     check_graphed_losses(torch, name, losses, runs['graphed'][2])
     return total, runs
+
+
+def phase_raw_mesh(torch, url):
+    """``raw`` through the example's mesh flow
+    (``jax_resnet_example.py:81-102``): ``make_mesh(('data',))`` (a world of
+    one over NCCL, created here), ``shard_train_state``, the reader on
+    ``reader_shard_for_process(mesh)`` and the batches staged onto
+    ``data_sharding(mesh)``; eager, then graphed. At a world of one there is
+    no DDP and no collective, so a fresh unsharded state from the seed,
+    stepped with the same kind of step on the mesh run's first staged
+    batches, must give its losses to the last bit. The process group is
+    destroyed at the end. Returns the launches."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.models.train import make_train_step
+    from petastorm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(('data',), device=DEVICE_TYPE)
+    total = collections.Counter()
+    try:
+        for graphed in (False, True):
+            launches, _, _, batches, _, losses = run_path(torch, 'raw_mesh', url, check_batch,
+                                                          graphed=graphed, mesh=mesh)
+            total.update(launches)
+            state = new_train_state(torch)
+            step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED,
+                                   graphed=graphed)
+            plain = [float(step(state, images, labels)[1]['loss']) for images, labels in batches]
+            emit({'phase': 'mesh_vs_plain', 'path': 'raw_mesh',
+                  'step': 'graphed' if graphed else 'eager', 'backend': dist.get_backend(),
+                  'world_size': dist.get_world_size(), 'mesh_losses': losses[:len(plain)],
+                  'plain_losses': plain, 'bit_equal': plain == losses[:len(plain)]})
+            if plain != losses[:len(plain)]:
+                raise AssertionError('raw_mesh ({}): the mesh step\'s losses {} are not the plain '
+                                     'step\'s {} on the same batches'.format(
+                                         'graphed' if graphed else 'eager',
+                                         losses[:len(plain)], plain))
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+#: the four-rank mesh check: the dry run's configuration on a (2, 2) mesh
+MESH_RANKS = 4
+MESH_SHAPE = (2, 2)
+MESH_MODEL = {'stage_sizes': [2, 2, 2, 2], 'block': 'basic', 'num_classes': 16,
+              'num_filters': 64}
+MESH_IMAGE = 32
+MESH_STEPS = 3
+MESH_TOL = 1e-4
+#: the mesh check's convolutions are PyTorch's own, not cuDNN's, on both
+#: sides: cuDNN picks float32 algorithms by batch size (2 rows a rank, 4 in
+#: the single process) whose rounding, through three SGD steps whose loss
+#: doubles, reached 9.6e-5 of the 1e-4 on one batch order, against 1.8e-5
+#: with PyTorch's convolutions on the same batches (PERF.md, section 6); the
+#: paths train through cuDNN as before
+MESH_CUDNN = False
+
+
+def _state_err(actual, expected):
+    """The worst leaf of two gathered states: ``(excess, name, max abs
+    error, max abs value)``, where ``excess`` is the largest
+    ``|a - e| - tol * |e|``: at most ``MESH_TOL`` when every value is within
+    ``MESH_TOL`` absolute and relative."""
+    if set(actual) != set(expected):
+        raise AssertionError('states differ in names: {}'.format(set(actual) ^ set(expected)))
+    return max((float(np.max(np.abs(actual[k] - expected[k]) - MESH_TOL * np.abs(expected[k]))),
+                k, float(np.max(np.abs(actual[k] - expected[k]))),
+                float(np.max(np.abs(expected[k])))) for k in expected)
+
+
+def phase_mesh_checks(torch, url):
+    """Four spawned ranks on the one card over gloo with CUDA tensors, a
+    ``(2, 2)`` ``('data', 'model')`` mesh, the dry run's configuration
+    (resnet18, 64 filters, 16 classes, 32x32, float32, TF32 off, 2 rows per
+    data shard, the step's flip and normalize): each rank reads the store
+    through its own reader shard and ``prefetch_to_device`` onto the data
+    sharding and takes three sharded steps. This process then steps one
+    model from the same seed on the global batches (each step's data shards
+    in order): the losses, every parameter (the head gathered) and every
+    batch statistic after steps 1 and 3 within 1e-4, the head's gradient
+    after step 1 its slice on every rank, and the two ranks of each model
+    group on identical batches; every rank's state is held to the single
+    process's. Returns the ranks' normalize launches."""
+    from petastorm_tpu_torch.entry import dryrun_preprocess
+    from petastorm_tpu_torch.models.train import create_train_state, gather_state, make_train_step
+    from petastorm_tpu_torch.parallel.launch import spawn
+    from petastorm_tpu_torch.test_util import dist_workers
+
+    spec = {'device': DEVICE_TYPE, 'axis_shapes': MESH_SHAPE, 'model': MESH_MODEL, 'seed': SEED,
+            'url': url, 'global_batch': 2 * MESH_SHAPE[0], 'steps': MESH_STEPS,
+            'record': (1, MESH_STEPS), 'flip_seed': SEED, 'preprocess': 'flip_normalize',
+            'tf32': False, 'cudnn': MESH_CUDNN}
+    t0 = time.perf_counter()
+    ranks = spawn(dist_workers.sharded_steps, MESH_RANKS, (spec,), backend='gloo')
+    spawn_s = time.perf_counter() - t0
+    # one process, the global batch: the model ranks 0 of each data coordinate
+    # hold the data shards, in data-coordinate order
+    shards = [ranks[c * MESH_SHAPE[1]] for c in range(MESH_SHAPE[0])]
+    if [r['coord'] for r in shards] != [(c, MESH_SHAPE[0]) for c in range(MESH_SHAPE[0])]:
+        raise AssertionError('mesh_checks: data coordinates {}'.format([r['coord'] for r in ranks]))
+    state = create_train_state(dist_workers.build_model(MESH_MODEL, seed=SEED),
+                               device=DEVICE_TYPE)
+    step = make_train_step(preprocess_fn=dryrun_preprocess, preprocess_seed=SEED)
+    losses, errors, grad_errs = [], {}, []
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = MESH_CUDNN
+    for i in range(1, MESH_STEPS + 1):
+        images = torch.from_numpy(np.concatenate([r['batches'][i - 1][0] for r in shards]))
+        labels = torch.from_numpy(np.concatenate([r['batches'][i - 1][1] for r in shards]))
+        images, labels = images.to(DEVICE_TYPE), labels.to(DEVICE_TYPE)
+        state, metrics = step(state, images, labels)
+        losses.append(metrics['loss'].item())
+        if i == 1:
+            grad = state.model.head.weight.grad.cpu().numpy()
+            for r in ranks:
+                start, stop = r['head_grad_rows']
+                grad_errs.append(float(np.abs(r['head_grad'] - grad[start:stop]).max()))
+        if i in spec['record']:
+            reference = gather_state(state)
+            errors[i] = max(_state_err(r['states'][i], reference) for r in ranks)
+    torch.backends.cudnn.enabled = cudnn
+    loss_err = max(abs(a - b) for a, b in zip(ranks[0]['losses'], losses))
+    groups = {}
+    for r in ranks:
+        groups.setdefault(r['coord'][0], set()).add(tuple(r['digests']))
+    identical = all(len(d) == 1 for d in groups.values()) and len(groups) == MESH_SHAPE[0]
+    # the replicated parameters of two model groups may differ in their last
+    # bits: each group runs the body's backward itself, and cuDNN's weight
+    # gradients need not be bit-reproducible; each rank is held to the
+    # tolerance above, and how far the ranks drift apart is reported
+    last = ranks[0]['states'][MESH_STEPS]
+    drift = max(float(np.max(np.abs(r['states'][MESH_STEPS][k] - last[k])))
+                for r in ranks for k in last)
+    same_state = all(len({r['state_digests'][i] for r in ranks}) == 1 for i in spec['record'])
+    launches = sum(r['launches']['normalize'] for r in ranks)
+    emit({'phase': 'mesh_checks', 'ranks': MESH_RANKS, 'mesh': list(MESH_SHAPE),
+          'backend': 'gloo', 'device': DEVICE_TYPE, 'cudnn': MESH_CUDNN, 'model': MESH_MODEL,
+          'image_size': MESH_IMAGE,
+          'global_batch': spec['global_batch'], 'steps': MESH_STEPS, 'spawn_s': spawn_s,
+          'step_s': [r['step_s'] for r in ranks], 'losses': ranks[0]['losses'],
+          'single_process_losses': losses, 'max_loss_err': loss_err,
+          'state_worst_leaf': {i: {'excess_over_rtol': e[0], 'name': e[1], 'max_abs_err': e[2],
+                                   'max_abs_value': e[3]} for i, e in errors.items()},
+          'head_grad_max_err': grad_errs,
+          'head': ranks[0]['head_type'], 'head_rows': ranks[0]['head_rows'],
+          'model_groups_identical_batches': identical, 'ranks_bit_identical_state': same_state,
+          'ranks_max_state_drift': drift,
+          'tolerance': MESH_TOL, 'launches': launches})
+    if not (loss_err <= MESH_TOL and max(e[0] for e in errors.values()) <= MESH_TOL
+            and max(grad_errs) <= MESH_TOL and identical
+            and ranks[0]['head_type'] == 'ColumnParallelHead'):
+        raise AssertionError('mesh_checks: the sharded step is not the single-process step')
+    return launches
+
+
+def phase_entry_checks(torch):
+    """``entry()``'s ResNet-50 bf16 forward on the card (its shape, dtype
+    and finite values) and ``dryrun_multichip(1)`` over NCCL. Returns the
+    dry run's normalize launches."""
+    from petastorm_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry(device=DEVICE_TYPE)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(out).all())
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, device=DEVICE_TYPE)
+    emit({'phase': 'entry_checks', 'entry_shape': list(out.shape), 'entry_dtype': str(out.dtype),
+          'entry_finite': finite, 'entry_forward_s': forward_s, 'dryrun': dry,
+          'dryrun_s': time.perf_counter() - t0})
+    if tuple(out.shape) != (8, 1000) or out.dtype != torch.float32 or not finite:
+        raise AssertionError('entry(): {} {} finite={}'.format(tuple(out.shape), out.dtype,
+                                                               finite))
+    if not (math.isfinite(dry['loss']) and math.isfinite(dry['process_loss'])
+            and dry['legs_run'] == ['dp/tp', 'process pool']):
+        raise AssertionError('dryrun_multichip(1): {}'.format(dry))
+    return dry['launches']['normalize']
 
 
 class BlockSizes(object):
@@ -2673,6 +2892,7 @@ def main():
         check_no_leftovers()
 
         total, raw = run_path_both_ways(torch, 'raw', urls['raw'], check_batch)
+        total.update(phase_raw_mesh(torch, urls['raw']))
         routes = probe['routes']
         cache_kwargs = {'cache_type': 'local-disk',
                         'cache_location': os.path.join(work_dir, 'disk_cache'),
@@ -2754,6 +2974,11 @@ def main():
         total.update(phase_autotune_checks(torch, urls['raw'], ring))
         phase_collate_checks(torch, work_dir)
         phase_flight_checks(urls['raw'], ring)
+        from petastorm_tpu_torch.entry import dryrun_store
+        mesh_url = 'file://' + os.path.join(work_dir, 'mesh')
+        dryrun_store(mesh_url, 64)
+        total['normalize'] += phase_mesh_checks(torch, mesh_url)
+        total['normalize'] += phase_entry_checks(torch)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     # the raw path's first staged batch (eager run)

@@ -1,0 +1,172 @@
+"""Entry points: the twin of the repository's ``__graft_entry__.py``.
+
+``entry()`` returns the flagship model's forward step (ResNet-50, bf16, 1000
+classes) with an example batch. ``dryrun_multichip(n)`` runs the product
+path on tiny shapes in ``n`` spawned ranks on a ``('data', 'model')`` mesh,
+the dp/tp leg of the JAX dry run as a pod host runs it: materialize a store
+-> each rank's ``make_reader`` (thread pool, columnar blocks) on its reader
+shard -> shuffling loader -> ``prefetch_to_device`` onto the mesh's data
+sharding -> three sharded train steps (dp over ``data``, the classifier
+head tensor-parallel over ``model``) with ``random_flip`` and ``normalize``
+inside; then one batch through the process pool. The JAX dry run's
+sequence-, expert- and pipeline-parallel legs are not ported yet and are
+named, never reported as run.
+"""
+
+from __future__ import annotations
+
+import math
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+
+from petastorm_tpu_torch.device import resolve_device
+
+#: the legs of the JAX dry run this one runs
+LEGS_RUN = ('dp/tp', 'process pool')
+
+#: the legs it does not run yet, with the ROADMAP.md item that ports each
+LEGS_NOT_PORTED = {'sp': 'long context', 'ep': 'Expert parallelism',
+                   'pp': 'Pipeline parallelism'}
+
+
+def entry(device=None):
+    """``(fn, example_args)``: ``fn(model, images)`` is the eval-mode forward
+    of ResNet-50 (bf16 body, 1000 classes) on ``device`` (``None`` = CUDA);
+    the example batch is ``(8, 64, 64, 3)`` float32 from a seed."""
+    from petastorm_tpu_torch.models import resnet50
+
+    device = resolve_device(device)
+    torch.manual_seed(0)
+    model = resnet50(num_classes=1000, dtype=torch.bfloat16)
+    model.to(device=device, memory_format=torch.channels_last).eval()
+    images = torch.from_numpy(np.random.default_rng(0).random((8, 64, 64, 3), dtype=np.float32))
+
+    def forward(model, images):
+        with torch.no_grad():
+            return model(images)
+
+    return forward, (model, images.to(device))
+
+
+def dryrun_store(url, rows):
+    """Write the dry run's store at ``url``: ``rows`` seeded 32x32x3 uint8
+    images and labels of 16 classes, 8 rows per row group."""
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    rng = np.random.default_rng(0)
+    schema = Unischema('DryRun', [
+        UnischemaField('image', np.uint8, (32, 32, 3), NdarrayCodec(), False),
+        UnischemaField('label', np.int64, (), ScalarCodec(), False),
+    ])
+    with materialize_dataset(url, schema, rows_per_row_group=8) as writer:
+        for _ in range(rows):
+            writer.write({'image': rng.integers(0, 256, (32, 32, 3), dtype=np.uint8),
+                          'label': int(rng.integers(0, 16))})
+
+
+def _model_axis(n_ranks):
+    return 2 if n_ranks % 2 == 0 and n_ranks >= 4 else 1
+
+
+def dryrun_preprocess(images, mask):
+    """The dry run's device preprocess: the step's flip mask, then
+    normalize to float32 around 127.5."""
+    from petastorm_tpu_torch.ops import flip_with_mask, normalize_images
+    return normalize_images(flip_with_mask(images, mask), 127.5, 127.5, out_dtype=torch.float32)
+
+
+def _dryrun_rank(rank, world, device_type, url):
+    """One rank of the dry run (started by :func:`dryrun_multichip`)."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.models import resnet18
+    from petastorm_tpu_torch.models.train import (ColumnParallelHead, create_train_state,
+                                                  make_train_step, shard_train_state)
+    from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
+    from petastorm_tpu_torch.parallel import (data_sharding, make_mesh, process_local_batch_size,
+                                              reader_shard_for_process)
+    from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+
+    model_axis = _model_axis(world)
+    mesh = make_mesh(('data', 'model'), axis_shapes=(-1, model_axis), device=device_type)
+    sharding = data_sharding(mesh)
+    batch = 2 * (world // model_axis)  # 2 rows per data shard
+    local = process_local_batch_size(batch, mesh)
+    torch.manual_seed(0)
+    state = create_train_state(resnet18(num_classes=16, dtype=torch.float32),
+                               device=sharding.device)
+    state = shard_train_state(state, mesh)
+    step = make_train_step(preprocess_fn=dryrun_preprocess)
+    cur_shard, shard_count = reader_shard_for_process(mesh)
+    shard = {'cur_shard': cur_shard, 'shard_count': shard_count, 'seed': 0,
+             'output': 'columnar'}
+    with make_reader(url, reader_pool_type='thread', workers_count=2, num_epochs=None,
+                     **shard) as reader:
+        it = prefetch_to_device(TorchDataLoader(reader, batch_size=local,
+                                                shuffling_queue_capacity=4 * local, seed=0),
+                                sharding, size=2)
+        try:
+            for _ in range(3):
+                b = next(it)
+                state, metrics = step(state, b['image'], b['label'])
+        finally:
+            it.close()
+        loss = metrics['loss'].item()
+    # once through the process pool: spawned worker, ring transport,
+    # NumpyBlockSerializer across the process boundary
+    with make_reader(url, reader_pool_type='process', workers_count=1, **shard) as reader:
+        b = next(iter(TorchDataLoader(reader, batch_size=local, to_device=sharding)))
+        state, metrics = step(state, b['image'], b['label'])
+        process_loss = metrics['loss'].item()
+    if not (math.isfinite(loss) and math.isfinite(process_loss)):
+        raise RuntimeError('non-finite loss in the dry run: {} (thread pool), {} (process '
+                           'pool)'.format(loss, process_loss))
+    head = state.module.head
+    if model_axis > 1 and not (isinstance(head, ColumnParallelHead)
+                               and head.weight.shape[0] == 16 // model_axis):
+        raise RuntimeError('the head is not sharded on the model axis: {} {}'.format(
+            type(head).__name__, tuple(head.weight.shape)))
+    return {'mesh': (world // model_axis, model_axis), 'batch': batch, 'loss': loss,
+            'process_loss': process_loss, 'head_rows': head.weight.shape[0],
+            'launches': {'normalize': normalize_kernel.launches}}
+
+
+def dryrun_multichip(n_devices, device=None):
+    """The dry run on ``n_devices`` spawned ranks: NCCL with one card each on
+    CUDA (``device=None``; raises when CUDA or the cards are missing), gloo
+    with ``device='cpu'``. Prints and returns what ran: the mesh, the global
+    batch, the losses, rank 0's normalize launches, the legs run and the
+    legs not yet ported."""
+    from petastorm_tpu_torch.parallel.launch import spawn
+
+    device = resolve_device(device)
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    if backend == 'nccl' and torch.cuda.device_count() < n_devices:
+        raise RuntimeError('dryrun_multichip({}) runs one NCCL rank per card and this host has '
+                           '{} CUDA devices'.format(n_devices, torch.cuda.device_count()))
+    store = tempfile.mkdtemp(prefix='pstpu_torch_dryrun_')
+    try:
+        url = 'file://' + store
+        dryrun_store(url, 8 * (n_devices // _model_axis(n_devices)))
+        result = spawn(_dryrun_rank, n_devices, (device.type, url), backend=backend,
+                       threads=1 if backend == 'gloo' else None)[0]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    result.update(legs_run=list(LEGS_RUN), legs_not_ported=dict(LEGS_NOT_PORTED))
+    print('dryrun_multichip OK: mesh=({}x{}), batch={}, loss={:.4f}, process_loss={:.4f}; '
+          'legs run: {}; not yet ported: {}'.format(
+              result['mesh'][0], result['mesh'][1], result['batch'], result['loss'],
+              result['process_loss'], ', '.join(LEGS_RUN),
+              ', '.join('{} (ROADMAP.md, "{}")'.format(k, v) for k, v in LEGS_NOT_PORTED.items())))
+    return result
+
+
+if __name__ == '__main__':
+    fn, args = entry()
+    out = fn(*args)
+    print('entry forward OK:', tuple(out.shape), out.dtype)
+    dryrun_multichip(torch.cuda.device_count())

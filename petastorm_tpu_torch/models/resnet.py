@@ -24,8 +24,11 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from petastorm_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def _lecun_normal_(weight, fan_in):
@@ -68,11 +71,20 @@ class Conv(nn.Module):
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW tensors:
     float32 ``scale``/``bias`` parameters and ``mean``/``var`` statistics,
-    normalization computed in float32 and returned in the input's dtype."""
+    normalization computed in float32 and returned in the input's dtype.
 
-    def __init__(self, features, momentum=0.9, eps=1e-5, zero_scale=False):
+    ``sync_group``: a process group of more than one rank makes training
+    take its statistics over the group's global batch, as XLA does for a
+    batch sharded over ``data``: the float32 per-channel sums, sums of
+    squares and row counts are summed over the group (backward too), and
+    the global mean and biased variance normalise and update ``mean``/
+    ``var``. With ``None`` or a group of one the local statistics are the
+    global ones, and the local code runs (no collective)."""
+
+    def __init__(self, features, momentum=0.9, eps=1e-5, zero_scale=False, sync_group=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.sync_group = sync_group
         self.scale = nn.Parameter(torch.zeros(features) if zero_scale else torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
@@ -81,15 +93,35 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, self.eps)
+        if self.sync_group is not None and dist.get_world_size(self.sync_group) > 1:
+            return self._synced(x)
         # batch statistics without torch's running update (which would use
         # the unbiased variance); save_invstd = 1/sqrt(biased_var + eps)
         out, batch_mean, invstd = torch.native_batch_norm(
             x, self.scale, self.bias, None, None, True, 0.0, self.eps)
+        self._update(batch_mean, invstd.float().pow(-2) - self.eps)
+        return out
+
+    def _update(self, batch_mean, batch_var):
         with torch.no_grad():
             m = self.momentum
             self.mean.mul_(m).add_(batch_mean.float(), alpha=1 - m)
-            self.var.mul_(m).add_(invstd.float().pow(-2) - self.eps, alpha=1 - m)
-        return out
+            self.var.mul_(m).add_(batch_var.float(), alpha=1 - m)
+
+    def _synced(self, x):
+        c = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+        stats = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
+                               self.sync_group)
+        mean = stats[:c] / stats[-1]
+        # flax's fast variance: E[x^2] - E[x]^2, clipped at 0
+        var = (stats[c:2 * c] / stats[-1] - mean * mean).clamp_min(0)
+        mul = self.scale * torch.rsqrt(var + self.eps)
+        out = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + \
+            self.bias[None, :, None, None]
+        self._update(mean.detach(), var.detach())
+        return out.to(x.dtype)
 
 
 class BottleneckBlock(nn.Module):

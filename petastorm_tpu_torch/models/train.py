@@ -11,24 +11,48 @@ The JAX step is one compiled XLA program. :func:`make_train_step` gives the
 eager step by default (the one the CPU parity tests hold against JAX) and,
 with ``graphed=True``, the whole step (flip, normalize, forward, loss,
 backward, SGD update) captured in one ``torch.cuda.CUDAGraph`` and replayed
-with a single launch. Tensor parallelism, DDP and the mesh wait for a later
-slice (single card).
+with a single launch.
+
+Sharding (:func:`shard_train_state`) follows the JAX package's rule: the
+batch shards over the mesh's ``data`` axis, the classifier head's output
+dimension over ``model``, everything else replicates. Where XLA inserts
+the collectives from the annotations, here they are explicit: batch norm
+takes its statistics over the data group, the head is column-parallel
+(:mod:`petastorm_tpu_torch.parallel.collectives`), and
+``DistributedDataParallel`` averages the gradients over the data group. So
+the sharded step computes what one process stepping the global batch
+computes: global batch statistics, global mean loss and metrics, the flip
+mask of the global batch.
 """
 
 from __future__ import annotations
 
+import os
+import re
+from collections import OrderedDict
+
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.models.resnet import BatchNorm
 from petastorm_tpu_torch.ops.augment import flip_mask
 from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
+from petastorm_tpu_torch.parallel.collectives import copy_to_group, gather_from_group
+from petastorm_tpu_torch.parallel.mesh import axis_group, data_sharding
 
 #: eager steps the graphed step runs on a side stream before it captures:
 #: the first creates SGD's momentum buffers and compiles the Triton kernel,
 #: the second runs with everything allocated, as every replay will
 GRAPH_WARMUP_STEPS = 2
+
+#: the same under DistributedDataParallel: PyTorch's CUDA graph notes ask
+#: for 11 eager DDP iterations before capture
+DDP_GRAPH_WARMUP_STEPS = 11
 
 #: kernel modules whose ``launches`` counters a replay advances: a replay
 #: launches the captured kernels without passing through their wrappers
@@ -36,12 +60,23 @@ _COUNTED_KERNELS = (normalize_kernel,)
 
 
 class TrainState(object):
-    """The model, its optimizer and the step counter."""
+    """The model, its optimizer and the step counter; after
+    :func:`shard_train_state`, also the mesh, this rank's
+    :class:`~petastorm_tpu_torch.parallel.DataSharding` of the batch and the
+    data group (``None`` when it has one rank)."""
 
     def __init__(self, model, optimizer):
         self.model = model
         self.optimizer = optimizer
         self.step = 0
+        self.mesh = None
+        self.sharding = None
+        self.data_group = None
+
+    @property
+    def module(self):
+        """The model without its ``DistributedDataParallel`` wrapper."""
+        return self.model.module if isinstance(self.model, DistributedDataParallel) else self.model
 
 
 def create_train_state(model, device=None, learning_rate=0.1):
@@ -70,6 +105,140 @@ def step_flip_mask(preprocess_seed, step, batch, device):
     generator = torch.Generator(device=device)
     generator.manual_seed(_step_seed(preprocess_seed, step))
     return flip_mask(batch, generator)
+
+
+def _flip_mask(state, preprocess_seed, images):
+    """This rank's rows of the global batch's flip mask: the mask is drawn
+    for ``batch x data size`` rows on every rank, and each takes its data
+    coordinate's, so the sharded step flips what one process stepping the
+    global batch flips."""
+    batch, sharding = images.shape[0], state.sharding
+    if sharding is None or sharding.size == 1:
+        return step_flip_mask(preprocess_seed, state.step, batch, images.device)
+    start = sharding.index * batch
+    return step_flip_mask(preprocess_seed, state.step, batch * sharding.size,
+                          images.device)[start:start + batch]
+
+
+def _global_means(state, loss, accuracy):
+    """The metrics of the global batch: the data group's mean of the local
+    means (equal local batches), detached."""
+    if state.data_group is None:
+        return {'loss': loss, 'accuracy': accuracy}
+    both = torch.stack([loss, accuracy])
+    dist.all_reduce(both, group=state.data_group)
+    both /= dist.get_world_size(state.data_group)
+    return {'loss': both[0], 'accuracy': both[1]}
+
+
+def _spec_for_path(name, mesh_axis_names):
+    """The default tensor-parallel rule, the JAX package's: the classifier
+    head's output dimension (flax ``head/kernel`` ``P(None, 'model')`` and
+    ``head/bias`` ``P('model')``, dimension 0 of torch's ``head.weight`` and
+    ``head.bias``) shards on ``model``; everything else replicates. Returns
+    one DTensor placement per mesh dimension."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sharded = 'model' in mesh_axis_names and re.search(r'(^|\.)head\.(weight|bias)$', name)
+    return tuple(Shard(0) if sharded and axis == 'model' else Replicate()
+                 for axis in mesh_axis_names)
+
+
+def state_shardings(state, mesh):
+    """``{name: placements}`` for every parameter and buffer of the model
+    under ``mesh`` (:func:`_spec_for_path`)."""
+    return OrderedDict((name, _spec_for_path(name, mesh.mesh_dim_names))
+                       for name in state.module.state_dict())
+
+
+class ColumnParallelHead(nn.Module):
+    """A ``nn.Linear`` head with its output rows split over ``group``: this
+    rank keeps its block of rows of the weight and bias; the input enters
+    through :func:`copy_to_group` and the logits leave through
+    :func:`gather_from_group`, so every rank of the group gets the full
+    logits."""
+
+    def __init__(self, head, group):
+        super().__init__()
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        if head.out_features % size:
+            raise ValueError('the head has {} outputs, which the model axis of size {} does not '
+                             'divide'.format(head.out_features, size))
+        width = head.out_features // size
+        self.rows = slice(rank * width, (rank + 1) * width)
+        self.group = group
+        self.weight = nn.Parameter(head.weight.detach()[self.rows].clone())
+        self.bias = nn.Parameter(head.bias.detach()[self.rows].clone())
+
+    def forward(self, x):
+        return gather_from_group(F.linear(copy_to_group(x, self.group), self.weight, self.bias),
+                                 self.group)
+
+
+def shard_train_state(state, mesh):
+    """Shard ``state`` onto ``mesh``, in place, and return it: every
+    :class:`~petastorm_tpu_torch.models.resnet.BatchNorm` synchronises over
+    the ``data`` group; with a ``model`` axis of more than one rank the
+    ``head`` becomes a :class:`ColumnParallelHead`; with a ``data`` axis of
+    more than one rank the model is wrapped in ``DistributedDataParallel``
+    over the data group (built on a side stream on a card, buffers not
+    broadcast: the synchronised statistics are equal). SGD is rebuilt over
+    the sharded parameters with its hyperparameters and momentum; the step
+    counter stays."""
+    if state.mesh is not None:
+        raise ValueError('the train state is already sharded')
+    sharding = data_sharding(mesh)
+    data_group, model_group = axis_group(mesh, 'data'), axis_group(mesh, 'model')
+    model = state.module
+    momentum = {name: state.optimizer.state.get(p, {}).get('momentum_buffer')
+                for name, p in model.named_parameters()}
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.sync_group = data_group
+    head = getattr(model, 'head', None)
+    if model_group is not None and isinstance(head, nn.Linear):
+        model.head = ColumnParallelHead(head, model_group)
+        momentum = {name: (buf[model.head.rows] if buf is not None and name.startswith('head.')
+                           else buf) for name, buf in momentum.items()}
+    wrapped = model
+    if data_group is not None:
+        device = sharding.device
+        if device.type == 'cuda':
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                wrapped = DistributedDataParallel(model, device_ids=[device],
+                                                  process_group=data_group,
+                                                  broadcast_buffers=False)
+            torch.cuda.current_stream(device).wait_stream(side)
+        else:
+            wrapped = DistributedDataParallel(model, process_group=data_group,
+                                              broadcast_buffers=False)
+    hyper = {k: v for k, v in state.optimizer.param_groups[0].items() if k != 'params'}
+    optimizer = type(state.optimizer)(wrapped.parameters(), **hyper)
+    for name, p in model.named_parameters():
+        if momentum.get(name) is not None:
+            optimizer.state[p]['momentum_buffer'] = momentum[name].clone()
+    state.model, state.optimizer = wrapped, optimizer
+    state.mesh, state.sharding, state.data_group = mesh, sharding, data_group
+    return state
+
+
+def gather_state(state):
+    """The model's full parameters and statistics as ``{name: numpy}`` (the
+    ``state_dict`` names), the column-parallel head gathered over its
+    group: a collective, called on every rank of the model group."""
+    module = state.module
+    out = OrderedDict((name, t.detach().to('cpu', copy=True).numpy())
+                      for name, t in module.state_dict().items())
+    head = getattr(module, 'head', None)
+    if isinstance(head, ColumnParallelHead):
+        for name in ('weight', 'bias'):
+            local = getattr(head, name).detach().contiguous()
+            parts = [torch.empty_like(local) for _ in range(dist.get_world_size(head.group))]
+            dist.all_gather(parts, local, group=head.group)
+            out['head.' + name] = torch.cat(parts).cpu().numpy()
+    return out
 
 
 def _forward_backward(state, preprocess_fn, images, labels, mask):
@@ -103,12 +272,12 @@ def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
         return GraphedTrainStep(preprocess_fn, preprocess_seed)
 
     def train_step(state, images, labels):
-        mask = step_flip_mask(preprocess_seed, state.step, images.shape[0], images.device)
+        mask = _flip_mask(state, preprocess_seed, images)
         state.optimizer.zero_grad(set_to_none=True)
         loss, accuracy = _forward_backward(state, preprocess_fn, images, labels, mask)
         state.optimizer.step()
         state.step += 1
-        return state, {'loss': loss, 'accuracy': accuracy}
+        return state, _global_means(state, loss, accuracy)
 
     return train_step
 
@@ -137,6 +306,13 @@ class GraphedTrainStep(object):
     - A replay launches the captured kernels without their Python wrappers,
       so each replay adds to each kernel module's ``launches`` what the
       capture recorded (the capture itself launches nothing).
+    - On a sharded state the graph captures the step's collectives, which
+      only NCCL allows: a state sharded over another backend is refused.
+      Under ``DistributedDataParallel`` the warm-up is
+      :data:`DDP_GRAPH_WARMUP_STEPS` and ``TORCH_NCCL_ASYNC_ERROR_HANDLING``
+      must be ``0`` (:func:`~petastorm_tpu_torch.parallel.make_mesh` sets it
+      when it creates the group). At a data size of 1 there is no DDP, and
+      the graph captures what it captures unsharded.
     """
 
     def __init__(self, preprocess_fn=None, preprocess_seed=0):
@@ -166,10 +342,29 @@ class GraphedTrainStep(object):
                                      tuple(static_labels.shape), tuple(images.shape),
                                      images.dtype, tuple(labels.shape)))
 
+    @staticmethod
+    def _check_state(state):
+        if state.mesh is None:
+            return GRAPH_WARMUP_STEPS
+        backend = dist.get_backend()
+        if backend != 'nccl':
+            raise RuntimeError(
+                'make_train_step(graphed=True) captures the sharded step\'s collectives in a '
+                'CUDA graph, which needs NCCL; the process group runs on {!r}: use the eager '
+                'step (graphed=False)'.format(backend))
+        if not isinstance(state.model, DistributedDataParallel):
+            return GRAPH_WARMUP_STEPS
+        if os.environ.get('TORCH_NCCL_ASYNC_ERROR_HANDLING') != '0':
+            raise RuntimeError('a graphed step under DistributedDataParallel needs '
+                               'TORCH_NCCL_ASYNC_ERROR_HANDLING=0 set before the process group '
+                               'is created')
+        return DDP_GRAPH_WARMUP_STEPS
+
     def __call__(self, state, images, labels):
         self._check_inputs(images, labels)
-        mask = step_flip_mask(self._preprocess_seed, state.step, images.shape[0], images.device)
-        if self._graph is None and self._calls < GRAPH_WARMUP_STEPS:
+        warmup = self._check_state(state)
+        mask = _flip_mask(state, self._preprocess_seed, images)
+        if self._graph is None and self._calls < warmup:
             metrics = self._eager_on_side_stream(state, images, labels, mask)
         else:
             if self._graph is None:
@@ -196,10 +391,11 @@ class GraphedTrainStep(object):
             state.optimizer.zero_grad(set_to_none=True)
             loss, accuracy = _forward_backward(state, self._preprocess_fn, images, labels, mask)
             state.optimizer.step()
+            metrics = _global_means(state, loss, accuracy)
         current.wait_stream(self._side)
         for t in (images, labels, mask):
             t.record_stream(self._side)
-        return {'loss': loss, 'accuracy': accuracy}
+        return metrics
 
     def _capture(self, state, images, labels, mask):
         static_images = torch.empty_like(images)
@@ -217,23 +413,26 @@ class GraphedTrainStep(object):
             loss, accuracy = _forward_backward(state, self._preprocess_fn, static_images,
                                                static_labels, static_mask)
             state.optimizer.step()
+            metrics = _global_means(state, loss, accuracy)
         self._captured_launches = []
         for module, count in zip(_COUNTED_KERNELS, before):
             self._captured_launches.append(module.launches - count)
             module.launches = count
-        self._static = (static_images, static_labels, static_mask, loss, accuracy)
+        self._static = (static_images, static_labels, static_mask, metrics['loss'],
+                        metrics['accuracy'])
         self._graph = graph
 
 
 def make_eval_step():
-    """``(state, images, labels) -> metrics`` with the running statistics."""
+    """``(state, images, labels) -> metrics`` with the running statistics;
+    on a sharded state the metrics are the global batch's."""
 
     def eval_step(state, images, labels):
         model = state.model
         model.eval()
         with torch.no_grad():
             logits = model(images)
-            return {'loss': cross_entropy_loss(logits, labels),
-                    'accuracy': (logits.argmax(-1) == labels).float().mean()}
+            return _global_means(state, cross_entropy_loss(logits, labels),
+                                 (logits.argmax(-1) == labels).float().mean())
 
     return eval_step

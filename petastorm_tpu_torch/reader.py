@@ -2,7 +2,8 @@
 
 Trimmed twin of ``make_reader`` / ``make_batch_reader`` / ``Reader`` /
 ``merge_resume_states`` in ``petastorm_tpu/reader.py``: list the row groups,
-select columns, filter the row groups through a row-group selector's stored
+keep those a ``piece_filter`` keeps, select columns, filter the row groups
+through a row-group selector's stored
 indexes, then a predicate (row groups of a partition key; never, while hive
 stores are not ported), shard round-robin, ventilate one item per (row group,
 shuffle-row-drop partition) in the seeded per-epoch order into a thread,
@@ -61,10 +62,9 @@ _NOT_YET_PORTED = {
     'chunk_cache': (None, 'remote filesystems'),
     'chunk_cache_size_limit': (None, 'remote filesystems'),
     'protocol_monitor': (None, 'protocol monitor'),
-    'serve': (None, 'DDP/mesh'),
-    'serve_weight': (1, 'DDP/mesh'),
-    'elastic': (None, 'DDP/mesh'),
-    'piece_filter': (None, 'DDP/mesh'),
+    'serve': (None, 'serve'),
+    'serve_weight': (1, 'serve'),
+    'elastic': (None, 'elastic'),
 }
 
 
@@ -184,7 +184,7 @@ def make_reader(dataset_url,
                 resume_state=None,
                 telemetry=None, autotune=None,
                 on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                **not_yet_ported):
+                piece_filter=None, **not_yet_ported):
     """Reader for datasets written by :func:`materialize_dataset`.
 
     :param schema_fields: field names / regex patterns / UnischemaFields to
@@ -261,6 +261,12 @@ def make_reader(dataset_url,
         ``ring_bytes``, ``results_timeout_s``, ``blob_threshold_bytes``,
         ...); the JAX ``make_reader`` has no such argument and always takes
         the pool's defaults
+    :param piece_filter: ``callable(RowGroupPiece) -> bool`` applied to the
+        piece list straight after it is listed, before the selector, the
+        predicate and the shard: it scopes the reader to a subset of row
+        groups identified by ``(path, row_group)``. Selector index sets and
+        version-2 resume cursors are then expressed in the filtered
+        enumeration
     """
     _refuse_not_yet_ported('make_reader', not_yet_ported)
     if output not in ('rows', 'columnar'):
@@ -288,7 +294,7 @@ def make_reader(dataset_url,
                   rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, resume_state=resume_state,
-                  telemetry=telemetry, autotune=autotune)
+                  telemetry=telemetry, autotune=autotune, piece_filter=piece_filter)
 
 
 def make_batch_reader(dataset_url,
@@ -306,7 +312,7 @@ def make_batch_reader(dataset_url,
                       resume_state=None,
                       telemetry=None, autotune=None,
                       on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                      **not_yet_ported):
+                      piece_filter=None, **not_yet_ported):
     """Columnar reader for ANY Parquet store: one namedtuple of numpy column
     arrays per row group, or per ``batch_size`` rows with ``batch_size``
     (the last batch of a pass shorter unless ``drop_last``). The columns are
@@ -328,7 +334,8 @@ def make_batch_reader(dataset_url,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions, predicate=predicate,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
-                  worker_class=ArrowBatchWorker, telemetry=telemetry, autotune=autotune)
+                  worker_class=ArrowBatchWorker, telemetry=telemetry, autotune=autotune,
+                  piece_filter=piece_filter)
 
 
 class Reader(object):
@@ -344,7 +351,8 @@ class Reader(object):
                  seed=None, shuffle_row_groups=True, shuffle_row_drop_partitions=1,
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=NullCache(), transform_spec=None, resume_state=None,
-                 worker_class=RowGroupDecoderWorker, telemetry=None, autotune=None):
+                 worker_class=RowGroupDecoderWorker, telemetry=None, autotune=None,
+                 piece_filter=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -368,9 +376,11 @@ class Reader(object):
         self.transformed_schema = (transform_schema(output_schema, transform_spec)
                                    if transform_spec is not None else output_schema)
 
-        # selector (its index sets refer to the unfiltered enumeration, so it
-        # runs first) -> predicate -> shard
+        # piece filter -> selector (its index sets refer to the enumeration
+        # before the predicate, so it runs next) -> predicate -> shard
         pieces = dataset_metadata.load_row_groups(dataset_url)
+        if piece_filter is not None:
+            pieces = [p for p in pieces if piece_filter(p)]
         if rowgroup_selector is not None:
             pieces = self._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector)
         pieces, worker_predicate = self._apply_predicate_to_pieces(pieces, predicate)

@@ -1,0 +1,268 @@
+"""Rank functions that the mesh tests and ``chip_smoke.py`` start with
+:func:`petastorm_tpu_torch.parallel.launch.spawn`. They live in the package,
+not in a test module, because a spawned rank re-imports its function's
+module, and a test module imports JAX.
+
+:func:`sharded_steps` is the sharded ResNet train step on a mesh of the
+world, fed either a fixed global batch (each rank takes its data
+coordinate's rows) or a store read through each rank's own reader shard,
+loader and ``prefetch_to_device`` onto the mesh's data sharding. It
+returns what the callers hold against one process stepping the global
+batch: losses, the gathered parameters and statistics, the head's local
+gradient, eval metrics, each step's batch and its digest, step seconds and
+the rank's normalize launches.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+
+import numpy as np
+import torch
+
+from petastorm_tpu_torch.models import BasicBlock, BottleneckBlock, ResNet
+from petastorm_tpu_torch.models.train import (create_train_state, gather_state, make_eval_step,
+                                              make_train_step, shard_train_state)
+from petastorm_tpu_torch.entry import dryrun_preprocess
+from petastorm_tpu_torch.ops import flip_with_mask
+from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
+from petastorm_tpu_torch.parallel import (data_sharding, make_mesh, process_local_batch_size,
+                                          reader_shard_for_process)
+
+BLOCKS = {'basic': BasicBlock, 'bottleneck': BottleneckBlock}
+
+
+def build_model(config, weights=None, seed=0):
+    """A float32 ResNet from ``config`` (``stage_sizes``, ``block``,
+    ``num_classes``, ``num_filters``), loaded with ``weights`` (a
+    ``state_dict`` of numpy arrays) or initialised from ``seed``."""
+    torch.manual_seed(seed)
+    model = ResNet(config['stage_sizes'], BLOCKS[config['block']],
+                   num_classes=config['num_classes'], num_filters=config['num_filters'],
+                   dtype=torch.float32)
+    if weights is not None:
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in weights.items()})
+    return model
+
+
+def flip_only(images, mask):
+    return flip_with_mask(images, mask)
+
+
+def digest(images, labels):
+    """A digest of one staged batch's rows, in order."""
+    h = hashlib.sha1(images.detach().cpu().numpy().tobytes())
+    h.update(labels.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_digest(state):
+    h = hashlib.sha1()
+    for name, value in sorted(state.items()):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(value).tobytes())
+    return h.hexdigest()
+
+
+def _sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _store_batches(spec, mesh, sharding):
+    """This rank's batches: its reader shard (the data coordinate), a
+    2-worker thread pool, the loader and ``prefetch_to_device`` onto the
+    data sharding."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+
+    cur_shard, shard_count = reader_shard_for_process(mesh)
+    local = process_local_batch_size(spec['global_batch'], mesh)
+    with make_reader(spec['url'], reader_pool_type='thread', workers_count=2, seed=0,
+                     output='columnar', num_epochs=None, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = TorchDataLoader(reader, batch_size=local,
+                                 shuffling_queue_capacity=4 * local, seed=0)
+        it = prefetch_to_device(loader, sharding, size=2)
+        try:
+            for _ in range(spec['steps']):
+                yield next(it)
+        finally:
+            it.close()
+
+
+def _fixed_batches(spec, sharding):
+    batch = len(spec['images']) // sharding.size
+    rows = slice(sharding.index * batch, (sharding.index + 1) * batch)
+    images = torch.from_numpy(np.ascontiguousarray(spec['images'][rows])).to(sharding.device)
+    labels = torch.from_numpy(np.ascontiguousarray(spec['labels'][rows])).to(sharding.device)
+    for _ in range(spec['steps']):
+        yield {'image': images, 'label': labels}
+
+
+def sharded_steps(rank, world, spec):
+    """``spec['steps']`` sharded train steps on a ``('data', 'model')``
+    mesh of ``spec['axis_shapes']`` over ``spec['device']``.
+
+    ``spec``: ``model`` (:func:`build_model`'s config), ``weights`` or
+    ``seed``, ``lr``, ``flip_seed`` (``None``: no preprocess; else the
+    step's preprocess seed, with ``preprocess`` ``'flip'`` or
+    ``'flip_normalize'``), ``record`` (the steps after which the gathered
+    state is kept), ``eval`` (an eval step after the last), ``tf32``,
+    ``cudnn`` (``False``: PyTorch's own convolutions on a card) and
+    either ``images``/``labels`` (a fixed global batch) or ``url``/
+    ``global_batch`` (read through the rank's own reader)."""
+    device = torch.device(spec['device'])
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = spec.get('tf32', False)
+        torch.backends.cudnn.allow_tf32 = spec.get('tf32', False)
+        torch.backends.cudnn.enabled = spec.get('cudnn', True)
+    mesh = make_mesh(('data', 'model'), spec['axis_shapes'], device=spec['device'])
+    sharding = data_sharding(mesh)
+    state = create_train_state(build_model(spec['model'], spec.get('weights'), spec.get('seed', 0)),
+                               device=sharding.device, learning_rate=spec.get('lr', 0.1))
+    state = shard_train_state(state, mesh)
+    preprocess = None
+    if spec.get('flip_seed') is not None:
+        preprocess = {'flip': flip_only,
+                      'flip_normalize': dryrun_preprocess}[spec.get('preprocess', 'flip')]
+    step = make_train_step(preprocess_fn=preprocess, preprocess_seed=spec.get('flip_seed') or 0)
+    batches = (_store_batches(spec, mesh, sharding) if 'url' in spec
+               else _fixed_batches(spec, sharding))
+    out = {'coord': (sharding.index, sharding.size), 'losses': [], 'accuracies': [],
+           'digests': [], 'batches': [], 'step_s': [], 'states': {}, 'state_digests': {},
+           'head_type': type(state.module.head).__name__,
+           'head_rows': tuple(state.module.head.weight.shape)}
+    for i, batch in enumerate(batches, 1):
+        images, labels = batch['image'], batch['label']
+        out['digests'].append(digest(images, labels))
+        if 'url' in spec:
+            out['batches'].append((images.to('cpu', copy=True).numpy(),
+                                   labels.to('cpu', copy=True).numpy()))
+        _sync(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, images, labels)
+        _sync(device)
+        out['step_s'].append(time.perf_counter() - t0)
+        out['losses'].append(metrics['loss'].item())
+        out['accuracies'].append(metrics['accuracy'].item())
+        if i == 1:
+            head = state.module.head
+            out['head_grad'] = head.weight.grad.detach().to('cpu', copy=True).numpy()
+            rows = getattr(head, 'rows', slice(0, head.weight.shape[0]))
+            out['head_grad_rows'] = (rows.start, rows.stop)
+        if i in spec.get('record', ()):
+            out['states'][i] = gather_state(state)
+            out['state_digests'][i] = state_digest(out['states'][i])
+        if spec.get('eval') and i == spec['steps']:
+            metrics = make_eval_step()(state, images, labels)
+            out['eval'] = {k: v.item() for k, v in metrics.items()}
+    out['launches'] = {'normalize': normalize_kernel.launches}
+    return out
+
+
+def pipeline_to_train_step(rank, world, url):
+    """The twin of the JAX package's ``test_pipeline_to_train_step`` on a
+    ``('data',)`` mesh of the world: the 100-row test store read on each
+    rank's shard with a transform to 16x16 float images, global batches of
+    16 through ``TorchDataLoader(to_device=sharding)``, one sharded step
+    per batch. Returns the steps taken and the last loss."""
+    from petastorm_tpu_torch import TransformSpec, make_reader
+    from petastorm_tpu_torch.torch import TorchDataLoader
+
+    mesh = make_mesh(('data',), device='cpu')
+    sharding = data_sharding(mesh)
+    cur_shard, shard_count = reader_shard_for_process(mesh)
+    spec = TransformSpec(to_sample,
+                         edit_fields=[('image', np.float32, (16, 16, 3), False),
+                                      ('label', np.int64, (), False)],
+                         removed_fields=['image_png'], selected_fields=['image', 'label'])
+    model = build_model({'stage_sizes': [1, 1], 'block': 'basic', 'num_classes': 4,
+                         'num_filters': 8})
+    state = shard_train_state(create_train_state(model, device='cpu'), mesh)
+    step = make_train_step()
+    steps, loss = 0, None
+    with make_reader(url, reader_pool_type='thread', workers_count=2,
+                     schema_fields=['id', 'image_png'], transform_spec=spec,
+                     shuffle_row_groups=True, seed=0, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = TorchDataLoader(reader, batch_size=process_local_batch_size(16, mesh),
+                                 to_device=sharding)
+        for batch in loader:
+            state, metrics = step(state, batch['image'], batch['label'])
+            steps += 1
+            loss = metrics['loss'].item()
+    return steps, loss
+
+
+def to_sample(row):
+    """The JAX test's transform: a 16x16 float crop of the PNG and
+    ``id % 4`` as the label."""
+    row['image'] = row['image_png'][:16, :16].astype(np.float32) / 255.0
+    row['label'] = np.int64(row['id'] % 4)
+    return row
+
+
+def several_sharded_runs(rank, world, specs, uneven_classes=None):
+    """:func:`sharded_steps` for each of ``specs`` in one world; with
+    ``uneven_classes``, also the error a column-parallel head of that width
+    raises on the last mesh's model group (``None`` when the group has one
+    rank or the width divides)."""
+    from torch import nn
+
+    from petastorm_tpu_torch.models.train import ColumnParallelHead
+    from petastorm_tpu_torch.parallel.mesh import axis_group
+
+    runs = [sharded_steps(rank, world, spec) for spec in specs]
+    uneven = None
+    if uneven_classes is not None:
+        group = axis_group(make_mesh(('data', 'model'), specs[-1]['axis_shapes'],
+                                     device=specs[-1]['device']), 'model')
+        try:
+            if group is not None:
+                ColumnParallelHead(nn.Linear(4, uneven_classes), group)
+        except ValueError as e:
+            uneven = str(e)
+    return runs, uneven
+
+
+def mesh_facts(rank, world, spec):
+    """The mesh helpers on a ``('data', 'model')`` mesh of the world: the
+    data sharding, the reader shard, the local batch size and its error,
+    ``make_global_batch`` of a batch that differs by rank (a numeric, a
+    string and a datetime column), three batches of the store through
+    ``TorchDataLoader(to_device=sharding)`` over a 2-worker thread pool
+    (their digests), then :func:`sharded_steps` over ``spec``."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.parallel import make_global_batch
+    from petastorm_tpu_torch.torch import TorchDataLoader
+
+    mesh = make_mesh(('data', 'model'), spec['axis_shapes'], device=spec['device'])
+    sharding = data_sharding(mesh)
+    facts = {'coord': (sharding.index, sharding.size),
+             'replicas': None if sharding.replica_group is None else
+             torch.distributed.get_world_size(sharding.replica_group),
+             'reader_shard': reader_shard_for_process(mesh),
+             'reader_shard_no_mesh': reader_shard_for_process(),
+             'local_batch': process_local_batch_size(spec['global_batch'], mesh)}
+    try:
+        process_local_batch_size(spec['global_batch'] + 1, mesh)
+    except ValueError as e:
+        facts['local_batch_error'] = str(e)
+    staged = make_global_batch({'x': np.arange(4, dtype=np.float32) + 100 * rank,
+                                's': np.array(['rank{}'.format(rank)] * 4, dtype=object),
+                                'ts': np.array(['2024-01-0{}'.format(rank + 1)] * 4,
+                                               dtype='datetime64[ns]')}, sharding)
+    facts['global_batch'] = {k: (type(v).__name__, np.asarray(v.cpu() if isinstance(
+        v, torch.Tensor) else v)) for k, v in staged.items()}
+    cur_shard, shard_count = facts['reader_shard']
+    with make_reader(spec['url'], reader_pool_type='thread', workers_count=2, seed=0,
+                     output='columnar', num_epochs=None, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = iter(TorchDataLoader(reader, batch_size=facts['local_batch'],
+                                      shuffling_queue_capacity=4 * facts['local_batch'],
+                                      seed=0, to_device=sharding))
+        facts['loader_digests'] = [digest(b['image'], b['label'])
+                                   for b in (next(loader) for _ in range(3))]
+    return facts, sharded_steps(rank, world, spec)

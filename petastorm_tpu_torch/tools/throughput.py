@@ -20,6 +20,7 @@ import torch
 from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.native import read_routes
+from petastorm_tpu_torch.parallel import DataSharding
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
 
@@ -40,7 +41,7 @@ def _sync(device):
 
 def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, steps=50,
                         warmup_steps=5, loader_kwargs=None, reader_kwargs=None, device=None,
-                        reader_factory=make_reader, telemetry=None):
+                        reader_factory=make_reader, telemetry=None, to_device=None):
     """Run ``step_fn(*batch_to_args(batch))`` on ``warmup_steps`` then
     ``steps`` batches; stall = time blocked in ``next()`` / wall time of the
     measured steps. On CUDA, ``extra['step_ms']`` holds each measured step's
@@ -63,8 +64,13 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     timers cover the whole run, warm-up included; None when telemetry is
     off), and ``extra['diagnostics']`` those diagnostics. The loader is
     stopped at the end, which writes its stall record into the flight
-    file."""
-    device = resolve_device(device)
+    file. ``to_device`` stages onto a
+    :class:`~petastorm_tpu_torch.parallel.DataSharding` instead of
+    ``device`` (the mesh path: the batch is this rank's rows)."""
+    if to_device is not None and device is not None:
+        raise ValueError('pass device or to_device, not both')
+    target = to_device if to_device is not None else resolve_device(device)
+    device = target.device if isinstance(target, DataSharding) else resolve_device(target)
     kwargs = {'num_epochs': None}
     if reader_factory is make_reader:
         kwargs['output'] = 'columnar'
@@ -76,7 +82,7 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     it = loader = None
     try:
         loader = TorchDataLoader(reader, batch_size=batch_size, **(loader_kwargs or {}))
-        it = prefetch_to_device(loader, device, size=2)
+        it = prefetch_to_device(loader, target, size=2)
         for _ in range(warmup_steps):
             step_fn(*batch_to_args(next(it)))
         _sync(device)

@@ -7,6 +7,15 @@ event recorded after its copies makes the consumer's stream wait for exactly
 that batch. So the copy of batch N+1 overlaps compute on batch N, and the
 consumer never reads a batch before it has landed.
 
+Staging onto a :class:`~petastorm_tpu_torch.parallel.DataSharding` (the
+twin of staging onto a ``NamedSharding``) puts this rank's rows on the
+sharding's device; when the sharding's replica group (the ranks of one
+``model`` group) has more than one rank, the group's first rank's batch is
+then broadcast over it, so every rank of the group trains on the same rows
+in the same order. ``prefetch_to_device`` stages on its thread and
+broadcasts on the consumer's, where the train step issues its own
+collectives: two threads must not interleave collectives on one group.
+
 Telemetry, as the JAX infeed's: each staging is an ``infeed`` stage, which
 times the host's part (the copy into pinned memory and the enqueue of the
 non-blocking copy; it adds no synchronisation). When the iterator is a
@@ -22,9 +31,11 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.device import resolve_device
+from petastorm_tpu_torch.parallel.mesh import DataSharding
 
 #: numpy dtype kinds that can live on the device; everything else (strings,
 #: objects, datetimes) stays host-side numpy
@@ -64,13 +75,49 @@ def _to_tensor(x, device):
     return host.to(device, non_blocking=True)
 
 
-def stage_batch(batch, device=None, stream=None):
-    """Move the numeric numpy arrays of a (possibly nested) batch dict onto
-    ``device`` (``None`` = CUDA). Other columns stay numpy. On CUDA the copies
-    are enqueued on ``stream`` (default: the current stream) and are
-    asynchronous: a consumer on another stream must wait for them."""
-    device = resolve_device(device)
+def _target_device(target):
+    """The device of a staging target: a device (``None`` = CUDA) or a
+    :class:`DataSharding`."""
+    return target.device if isinstance(target, DataSharding) else resolve_device(target)
 
+
+def _broadcast_replicas(staged, target):
+    """The replica group's first rank's batch, in the structure of
+    ``staged``: tensors by ``broadcast`` (a CPU tensor, which may share the
+    loader's numpy memory, is received into a copy), host-side columns by
+    ``broadcast_object_list``. ``staged`` itself unless ``target`` is a
+    :class:`DataSharding` with a replica group."""
+    group = target.replica_group if isinstance(target, DataSharding) else None
+    if group is None:
+        return staged
+    src = dist.get_global_rank(group, 0)
+    host = []
+
+    def receive(x):
+        if isinstance(x, dict):
+            return {k: receive(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            x = x if x.is_cuda else x.clone()
+            dist.broadcast(x, src=src, group=group)
+        else:
+            host.append(x)
+        return x
+
+    staged = receive(staged)
+    if not host:
+        return staged
+    dist.broadcast_object_list(host, src=src, group=group)
+    received = iter(host)
+
+    def swap(x):
+        if isinstance(x, dict):
+            return {k: swap(v) for k, v in x.items()}
+        return x if isinstance(x, torch.Tensor) else next(received)
+
+    return swap(staged)
+
+
+def _stage_local(batch, device, stream=None):
     def put(x):
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
@@ -86,6 +133,18 @@ def stage_batch(batch, device=None, stream=None):
         return put(batch)
 
 
+def stage_batch(batch, device=None, stream=None):
+    """Move the numeric numpy arrays of a (possibly nested) batch dict onto
+    ``device``: a device (``None`` = CUDA) or a
+    :class:`~petastorm_tpu_torch.parallel.DataSharding` (this rank's rows on
+    its device, then broadcast over its replica group). Other columns stay
+    numpy. On CUDA the copies are enqueued on ``stream`` (default: the
+    current stream) and are asynchronous: a consumer on another stream must
+    wait for them."""
+    staged = _stage_local(batch, _target_device(device), stream)
+    return _broadcast_replicas(staged, device)
+
+
 def _tensors(batch):
     if isinstance(batch, dict):
         for v in batch.values():
@@ -96,13 +155,16 @@ def _tensors(batch):
 
 def prefetch_to_device(iterator, device=None, size=2, background=True):
     """Yield batches from ``iterator`` staged onto ``device`` (``None`` =
-    CUDA), keeping ``size`` batches in flight ahead of the consumer.
+    CUDA, or a :class:`~petastorm_tpu_torch.parallel.DataSharding`), keeping
+    ``size`` batches in flight ahead of the consumer.
 
     ``background=True`` (default) pulls and stages on a dedicated thread;
     its errors are re-raised on the consumer thread. ``background=False``
-    refills synchronously on the consumer thread.
+    refills synchronously on the consumer thread. A sharding's replica
+    broadcast runs on the consumer thread, as each batch is handed over.
     """
-    device = resolve_device(device)
+    target = device
+    device = _target_device(target)
     if size < 1:
         raise ValueError('size must be >= 1')
     side = torch.cuda.Stream(device) if device.type == 'cuda' else None
@@ -111,7 +173,7 @@ def prefetch_to_device(iterator, device=None, size=2, background=True):
         # the loader's last_trace, read on the thread that just pulled the
         # batch: the infeed span joins that batch's tree
         with obs.use_trace(getattr(iterator, 'last_trace', None)):
-            staged = stage_batch(batch, device, stream=side)
+            staged = _stage_local(batch, device, stream=side)
         event = None
         if side is not None:
             event = torch.cuda.Event()
@@ -126,7 +188,7 @@ def prefetch_to_device(iterator, device=None, size=2, background=True):
                 # allocated on the side stream, used on the consumer's: the
                 # caching allocator must not recycle it before that use ends
                 t.record_stream(consumer)
-        return staged
+        return _broadcast_replicas(staged, target)
 
     if background:
         return _prefetch_background(iterator, stage, hand_over, size)

@@ -128,8 +128,10 @@ class TorchDataLoader(object):
         within-bucket shuffle's)
     :param drop_last: drop the ragged final batch (default True: static shapes)
     :param to_device: ``None`` -> numpy host batches; a device -> torch
-        tensors staged there (use :func:`prefetch_to_device` to overlap the
-        copy with compute)
+        tensors staged there; a
+        :class:`~petastorm_tpu_torch.parallel.DataSharding` -> this rank's
+        rows on its device, equal over its replica group (use
+        :func:`prefetch_to_device` to overlap the copy with compute)
     :param resume_state: a dict from :meth:`state_dict` (of either package):
         the rows buffered client-side at the checkpoint are restored, with
         the shuffling buffer's RNG state. Build the reader with its own

@@ -14,7 +14,7 @@ a ring message framed by either package reads the same in the other:
   precedes its item's completion).
 
 The serve plane's broadcast frame kinds are not ported yet (ROADMAP.md,
-"DDP/mesh").
+"serve").
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ when an item's last row is yielded), and :meth:`ConcurrentVentilator.state_dict`
 the unventilated tail of the current epoch replay first, then the remaining
 epochs continue from the saved RNG state. The states are the JAX package's
 plain dicts, so either package resumes the other's. The multi-tenant
-``FairShareVentilator`` is not ported yet (ROADMAP.md, "DDP/mesh").
+``FairShareVentilator`` is not ported yet (ROADMAP.md, "serve").
 
 Telemetry: each dispatch is a ``ventilate`` stage; a tagged item's dispatch
 runs inside :func:`~petastorm_tpu_torch.observability.mint_trace` keyed on

@@ -276,6 +276,12 @@ def test_process_pool_requeues_items_stranded_by_a_retire(store):
         for _ in range(2):
             assert pool.retire_worker_slot() < 3
         blocks.extend(it)
+        # a retired worker exits after its current item: the epoch can end
+        # before its process is gone
+        deadline = time.monotonic() + 15
+        while pool.workers_alive() > 1 and time.monotonic() < deadline:
+            pool._supervise(idle=True)
+            time.sleep(0.05)
         assert pool.workers_alive() == 1
         assert reader.diagnostics['worker_restarts'] == 0
     ids = _ids(blocks)

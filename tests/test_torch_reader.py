@@ -202,6 +202,10 @@ def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
         make_reader(jax_store, ngram=object())
     with pytest.raises(NotImplementedError, match='protocol monitor'):
         make_reader(jax_store, protocol_monitor=True)
+    with pytest.raises(NotImplementedError, match='"serve"'):
+        make_reader(jax_store, serve='localhost:1')
+    with pytest.raises(NotImplementedError, match='"elastic"'):
+        make_reader(jax_store, elastic=object())
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_reader(jax_store, no_such_argument=1)
     with pytest.raises(ValueError, match='requires cache_location'):

@@ -24,11 +24,13 @@ from petastorm_tpu.models.train import make_train_step as jax_make_train_step
 from petastorm_tpu.ops import normalize_images as jax_normalize_images
 from petastorm_tpu_torch import make_reader
 from petastorm_tpu_torch.codecs import RawTensorCodec, ScalarCodec
+from petastorm_tpu_torch.entry import dryrun_multichip, entry
 from petastorm_tpu_torch.etl import materialize_dataset
 from petastorm_tpu_torch.models import BottleneckBlock, ResNet
 from petastorm_tpu_torch.models.convert import flax_to_torch
 from petastorm_tpu_torch.models.train import create_train_state, make_train_step
 from petastorm_tpu_torch.ops import normalize_images
+from petastorm_tpu_torch.parallel import make_mesh
 from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -189,7 +191,10 @@ def test_port_imports_nothing_of_jax():
         '          "observability.report", "observability.critical_path",',
         '          "observability.exporters", "observability.history", "observability.blackbox",',
         '          "autotune", "autotune.controller", "sequence", "sequence.collate",',
-        '          "sequence.bucket", "sequence.packing"):',
+        '          "sequence.bucket", "sequence.packing",',
+        # the mesh slice's
+        '          "parallel", "parallel.mesh", "parallel.collectives", "parallel.launch",',
+        '          "entry", "test_util.dist_workers"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
@@ -213,6 +218,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         next(iter(prefetch_to_device(iter([]))))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pipeline_duty_cycle('file:///nonexistent', None, None)
+    # the mesh slice's entry points
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(1)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
