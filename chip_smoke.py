@@ -185,12 +185,48 @@ Phases, each printed as one JSON line:
    staged to the card and equal to its host collation, every real token
    delivered once, bucketing wasting less padding, two packed runs
    bit-exact, and each consumer's real tokens/s;
-14. ``flight_checks``: a child process runs ``raw_process`` (eager, 3 + 6
+14. ``ngram_checks``: ``examples/sequence``'s telemetry store (16384 rows
+   of AR(1) features, 64 wide, ``sensor_id = i % 8``, 256 rows per row
+   group, seed 0; a ``store`` line) in windows of 8 consecutive timestamps:
+   the columnar NGram assembly's windows/s on one core over the decoded row
+   groups, one epoch of windows through the thread pool and through the
+   process pool (one worker per core, shm) in windows/s, and the process
+   pool's windows equal to the thread pool's, every field, all 15936 of
+   them;
+15. the sequence paths, ``jax_sequence_example.py:39-80``'s flow on a
+   ``('data', 'seq')`` mesh of a world of one over NCCL:
+   ``make_reader(output='columnar', ngram=..., shuffle_row_groups=True,
+   seed=0, num_epochs=None)`` -> ``TorchDataLoader`` (batch 16) ->
+   ``prefetch_to_device`` onto the mesh's data sharding ->
+   ``stack_ngram_time_axis`` on the card -> the example's
+   ``SequenceTransformer`` (d_model 64, 4 heads, 2 layers, float32, labels
+   ``sensor_id[:, 0] % 8``) sharded onto the mesh, the plain step, 3 warm-up
+   and 10 measured steps, eager and graphed, one line each: ``seq_ring``
+   (ring attention) and ``seq_ulysses`` (Ulysses attention). Each checks
+   its first staged batch against the store (consecutive timestamps, the
+   features as written), its losses (finite, the first near log(8)), its
+   read routes (all three columns through the fused read) and stall stages;
+   then a ``graph_check`` (a fresh eager step on the graphed run's first
+   four batches: within 1e-5, and whether equal to the last bit), a
+   ``profile`` line per step kind (the device's idle share on a staged
+   batch) and a ``model_check`` (the trained model against a float32 CPU
+   copy, 1e-4);
+16. ``seq_checks``: four spawned ranks on the one card over gloo with CUDA
+   tensors, a ``(2, 2)`` ``('data', 'seq')`` mesh at ``bench_pod.py``'s
+   sequence shape (windows of 4, 64 features, batch 16, d_model 64, 2
+   layers): ring and Ulysses, causal and not, three steps each, every rank
+   reading its data coordinate's shard through a 2-worker thread pool and
+   staging its ``[B/2, T/2, F]`` slice onto the sequence sharding; against
+   one process with plain attention on the same global batches: the losses
+   and every parameter within 1e-4, and the ranks of each seq group on the
+   same labels. Gloo takes the ring's and Ulysses' exchanges through host
+   memory (NCCL refuses two ranks on one card);
+17. ``flight_checks``: a child process runs ``raw_process`` (eager, 3 + 6
    steps) with ``PSTPU_FLIGHT_DIR`` under ``.torch_build/``: its flight file
    and one per worker exist while it runs, and after its exit
    ``postmortem_report`` names every process, all exited cleanly, with the
    loader's closing stall record;
-15. ``mesh_checks``: four spawned ranks on the one card over gloo with CUDA
+18. ``mesh_checks``: four spawned ranks on the one card over gloo with CUDA
    tensors (NCCL refuses two ranks on one card), a ``(2, 2)``
    ``('data', 'model')`` mesh and the dry run's configuration (resnet18, 64
    filters, 16 classes, 32x32 uint8 images of a 64-row store, float32, TF32
@@ -205,19 +241,19 @@ Phases, each printed as one JSON line:
    the head's gradient after step 1 its slice on every rank, and the two
    ranks of each model group on identical batches; the spawn seconds and
    each rank's seconds per step;
-16. ``entry_checks``: ``petastorm_tpu_torch.entry.entry()``'s ResNet-50 bf16
+19. ``entry_checks``: ``petastorm_tpu_torch.entry.entry()``'s ResNet-50 bf16
    forward on the card (shape, dtype, finite values) and
-   ``dryrun_multichip(1)`` over NCCL (the dp/tp and process-pool legs; the
-   legs not yet ported named);
-17. profile: three more steps of the raw path under ``torch.profiler``, with
+   ``dryrun_multichip(1)`` over NCCL (the dp/tp, process-pool and sp legs;
+   the legs not yet ported named);
+20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
-18. model check: the trained model on the card (bf16) against a float32 copy
+21. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
-19. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
+22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, both steps, where a graph replay counts the
    launches it captured, and the spawned ranks' of ``mesh_checks`` and
-   ``entry_checks``, max error, its time, the plain version's time,
+   ``entry_checks``; the sequence paths normalize nothing), max error, its time, the plain version's time,
    the least time the card could take and what bounds it, and the time of
    the one PyTorch call that computes the same function,
    ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
@@ -1587,7 +1623,9 @@ def check_read_routes(path, counts):
     no fallback reason is counted); ``plain_batch`` the raw ``label`` column
     through the fused read with no schema (one column each) and the
     ``binary`` image column through Arrow (reason ``codec``: not a
-    fixed-width numeric column)."""
+    fixed-width numeric column); ``seq_ring`` and ``seq_ulysses`` all three
+    telemetry columns through the fused read (a window block is assembled
+    from the decoded row group, so none in place)."""
     def c(key):
         return counts.get(key, 0)
 
@@ -1613,6 +1651,10 @@ def check_read_routes(path, counts):
     elif path == 'plain_batch':
         ok = (fused > 0 and c('fused_columns_total') == fused and reasons == {'codec': fused}
               and fallback == fused and arrow == fused and not pagescan)
+    elif path in ('seq_ring', 'seq_ulysses'):
+        ok = (fused > 0 and c('fused_columns_total') == 3 * fused
+              and not (fallback or arrow or pagescan or reasons or
+                       c('fused_inplace_batches_total')))
     elif path == 'raw_process':
         ok = (fused > 0 and c('fused_inplace_batches_total') == fused
               and c('fused_columns_total') == 2 * fused
@@ -1663,6 +1705,8 @@ STALL_STAGES = {
     'raw_process': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
     'png_fixed_pred': ({'worker.fused_predicate'}, {'worker.decode', 'worker.read_io'}),
     'png_cached': (set(), {'worker.decode', 'worker.read_io', 'worker.fused_decode'}),
+    'seq_ring': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
+    'seq_ulysses': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
 }
 
 
@@ -2006,8 +2050,8 @@ def phase_mesh_checks(torch, url):
 
 def phase_entry_checks(torch):
     """``entry()``'s ResNet-50 bf16 forward on the card (its shape, dtype
-    and finite values) and ``dryrun_multichip(1)`` over NCCL. Returns the
-    dry run's normalize launches."""
+    and finite values) and ``dryrun_multichip(1)`` over NCCL (its dp/tp,
+    process-pool and sp legs). Returns the dry run's normalize launches."""
     from petastorm_tpu_torch.entry import dryrun_multichip, entry
 
     fn, args = entry(device=DEVICE_TYPE)
@@ -2025,7 +2069,8 @@ def phase_entry_checks(torch):
         raise AssertionError('entry(): {} {} finite={}'.format(tuple(out.shape), out.dtype,
                                                                finite))
     if not (math.isfinite(dry['loss']) and math.isfinite(dry['process_loss'])
-            and dry['legs_run'] == ['dp/tp', 'process pool']):
+            and math.isfinite(dry['seq_loss'])
+            and dry['legs_run'] == ['dp/tp', 'process pool', 'sp']):
         raise AssertionError('dryrun_multichip(1): {}'.format(dry))
     return dry['launches']['normalize']
 
@@ -2754,6 +2799,348 @@ def phase_flight_checks(raw_url, ring):
         raise AssertionError('post-mortem of the flight files: {}'.format(out))
 
 
+#: the sequence paths: ``examples/sequence``'s telemetry store
+#: (``generate_petastorm_sequence.py:13-33``: AR(1) features, ``sensor_id =
+#: i % 8``, 256 rows per row group, seed 0) and its training flow
+#: (``jax_sequence_example.py:39-80``: windows of 8, batch 16, 8 classes,
+#: the default model: d_model 64, 4 heads, 2 layers, float32), with enough
+#: rows that the measured steps do not repeat an epoch
+SEQ_ROWS = 16384
+SEQ_ROWS_PER_ROW_GROUP = 256
+SEQ_FEATURES = 64
+SEQ_WINDOW = 8
+SEQ_BATCH = 16
+SEQ_CLASSES = 8
+SEQ_SEED = 0
+#: the graphed sequence step against a fresh eager one on the same batches:
+#: float32 with TF32 off, the replay runs the eager step's kernels
+SEQ_GRAPH_TOL = 1e-5
+#: the trained sequence model on the card against a float32 CPU copy of it
+SEQ_MODEL_TOL = 1e-4
+#: seq_checks: four gloo ranks on a (2, 2) ('data', 'seq') mesh at
+#: bench_pod.py's sequence shape (windows of 4, 64 features, batch 16,
+#: d_model 64, 2 layers), three steps each, against one process
+SEQ_CHECK_RANKS = 4
+SEQ_CHECK_SHAPE = (2, 2)
+SEQ_CHECK_MODEL = {'num_classes': SEQ_CLASSES, 'seq_len': 4, 'feature_dim': SEQ_FEATURES,
+                   'd_model': 64, 'num_heads': 4, 'num_layers': 2}
+SEQ_CHECK_BATCH = 16
+SEQ_CHECK_STEPS = 3
+SEQ_CHECK_TOL = 1e-4
+
+
+def build_seq_store(url):
+    """The telemetry store, written by the port's ``materialize_dataset``:
+    ``timestamp`` (int64), ``features`` (float32 x 64, AR(1) drift plus
+    noise, the example's draws in its order) and ``sensor_id`` (int32,
+    ``i % 8``). Returns the features as written."""
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema('TelemetrySchema', [
+        UnischemaField('timestamp', np.int64, (), ScalarCodec(), False),
+        UnischemaField('features', np.float32, (SEQ_FEATURES,), NdarrayCodec(), False),
+        UnischemaField('sensor_id', np.int32, (), ScalarCodec(), False)])
+    rng = np.random.default_rng(SEQ_SEED)
+    features = np.empty((SEQ_ROWS, SEQ_FEATURES), np.float32)
+    state = rng.standard_normal(SEQ_FEATURES).astype(np.float32)
+    with materialize_dataset(url, schema, rows_per_row_group=SEQ_ROWS_PER_ROW_GROUP) as writer:
+        for i in range(SEQ_ROWS):
+            state = 0.9 * state + 0.1 * rng.standard_normal(SEQ_FEATURES).astype(np.float32)
+            features[i] = state + 0.05 * rng.standard_normal(SEQ_FEATURES).astype(np.float32)
+            writer.write({'timestamp': i, 'features': features[i], 'sensor_id': i % 8})
+    return features
+
+
+def seq_ngram(window):
+    """The example's NGram: ``timestamp``, ``features`` and ``sensor_id`` at
+    every step of the window, consecutive timestamps only."""
+    from petastorm_tpu_torch.ngram import NGram
+
+    return NGram({i: ['timestamp', 'features', 'sensor_id'] for i in range(window)},
+                 delta_threshold=1, timestamp_field='timestamp')
+
+
+def seq_args(batch):
+    """A staged nested window batch -> the step's ``(x, labels)`` and the
+    window's timestamps: ``stack_ngram_time_axis`` on the card, labels
+    ``sensor_id[:, 0] % 8``."""
+    from petastorm_tpu_torch.torch import stack_ngram_time_axis
+
+    stacked = stack_ngram_time_axis(batch)
+    return (stacked['features'], (stacked['sensor_id'][:, 0] % SEQ_CLASSES).long(),
+            stacked['timestamp'])
+
+
+def check_seq_batch(x, timestamps, features):
+    """A staged window batch holds the store's rows: consecutive timestamps
+    within each window and each step's features as written."""
+    ts = timestamps.cpu().numpy()
+    if tuple(x.shape) != (SEQ_BATCH, SEQ_WINDOW, SEQ_FEATURES) or x.device.type != DEVICE_TYPE:
+        raise AssertionError('staged windows: {} on {}'.format(tuple(x.shape), x.device))
+    if not (np.diff(ts, axis=1) == 1).all() or not np.array_equal(x.cpu().numpy(), features[ts]):
+        raise AssertionError('staged windows are not consecutive rows of the store')
+
+
+def new_seq_state(torch, mesh, context):
+    """A fresh example model from the seed on ``mesh``, sharded onto it."""
+    from petastorm_tpu_torch.models import make_sequence_transformer
+    from petastorm_tpu_torch.models.train import create_train_state, shard_train_state
+
+    torch.manual_seed(SEED)
+    model = make_sequence_transformer(SEQ_CLASSES, SEQ_WINDOW, SEQ_FEATURES, mesh=mesh,
+                                      context_parallelism=context)
+    return shard_train_state(create_train_state(model, device=DEVICE_TYPE), mesh)
+
+
+def run_seq_path(torch, name, url, features, mesh, context, graphed):
+    """One sequence path: a fresh model from the seed, the example's reader
+    (``make_reader(output='columnar', ngram=..., shuffle_row_groups=True,
+    seed=0, num_epochs=None)``, default pool), a loader of batch 16 staged
+    onto the mesh's data sharding, ``stack_ngram_time_axis`` on the card, 3
+    warm-up and 10 measured steps through ``pipeline_duty_cycle``. Returns
+    the state, the step, the first :data:`SAME_BATCHES` staged batches, the
+    result and the losses."""
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.models.train import make_train_step
+    from petastorm_tpu_torch.parallel import data_sharding
+    from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
+
+    state = new_seq_state(torch, mesh, context)
+    train_step = make_train_step(graphed=graphed)
+    losses, first_batches = [], []
+
+    def step_fn(x, labels, timestamps):
+        if not losses:
+            check_seq_batch(x, timestamps, features)
+        if len(first_batches) < SAME_BATCHES:
+            first_batches.append((x, labels))
+        _, metrics = train_step(state, x, labels)
+        losses.append(metrics['loss'])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    obs.get_registry().reset()
+    obs.get_ring().clear()
+    t0 = time.perf_counter()
+    result = pipeline_duty_cycle(
+        url, step_fn, seq_args, batch_size=SEQ_BATCH, steps=STEPS, warmup_steps=WARMUP_STEPS,
+        reader_kwargs={'ngram': seq_ngram(SEQ_WINDOW), 'output': 'columnar',
+                       'shuffle_row_groups': True, 'seed': SEQ_SEED},
+        loader_kwargs={'seed': SEQ_SEED}, telemetry='counters', to_device=data_sharding(mesh))
+    wall_s = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    stall = result.extra['stall']
+    emit({'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager',
+          'model': 'sequence_transformer', 'context_parallelism': context, 'dtype': 'float32',
+          'd_model': 64, 'num_heads': 4, 'num_layers': 2, 'window': SEQ_WINDOW,
+          'feature_dim': SEQ_FEATURES, 'num_classes': SEQ_CLASSES, 'batch_size': SEQ_BATCH,
+          'rows': SEQ_ROWS, 'mesh': [1, 1], 'warmup_steps': WARMUP_STEPS, 'steps': STEPS,
+          'examples_per_sec': result.samples_per_second,
+          'input_stall_fraction': result.input_stall_fraction,
+          'median_step_ms': result.extra['median_step_ms'], 'step_ms': result.extra['step_ms'],
+          'peak_memory_bytes': torch.cuda.max_memory_allocated(), 'losses': losses,
+          'read_routes': result.extra['read_routes'], 'pool': result.extra['pool'],
+          'stall': stall, 'wall_s': wall_s,
+          'stage_s': {k[len('stage_'):-2]: v
+                      for k, v in sorted(result.extra['diagnostics'].items())
+                      if k.startswith('stage_') and k.endswith('_s')}})
+    check_stall(name, stall)
+    if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError('{}: losses {}'.format(name, losses))
+    # a fresh model's logits are small: the first loss is close to log(classes)
+    if abs(losses[0] - math.log(SEQ_CLASSES)) > 1.0:
+        raise AssertionError('{}: first loss {} is far from log({})'.format(
+            name, losses[0], SEQ_CLASSES))
+    check_read_routes(name, result.extra['read_routes'])
+    return state, train_step, first_batches, result, losses
+
+
+def check_seq_graphed_losses(torch, name, mesh, context, graphed_losses, batches):
+    """A fresh eager state from the seed on the graphed run's first staged
+    batches: its losses against the graphed run's, which replays the eager
+    step's float32 kernels (within :data:`SEQ_GRAPH_TOL`; the line says
+    whether they are equal to the last bit)."""
+    from petastorm_tpu_torch.models.train import make_train_step
+
+    state, step = new_seq_state(torch, mesh, context), make_train_step()
+    eager = [float(step(state, x, labels)[1]['loss']) for x, labels in batches]
+    diffs = [abs(a - b) for a, b in zip(eager, graphed_losses)]
+    emit({'phase': 'graph_check', 'path': name, 'eager_losses': eager,
+          'graphed_losses': graphed_losses[:len(eager)], 'abs_diff': diffs,
+          'bit_equal': eager == graphed_losses[:len(eager)], 'tolerance': SEQ_GRAPH_TOL})
+    if max(diffs) > SEQ_GRAPH_TOL:
+        raise AssertionError('{}: the graphed step\'s losses {} are not the eager step\'s {} on '
+                             'the same batches'.format(name, graphed_losses[:len(eager)], eager))
+
+
+def check_seq_model(torch, name, model, x):
+    """The trained model on the card against a float32 copy of it on the
+    CPU, on one staged batch."""
+    import copy
+
+    model.eval()
+    with torch.no_grad():
+        card = model(x).cpu()
+        cpu = copy.deepcopy(model).cpu()(x.cpu())
+    model.train()
+    err = float((card - cpu).abs().max())
+    emit({'phase': 'model_check', 'path': name, 'max_abs_err': err,
+          'max_abs_logit': float(cpu.abs().max()), 'tolerance': SEQ_MODEL_TOL,
+          'finite': bool(torch.isfinite(card).all())})
+    if not err <= SEQ_MODEL_TOL:
+        raise AssertionError('{}: the model on the card is {} from float32 on the CPU'.format(
+            name, err))
+
+
+def phase_seq_paths(torch, url, features):
+    """``seq_ring`` and ``seq_ulysses``: the example's flow on a
+    ``('data', 'seq')`` mesh of a world of one over NCCL (created here,
+    destroyed at the end), each with the eager and the graphed step; then a
+    ``graph_check``, the device's idle share of each step kind (``profile``
+    lines on a staged batch) and a ``model_check`` per path."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(('data', 'seq'), device=DEVICE_TYPE)
+    try:
+        for context in ('ring', 'ulysses'):
+            name = 'seq_' + context
+            runs = {}
+            for graphed in (False, True):
+                runs['graphed' if graphed else 'eager'] = run_seq_path(
+                    torch, name, url, features, mesh, context, graphed)
+            check_seq_graphed_losses(torch, name, mesh, context, runs['graphed'][4],
+                                     runs['graphed'][2])
+            x, labels = runs['eager'][2][0]
+            for kind, (state, step, _, result, _) in runs.items():
+                _profile_step(torch, kind, state, step, x, labels,
+                              result.extra['median_step_ms'], path=name)
+            check_seq_model(torch, name, runs['eager'][0].module, x)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_seq_checks(torch, url):
+    """Four spawned ranks on the one card over gloo with CUDA tensors (NCCL
+    refuses two ranks on one card; the ring's and Ulysses' exchanges go
+    through the host on gloo), a ``(2, 2)`` ``('data', 'seq')`` mesh at
+    ``bench_pod.py``'s shape: ring and Ulysses, causal and not, three steps
+    each; each rank reads its data coordinate's shard of the telemetry
+    store's windows of 4 through a 2-worker thread pool, stages its
+    ``[B/2, T/2, F]`` slice onto the sequence sharding, and steps. This
+    process steps one model from the same seed with plain (causal: one-rank
+    ring) attention on the global batches the ranks trained on: the losses
+    and every parameter after step 3 within 1e-4, and the two ranks of each
+    seq group on the same labels."""
+    from petastorm_tpu_torch.models.train import create_train_state, gather_state, make_train_step
+    from petastorm_tpu_torch.parallel.launch import spawn
+    from petastorm_tpu_torch.test_util import dist_workers
+
+    runs = [(context, causal) for context in ('ring', 'ulysses') for causal in (False, True)]
+    specs = [{'device': DEVICE_TYPE, 'axis_shapes': SEQ_CHECK_SHAPE, 'model': SEQ_CHECK_MODEL,
+              'seed': SEED, 'context': context, 'causal': causal, 'url': url,
+              'ngram_fields': ('timestamp', 'features', 'sensor_id'),
+              'timestamp_field': 'timestamp', 'delta_threshold': 1, 'feature_field': 'features',
+              'label_field': 'sensor_id', 'reader_seed': SEQ_SEED,
+              'global_batch': SEQ_CHECK_BATCH, 'steps': SEQ_CHECK_STEPS,
+              'record': (SEQ_CHECK_STEPS,), 'shard': True} for context, causal in runs]
+    t0 = time.perf_counter()
+    ranks = spawn(dist_workers.several_sequence_runs, SEQ_CHECK_RANKS, (specs,), backend='gloo')
+    spawn_s = time.perf_counter() - t0
+    lines = []
+    for i, (context, causal) in enumerate(runs):
+        by_coord = {r[i]['coord'][:3:2]: r[i] for r in ranks}
+        same_labels = all(np.array_equal(by_coord[(d, 0)]['labels'][s],
+                                         by_coord[(d, 1)]['labels'][s])
+                          for d in range(2) for s in range(SEQ_CHECK_STEPS))
+        state = create_train_state(dist_workers.build_sequence_model(
+            SEQ_CHECK_MODEL, seed=SEED, causal=causal), device=DEVICE_TYPE)
+        step = make_train_step()
+        losses = []
+        for s in range(SEQ_CHECK_STEPS):
+            x = np.concatenate([np.concatenate([by_coord[(d, q)]['slices'][s] for q in range(2)],
+                                               axis=1) for d in range(2)])
+            y = np.concatenate([by_coord[(d, 0)]['labels'][s] for d in range(2)])
+            state, metrics = step(state, torch.from_numpy(x).to(DEVICE_TYPE),
+                                  torch.from_numpy(y).to(DEVICE_TYPE))
+            losses.append(metrics['loss'].item())
+        reference = gather_state(state)
+        loss_err = max(abs(a - b) for r in ranks for a, b in zip(r[i]['losses'], losses))
+        state_err = max(float(np.max(np.abs(r[i]['states'][SEQ_CHECK_STEPS][k] - reference[k])))
+                        for r in ranks for k in reference)
+        lines.append({'context': context, 'causal': causal, 'losses': ranks[0][i]['losses'],
+                      'single_process_losses': losses, 'max_loss_err': loss_err,
+                      'max_state_err': state_err, 'seq_groups_same_labels': same_labels,
+                      'step_s': [r[i]['step_s'] for r in ranks]})
+    emit({'phase': 'seq_checks', 'ranks': SEQ_CHECK_RANKS, 'mesh': list(SEQ_CHECK_SHAPE),
+          'backend': 'gloo', 'device': DEVICE_TYPE, 'model': SEQ_CHECK_MODEL,
+          'global_batch': SEQ_CHECK_BATCH, 'steps': SEQ_CHECK_STEPS, 'spawn_s': spawn_s,
+          'runs': lines, 'tolerance': SEQ_CHECK_TOL})
+    for line in lines:
+        if not (line['max_loss_err'] <= SEQ_CHECK_TOL and line['max_state_err'] <= SEQ_CHECK_TOL
+                and line['seq_groups_same_labels']
+                and all(math.isfinite(x) for x in line['losses'])):
+            raise AssertionError('seq_checks ({context}, causal={causal}): the sharded step is not '
+                                 'the single-process step'.format(**line))
+
+
+def _all_windows(url, **kwargs):
+    """Every window of one epoch of the telemetry store (windows of
+    :data:`SEQ_WINDOW`), as ``{field: [W, T, ...]}`` sorted by the first
+    timestamp, and the read's seconds."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.torch import stack_ngram_time_axis
+
+    t0 = time.perf_counter()
+    with make_reader(url, output='columnar', ngram=seq_ngram(SEQ_WINDOW), num_epochs=1,
+                     seed=SEQ_SEED, **kwargs) as reader:
+        blocks = [stack_ngram_time_axis(block) for block in reader]
+    seconds = time.perf_counter() - t0
+    windows = {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
+    order = np.argsort(windows['timestamp'][:, 0], kind='stable')
+    return {k: v[order] for k, v in windows.items()}, seconds
+
+
+def phase_ngram_checks(url, ring):
+    """The columnar NGram assembly (``form_ngram_columnar``) on one core
+    over the store's decoded row groups, in windows/s; one epoch of windows
+    through the thread pool and through the process pool (one worker per
+    core each, the process pool on the shm transport), in windows/s, read,
+    decode and assembly included; the process pool's windows equal the
+    thread pool's, every field, and are every window of the store."""
+    from petastorm_tpu_torch import make_reader
+
+    with make_reader(url, output='columnar', reader_pool_type='dummy', shuffle_row_groups=False,
+                     num_epochs=1) as reader:
+        blocks = [dict(b._asdict()) for b in reader]
+    ngram = seq_ngram(SEQ_WINDOW)
+    t0 = time.perf_counter()
+    assembled = sum(len(ngram.form_ngram_columnar(block)[0]['timestamp']) for block in blocks)
+    one_core_s = time.perf_counter() - t0
+    workers = max(1, os.cpu_count() or 1)
+    thread, thread_s = _all_windows(url, reader_pool_type='thread', workers_count=workers)
+    process, process_s = _all_windows(url, reader_pool_type='process', workers_count=workers,
+                                      pool_kwargs={'ring_bytes': ring, 'transport': 'shm'})
+    check_no_leftovers()
+    expected = SEQ_ROWS - (SEQ_WINDOW - 1) * (SEQ_ROWS // SEQ_ROWS_PER_ROW_GROUP)
+    equal = (sorted(thread) == sorted(process)
+             and all(np.array_equal(thread[k], process[k]) for k in thread))
+    n = len(thread['timestamp'])
+    emit({'phase': 'ngram_checks', 'rows': SEQ_ROWS, 'window': SEQ_WINDOW, 'windows': n,
+          'expected_windows': expected, 'workers': workers,
+          'one_core_windows_per_s': assembled / one_core_s,
+          'thread_pool_windows_per_s': n / thread_s, 'thread_pool_s': thread_s,
+          'process_pool_windows_per_s': len(process['timestamp']) / process_s,
+          'process_pool_s': process_s, 'process_equal_thread': equal})
+    if not (equal and n == expected == assembled):
+        raise AssertionError('ngram_checks: {} windows from the thread pool, {} assembled, {} '
+                             'expected; process pool equal: {}'.format(n, assembled, expected,
+                                                                       equal))
+
+
 def phase_profile(torch, runs, images, labels):
     """For the raw path's eager and graphed step, each on its own state:
     three more train steps on one staged batch under ``torch.profiler``, the
@@ -2765,7 +3152,7 @@ def phase_profile(torch, runs, images, labels):
                       result.extra['median_step_ms'])
 
 
-def _profile_step(torch, kind, state, train_step, images, labels, step_ms):
+def _profile_step(torch, kind, state, train_step, images, labels, step_ms, path='raw'):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2804,7 +3191,8 @@ def _profile_step(torch, kind, state, train_step, images, labels, step_ms):
             end = stop
     busy_ms = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({'phase': 'profile', 'step': kind, 'steps': steps, 'device_busy_ms_per_step': busy_ms,
+    emit({'phase': 'profile', 'path': path, 'step': kind, 'steps': steps,
+          'device_busy_ms_per_step': busy_ms,
           'median_step_ms': step_ms, 'staged_step_ms': staged_ms,
           'median_staged_step_ms': statistics.median(staged_ms),
           # no device activity in the trace means the profiler saw none
@@ -2973,6 +3361,14 @@ def main():
                                             dict(process, zero_copy=True)))
         total.update(phase_autotune_checks(torch, urls['raw'], ring))
         phase_collate_checks(torch, work_dir)
+        seq_url = 'file://' + os.path.join(work_dir, 'seq')
+        t0 = time.perf_counter()
+        seq_features = build_seq_store(seq_url)
+        emit({'phase': 'store', 'store': 'seq', 'rows': SEQ_ROWS,
+              'bytes': _dir_bytes(seq_url[len('file://'):]), 'build_s': time.perf_counter() - t0})
+        phase_ngram_checks(seq_url, ring)
+        phase_seq_paths(torch, seq_url, seq_features)
+        phase_seq_checks(torch, seq_url)
         phase_flight_checks(urls['raw'], ring)
         from petastorm_tpu_torch.entry import dryrun_store
         mesh_url = 'file://' + os.path.join(work_dir, 'mesh')

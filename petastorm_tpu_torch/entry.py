@@ -8,14 +8,18 @@ the dp/tp leg of the JAX dry run as a pod host runs it: materialize a store
 shard -> shuffling loader -> ``prefetch_to_device`` onto the mesh's data
 sharding -> three sharded train steps (dp over ``data``, the classifier
 head tensor-parallel over ``model``) with ``random_flip`` and ``normalize``
-inside; then one batch through the process pool. The JAX dry run's
-sequence-, expert- and pipeline-parallel legs are not ported yet and are
-named, never reported as run.
+inside; then one batch through the process pool; then the sequence-parallel
+(sp) leg on a ``('data', 'seq')`` mesh: each rank's columnar NGram windows
+of a sequence store -> ``stack_ngram_time_axis`` -> its ``[B/data, T/seq,
+F]`` slice -> one ring-attention transformer train step. The JAX dry run's
+expert- and pipeline-parallel legs are not ported yet and are named, never
+reported as run.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import shutil
 import tempfile
 
@@ -25,11 +29,10 @@ import torch
 from petastorm_tpu_torch.device import resolve_device
 
 #: the legs of the JAX dry run this one runs
-LEGS_RUN = ('dp/tp', 'process pool')
+LEGS_RUN = ('dp/tp', 'process pool', 'sp')
 
 #: the legs it does not run yet, with the ROADMAP.md item that ports each
-LEGS_NOT_PORTED = {'sp': 'long context', 'ep': 'Expert parallelism',
-                   'pp': 'Pipeline parallelism'}
+LEGS_NOT_PORTED = {'ep': 'Expert parallelism', 'pp': 'Pipeline parallelism'}
 
 
 def entry(device=None):
@@ -69,6 +72,64 @@ def dryrun_store(url, rows):
                           'label': int(rng.integers(0, 16))})
 
 
+def dryrun_seq_store(url, n_ranks):
+    """Write the sp leg's store at ``url``: int64 timestamps ``ts`` and
+    seeded 8-dim float32 features ``f``, ``max(256, 32 x n_ranks)`` rows,
+    32 per row group (``__graft_entry__.py``'s sequence store)."""
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    rng = np.random.default_rng(1)
+    schema = Unischema('DrySeq', [
+        UnischemaField('ts', np.int64, (), ScalarCodec(), False),
+        UnischemaField('f', np.float32, (8,), NdarrayCodec(), False),
+    ])
+    with materialize_dataset(url, schema, rows_per_row_group=32) as writer:
+        for i in range(max(256, 32 * n_ranks)):
+            writer.write({'ts': i, 'f': rng.standard_normal(8).astype(np.float32)})
+
+
+def _dryrun_sequence_parallel(world, device_type, url):
+    """The sp leg on one rank: a ``('data', 'seq')`` mesh of the world, this
+    rank's reader shard of columnar NGram windows (a 1-worker thread pool),
+    ``stack_ngram_time_axis``, the features staged onto the sequence
+    sharding and the labels (``ts[:, 0] % 4``) onto the data sharding, one
+    train step of a one-layer ring-attention transformer (d_model 16, two
+    heads). Returns the mesh and the loss."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.models.train import (create_train_state, make_train_step,
+                                                  shard_train_state)
+    from petastorm_tpu_torch.models.transformer import make_sequence_transformer
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.parallel import (data_sharding, make_global_batch, make_mesh,
+                                              process_local_batch_size, reader_shard_for_process)
+    from petastorm_tpu_torch.torch import TorchDataLoader, stack_ngram_time_axis
+
+    seq_axis = 2 if world % 2 == 0 else 1
+    mesh = make_mesh(('data', 'seq'), axis_shapes=(-1, seq_axis), device=device_type)
+    window = 2 * seq_axis  # T divisible by the seq axis
+    batch = 2 * (world // seq_axis)
+    ngram = NGram(fields={o: ['ts', 'f'] for o in range(window)}, delta_threshold=window,
+                  timestamp_field='ts')
+    torch.manual_seed(2)
+    model = make_sequence_transformer(num_classes=4, seq_len=window, feature_dim=8, mesh=mesh,
+                                      d_model=16, num_heads=2, num_layers=1,
+                                      context_parallelism='ring')
+    rows = data_sharding(mesh)
+    state = shard_train_state(create_train_state(model, device=rows.device), mesh)
+    cur_shard, shard_count = reader_shard_for_process(mesh)
+    with make_reader(url, output='columnar', ngram=ngram, reader_pool_type='thread',
+                     workers_count=1, seed=1, num_epochs=None, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = TorchDataLoader(reader, batch_size=process_local_batch_size(batch, mesh))
+        windows = stack_ngram_time_axis(next(iter(loader)))
+    x = make_global_batch({'f': windows['f']}, data_sharding(mesh, seq_axis='seq'))['f']
+    y = make_global_batch({'y': windows['ts'][:, 0] % 4}, rows)['y']
+    state, metrics = make_train_step()(state, x, y)
+    return (world // seq_axis, seq_axis), metrics['loss'].item()
+
+
 def _model_axis(n_ranks):
     return 2 if n_ranks % 2 == 0 and n_ranks >= 4 else 1
 
@@ -80,7 +141,7 @@ def dryrun_preprocess(images, mask):
     return normalize_images(flip_with_mask(images, mask), 127.5, 127.5, out_dtype=torch.float32)
 
 
-def _dryrun_rank(rank, world, device_type, url):
+def _dryrun_rank(rank, world, device_type, url, seq_url):
     """One rank of the dry run (started by :func:`dryrun_multichip`)."""
     from petastorm_tpu_torch import make_reader
     from petastorm_tpu_torch.models import resnet18
@@ -130,8 +191,12 @@ def _dryrun_rank(rank, world, device_type, url):
                                and head.weight.shape[0] == 16 // model_axis):
         raise RuntimeError('the head is not sharded on the model axis: {} {}'.format(
             type(head).__name__, tuple(head.weight.shape)))
+    seq_mesh, seq_loss = _dryrun_sequence_parallel(world, device_type, seq_url)
+    if not math.isfinite(seq_loss):
+        raise RuntimeError('non-finite loss in the sp leg of the dry run: {}'.format(seq_loss))
     return {'mesh': (world // model_axis, model_axis), 'batch': batch, 'loss': loss,
             'process_loss': process_loss, 'head_rows': head.weight.shape[0],
+            'seq_mesh': seq_mesh, 'seq_loss': seq_loss,
             'launches': {'normalize': normalize_kernel.launches}}
 
 
@@ -140,7 +205,8 @@ def dryrun_multichip(n_devices, device=None):
     CUDA (``device=None``; raises when CUDA or the cards are missing), gloo
     with ``device='cpu'``. Prints and returns what ran: the mesh, the global
     batch, the losses, rank 0's normalize launches, the legs run and the
-    legs not yet ported."""
+    legs not yet ported. The sp leg's mesh and loss are ``seq_mesh`` and
+    ``seq_loss``."""
     from petastorm_tpu_torch.parallel.launch import spawn
 
     device = resolve_device(device)
@@ -150,17 +216,20 @@ def dryrun_multichip(n_devices, device=None):
                            '{} CUDA devices'.format(n_devices, torch.cuda.device_count()))
     store = tempfile.mkdtemp(prefix='pstpu_torch_dryrun_')
     try:
-        url = 'file://' + store
+        url, seq_url = 'file://' + os.path.join(store, 'images'), 'file://' + os.path.join(
+            store, 'seq')
         dryrun_store(url, 8 * (n_devices // _model_axis(n_devices)))
-        result = spawn(_dryrun_rank, n_devices, (device.type, url), backend=backend,
-                       threads=1 if backend == 'gloo' else None)[0]
+        dryrun_seq_store(seq_url, n_devices)
+        result = spawn(_dryrun_rank, n_devices, (device.type, url, seq_url), backend=backend,
+                       threads=1 if backend == 'gloo' else None, work_dir=store)[0]
     finally:
         shutil.rmtree(store, ignore_errors=True)
     result.update(legs_run=list(LEGS_RUN), legs_not_ported=dict(LEGS_NOT_PORTED))
-    print('dryrun_multichip OK: mesh=({}x{}), batch={}, loss={:.4f}, process_loss={:.4f}; '
-          'legs run: {}; not yet ported: {}'.format(
+    print('dryrun_multichip OK: mesh=({}x{}), batch={}, loss={:.4f}, process_loss={:.4f}, '
+          'seq_mesh=({}x{}), seq_loss={:.4f}; legs run: {}; not yet ported: {}'.format(
               result['mesh'][0], result['mesh'][1], result['batch'], result['loss'],
-              result['process_loss'], ', '.join(LEGS_RUN),
+              result['process_loss'], result['seq_mesh'][0], result['seq_mesh'][1],
+              result['seq_loss'], ', '.join(LEGS_RUN),
               ', '.join('{} (ROADMAP.md, "{}")'.format(k, v) for k, v in LEGS_NOT_PORTED.items())))
     return result
 

@@ -1,4 +1,7 @@
-"""Models (twin of ``petastorm_tpu.models``): the ResNet family and its train step."""
+"""Models (twin of ``petastorm_tpu.models``): the ResNet family, the sequence
+transformer and their train step."""
 
 from petastorm_tpu_torch.models.resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                                                resnet18, resnet50, resnet101, resnet152)
+from petastorm_tpu_torch.models.transformer import (SequenceTransformer,  # noqa: F401
+                                                    make_sequence_transformer)

@@ -5,6 +5,11 @@ nested dicts of numpy arrays (``jax.device_get`` of a flax tree) and returns a
 ``state_dict`` for the matching :mod:`petastorm_tpu_torch.models` module:
 conv kernels HWIO -> OIHW, dense kernels transposed, batch-norm
 scale/bias/mean/var renamed one to one.
+
+``flax_sequence_to_torch(params)`` does the same for the flax
+``SequenceTransformer``'s ``params``: ``block{i}`` becomes ``blocks.{i}``,
+each ``LayerNorm_0`` the module's ``norm`` (``scale`` its ``weight``), dense
+kernels are transposed and ``pos_embed`` is kept as it is.
 """
 
 from __future__ import annotations
@@ -35,4 +40,21 @@ def flax_to_torch(variables):
                 value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
             key = '.'.join(path[:-1] + (name,))
             state[key] = torch.from_numpy(np.array(value, dtype=np.float32, order='C'))
+    return state
+
+
+def flax_sequence_to_torch(params):
+    """flax ``SequenceTransformer`` ``params`` (numpy leaves) -> the
+    ``state_dict`` of :class:`~petastorm_tpu_torch.models.transformer.SequenceTransformer`."""
+    state = OrderedDict()
+    for path, value in _flatten(params):
+        *modules, name = path
+        modules = ['norm' if m == 'LayerNorm_0' else
+                   'blocks.' + m[len('block'):] if m.startswith('block') else m for m in modules]
+        if name == 'kernel':
+            name, value = 'weight', value.T
+        elif name == 'scale':
+            name = 'weight'
+        state['.'.join(modules + [name])] = torch.from_numpy(
+            np.array(value, dtype=np.float32, order='C'))
     return state

@@ -23,6 +23,14 @@ takes its statistics over the data group, the head is column-parallel
 the sharded step computes what one process stepping the global batch
 computes: global batch statistics, global mean loss and metrics, the flip
 mask of the global batch.
+
+On a ``('data', 'seq')`` mesh the sequence model
+(:mod:`petastorm_tpu_torch.models.transformer`) runs on each rank's time
+slice. Every parameter before its time pool then gets a partial gradient
+on each rank of the ``seq`` group, which XLA's SPMD sums and the step here
+sums over the group (one all-reduce after the backward); the head after
+the pool is replicated over the group and keeps its gradient. DDP then
+averages both over the data group, as for the ResNet.
 """
 
 from __future__ import annotations
@@ -62,8 +70,8 @@ _COUNTED_KERNELS = (normalize_kernel,)
 class TrainState(object):
     """The model, its optimizer and the step counter; after
     :func:`shard_train_state`, also the mesh, this rank's
-    :class:`~petastorm_tpu_torch.parallel.DataSharding` of the batch and the
-    data group (``None`` when it has one rank)."""
+    :class:`~petastorm_tpu_torch.parallel.DataSharding` of the batch, the
+    data group and the seq group (each ``None`` when it has one rank)."""
 
     def __init__(self, model, optimizer):
         self.model = model
@@ -72,6 +80,7 @@ class TrainState(object):
         self.mesh = None
         self.sharding = None
         self.data_group = None
+        self.seq_group = None
 
     @property
     def module(self):
@@ -107,11 +116,14 @@ def step_flip_mask(preprocess_seed, step, batch, device):
     return flip_mask(batch, generator)
 
 
-def _flip_mask(state, preprocess_seed, images):
+def _flip_mask(state, preprocess_fn, preprocess_seed, images):
     """This rank's rows of the global batch's flip mask: the mask is drawn
     for ``batch x data size`` rows on every rank, and each takes its data
     coordinate's, so the sharded step flips what one process stepping the
-    global batch flips."""
+    global batch flips. None for a step with no preprocess (the JAX step's
+    plain form draws nothing)."""
+    if preprocess_fn is None:
+        return None
     batch, sharding = images.shape[0], state.sharding
     if sharding is None or sharding.size == 1:
         return step_flip_mask(preprocess_seed, state.step, batch, images.device)
@@ -179,17 +191,25 @@ def shard_train_state(state, mesh):
     """Shard ``state`` onto ``mesh``, in place, and return it: every
     :class:`~petastorm_tpu_torch.models.resnet.BatchNorm` synchronises over
     the ``data`` group; with a ``model`` axis of more than one rank the
-    ``head`` becomes a :class:`ColumnParallelHead`; with a ``data`` axis of
-    more than one rank the model is wrapped in ``DistributedDataParallel``
-    over the data group (built on a side stream on a card, buffers not
-    broadcast: the synchronised statistics are equal). SGD is rebuilt over
-    the sharded parameters with its hyperparameters and momentum; the step
-    counter stays."""
+    ``head`` becomes a :class:`ColumnParallelHead`; with a ``seq`` axis of
+    more than one rank the step sums the gradients of the model's
+    ``sequence_parameters()`` over the seq group (the model must be built on
+    the mesh, ``make_sequence_transformer(mesh=mesh)``); with a ``data``
+    axis of more than one rank the model is wrapped in
+    ``DistributedDataParallel`` over the data group (built on a side stream
+    on a card, buffers not broadcast: the synchronised statistics are
+    equal). SGD is rebuilt over the sharded parameters with its
+    hyperparameters and momentum; the step counter stays."""
     if state.mesh is not None:
         raise ValueError('the train state is already sharded')
     sharding = data_sharding(mesh)
     data_group, model_group = axis_group(mesh, 'data'), axis_group(mesh, 'model')
+    seq_group = axis_group(mesh, 'seq')
     model = state.module
+    if seq_group is not None and getattr(model, 'seq_group', None) is not seq_group:
+        raise ValueError('the mesh has a seq axis of {} ranks, and the model was not built on it: '
+                         'build it with make_sequence_transformer(mesh=mesh)'.format(
+                             dist.get_world_size(seq_group)))
     momentum = {name: state.optimizer.state.get(p, {}).get('momentum_buffer')
                 for name, p in model.named_parameters()}
     for module in model.modules():
@@ -221,6 +241,7 @@ def shard_train_state(state, mesh):
             optimizer.state[p]['momentum_buffer'] = momentum[name].clone()
     state.model, state.optimizer = wrapped, optimizer
     state.mesh, state.sharding, state.data_group = mesh, sharding, data_group
+    state.seq_group = seq_group
     return state
 
 
@@ -241,9 +262,22 @@ def gather_state(state):
     return out
 
 
+def _sum_sequence_grads(state):
+    """Sum the gradients of the model's parameters before its time pool over
+    the seq group, in one all-reduce: each rank's covers its time slice."""
+    grads = [p.grad for p in state.module.sequence_parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=state.seq_group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def _forward_backward(state, preprocess_fn, images, labels, mask):
     """Preprocess, forward, loss and backward, with the gradients written
-    into (or, where they exist, added to) ``.grad``."""
+    into (or, where they exist, added to) ``.grad`` and, on a seq group,
+    summed over it."""
     model = state.model
     model.train()
     if preprocess_fn is not None:
@@ -251,6 +285,8 @@ def _forward_backward(state, preprocess_fn, images, labels, mask):
     logits = model(images)
     loss = cross_entropy_loss(logits, labels)
     loss.backward()
+    if state.seq_group is not None:
+        _sum_sequence_grads(state)
     accuracy = (logits.detach().argmax(-1) == labels).float().mean()
     return loss.detach(), accuracy
 
@@ -263,7 +299,9 @@ def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
     host ships compact uint8 batches. ``flip_mask`` is the ``(B,)`` boolean
     mask of :func:`step_flip_mask` for ``(preprocess_seed, state.step)``,
     drawn before the step runs: augmentation varies per step, is
-    reproducible, and the same in the eager and the graphed step.
+    reproducible, and the same in the eager and the graphed step. With no
+    ``preprocess_fn`` the step is the JAX step's plain form (the sequence
+    model's): forward, loss, backward, SGD, and no mask is drawn.
 
     ``graphed=True`` returns a :class:`GraphedTrainStep` (CUDA only): the
     step captured in one CUDA graph after :data:`GRAPH_WARMUP_STEPS` eager
@@ -272,7 +310,7 @@ def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
         return GraphedTrainStep(preprocess_fn, preprocess_seed)
 
     def train_step(state, images, labels):
-        mask = _flip_mask(state, preprocess_seed, images)
+        mask = _flip_mask(state, preprocess_fn, preprocess_seed, images)
         state.optimizer.zero_grad(set_to_none=True)
         loss, accuracy = _forward_backward(state, preprocess_fn, images, labels, mask)
         state.optimizer.step()
@@ -294,7 +332,8 @@ class GraphedTrainStep(object):
     allocates new ones per batch).
 
     - The flip mask is drawn outside the graph (a generator reseed cannot be
-      captured) and copied into a static buffer that the captured flip reads.
+      captured) and copied into a static buffer that the captured flip reads;
+      a step with no preprocess has none.
     - SGD creates its momentum buffers at the first step, so capture comes
       after the warm-up.
     - The gradients are set to ``None`` just before capture: the captured
@@ -363,7 +402,7 @@ class GraphedTrainStep(object):
     def __call__(self, state, images, labels):
         self._check_inputs(images, labels)
         warmup = self._check_state(state)
-        mask = _flip_mask(state, self._preprocess_seed, images)
+        mask = _flip_mask(state, self._preprocess_fn, self._preprocess_seed, images)
         if self._graph is None and self._calls < warmup:
             metrics = self._eager_on_side_stream(state, images, labels, mask)
         else:
@@ -372,7 +411,8 @@ class GraphedTrainStep(object):
             static_images, static_labels, static_mask, loss, accuracy = self._static
             static_images.copy_(images)
             static_labels.copy_(labels)
-            static_mask.copy_(mask)
+            if mask is not None:
+                static_mask.copy_(mask)
             self._graph.replay()
             for module, count in zip(_COUNTED_KERNELS, self._captured_launches):
                 module.launches += count
@@ -394,16 +434,19 @@ class GraphedTrainStep(object):
             metrics = _global_means(state, loss, accuracy)
         current.wait_stream(self._side)
         for t in (images, labels, mask):
-            t.record_stream(self._side)
+            if t is not None:
+                t.record_stream(self._side)
         return metrics
 
     def _capture(self, state, images, labels, mask):
         static_images = torch.empty_like(images)
         static_labels = torch.empty_like(labels)
-        static_mask = torch.empty_like(mask)
         static_images.copy_(images)
         static_labels.copy_(labels)
-        static_mask.copy_(mask)
+        static_mask = None
+        if mask is not None:
+            static_mask = torch.empty_like(mask)
+            static_mask.copy_(mask)
         state.optimizer.zero_grad(set_to_none=True)
         before = [module.launches for module in _COUNTED_KERNELS]
         graph = torch.cuda.CUDAGraph()

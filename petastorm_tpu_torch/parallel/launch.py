@@ -6,9 +6,10 @@ starts ``n`` processes (the ``spawn`` start method, so each re-imports
 test nor JAX), joins them into one ``torch.distributed`` world through a
 ``file://`` store in a fresh temporary directory (no TCP port to race for),
 calls ``fn(rank, n, *args)`` in each and returns the ``n`` results in rank
-order. An exception in any rank ends the others and is raised here with
-the rank's traceback; a world that does not finish within ``timeout_s`` is
-killed.
+order. ``work_dir`` puts that directory (the store and the ranks' result
+files) under a directory of the caller's, a test's ``tmp_path``. An
+exception in any rank ends the others and is raised here with the rank's
+traceback; a world that does not finish within ``timeout_s`` is killed.
 """
 
 from __future__ import annotations
@@ -47,15 +48,16 @@ def _rank_main(rank, world, backend, work_dir, fn, args, threads):
         pickle.dump(result, f)
 
 
-def spawn(fn, nprocs, args=(), backend='gloo', timeout_s=600, threads=None):
+def spawn(fn, nprocs, args=(), backend='gloo', timeout_s=600, threads=None, work_dir=None):
     """Run ``fn(rank, nprocs, *args)`` in ``nprocs`` spawned ranks of one
     world over ``backend`` (``'gloo'``, or ``'nccl'`` with one card per
     rank); return their results in rank order. ``threads`` sets each rank's
-    intra-op thread count."""
+    intra-op thread count; the world's store lives in a fresh directory
+    under ``work_dir`` (default: the system's temporary directory)."""
     if backend == 'nccl' and torch.cuda.device_count() < nprocs:
         raise RuntimeError('{} NCCL ranks need {} CUDA devices; this host has {}'.format(
             nprocs, nprocs, torch.cuda.device_count()))
-    work_dir = tempfile.mkdtemp(prefix='pstpu_world_')
+    work_dir = tempfile.mkdtemp(prefix='pstpu_world_', dir=work_dir)
     try:
         context = torch.multiprocessing.start_processes(
             _rank_main, args=(nprocs, backend, work_dir, fn, tuple(args), threads),

@@ -7,14 +7,19 @@ and the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the
 same axis names and the same axis-shape rules.
 
 One thing differs by construction. In JAX one *host* reads one reader shard
-and feeds all its devices, so the devices of one ``model`` group see the
-same rows. With one process per card every rank reads, so the ranks of one
-``model`` group must read the same shard (:func:`reader_shard_for_process`
-gives the *data* coordinate, not the rank) and train on the same rows in
-the same order: a thread pool of several workers delivers them in another
-order in each process, so staging onto a :class:`DataSharding` whose
-replica group (the ranks outside the batch axes) has more than one rank
-broadcasts the group's first rank's batch over it.
+and feeds all its devices, so the devices of one ``model`` (or ``seq``)
+group see the same rows. With one process per card every rank reads, so the
+ranks of one ``model`` or ``seq`` group must read the same shard
+(:func:`reader_shard_for_process` gives the *data* coordinate, not the rank)
+and train on the same rows in the same order: a thread pool of several
+workers delivers them in another order in each process, so staging onto a
+:class:`DataSharding` whose replica group (the ranks outside the batch axes)
+has more than one rank broadcasts the group's first rank's batch over it.
+
+A sequence sharding (``data_sharding(mesh, seq_axis='seq')``, the twin of
+``NamedSharding(mesh, P('data', 'seq', None))``) then keeps this rank's
+slice of axis 1, the time axis: each rank of a ``('data', 'seq')`` mesh
+holds ``[B/data, T/seq, ...]``.
 """
 
 from __future__ import annotations
@@ -139,21 +144,33 @@ class DataSharding(object):
     ``index``/``size`` are this rank's data coordinate over ``batch_axes``
     (a tuple multiplies) and their size; ``device`` is this rank's device;
     ``replica_group`` is the group of the ranks that hold the same rows (the
-    mesh axis outside ``batch_axes``), ``None`` when it has one rank."""
+    mesh axis outside ``batch_axes``), ``None`` when it has one rank.
+    ``seq_index``/``seq_size`` are this rank's coordinate on the sequence
+    axis and its size (0 and 1 without one): staging keeps slice
+    ``seq_index`` of ``seq_size`` equal slices of axis 1."""
     mesh: object
     batch_axes: tuple
     device: torch.device
     index: int
     size: int
     replica_group: object = None
+    seq_index: int = 0
+    seq_size: int = 1
 
 
-def data_sharding(mesh, batch_axes='data'):
+def data_sharding(mesh, batch_axes='data', seq_axis=None):
     """The :class:`DataSharding` that splits the leading (batch) dimension
-    over ``batch_axes`` (an axis name or a tuple of them)."""
+    over ``batch_axes`` (an axis name or a tuple of them) and, with
+    ``seq_axis``, axis 1 (time) over that mesh axis."""
     if isinstance(batch_axes, str):
         batch_axes = (batch_axes,)
     batch_axes = tuple(batch_axes)
+    seq = {}
+    if seq_axis is not None:
+        if seq_axis in batch_axes:
+            raise ValueError('seq_axis {!r} is one of batch_axes {}'.format(seq_axis, batch_axes))
+        seq_size = axis_size(mesh, seq_axis)  # raises for an axis the mesh lacks
+        seq = {'seq_index': mesh.get_local_rank(seq_axis), 'seq_size': seq_size}
     index, size = _coordinate(mesh, batch_axes)
     replicas = [a for a in mesh.mesh_dim_names
                 if a not in batch_axes and axis_size(mesh, a) > 1]
@@ -164,26 +181,30 @@ def data_sharding(mesh, batch_axes='data'):
     device = (torch.device('cuda', torch.cuda.current_device()) if mesh.device_type == 'cuda'
               else torch.device(mesh.device_type))
     return DataSharding(mesh, batch_axes, device, index, size,
-                        mesh.get_group(replicas[0]) if replicas else None)
+                        mesh.get_group(replicas[0]) if replicas else None, **seq)
+
+
+#: mesh axes whose ranks hold the same rows: one reader shard for the group
+_SAME_ROWS_AXES = ('model', 'seq')
 
 
 def reader_shard_for_process(mesh=None):
     """``(cur_shard, shard_count)`` for this rank's reader. With no mesh, or
-    a mesh without a ``model`` axis, that is ``(rank, world_size)``; with a
-    ``model`` axis it is the coordinate over the other axes, so the ranks of
-    one model group read the same shard (as one JAX host feeds its
-    devices)."""
-    if mesh is None or 'model' not in mesh.mesh_dim_names:
+    a mesh without a ``model`` or ``seq`` axis, that is
+    ``(rank, world_size)``; with one it is the coordinate over the other
+    axes, so the ranks of one model or seq group read the same shard (as one
+    JAX host feeds its devices)."""
+    if mesh is None or not set(_SAME_ROWS_AXES) & set(mesh.mesh_dim_names):
         if not dist.is_initialized():
             return 0, 1
         return dist.get_rank(), dist.get_world_size()
-    return _coordinate(mesh, [a for a in mesh.mesh_dim_names if a != 'model'])
+    return _coordinate(mesh, [a for a in mesh.mesh_dim_names if a not in _SAME_ROWS_AXES])
 
 
 def process_local_batch_size(global_batch_size, mesh=None):
     """Rows this rank's loader must produce per global batch: the global
-    batch over the data size (the world size without a mesh or ``model``
-    axis)."""
+    batch over the data size (the world size without a mesh or a ``model``
+    or ``seq`` axis)."""
     size = reader_shard_for_process(mesh)[1]
     if global_batch_size % size:
         raise ValueError('global_batch_size {} not divisible by the data size {}'.format(
@@ -193,7 +214,8 @@ def process_local_batch_size(global_batch_size, mesh=None):
 
 def make_global_batch(local_batch, sharding):
     """dict of this rank's numpy arrays -> dict of tensors on
-    ``sharding.device``, equal on every rank of the replica group.
-    Non-numeric columns (strings, objects, datetimes) stay numpy."""
+    ``sharding.device``, equal on every rank of the replica group (and, on
+    a sequence sharding, this rank's slice of axis 1). Non-numeric columns
+    (strings, objects, datetimes) stay numpy."""
     from petastorm_tpu_torch.torch.infeed import stage_batch
     return stage_batch(local_batch, sharding)

@@ -10,8 +10,9 @@ shuffle-row-drop partition) in the seeded per-epoch order into a thread,
 process or dummy pool, and deliver rows, column blocks or fixed-size batches,
 optionally through a local-disk cache of decoded blocks. The workers filter
 rows by the predicate. ``make_reader`` decodes a petastorm store through its
-Unischema's codecs; ``make_batch_reader`` reads any Parquet store as raw
-columns, its schema inferred when the store has none.
+Unischema's codecs, and with ``ngram=`` delivers windows of consecutive rows
+(:class:`~petastorm_tpu_torch.ngram.NGram`); ``make_batch_reader`` reads any
+Parquet store as raw columns, its schema inferred when the store has none.
 
 For a given seed the item order is the JAX package's, and so is the read
 position a reader checkpoints (:meth:`Reader.state_dict`, ``resume_state=``):
@@ -43,7 +44,8 @@ from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
 from petastorm_tpu_torch.fs import FilesystemResolver
 from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
 from petastorm_tpu_torch.rebatch import RebatchingResultsQueueReader
-from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker, RowResultsQueueReader
+from petastorm_tpu_torch.row_worker import (NgramBlockResultsQueueReader, RowGroupDecoderWorker,
+                                            RowResultsQueueReader)
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.serializers import NumpyBlockSerializer
 from petastorm_tpu_torch.workers import (ConcurrentVentilator, DummyPool, ErrorPolicy,
@@ -55,9 +57,8 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 
 #: arguments of the JAX reader factories not ported yet:
 #: name -> (JAX default, ROADMAP item that ports it); make_batch_reader has
-#: every one but ngram
+#: every one
 _NOT_YET_PORTED = {
-    'ngram': (None, 'long context'),
     'storage_retry_policy': (None, 'remote filesystems'),
     'chunk_cache': (None, 'remote filesystems'),
     'chunk_cache_size_limit': (None, 'remote filesystems'),
@@ -72,7 +73,7 @@ def _refuse_not_yet_ported(factory, not_yet_ported):
     """Raise for an argument of the JAX ``factory`` that is not ported yet
     and was given a non-default value, and for one the JAX factory lacks."""
     for name, value in not_yet_ported.items():
-        if name not in _NOT_YET_PORTED or (factory == 'make_batch_reader' and name == 'ngram'):
+        if name not in _NOT_YET_PORTED:
             raise TypeError('{}() got an unexpected keyword argument {!r}'.format(factory, name))
         default, item = _NOT_YET_PORTED[name]
         if value != default:
@@ -179,7 +180,7 @@ def make_reader(dataset_url,
                 cur_shard=None, shard_count=None,
                 cache_type='null', cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None,
-                transform_spec=None,
+                transform_spec=None, ngram=None,
                 output='rows', batch_size=None, drop_last=False,
                 resume_state=None,
                 telemetry=None, autotune=None,
@@ -213,6 +214,14 @@ def make_reader(dataset_url,
         bounded by ``cache_size_limit`` bytes; ``cache_row_size_estimate``
         only warns when the bound holds few entries
     :param transform_spec: :class:`TransformSpec` run on the workers
+    :param ngram: an :class:`~petastorm_tpu_torch.ngram.NGram`: deliver
+        windows of consecutive rows (by its timestamp field, within a row
+        group) instead of rows. It replaces ``schema_fields``: the reader
+        reads the fields its timesteps name. Row output yields one dict
+        ``offset -> namedtuple`` per window; columnar output one nested
+        block ``offset -> {field: [W, ...]}`` per row group, its windows
+        assembled with no Python per row. Not with ``batch_size``, nor with
+        ``timestamp_overlap=False`` and ``shuffle_row_drop_partitions > 1``
     :param output: ``'rows'`` yields one schema namedtuple per row;
         ``'columnar'`` yields one namedtuple of column arrays per row group
         (the hot path :class:`TorchDataLoader` slices batches from)
@@ -274,8 +283,22 @@ def make_reader(dataset_url,
     if output == 'rows' and batch_size is not None:
         raise ValueError("batch_size requires output='columnar' (row output is one row "
                          'per iteration; batch with TorchDataLoader instead)')
-    results_reader = _columnar_results_reader_factory(output, batch_size, drop_last,
-                                                      RowResultsQueueReader)
+    columnar_ngram = output == 'columnar' and ngram is not None
+    if columnar_ngram:
+        if batch_size is not None:
+            raise ValueError('batch_size rebatching is not supported with ngram (window '
+                             'blocks are nested); batch with TorchDataLoader instead')
+        if drop_last:
+            raise ValueError('drop_last requires batch_size (without rebatching there is '
+                             'no "last short batch" to drop)')
+        def results_reader(out_schema):
+            return NgramBlockResultsQueueReader(out_schema, ngram)
+    else:
+        def rows_reader(out_schema):
+            return RowResultsQueueReader(out_schema, ngram)
+
+        results_reader = _columnar_results_reader_factory(output, batch_size, drop_last,
+                                                          rows_reader)
     # the pool is built, not started, before any IO: a bad policy or pool
     # type fails first
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
@@ -294,7 +317,8 @@ def make_reader(dataset_url,
                   rowgroup_selector=rowgroup_selector, num_epochs=num_epochs,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, resume_state=resume_state,
-                  telemetry=telemetry, autotune=autotune, piece_filter=piece_filter)
+                  telemetry=telemetry, autotune=autotune, piece_filter=piece_filter,
+                  ngram=ngram, columnar_ngram=columnar_ngram)
 
 
 def make_batch_reader(dataset_url,
@@ -341,9 +365,6 @@ def make_batch_reader(dataset_url,
 class Reader(object):
     """Orchestrates piece listing, sharding, the ventilator and the pool."""
 
-    #: NGram windows are not ported (the long-context item); the loader
-    #: reads this attribute
-    ngram = None
     #: the feedback controller when ``autotune`` is on
     autotuner = None
 
@@ -352,7 +373,7 @@ class Reader(object):
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=NullCache(), transform_spec=None, resume_state=None,
                  worker_class=RowGroupDecoderWorker, telemetry=None, autotune=None,
-                 piece_filter=None):
+                 piece_filter=None, ngram=None, columnar_ngram=False):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -360,6 +381,10 @@ class Reader(object):
                 cur_shard, shard_count))
         if shuffle_row_drop_partitions < 1:
             raise ValueError('shuffle_row_drop_partitions must be >= 1')
+        if ngram is not None and not ngram.timestamp_overlap and shuffle_row_drop_partitions > 1:
+            raise NotImplementedError(
+                'shuffle_row_drop_partitions > 1 with timestamp_overlap=False would duplicate '
+                'rows across partition-boundary windows (reference reader.py:372 refuses too)')
         # the requested level, process-wide (None keeps it); the effective
         # config rides the workers' setup args into spawned processes
         self._telemetry_config = obs.configure(telemetry)
@@ -369,9 +394,19 @@ class Reader(object):
         #: the decoded-block cache (``stats()`` counts its hits and misses)
         self.cache = cache
         resolver = FilesystemResolver(dataset_url)
-        output_schema = (schema.create_schema_view(schema_fields)
-                         if schema_fields is not None else schema)
+        if ngram is not None:
+            # the NGram names the fields it reads: schema_fields is not used
+            ngram.resolve_regex_field_names(schema)
+            needed = [n for n in ngram.get_field_names_at_all_timesteps() if n in schema.fields]
+            output_schema = schema.create_schema_view([schema.fields[n] for n in needed])
+        elif schema_fields is not None:
+            output_schema = schema.create_schema_view(schema_fields)
+        else:
+            output_schema = schema
         self.output_schema = output_schema
+        #: the :class:`~petastorm_tpu_torch.ngram.NGram` of a windowed read
+        #: (the loader reads it), else None
+        self.ngram = ngram
         self.transform_spec = transform_spec
         self.transformed_schema = (transform_schema(output_schema, transform_spec)
                                    if transform_spec is not None else output_schema)
@@ -428,6 +463,8 @@ class Reader(object):
                     'output_schema': output_schema,
                     'transform_spec': transform_spec,
                     'transformed_schema': self.transformed_schema,
+                    'ngram': ngram,
+                    'columnar_ngram': columnar_ngram,
                     'telemetry': self._telemetry_config},
                    ventilator=self._ventilator)
         # the autotuner starts after the pool, so its first window sees a

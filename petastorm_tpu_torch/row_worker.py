@@ -26,12 +26,21 @@ divided items bypass the cache and the in-place publish; an item that keeps
 no row publishes nothing.
 
 In a process pool on the shm transport the publish function offers
-``reserve_block``: with no transform, no cache, no predicate and no
-partition (the JAX package's gate; NGram windows are not ported), the whole
-row group is then decoded by the fused native call straight into the ring
-slot the consumer maps, page-scan columns included, and published with a
-header write (:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not
-ported yet: NGram windows and the serve plane's fused blob publish.
+``reserve_block``: with no transform, no cache, no predicate, no partition
+and no NGram (the JAX package's gate), the whole row group is then decoded
+by the fused native call straight into the ring slot the consumer maps,
+page-scan columns included, and published with a header write
+(:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not ported yet: the
+serve plane's fused blob publish.
+
+With an NGram (``args['ngram']``) the worker reads the fields every
+timestep needs and publishes windows instead of the block: one nested
+``{offset: {field: [W, ...]}}`` block from
+:meth:`~petastorm_tpu_torch.ngram.NGram.form_ngram_columnar` for a columnar
+reader (``args['columnar_ngram']``), else the list of window dicts of
+:meth:`~petastorm_tpu_torch.ngram.NGram.form_ngram`. A row group with no
+window publishes nothing. A shuffle-row-drop partition then spills over by
+``length - 1`` rows, so no window at a partition boundary is lost.
 
 Telemetry, as the JAX worker: a ``read`` stage around each Arrow/page-scan
 read (the fused call is its own ``fused_decode``/``fused_predicate`` stage,
@@ -46,14 +55,14 @@ from __future__ import annotations
 
 import hashlib
 import logging
-from collections import OrderedDict
+from collections import OrderedDict, deque
 
 import numpy as np
 
 from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.cache import NullCache
-from petastorm_tpu_torch.columnar import (block_num_rows, block_to_rows, column_cells,
-                                          rows_to_block, stack_cells, take_block)
+from petastorm_tpu_torch.columnar import (BlockResultsReaderBase, block_num_rows, block_to_rows,
+                                          column_cells, rows_to_block, stack_cells, take_block)
 from petastorm_tpu_torch.native import count_route, open_parquet
 from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.workers.worker_base import WorkerBase
@@ -83,8 +92,7 @@ def select_row_drop_indices(num_rows, partition_spec, ngram=None):
 
     ``partition_spec`` is ``(partition_index, num_partitions)``. With an NGram,
     each partition spills over by ``length - 1`` rows so windows spanning the
-    partition boundary are not lost (kept for the long-context item, which
-    ports NGram windows).
+    partition boundary are not lost.
     """
     if partition_spec is None:
         return np.arange(num_rows)
@@ -100,7 +108,7 @@ def select_row_drop_indices(num_rows, partition_spec, ngram=None):
 class RowGroupDecoderWorker(WorkerBase):
     """``args``: dataset_path, pieces, schema (full stored schema),
     output_schema (post column selection, pre transform), transform_spec,
-    transformed_schema, filesystem, cache."""
+    transformed_schema, filesystem, cache, ngram, columnar_ngram."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
@@ -122,11 +130,17 @@ class RowGroupDecoderWorker(WorkerBase):
     def process(self, piece_index, worker_predicate=None, shuffle_row_drop_partition=None):
         args = self.args
         piece = args['pieces'][piece_index]
-        names = list(args['output_schema'].fields)
+        out_schema = args['output_schema']
+        ngram = args.get('ngram')
+        if ngram is not None:
+            names = [n for n in ngram.get_field_names_at_all_timesteps() if n in out_schema.fields]
+        else:
+            names = list(out_schema.fields)
         transform = args['transform_spec']
         cache = args['cache']
         if worker_predicate is None and shuffle_row_drop_partition is None:
-            if (transform is None and isinstance(cache, NullCache)
+            # windows are assembled from the block: no in-place publish
+            if (transform is None and ngram is None and isinstance(cache, NullCache)
                     and self._publish_fused_inplace(piece, names)):
                 # the batch was decoded into the ring slot the consumer maps
                 return
@@ -145,9 +159,25 @@ class RowGroupDecoderWorker(WorkerBase):
             return
         if transform is not None:
             block = self._apply_transform(block, transform)
-        if block and block_num_rows(block):
-            obs.count('worker_rows_decoded_total', block_num_rows(block))
-            self.publish(block)
+        if not block or not block_num_rows(block):
+            return
+        if ngram is not None:
+            self._publish_windows(ngram, block)
+            return
+        obs.count('worker_rows_decoded_total', block_num_rows(block))
+        self.publish(block)
+
+    def _publish_windows(self, ngram, block):
+        """Publish the row group's windows: one nested block for a columnar
+        reader, else the list of window dicts; nothing when none qualifies."""
+        if self.args.get('columnar_ngram'):
+            windows = ngram.form_ngram_columnar(block)
+            if windows is not None:
+                self.publish(windows)
+            return
+        windows = ngram.form_ngram(block_to_rows(block), self.args['transformed_schema'])
+        if windows:
+            self.publish(windows)
 
     def _fused_columns(self, piece, names):
         """``{name: decoded column}`` of the columns the fused native read
@@ -236,7 +266,8 @@ class RowGroupDecoderWorker(WorkerBase):
     def _load_block(self, piece, names, shuffle_row_drop_partition=None):
         indices = None
         if shuffle_row_drop_partition is not None:
-            indices = select_row_drop_indices(self._num_rows(piece), shuffle_row_drop_partition)
+            indices = select_row_drop_indices(self._num_rows(piece), shuffle_row_drop_partition,
+                                              self.args.get('ngram'))
         # a row subset needs Arrow's take; the whole row group serves fused
         # columns first and Arrow only the rest
         pre = self._fused_columns(piece, names) if indices is None else {}
@@ -347,7 +378,8 @@ class RowGroupDecoderWorker(WorkerBase):
             raise ValueError('Predicate fields {} are not in the dataset schema'.format(unknown))
         pf = self._parquet_file(piece.path)
         num_rows = self._num_rows(piece)
-        drop_indices = select_row_drop_indices(num_rows, shuffle_row_drop_partition)
+        drop_indices = select_row_drop_indices(num_rows, shuffle_row_drop_partition,
+                                               self.args.get('ngram'))
         fast = self._fused_predicate_block(pf, piece, names, predicate_fields, predicate,
                                            drop_indices if shuffle_row_drop_partition else None)
         if fast is not None:
@@ -385,23 +417,43 @@ class RowGroupDecoderWorker(WorkerBase):
         return rows_to_block(rows) if rows else None
 
 
+class NgramBlockResultsQueueReader(BlockResultsReaderBase):
+    """Consumer side of ``make_reader(output='columnar', ngram=...)``: one
+    nested window block per published item, a plain dict
+    ``offset -> {field: [W, ...]}`` (namedtuples cannot key on integer
+    offsets, so there is no conversion). W varies per row group, as any
+    columnar block's length does."""
+
+    def __init__(self, schema, ngram):
+        super().__init__(schema)
+        self._ngram = ngram
+
+
 class RowResultsQueueReader(object):
     """Consumer side of ``make_reader(output='rows')``: slices schema
     namedtuples out of published column blocks, one row per ``read_next``.
+    An NGram reader receives lists of window dicts instead and yields one
+    window (``offset -> namedtuple`` of that timestep's fields) per call.
 
-    Checkpoints: the block being sliced remembers the seq of the item it came
-    from, and ``delivered_callback(seq)`` fires when its last row is yielded,
-    so a reader's state never counts a partly yielded row group as read."""
+    Checkpoints: the block being sliced (or each buffered window list)
+    remembers the seq of the item it came from, and ``delivered_callback(seq)``
+    fires when its last row is yielded, so a reader's state never counts a
+    partly yielded row group as read."""
 
     batched_output = False
 
-    def __init__(self, schema):
-        self._namedtuple = schema.namedtuple
+    def __init__(self, schema, ngram=None):
+        self._schema = schema
+        self._ngram = ngram
+        self._namedtuple = schema.namedtuple if ngram is None else None
         self._field_order = list(schema.fields)
         self._cols = None
         self._n = 0
         self._i = 0
         self._seq = None
+        # the NGram path: buffered windows and [seq, windows left] per list
+        self._windows = deque()
+        self._spans = deque()
         self.delivered_callback = None
 
     def on_item_done(self, seq):
@@ -412,6 +464,8 @@ class RowResultsQueueReader(object):
             self.delivered_callback(seq)
 
     def read_next(self, pool):
+        if self._ngram is not None:
+            return self._read_next_window(pool)
         while self._cols is None:
             block = pool.get_results()  # raises EmptyResultError at the end
             n = block_num_rows(block)
@@ -426,3 +480,17 @@ class RowResultsQueueReader(object):
             if self._seq is not None and self.delivered_callback is not None:
                 self.delivered_callback(self._seq)
         return row
+
+    def _read_next_window(self, pool):
+        while not self._windows:
+            windows = pool.get_results()
+            self._windows.extend(windows)
+            self._spans.append([getattr(pool, 'last_result_seq', None), len(windows)])
+        window = self._windows.popleft()
+        span = self._spans[0]
+        span[1] -= 1
+        if span[1] == 0:
+            self._spans.popleft()
+            if span[0] is not None and self.delivered_callback is not None:
+                self.delivered_callback(span[0])
+        return self._ngram.make_namedtuple(self._schema, window)

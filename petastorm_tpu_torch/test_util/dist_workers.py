@@ -11,6 +11,11 @@ returns what the callers hold against one process stepping the global
 batch: losses, the gathered parameters and statistics, the head's local
 gradient, eval metrics, each step's batch and its digest, step seconds and
 the rank's normalize launches.
+
+:func:`attention_cases` runs the ring and Ulysses attention ops on a
+``('data', 'seq')`` mesh, and :func:`sequence_steps` the sequence
+transformer's sharded train step, fed fixed batches or the columnar NGram
+windows of a store.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ from petastorm_tpu_torch.models.train import (create_train_state, gather_state, 
 from petastorm_tpu_torch.entry import dryrun_preprocess
 from petastorm_tpu_torch.ops import flip_with_mask
 from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
-from petastorm_tpu_torch.parallel import (data_sharding, make_mesh, process_local_batch_size,
-                                          reader_shard_for_process)
+from petastorm_tpu_torch.parallel import (data_sharding, make_global_batch, make_mesh,
+                                          process_local_batch_size, reader_shard_for_process)
 
 BLOCKS = {'basic': BasicBlock, 'bottleneck': BottleneckBlock}
 
@@ -266,3 +271,194 @@ def mesh_facts(rank, world, spec):
         facts['loader_digests'] = [digest(b['image'], b['label'])
                                    for b in (next(loader) for _ in range(3))]
     return facts, sharded_steps(rank, world, spec)
+
+
+# -- the long-context path: attention ops and the sequence train step --------
+
+def attention_cases(rank, world, cases, device='cpu'):
+    """Each case on a ``('data', 'seq')`` mesh of ``case['mesh']``: the
+    global output of ``make_ring_attention``/``make_ulysses_attention``
+    (``case['kind']``, ``causal``, ``kv_chunk``) on the global q, k, v;
+    with ``case['cot']``, the gradients of ``sum(out * cot)`` with respect
+    to q, k and v through the sharded op on this rank's shards, gathered.
+    A case of kind ``'errors'`` returns the messages of the indivisible-heads
+    refusals (3 heads on the mesh's seq axis)."""
+    from petastorm_tpu_torch.models.transformer import make_sequence_transformer
+    from petastorm_tpu_torch.ops.ring_attention import (gather_global, make_ring_attention,
+                                                        make_sharded_ring_attention, shard_global)
+    from petastorm_tpu_torch.ops.ulysses_attention import (make_sharded_ulysses_attention,
+                                                           make_ulysses_attention,
+                                                           ulysses_attention)
+    from petastorm_tpu_torch.parallel.mesh import axis_group
+
+    results = []
+    for case in cases:
+        mesh = make_mesh(('data', 'seq'), case['mesh'], device=device)
+        if case['kind'] == 'errors':
+            x = torch.zeros(1, 3, 4 * case['mesh'][1], 4, device=device)
+            errors = {}
+            for name, call in (
+                    ('make_ulysses_attention', lambda: make_ulysses_attention(mesh)(x, x, x)),
+                    ('ulysses_attention', lambda: ulysses_attention(
+                        x, x, x, axis_group(mesh, 'seq'))),
+                    ('make_sequence_transformer', lambda: make_sequence_transformer(
+                        6, 4 * case['mesh'][1], 8, mesh=mesh, num_heads=6,
+                        context_parallelism='ulysses'))):
+                try:
+                    call()
+                except ValueError as e:
+                    errors[name] = str(e)
+            results.append(errors)
+            continue
+        kwargs = {'causal': case.get('causal', False)}
+        if case['kind'] == 'ring':
+            make, make_sharded = make_ring_attention, make_sharded_ring_attention
+        else:
+            make, make_sharded = make_ulysses_attention, make_sharded_ulysses_attention
+            kwargs['kv_chunk'] = case.get('kv_chunk')
+        q, k, v = (torch.from_numpy(case[n]).to(device) for n in 'qkv')
+        out = make(mesh, seq_axis='seq', batch_axis='data', **kwargs)(q, k, v)
+        result = {'out': out.cpu().numpy()}
+        if case.get('cot') is not None:
+            shards = [shard_global(x, mesh, 'seq', 'data').clone().requires_grad_(True)
+                      for x in (q, k, v)]
+            local = make_sharded(mesh, seq_axis='seq', batch_axis='data', **kwargs)(*shards)
+            cot = shard_global(torch.from_numpy(case['cot']).to(device), mesh, 'seq', 'data')
+            (local * cot).sum().backward()
+            result['grads'] = [gather_global(x.grad, mesh, 'seq', 'data').cpu().numpy()
+                               for x in shards]
+        results.append(result)
+    return results
+
+
+def build_sequence_model(config, mesh=None, weights=None, seed=0, context='ring', causal=False):
+    """A float32 :class:`~petastorm_tpu_torch.models.transformer.SequenceTransformer`
+    from ``config`` (``num_classes``, ``seq_len``, ``feature_dim``,
+    ``d_model``, ``num_heads``, ``num_layers``), on ``mesh`` with
+    ``context`` attention (``causal`` masks by global position), loaded with
+    ``weights`` or initialised from ``seed``. Without a mesh a causal model
+    runs the ring op on one rank: exact causal full attention."""
+    from functools import partial
+
+    from petastorm_tpu_torch.models.transformer import (SequenceTransformer,
+                                                        make_sequence_transformer)
+    from petastorm_tpu_torch.ops.ring_attention import (make_sharded_ring_attention,
+                                                        ring_attention)
+    from petastorm_tpu_torch.ops.ulysses_attention import make_sharded_ulysses_attention
+    from petastorm_tpu_torch.parallel.mesh import axis_group
+
+    torch.manual_seed(seed)
+    if not causal:
+        model = make_sequence_transformer(mesh=mesh, context_parallelism=context, **config)
+    else:
+        if mesh is None:
+            attention = partial(ring_attention, causal=True)
+        else:
+            make = {'ring': make_sharded_ring_attention,
+                    'ulysses': make_sharded_ulysses_attention}[context]
+            attention = make(mesh, causal=True)
+        model = SequenceTransformer(attention_fn=attention,
+                                    seq_group=None if mesh is None else axis_group(mesh, 'seq'),
+                                    **config)
+    if weights is not None:
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in weights.items()})
+    return model
+
+
+def _window_batches(spec, mesh):
+    """This rank's ``(x [B_local, T, F], y [B_local])`` numpy batches: the
+    columnar NGram windows of ``spec['url']`` (seeded by
+    ``spec['reader_seed']``) through ``TorchDataLoader`` and
+    ``stack_ngram_time_axis``, labels ``spec['label_field'][:, 0] %
+    num_classes``. With ``spec['shard']`` the rank reads its reader shard
+    (the data coordinate) through a 2-worker thread pool in local batches;
+    else the whole store on the dummy pool in global batches, whose data
+    coordinate's rows it keeps."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.torch import TorchDataLoader, stack_ngram_time_axis
+
+    window = spec['model']['seq_len']
+    ngram = NGram({i: list(spec['ngram_fields']) for i in range(window)},
+                  delta_threshold=spec['delta_threshold'], timestamp_field=spec['timestamp_field'])
+    sharding = data_sharding(mesh)
+    kwargs = {'ngram': ngram, 'output': 'columnar', 'num_epochs': None,
+              'seed': spec['reader_seed']}
+    if spec.get('shard'):
+        cur_shard, shard_count = reader_shard_for_process(mesh)
+        kwargs.update(reader_pool_type='thread', workers_count=2, shuffle_row_groups=True,
+                      cur_shard=cur_shard, shard_count=shard_count)
+        batch, rows = process_local_batch_size(spec['global_batch'], mesh), slice(None)
+    else:
+        kwargs.update(reader_pool_type='dummy', shuffle_row_groups=False)
+        batch = spec['global_batch']
+        local = batch // sharding.size
+        rows = slice(sharding.index * local, (sharding.index + 1) * local)
+    with make_reader(spec['url'], **kwargs) as reader:
+        loader = iter(TorchDataLoader(reader, batch_size=batch, drop_last=True))
+        for _ in range(spec['steps']):
+            stacked = stack_ngram_time_axis(next(loader))
+            y = stacked[spec['label_field']][:, 0] % spec['model']['num_classes']
+            yield stacked[spec['feature_field']][rows], y[rows]
+
+
+def sequence_steps(rank, world, spec):
+    """``spec['steps']`` sequence train steps on a ``('data', 'seq')`` mesh
+    of ``spec['axis_shapes']`` over ``spec['device']``: the model of
+    :func:`build_sequence_model` (``model``, ``weights`` or ``seed``,
+    ``context``, ``causal``), ``shard_train_state``, the plain step, each
+    batch's features staged onto the sequence sharding
+    (``data_sharding(mesh, seq_axis='seq')``) and its labels onto the data
+    sharding. Batches: ``batches`` (global ``(x, y)`` pairs; each rank
+    takes its data coordinate's rows) or the NGram windows of ``url``
+    (:func:`_window_batches`). Returns the coordinates, the losses, every
+    parameter's gradient after step 1 (summed over the seq group and
+    averaged over the data group), the gathered state after each step in
+    ``record``, each step's staged slice and labels, and the model's
+    logits on the first batch before any step (this rank's rows)."""
+    device = torch.device(spec['device'])
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(('data', 'seq'), spec['axis_shapes'], device=spec['device'])
+    rows_sharding = data_sharding(mesh)
+    seq_sharding = data_sharding(mesh, seq_axis='seq')
+    model = build_sequence_model(spec['model'], mesh, spec.get('weights'), spec.get('seed', 0),
+                                 spec.get('context', 'ring'), spec.get('causal', False))
+    state = create_train_state(model, device=rows_sharding.device,
+                               learning_rate=spec.get('lr', 0.1))
+    state = shard_train_state(state, mesh)
+    step = make_train_step()
+    if 'batches' in spec:
+        local = len(spec['batches'][0][1]) // rows_sharding.size
+        rows = slice(rows_sharding.index * local, (rows_sharding.index + 1) * local)
+        batches = ((x[rows], y[rows]) for x, y in spec['batches'][:spec['steps']])
+    else:
+        batches = _window_batches(spec, mesh)
+    out = {'coord': (rows_sharding.index, rows_sharding.size, seq_sharding.seq_index,
+                     seq_sharding.seq_size),
+           'losses': [], 'slices': [], 'labels': [], 'states': {}, 'step_s': []}
+    for i, (x, y) in enumerate(batches, 1):
+        x = make_global_batch({'x': np.ascontiguousarray(x, dtype=np.float32)}, seq_sharding)['x']
+        y = make_global_batch({'y': np.ascontiguousarray(y, dtype=np.int64)}, rows_sharding)['y']
+        out['slices'].append(x.cpu().numpy())
+        out['labels'].append(y.cpu().numpy())
+        if i == 1:
+            with torch.no_grad():
+                out['logits'] = state.module(x).cpu().numpy()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, x, y)
+        _sync(device)
+        out['step_s'].append(time.perf_counter() - t0)
+        out['losses'].append(metrics['loss'].item())
+        if i == 1:
+            out['grads'] = {name: p.grad.detach().cpu().numpy()
+                            for name, p in state.module.named_parameters()}
+        if i in spec.get('record', ()):
+            out['states'][i] = gather_state(state)
+    return out
+
+
+def several_sequence_runs(rank, world, specs):
+    """:func:`sequence_steps` for each of ``specs`` in one world."""
+    return [sequence_steps(rank, world, spec) for spec in specs]

@@ -57,8 +57,9 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     pool its transport, restarts, quarantined items, publishes per channel
     and live zero-copy borrows. ``reader_factory`` opens the reader:
     :func:`make_reader` (with ``output='columnar'`` unless ``reader_kwargs``
-    say otherwise) or ``make_batch_reader``. ``telemetry`` is the reader's
-    level (``None``: the process's). ``extra['stall']`` is the
+    say otherwise or hold an ``ngram``) or ``make_batch_reader``.
+    ``telemetry`` is the reader's level (``None``: the process's).
+    ``extra['stall']`` is the
     :func:`~petastorm_tpu_torch.observability.stall_report` of the loader's
     diagnostics at the end of the measured steps (its wait and the stage
     timers cover the whole run, warm-up included; None when telemetry is
@@ -72,7 +73,9 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     target = to_device if to_device is not None else resolve_device(device)
     device = target.device if isinstance(target, DataSharding) else resolve_device(target)
     kwargs = {'num_epochs': None}
-    if reader_factory is make_reader:
+    if reader_factory is make_reader and (reader_kwargs or {}).get('ngram') is None:
+        # the device-feed hot path; an NGram read keeps make_reader's row
+        # output unless reader_kwargs ask for columnar windows
         kwargs['output'] = 'columnar'
     kwargs.update(reader_kwargs or {})
     if telemetry is not None:

@@ -14,7 +14,10 @@ sharding's device; when the sharding's replica group (the ranks of one
 then broadcast over it, so every rank of the group trains on the same rows
 in the same order. ``prefetch_to_device`` stages on its thread and
 broadcasts on the consumer's, where the train step issues its own
-collectives: two threads must not interleave collectives on one group.
+collectives: two threads must not interleave collectives on one group. A
+sequence sharding (``data_sharding(mesh, seq_axis='seq')``, the twin of
+``P('data', 'seq', ...)``) then keeps this rank's slice of axis 1 of every
+array, which must have one.
 
 Telemetry, as the JAX infeed's: each staging is an ``infeed`` stage, which
 times the host's part (the copy into pinned memory and the enqueue of the
@@ -117,6 +120,31 @@ def _broadcast_replicas(staged, target):
     return swap(staged)
 
 
+def _slice_sequence(staged, target):
+    """This rank's slice of axis 1 of every array of ``staged`` on a
+    sequence sharding; ``staged`` itself otherwise."""
+    if not isinstance(target, DataSharding) or target.seq_size == 1:
+        return staged
+    size, index = target.seq_size, target.seq_index
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if x.ndim < 2 or x.shape[1] % size:
+            raise ValueError('a sequence sharding splits axis 1 in {} slices; got an array of '
+                             'shape {}'.format(size, tuple(x.shape)))
+        width = x.shape[1] // size
+        return x[:, index * width:(index + 1) * width]
+
+    return cut(staged)
+
+
+def _distribute(staged, target):
+    """The replica group's first rank's batch, then this rank's sequence
+    slice of it."""
+    return _slice_sequence(_broadcast_replicas(staged, target), target)
+
+
 def _stage_local(batch, device, stream=None):
     def put(x):
         if isinstance(x, dict):
@@ -142,7 +170,7 @@ def stage_batch(batch, device=None, stream=None):
     current stream) and are asynchronous: a consumer on another stream must
     wait for them."""
     staged = _stage_local(batch, _target_device(device), stream)
-    return _broadcast_replicas(staged, device)
+    return _distribute(staged, device)
 
 
 def _tensors(batch):
@@ -188,7 +216,7 @@ def prefetch_to_device(iterator, device=None, size=2, background=True):
                 # allocated on the side stream, used on the consumer's: the
                 # caching allocator must not recycle it before that use ends
                 t.record_stream(consumer)
-        return _broadcast_replicas(staged, target)
+        return _distribute(staged, target)
 
     if background:
         return _prefetch_background(iterator, stage, hand_over, size)

@@ -29,7 +29,12 @@ block granularity, never per row), ``loader_batches_total``,
 and the closing stall record, and the autotuner's shuffle knob
 (:meth:`TorchDataLoader.set_shuffle_capacity`).
 
-Not ported yet: NGram windows.
+NGram windows: a row reader's windows (``offset -> namedtuple``) collate
+offset by offset into ``offset -> field -> [B, ...]``; a columnar reader's
+nested window blocks are buffered under flat ``(offset, field)`` keys, so
+the shuffling buffer slices and shuffles windows as it does rows, and leave
+as the same nested batch. :func:`stack_ngram_time_axis` turns such a batch
+into ``field -> [B, T, ...]`` time-major arrays for the sequence model.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import time
 from decimal import Decimal
 
 import numpy as np
+import torch
 
 from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.columnar import FifoColumnarBuffer, ShuffledColumnarBuffer, rows_to_block
@@ -111,10 +117,30 @@ def _sanitize_batch_columns(batch):
     return batch
 
 
+def _flatten_ngram_block(nested):
+    """Nested window block ``{offset: {field: col}}`` -> flat
+    ``{(offset, field): col}``, so the columnar buffers (which see only dicts
+    of equal-length columns) shuffle and slice windows as rows."""
+    return {(off, name): col for off, fields in nested.items()
+            for name, col in fields.items()}
+
+
+def _unflatten_ngram_batch(flat):
+    out = {}
+    for (off, name), col in flat.items():
+        out.setdefault(off, {})[name] = col
+    return out
+
+
 def _to_plain_row(row):
     """A checkpoint-friendly row: schema namedtuple types are made at run
-    time and do not unpickle, so rows are kept as plain dicts."""
-    return row._asdict() if hasattr(row, '_asdict') else row
+    time and do not unpickle, so rows are kept as plain dicts, and an NGram
+    window (``offset -> namedtuple``) as a dict of them."""
+    if hasattr(row, '_asdict'):
+        return row._asdict()
+    if isinstance(row, dict):
+        return {k: (v._asdict() if hasattr(v, '_asdict') else v) for k, v in row.items()}
+    return row
 
 
 class TorchDataLoader(object):
@@ -154,24 +180,29 @@ class TorchDataLoader(object):
                  resume_state=None, collate_spec=None, bucket_boundaries=None):
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
-        if getattr(reader, 'ngram', None) is not None:
-            raise NotImplementedError('NGram windows are not yet ported to petastorm_tpu_torch '
-                                      '(ROADMAP.md, "long context")')
         self.reader = reader
         self.batch_size = batch_size
         self._drop_last = drop_last
         self._to_device = to_device
+        self._ngram = getattr(reader, 'ngram', None)
         self._columnar = bool(reader.batched_output)
+        # a columnar NGram reader's nested window blocks are buffered under
+        # flat (offset, field) keys
+        self._columnar_ngram = self._columnar and self._ngram is not None
         # ragged collation and bucket-by-length batching, with the JAX
         # loader's argument checks
         self._collate_spec = collate_spec
         self._bucket_boundaries = tuple(bucket_boundaries) if bucket_boundaries else None
         self._pad_stats = {'real_tokens': 0, 'padded_tokens': 0}
-        if collate_spec is not None and self._columnar:
-            raise ValueError(
-                "collate_spec requires a row-oriented reader (output='rows'): "
-                'ragged collation pads per-row cells, and columnar blocks are '
-                'already stacked')
+        if collate_spec is not None:
+            if self._columnar:
+                raise ValueError(
+                    "collate_spec requires a row-oriented reader (output='rows'): "
+                    'ragged collation pads per-row cells, and columnar blocks are '
+                    'already stacked')
+            if self._ngram is not None:
+                raise ValueError('collate_spec is not supported with ngram windows '
+                                 '(windows collate per offset, not per ragged field)')
         if self._bucket_boundaries is not None:
             if collate_spec is None:
                 raise ValueError('bucket_boundaries requires collate_spec: bucketing '
@@ -335,7 +366,8 @@ class TorchDataLoader(object):
                 else:
                     # block granularity (a row group), never per row
                     with obs.span('shuffle.add_block', cat='loader', occupancy=buffer.size):
-                        buffer.add_block(dict(item._asdict()))
+                        buffer.add_block(_flatten_ngram_block(item) if self._columnar_ngram
+                                         else dict(item._asdict()))
                     obs.gauge_set('shuffle_buffer_occupancy', buffer.size)
 
     @staticmethod
@@ -352,6 +384,8 @@ class TorchDataLoader(object):
         with obs.stage('collate', cat='loader', rows=n) as sp:
             sp.link(self.last_trace)
             batch = _sanitize_batch_columns(batch)
+            if self._columnar_ngram:
+                batch = _unflatten_ngram_batch(batch)
         return self._finish_batch(batch)
 
     def _iterate(self, buffer, pending):
@@ -394,17 +428,24 @@ class TorchDataLoader(object):
         self.last_trace = getattr(self.reader, 'last_trace', None)
         with obs.stage('collate', cat='loader', rows=len(rows)) as sp:
             sp.link(self.last_trace)
-            if self._collate_spec is not None:
+            if self._ngram is not None:
+                batch = self._collate_ngram(rows)
+            elif self._collate_spec is not None:
                 from petastorm_tpu_torch.sequence.collate import (collate_ragged_rows,
                                                                   padding_waste_fraction)
                 batch = collate_ragged_rows(rows, self._collate_spec, self._pad_stats)
                 obs.gauge_set('padding_waste_fraction', padding_waste_fraction(self._pad_stats))
             else:
-                batch = collate_rows(rows)
-            batch = _sanitize_batch_columns(batch)
+                batch = _sanitize_batch_columns(collate_rows(rows))
         if self._buffer is not None:
             obs.gauge_set('shuffle_buffer_occupancy', self._buffer.size)
         return self._finish_batch(batch)
+
+    @staticmethod
+    def _collate_ngram(windows):
+        """Windows (dicts ``offset -> namedtuple``) -> ``offset -> field ->
+        [B, ...]``."""
+        return {offset: collate_rows([w[offset] for w in windows]) for offset in windows[0]}
 
     def _finish_batch(self, batch):
         obs.count('loader_batches_total')
@@ -499,6 +540,38 @@ class TorchDataLoader(object):
     def __exit__(self, exc_type, exc_value, tb):
         self.stop()
         self.join()
+
+
+def stack_ngram_time_axis(ngram_batch):
+    """Collapse a collated NGram batch (``offset -> field -> [B, ...]``) into
+    ``field -> [B, T, ...]``, T being the window length in offset order.
+
+    The bridge from the reader's windowed readout to sequence-sharded
+    training: the result can be staged onto a sequence sharding
+    (``data_sharding(mesh, seq_axis='seq')``) and consumed by the
+    context-parallel attention ops (:mod:`petastorm_tpu_torch.ops.ring_attention`).
+    numpy columns stack into numpy, tensors (a batch staged on a device)
+    into a tensor on their device. Fields absent from some timesteps (an
+    NGram allows per-timestep field sets) are skipped."""
+    offsets = sorted(ngram_batch)
+    common = set(ngram_batch[offsets[0]])
+    for off in offsets[1:]:
+        common &= set(ngram_batch[off])
+    out = {}
+    for name in sorted(common):
+        cols = [ngram_batch[off][name] for off in offsets]
+        shapes = sorted({tuple(np.shape(c)) for c in cols})
+        if len(shapes) > 1:
+            raise PetastormTpuError(
+                'NGram field {!r} has non-uniform shapes across timesteps '
+                '{}: {}. Pad/crop it to a fixed shape with a TransformSpec, or '
+                'collate ragged fields via petastorm_tpu_torch.sequence '
+                'before stacking the time axis.'.format(name, offsets, shapes))
+        if all(isinstance(c, torch.Tensor) for c in cols):
+            out[name] = torch.stack(cols, dim=1)
+        else:
+            out[name] = np.stack(cols, axis=1)
+    return out
 
 
 def make_torch_dataset(reader, batch_size, **loader_kwargs):

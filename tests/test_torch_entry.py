@@ -5,6 +5,8 @@ within 5% of the largest logit: the tolerance ``chip_smoke.py`` holds the
 bf16 model to (each of ~50 layers rounds at 2**-9 relative). The dry run
 on four gloo ranks of the CPU, and the refusals without CUDA."""
 
+import tempfile
+
 import jax
 import numpy as np
 import pytest
@@ -30,14 +32,18 @@ def test_entry_forward_matches_jax_entry():
     np.testing.assert_allclose(out.numpy(), expected, atol=tolerance, rtol=0)
 
 
-def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+def test_dryrun_multichip_on_four_cpu_ranks(capsys, monkeypatch, tmp_path):
+    # the dry run's stores and its ranks' file store go under tmp_path
+    monkeypatch.setattr(tempfile, 'tempdir', str(tmp_path))
     result = dryrun_multichip(4, device='cpu')
     assert result['mesh'] == (2, 2) and result['batch'] == 4 and result['head_rows'] == 8
     assert np.isfinite(result['loss']) and np.isfinite(result['process_loss'])
-    assert result['legs_run'] == ['dp/tp', 'process pool']
-    assert set(result['legs_not_ported']) == {'sp', 'ep', 'pp'}
+    # the sp leg: a (2, 2) ('data', 'seq') mesh, as the JAX dry run's on 4 devices
+    assert result['seq_mesh'] == (2, 2) and np.isfinite(result['seq_loss'])
+    assert result['legs_run'] == ['dp/tp', 'process pool', 'sp']
+    assert set(result['legs_not_ported']) == {'ep', 'pp'}
     out = capsys.readouterr().out
-    assert 'dryrun_multichip OK: mesh=(2x2)' in out
+    assert 'dryrun_multichip OK: mesh=(2x2)' in out and 'seq_mesh=(2x2)' in out
     for leg, item in LEGS_NOT_PORTED.items():
         assert '{} (ROADMAP.md, "{}")'.format(leg, item) in out
 

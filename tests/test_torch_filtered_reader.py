@@ -478,18 +478,31 @@ def test_unknown_predicate_field_raises_the_jax_error(image_stores):
 
 
 def test_bad_row_drop_partitions_and_ngram_refused(image_stores):
+    # NGram windows are ported: what is refused is what the JAX package
+    # refuses, with its messages
+    from petastorm_tpu.jax import JaxDataLoader
+    from petastorm_tpu.ngram import NGram as JaxNGram
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.sequence import CollateSpec, PadSpec
+
     url = image_stores['torch']
     with pytest.raises(ValueError, match='shuffle_row_drop_partitions must be >= 1'):
         make_reader(url, shuffle_row_drop_partitions=0)
-    with pytest.raises(NotImplementedError, match='long context'):
-        make_reader(url, ngram=object())
+    for ngram_cls, factory in ((NGram, make_reader), (JaxNGram, jax_make_reader)):
+        no_overlap = ngram_cls({0: ['label'], 1: ['label']}, 1, 'label', timestamp_overlap=False)
+        with pytest.raises(NotImplementedError, match='timestamp_overlap=False'):
+            factory(url, ngram=no_overlap, shuffle_row_drop_partitions=2)
+        with pytest.raises(ValueError, match='batch_size rebatching is not supported with ngram'):
+            factory(url, ngram=ngram_cls({0: ['label']}, 1, 'label'), output='columnar',
+                    batch_size=4)
 
     class NgramReader(object):
         ngram = object()
-        batched_output = True
+        batched_output = False
 
-    with pytest.raises(NotImplementedError, match='long context'):
-        TorchDataLoader(NgramReader(), 4)
+    for loader_cls in (TorchDataLoader, JaxDataLoader):
+        with pytest.raises(ValueError, match='collate_spec is not supported with ngram'):
+            loader_cls(NgramReader(), 4, collate_spec=CollateSpec({'label': PadSpec()}))
 
 
 @pytest.mark.parametrize('num_rows, parts', [(16, 1), (16, 2), (16, 3), (7, 3), (2, 3), (0, 2)])

@@ -155,3 +155,40 @@ def test_graphed_step_losses_equal_the_eager_steps(cuda):
         model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
                        dtype=torch.float32)
         step(create_train_state(model, cuda), batches[0][0][:4], batches[0][1][:4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('context', ['plain', 'ring'])
+def test_graphed_sequence_step_equals_the_eager_step(cuda, context, monkeypatch):
+    # the sequence transformer's plain step (no preprocess, no mask): five
+    # steps from one seed on the same [B, T, F] batches, graphed against
+    # eager; 'ring' runs the ring attention op with a seq group of one. The
+    # graph replays the eager step's float32 kernels, so the losses agree
+    # within 1e-5 (float32 sums of the backward may come in another order)
+    from petastorm_tpu_torch.models import make_sequence_transformer
+    from petastorm_tpu_torch.models.transformer import SequenceTransformer
+    from petastorm_tpu_torch.models.train import create_train_state, make_train_step
+    from petastorm_tpu_torch.ops.ring_attention import ring_attention
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    steps = 5
+    gen = np.random.default_rng(4)
+    batches = [(torch.from_numpy(gen.standard_normal((16, 8, 64)).astype(np.float32)).to(cuda),
+                torch.from_numpy(gen.integers(0, 8, 16)).to(cuda)) for _ in range(steps)]
+
+    def run(graphed):
+        torch.manual_seed(0)
+        if context == 'plain':
+            model = make_sequence_transformer(8, 8, 64)
+        else:
+            model = SequenceTransformer(8, 8, 64, attention_fn=ring_attention)
+        state = create_train_state(model, cuda)
+        step = make_train_step(graphed=graphed)
+        losses = [step(state, x, y)[1]['loss'] for x, y in batches]
+        torch.cuda.synchronize()
+        assert state.step == steps
+        return [float(x) for x in losses]
+
+    eager, graphed = run(False), run(True)
+    np.testing.assert_allclose(graphed, eager, atol=1e-5, rtol=0)
+    assert len(set(graphed)) == steps

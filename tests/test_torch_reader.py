@@ -198,8 +198,11 @@ def _result_or_error(pool):
 
 
 def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
-    with pytest.raises(NotImplementedError, match='long context'):
-        make_reader(jax_store, ngram=object())
+    # ngram is ported: a bad NGram fails as the JAX reader's does
+    from petastorm_tpu_torch.errors import PetastormTpuError
+    from petastorm_tpu_torch.ngram import NGram
+    with pytest.raises(PetastormTpuError, match='matched no fields'):
+        make_reader(jax_store, ngram=NGram({0: ['no_such_field']}, 1, 'no_such_field'))
     with pytest.raises(NotImplementedError, match='protocol monitor'):
         make_reader(jax_store, protocol_monitor=True)
     with pytest.raises(NotImplementedError, match='"serve"'):
