@@ -90,7 +90,27 @@ Phases, each printed as one JSON line:
    - ``jpeg``: a JPEG store of 320-560 px photos, where the probe allows it
      (else one line says why it is skipped);
    - ``png_fixed``: the fixed-shape PNG store (``BASELINE.json`` config 3's
-     image column), no resize: the fused native read decodes every image.
+     image column), no resize: the fused native read decodes every image;
+   - ``png_served``: the ``png`` path read through the shared reader daemon
+     (``make_reader(serve=<work dir>/svc)``; ``python -m
+     petastorm_tpu_torch.serve``, a thread fleet of one worker per core, its
+     broadcast ring sized from ``/dev/shm``'s free bytes as
+     :func:`ring_bytes_for` does), while a second tenant, a host process
+     that imports no torch, attached first and drains the same stream: both
+     tenants get the same block for every dispatch both received and, each
+     epoch, every row group once; the daemon published no more batches than
+     it dispatched row groups; every 16-row batch (1.2 MB) came by blob; no
+     read, decode or resize in the trainer; the labels are the store's; no
+     GPU library in the daemon. A ``serve_path`` line, then a
+     ``served_vs_png`` line beside ``png``'s numbers of the same call with
+     the second tenant's rows/s; then ``serve_checks``: the fixed-shape PNG
+     store through a daemon by the fused blob route (``SERVE_COLS``), every
+     block equal to the private fused read's; on a 64 KiB ring a tenant that
+     never reads evicted (``ConsumerEvictedError``) while the other reads
+     all 480 label batches; a SIGKILLed daemon raising
+     ``ServeDaemonDiedError``; each daemon exiting on shutdown with no
+     ``/dev/shm`` segment left (a SIGKILLed one leaves its ring and blob
+     dir, which the phase removes and names).
 
    The kernels' launch counts and the image route counts are set to 0 just
    before each path and read just after it, and the read routes are counted
@@ -99,7 +119,7 @@ Phases, each printed as one JSON line:
    or a column read by a route other than the path's (``raw``: page scan
    only; ``png``/``jpeg``: images to the codec with reason ``image-hints``,
    strings with reason ``codec``; ``png_cached``: no read; ``png_fixed``:
-   fused only) fails the run. The first staged batch of each path is checked
+   fused only; ``png_served`` no read) fails the run. The first staged batch of each path is checked
    against the store's rows, the losses for being finite and starting near
    log(1000). Two more paths read through the process pool (one spawned
    worker per core, shm transport):
@@ -1613,7 +1633,8 @@ def check_read_routes(path, counts):
     names for it: ``raw`` page-scan views only; ``png`` and ``jpeg`` images
     to the codec's columnar decode (reason ``image-hints``: a resize target)
     and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
-    ``png_cached`` no read at all; ``png_fixed`` fused only; ``png_process``
+    ``png_cached`` no read at all, nor ``png_served`` (the daemon reads);
+    ``png_fixed`` fused only; ``png_process``
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
     place into a ring slot, two columns each; ``png_fixed_pred`` every row
     group through the fused predicate call, two columns each, with pages
@@ -1639,7 +1660,7 @@ def check_read_routes(path, counts):
         n = reasons.get('image-hints', 0)
         ok = (n > 0 and reasons == {'image-hints': n, 'codec': 2 * n} and fallback == 3 * n
               and arrow == 3 * n and not (fused or pagescan))
-    elif path == 'png_cached':
+    elif path in ('png_cached', 'png_served'):
         ok = not any(counts.values())
     elif path == 'png_fixed_pred':
         ok = (fused > 0 and c('fused_pred_batches_total') == fused
@@ -1705,6 +1726,10 @@ STALL_STAGES = {
     'raw_process': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
     'png_fixed_pred': ({'worker.fused_predicate'}, {'worker.decode', 'worker.read_io'}),
     'png_cached': (set(), {'worker.decode', 'worker.read_io', 'worker.fused_decode'}),
+    # the daemon's workers decode: their timers are not in the trainer's
+    # registry, so its pool wait stays unattributed
+    'png_served': ({'pool.unattributed'},
+                   {'worker.decode', 'worker.read_io', 'worker.fused_decode'}),
     'seq_ring': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
     'seq_ulysses': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
 }
@@ -1714,13 +1739,14 @@ def check_stall(name, stall):
     """A path's stall report names the stages of its routes, and none of
     the routes it does not take (``STALL_STAGES``); its pool wait falls on
     timed worker stages (no ``pool.unattributed``: the workers' timers
-    reached the consumer)."""
+    reached the consumer), except on a served path, whose workers run in the
+    daemon."""
     named, absent = STALL_STAGES.get(name, (set(), set()))
+    absent = absent | ({'pool.unattributed'} - named)
     stages = set(stall['stages'])
-    if not named <= stages or stages & (absent | {'pool.unattributed'}):
+    if not named <= stages or stages & absent:
         raise AssertionError('{}: the stall report names {}; its routes imply {} and not '
-                             '{}'.format(name, sorted(stages), sorted(named),
-                                         sorted(absent | {'pool.unattributed'})))
+                             '{}'.format(name, sorted(stages), sorted(named), sorted(absent)))
 
 
 def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None,
@@ -1892,6 +1918,426 @@ def run_path_both_ways(torch, name, url, check, **kwargs):
         runs['graphed' if graphed else 'eager'] = (state, step, batches, result)
     check_graphed_losses(torch, name, losses, runs['graphed'][2])
     return total, runs
+
+
+#: the serve daemon of ``png_served`` evicts a consumer blocked this long; the
+#: daemon's default (10 s) could evict the trainer while it captures its graph
+SERVE_EVICT_BLOCK_S = 120.0
+#: ``serve_checks``' eviction: a 64 KiB ring, a consumer blocked 0.3 s is
+#: evicted, over this many epochs of the raw store's label column (a frame
+#: of 64 labels is under 1 KiB: the ring fills after about 90 of them)
+SERVE_CHECK_RING = 64 << 10
+SERVE_CHECK_EVICT_S = 0.3
+SERVE_CHECK_EPOCHS = 30
+#: row groups of the PNG store, one epoch of its served stream
+PNG_ROW_GROUPS = ROWS // IMAGE_ROWS_PER_ROW_GROUP
+
+
+def served_payload_bytes():
+    """Bytes of one decoded PNG row group (16 resized images and their
+    labels) with its framing, as :func:`raw_payload_bytes`."""
+    return IMAGE_ROWS_PER_ROW_GROUP * (IMAGE_SIZE * IMAGE_SIZE * 3 + 8) + 8 + 9 + 1024
+
+
+def block_key(block):
+    """A served block's identity: its labels and a crc32 of its images."""
+    return [[int(v) for v in block.label], zlib.crc32(np.ascontiguousarray(block.image))]
+
+
+def served_spec_kwargs():
+    """``make_reader`` arguments of the ``png_served`` stream besides
+    ``serve``: the ``png`` path's as ``run_path`` and ``pipeline_duty_cycle``
+    pass them. The transform comes from this module imported by name, so its
+    pickle (part of the stream's id) is the same in the trainer, the second
+    tenant and the daemon that unpickles it."""
+    import chip_smoke
+
+    return {'seed': SEED, 'shuffle_row_groups': True, 'num_epochs': None,
+            'output': 'columnar', 'transform_spec': chip_smoke.image_transform()}
+
+
+def served_tenant(url, svc_dir, stop_path, out_path):
+    """``png_served``'s second tenant, in a host process of its own that
+    imports no torch: attaches the trainer's stream, drains it until
+    ``stop_path`` exists, and writes each block's ``(seq, key)``, its frames
+    by kind and its rows/s to ``out_path``."""
+    from petastorm_tpu_torch import make_reader
+
+    records = []
+    with make_reader(url, serve=svc_dir, **served_spec_kwargs()) as reader:
+        with open(out_path + '.attached', 'w'):
+            pass
+        t0 = time.perf_counter()
+        for block in reader:
+            records.append([reader._facade.last_result_seq, block_key(block)])
+            if os.path.exists(stop_path):
+                break
+        seconds = time.perf_counter() - t0
+        out = {'stream_id': reader.stream_id, 'tenant_id': reader.tenant_id,
+               'frames': dict(reader._facade.frames), 'records': records,
+               'rows': sum(len(k[0]) for _, k in records), 'seconds': seconds,
+               'torch_imported': 'torch' in sys.modules}
+    out['rows_per_s'] = out['rows'] / seconds
+    with open(out_path, 'w') as f:
+        json.dump(out, f)
+
+
+class ServedRecorder(object):
+    """The served reader a path's loader iterates, recording each block's
+    ``(seq, key)``; every other attribute is the reader's."""
+
+    def __init__(self, reader, records):
+        self._reader = reader
+        self._records = records
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        block = next(self._reader)
+        self._records.append([self._reader._facade.last_result_seq, block_key(block)])
+        return block
+
+    def __getattr__(self, name):
+        return getattr(self._reader, name)
+
+
+def _daemon_segments(pid):
+    """The ``/dev/shm`` rings and blob dirs of daemon ``pid``."""
+    tag = '_{}_'.format(pid)
+    return sorted(e for e in os.listdir('/dev/shm') if e.startswith('pstpu') and tag in e)
+
+
+def _mapped_gpu_libraries(pid):
+    """The libraries of torch, JAX or the CUDA driver a process has mapped."""
+    with open('/proc/{}/maps'.format(pid)) as f:
+        paths = {line.split()[-1] for line in f if '.so' in line}
+    return sorted(p for p in paths if '/torch/' in p or '/jax' in p or 'libcuda' in p)
+
+
+def start_daemon(svc_dir, ring_bytes, workers, evict_block_s=None):
+    """``python -m petastorm_tpu_torch.serve`` in the background on a thread
+    fleet of ``workers``; returns its ``Popen`` once its endpoint answers."""
+    from petastorm_tpu_torch.serve.service import read_endpoint
+
+    os.makedirs(svc_dir, exist_ok=True)
+    cmd = [sys.executable, '-m', 'petastorm_tpu_torch.serve', '--service-dir', svc_dir,
+           '--workers-count', str(workers), '--ring-bytes', str(ring_bytes),
+           '--idle-timeout', '0']
+    if evict_block_s is not None:
+        cmd += ['--evict-block', str(evict_block_s)]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    with open(os.path.join(svc_dir, 'daemon.log'), 'ab') as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=log, env=env, cwd=ROOT)
+    deadline = time.monotonic() + 60
+    while (read_endpoint(svc_dir) or {}).get('pid') != proc.pid:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError('the serve daemon did not start: {}'.format(
+                _daemon_log(svc_dir)))
+        time.sleep(0.05)
+    return proc
+
+
+def _daemon_log(svc_dir):
+    try:
+        with open(os.path.join(svc_dir, 'daemon.log')) as f:
+            return f.read()[-4000:]
+    except OSError:
+        return ''
+
+
+def service_stats(svc_dir):
+    from petastorm_tpu_torch.serve import connect_service
+
+    conn = connect_service(svc_dir)
+    try:
+        conn.send({'op': 'stats'})
+        return conn.recv()['stats']
+    finally:
+        conn.close()
+
+
+def stop_daemon(proc, svc_dir):
+    """Shut the daemon down through its control socket: it must exit with
+    code 0 and leave no ``/dev/shm`` segment. Returns its shutdown seconds."""
+    from petastorm_tpu_torch.serve import connect_service
+
+    t0 = time.perf_counter()
+    conn = connect_service(svc_dir)
+    conn.send({'op': 'shutdown'})
+    conn.recv()
+    conn.close()
+    rc = proc.wait(timeout=60)
+    seconds = time.perf_counter() - t0
+    left = _daemon_segments(proc.pid)
+    if rc != 0 or left:
+        raise AssertionError('serve daemon pid {} exited {} leaving {}: {}'.format(
+            proc.pid, rc, left, _daemon_log(svc_dir)))
+    return seconds
+
+
+def _check_served_epochs(name, records, store_keys=None):
+    """Each epoch of a tenant's ``(seq, key)`` records (epoch = seq // row
+    groups: the fair-share ventilator dispatches one stream epoch by epoch)
+    holds each row group at most once, and a complete epoch all of them.
+    Returns the key set of a complete epoch and the complete epochs."""
+    epochs = collections.defaultdict(list)
+    for seq, key in records:
+        epochs[seq // PNG_ROW_GROUPS].append(json.dumps(key))
+    complete = 0
+    for epoch, keys in sorted(epochs.items()):
+        if len(set(keys)) != len(keys):
+            raise AssertionError('{}: epoch {} delivered a row group twice'.format(name, epoch))
+        if len(keys) == PNG_ROW_GROUPS:
+            complete += 1
+            if store_keys is None:
+                store_keys = set(keys)
+            if set(keys) != store_keys:
+                raise AssertionError('{}: epoch {} is not the store\'s rows'.format(name, epoch))
+    return store_keys, complete
+
+
+def phase_png_served(torch, png_url, png_check, png_runs, work_dir, ring):
+    """``png_served``: the ``png`` path read through the shared reader
+    daemon (``python -m petastorm_tpu_torch.serve``, a thread fleet of one
+    worker per core, a ``ring``-byte broadcast ring), with a second tenant
+    in a host process of its own draining the same stream while the card
+    trains. Checks: both tenants get the same block for every seq they both
+    received and, each epoch, every row group once; the daemon decoded each
+    dispatched row group once for both; the 16-row batches (1.2 MB) came by
+    blob; the labels are the store's; the graphed step's losses are the
+    eager one's; neither the daemon nor the second tenant imported torch or
+    mapped a GPU library. Returns the launches."""
+    workers = max(1, os.cpu_count() or 1)
+    svc_dir = os.path.join(work_dir, 'svc')
+    stop_path = os.path.join(work_dir, 'served_tenant.stop')
+    out_path = os.path.join(work_dir, 'served_tenant.json')
+    daemon = start_daemon(svc_dir, ring, workers, evict_block_s=SERVE_EVICT_BLOCK_S)
+    tenant = None
+    records = []
+    readers = []
+    try:
+        code = 'import chip_smoke; chip_smoke.served_tenant({!r}, {!r}, {!r}, {!r})'.format(
+            png_url, svc_dir, stop_path, out_path)
+        tenant = subprocess.Popen([sys.executable, '-c', code], cwd=ROOT)
+        deadline = time.monotonic() + 60
+        while not os.path.exists(out_path + '.attached'):
+            if tenant.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError('the second tenant did not attach')
+            time.sleep(0.05)
+
+        def factory(url, **kwargs):
+            from petastorm_tpu_torch import make_reader
+
+            reader = make_reader(url, serve=svc_dir, **kwargs)
+            readers.append(reader)
+            return ServedRecorder(reader, records)
+
+        labels = sorted({label_of('n{:08d}'.format(s))
+                         for s in range(ROWS // IMAGES_PER_SYNSET)})
+        total, runs = run_path_both_ways(
+            torch, 'png_served', png_url, png_check,
+            reader_kwargs={'transform_spec': served_spec_kwargs()['transform_spec'],
+                           'output': 'columnar'},
+            reader_factory=factory,
+            label_check=check_labels('of a stored synset', lambda v: np.isin(v, labels)))
+        stats = service_stats(svc_dir)
+        with open(stop_path, 'w'):
+            pass
+        if tenant.wait(timeout=120) != 0:
+            raise AssertionError('the second tenant failed')
+        with open(out_path) as f:
+            second = json.load(f)
+        daemon_libs = _mapped_gpu_libraries(daemon.pid)
+    finally:
+        if tenant is not None and tenant.poll() is None:
+            tenant.kill()
+            tenant.wait()
+        shutdown_s = stop_daemon(daemon, svc_dir)
+    stream_ids = {r.stream_id for r in readers} | {second['stream_id']}
+    stream = stats['streams'][second['stream_id']]
+    ours = dict((seq, json.dumps(key)) for seq, key in records)
+    theirs = dict((seq, json.dumps(key)) for seq, key in second['records'])
+    common = sorted(set(ours) & set(theirs))
+    differ = [s for s in common if ours[s] != theirs[s]]
+    store_keys, second_complete = _check_served_epochs('png_served second tenant',
+                                                       second['records'])
+    # the trainer joins a running stream, so it need not see a whole epoch
+    _, trainer_complete = _check_served_epochs('png_served trainer', records, store_keys)
+    trainer_hits = {k: v[3].extra['diagnostics'].get('serve_tenant_shared_decode_hits')
+                    for k, v in runs.items()}
+    frames = collections.Counter()
+    for reader in readers:
+        frames.update(reader._facade.frames)
+    batches = {t['stream_id'] + ':' + tid: t['batches_served']
+               for tid, t in stream['tenants'].items()}
+    emit({'phase': 'serve_path', 'path': 'png_served', 'stream_ids': sorted(stream_ids),
+          'workers': workers, 'ring_bytes': ring, 'trainer_blocks': len(records),
+          'second_tenant_blocks': len(second['records']), 'common_seqs': len(common),
+          'differing_blocks': len(differ), 'complete_epochs': {
+              'trainer': trainer_complete, 'second_tenant': second_complete},
+          'trainer_frames': dict(frames), 'second_tenant_frames': second['frames'],
+          'second_tenant_rows_per_s': second['rows_per_s'],
+          'second_tenant_rows': second['rows'], 'second_tenant_s': second['seconds'],
+          'second_tenant_imported_torch': second['torch_imported'],
+          'daemon_gpu_libraries': daemon_libs, 'daemon_shutdown_s': shutdown_s,
+          'decoded_batches': stream['decoded_batches'],
+          'dispatched': stream['fair_share'].get('dispatched'),
+          'items_completed': stats['pool'].get('items_completed'),
+          'tenants_batches_served': batches,
+          'trainer_shared_decode_hits': trainer_hits,
+          'evictions': stats['evictions']})
+    if len(stream_ids) != 1:
+        raise AssertionError('png_served: the tenants read {} streams'.format(len(stream_ids)))
+    # the second tenant attached first and read until after the trainer
+    # stopped: every block the trainer got, it got too, from the same decode
+    if differ or len(common) != len(ours) or not all(trainer_hits.values()):
+        raise AssertionError('png_served: of the trainer\'s {} blocks {} reached the second '
+                             'tenant, {} differ; shared hits {}'.format(
+                                 len(ours), len(common), len(differ), trainer_hits))
+    if not second_complete:
+        raise AssertionError('png_served: the second tenant completed no epoch')
+    if not stream['decoded_batches'] <= stream['fair_share'].get('dispatched', 0):
+        raise AssertionError('png_served: {} batches published for {} row groups '
+                             'dispatched'.format(stream['decoded_batches'],
+                                                 stream['fair_share'].get('dispatched')))
+    if frames['blob'] != len(records) or frames['data'] or frames['cols'] \
+            or second['frames']['blob'] != len(second['records']):
+        raise AssertionError('png_served: blocks not by blob: {} {}'.format(
+            dict(frames), second['frames']))
+    if second['torch_imported'] or daemon_libs or stats['evictions']:
+        raise AssertionError('png_served: torch in the second tenant {}, GPU libraries in the '
+                             'daemon {}, evictions {}'.format(second['torch_imported'],
+                                                              daemon_libs, stats['evictions']))
+
+    def summary(result):
+        return {'examples_per_sec': result.samples_per_second,
+                'median_step_ms': result.extra['median_step_ms'],
+                'input_stall_fraction': result.input_stall_fraction,
+                'bottleneck': (result.extra['stall'] or {}).get('bottleneck')}
+
+    emit({'phase': 'served_vs_png', 'png': {k: summary(v[3]) for k, v in png_runs.items()},
+          'png_served': {k: summary(v[3]) for k, v in runs.items()},
+          'second_tenant_rows_per_s': second['rows_per_s']})
+    return total
+
+
+def phase_serve_checks(raw_url, fixed_url, ring, work_dir):
+    """``serve_checks``: the fixed-shape PNG store through a spawned daemon
+    takes the fused blob route (``SERVE_COLS``) and its blocks equal the
+    private fused read's; on a 64 KiB ring a tenant that never reads is
+    evicted (``ConsumerEvictedError``) while the other reads every batch of
+    the raw store's labels;
+    a SIGKILLed daemon gives ``ServeDaemonDiedError``; the daemon exits on
+    shutdown with no ``/dev/shm`` segment left."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.errors import ConsumerEvictedError, ServeDaemonDiedError
+    from petastorm_tpu_torch.native import read_routes
+    from petastorm_tpu_torch.serve import ReaderService
+
+    workers = max(1, os.cpu_count() or 1)
+    out = {'phase': 'serve_checks', 'ring_bytes': ring}
+
+    def blocks_by_key(reader):
+        keyed = {}
+        for block in reader:
+            keyed[json.dumps(block_key(block))] = block._asdict()
+        return keyed
+
+    # the fused blob route
+    svc_dir = os.path.join(work_dir, 'svc_fixed')
+    daemon = start_daemon(svc_dir, ring, workers)
+    try:
+        t0 = time.perf_counter()
+        with make_reader(fixed_url, serve=svc_dir, output='columnar', shuffle_row_groups=False,
+                         num_epochs=1) as reader:
+            served = blocks_by_key(reader)
+            frames = dict(reader._facade.frames)
+        out['fused_served_s'] = time.perf_counter() - t0
+        out['daemon_gpu_libraries'] = _mapped_gpu_libraries(daemon.pid)
+    finally:
+        out['daemon_shutdown_s'] = stop_daemon(daemon, svc_dir)
+    before = read_routes.snapshot()
+    with make_reader(fixed_url, output='columnar', shuffle_row_groups=False,
+                     num_epochs=1) as reader:
+        private = blocks_by_key(reader)
+    routes = {k: v - before.get(k, 0) for k, v in read_routes.snapshot().items() if v - before.get(k, 0)}
+    unequal = [k for k in private if k not in served or any(
+        not np.array_equal(private[k][c], served[k][c]) for c in private[k])]
+    out.update({'fused_blocks': len(served), 'fused_frames': frames,
+                'private_read_routes': routes, 'fused_unequal_blocks': len(unequal)})
+    if (unequal or len(served) != len(private) or frames['cols'] != len(served)
+            or frames['blob'] or frames['data'] or out['daemon_gpu_libraries']
+            or routes.get('fused_batches_total') != len(private)):
+        raise AssertionError('serve_checks: the fused blob route: {}'.format(out))
+
+    # eviction of a tenant that never reads, on a 64 KiB ring
+    svc = ReaderService(os.path.join(work_dir, 'svc_evict'), workers_count=workers,
+                        ring_bytes=SERVE_CHECK_RING, evict_block_s=SERVE_CHECK_EVICT_S,
+                        idle_timeout_s=None)
+    svc.start()
+    try:
+        kwargs = {'output': 'columnar', 'shuffle_row_groups': False,
+                  'num_epochs': SERVE_CHECK_EPOCHS, 'schema_fields': ['label']}
+        with make_reader(raw_url, serve=svc.service_dir, **kwargs) as fast, \
+                make_reader(raw_url, serve=svc.service_dir, **kwargs) as slow:
+            t0 = last = time.perf_counter()
+            gaps, blocks = [], 0
+            for _ in fast:
+                now = time.perf_counter()
+                gaps.append(now - last)
+                last = now
+                blocks += 1
+            fast_s = time.perf_counter() - t0
+            try:
+                for _ in slow:
+                    pass
+                evicted = False
+            except ConsumerEvictedError:
+                evicted = True
+            evictions = svc.stats()['evictions']
+    finally:
+        svc.shutdown()
+    expected = SERVE_CHECK_EPOCHS * ROWS // ROWS_PER_ROW_GROUP
+    out.update({'evict_ring_bytes': SERVE_CHECK_RING, 'evict_block_s': SERVE_CHECK_EVICT_S,
+                'fast_blocks': blocks, 'fast_s': fast_s, 'fast_max_gap_s': max(gaps),
+                'slow_evicted': evicted, 'evictions': evictions})
+    if not evicted or evictions != 1 or blocks != expected:
+        raise AssertionError('serve_checks: eviction: {}'.format(out))
+
+    # a SIGKILLed daemon
+    svc_dir = os.path.join(work_dir, 'svc_kill')
+    reader = make_reader(raw_url, serve=svc_dir, output='columnar', num_epochs=None,
+                         workers_count=2)
+    pid = reader.daemon_pid
+    try:
+        for _, _block in zip(range(3), reader):
+            pass
+        os.kill(pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+        try:
+            while time.perf_counter() - t0 < 60:
+                next(reader)
+            died = None
+        except ServeDaemonDiedError as e:
+            died = repr(e)
+        out['daemon_died_after_s'] = time.perf_counter() - t0
+    finally:
+        reader.stop()
+        reader.join()
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+        # a SIGKILLed daemon cannot unlink its ring and blob dir
+        leaked = _daemon_segments(pid)
+        for entry in leaked:
+            path = os.path.join('/dev/shm', entry)
+            shutil.rmtree(path) if os.path.isdir(path) else os.unlink(path)
+    out.update({'daemon_died': died, 'killed_daemon_segments_removed': leaked})
+    emit(out)
+    if died is None:
+        raise AssertionError('serve_checks: no ServeDaemonDiedError after SIGKILL: {}'.format(out))
 
 
 def phase_raw_mesh(torch, url):
@@ -3307,6 +3753,8 @@ def main():
                 expected_images(urls['jpeg'], None, routes['jpeg']['decode']))
             path_launches, runs = run_path_both_ways(torch, name, urls[fmt], check,
                                                      reader_kwargs=kwargs, routes=routes[fmt])
+            if name == 'png':
+                png_runs = runs
             if name == 'png_cached':
                 for _, _, _, result in runs.values():
                     cache = result.extra['cache']
@@ -3314,6 +3762,14 @@ def main():
                         raise AssertionError('png_cached read {} row groups past the cache '
                                              '({} hits)'.format(cache['misses'], cache['hits']))
             total.update(path_launches)
+        # the shared reader daemon: png through it, a second tenant beside
+        # the trainer; its ring sized from /dev/shm's free bytes
+        serve_ring, _ = ring_bytes_for(_dev_shm()['free_bytes'], 1, served_payload_bytes(),
+                                       IMAGE_ROWS_PER_ROW_GROUP)
+        total.update(phase_png_served(torch, urls['png'], png_check, png_runs, work_dir,
+                                      serve_ring))
+        phase_serve_checks(urls['raw'], urls['png_fixed'], serve_ring, work_dir)
+        check_no_leftovers()
         # the pre-resized PNG store: every image decoded by the fused native read
         total.update(run_path_both_ways(torch, 'png_fixed', urls['png_fixed'], check_batch)[0])
         # the process pool: one spawned worker per core, shm rings

@@ -36,3 +36,24 @@ class PoisonItemError(PetastormTpuError):
 class WorkerPoolDepletedError(PetastormTpuError):
     """Raised when every worker slot of a process pool was shed because
     respawning it kept failing."""
+
+
+class ServeError(PetastormTpuError):
+    """Base class for errors of the shared reader service (``serve/``)."""
+
+
+class ConsumerEvictedError(ServeError):
+    """This consumer lagged beyond the serve daemon's bound and was evicted
+    from the broadcast ring so the other consumers keep flowing. Re-attach
+    with ``make_reader(serve=...)``, consume faster, or raise the daemon's
+    ``ring_bytes``. Carries ``tenant_id`` when known."""
+
+    def __init__(self, message, tenant_id=None):
+        super().__init__(message)
+        self.tenant_id = tenant_id
+
+
+class ServeDaemonDiedError(ServeError):
+    """The serve daemon this consumer was attached to is gone; raised
+    instead of waiting on a quiet ring. A fresh ``make_reader(serve=...)``
+    spawns a replacement daemon."""

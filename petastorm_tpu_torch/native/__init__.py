@@ -230,7 +230,10 @@ class NativeParquetFile(object):
 
     def _zerocopy_columns(self, i, columns):
         """``{name: ChunkedArray}`` of the columns servable as views over the
-        mmapped file (``pagescan.py``); each view holds the mapping alive."""
+        mmapped file (``pagescan.py``).
+
+        :borrows: the arrays alias the pool's long-lived file mapping; each
+            holds it alive through ``pa.py_buffer``'s base."""
         if os.environ.get('PSTPU_DISABLE_PAGESCAN'):
             return {}
         if self._ensure_pq_meta() is False:

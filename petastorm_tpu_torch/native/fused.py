@@ -878,7 +878,12 @@ def build_column(plan, result, out_buf, offset, expected_rows):
     status, out_used, aux0, _aux1, aux_header = result
     if status != 0:
         return None
-    region = memoryview(out_buf)[offset:offset + out_used]
+    mv = memoryview(out_buf)
+    if mv.readonly:
+        # decode's contract hands out writable arrays: an immutable caller
+        # buffer degrades to a copy, never to a read-only view
+        mv = memoryview(bytearray(mv))
+    region = mv[offset:offset + out_used]
     if plan.mode == MODE_BINARY_RAW and plan.strip_npy:
         parsed = _parse_npy(aux_header)
         if parsed is None:
@@ -887,7 +892,8 @@ def build_column(plan, result, out_buf, offset, expected_rows):
         count = int(np.prod(shape, dtype=np.int64)) if shape else 1
         if count * dtype.itemsize != aux0 or out_used != expected_rows * aux0:
             return None
-        return np.frombuffer(region, dtype=dtype).reshape((expected_rows,) + shape)
+        arr = np.frombuffer(region, dtype=dtype)
+        return arr.reshape((expected_rows,) + shape)
     if plan.out_dtype is None or plan.out_shape is None:
         return None
     if plan.known_size and out_used != plan.out_bound:

@@ -89,9 +89,18 @@ class _MmapPool(object):
         self._maps = {}
 
     def get(self, path):
+        """The pool's read-only mapping of ``path``, created on first use.
+
+        :borrows: every array served zero-copy from ``path`` aliases this
+            mapping; the registry slot keeps it visible in
+            ``lifetime_live_borrows`` until the last such array dies."""
         mm = self._maps.get(path)
         if mm is None:
             mm = np.memmap(path, dtype=np.uint8, mode='r')
+            from petastorm_tpu_torch.native.lifetime import registry
+            slot = registry().open_slot(label='pagescan-mmap')
+            slot.adopt(mm)
+            slot.seal()
             self._maps[path] = mm
         return mm
 

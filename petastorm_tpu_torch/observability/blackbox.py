@@ -300,7 +300,7 @@ class FlightRecorder(object):
             # deliberately lock-free: a fixed-offset pack_into is atomic
             # enough for a forensic field, and the stage-timer hot path must
             # not contend with record()
-            _ACT.pack_into(self._mm, _OFF_ACTIVITY, self._activity_ts,
+            _ACT.pack_into(self._mm, _OFF_ACTIVITY, self._activity_ts,  # noqa: PT1301 - fixed-slot overwrite; hot path stays lock-free
                            name.encode()[:128])
         except (ValueError, TypeError):
             pass
@@ -312,13 +312,13 @@ class FlightRecorder(object):
         only preallocated ``pack_into`` stores into the existing mmap — no
         allocation, locks, logging, or imports on this path."""
         try:
-            _FOOTER.pack_into(self._mm, _OFF_CRASH, signum, time.time())  # lock-free: runs in a signal handler
+            _FOOTER.pack_into(self._mm, _OFF_CRASH, signum, time.time())  # noqa: PT1301 - must be lock-free: runs inside a signal handler (PT704)
         except (ValueError, TypeError):
             pass
 
     def mark_clean_shutdown(self):
         try:
-            _U32.pack_into(self._mm, _OFF_CLEAN, 1)
+            _U32.pack_into(self._mm, _OFF_CLEAN, 1)  # noqa: PT1301 - fixed-slot flag; callers hold the close() lock or are single-threaded at exit
         except (ValueError, TypeError):
             pass
 

@@ -169,7 +169,7 @@ class MetricsRegistry(object):
         self._stage_timers = {}
 
     def _get_or_create(self, name, factory, kind):
-        metric = self._metrics.get(name)  # dict.get is atomic; a miss re-checks under _lock
+        metric = self._metrics.get(name)  # noqa: PT1301 - double-checked locking; dict.get is GIL-atomic and a miss re-checks under _lock
         if metric is None:
             with self._lock:
                 metric = self._metrics.get(name)
@@ -203,7 +203,7 @@ class MetricsRegistry(object):
         """A counter's, gauge's or timer's current value, without creating
         the metric (the flight recorder's progress reads run at every level;
         one that created the metric would record it with telemetry off)."""
-        metric = self._metrics.get(name)
+        metric = self._metrics.get(name)  # noqa: PT1301 - dict.get is GIL-atomic; a read-only probe that never creates
         return default if metric is None else metric.value
 
     def snapshot(self):

@@ -65,7 +65,7 @@ class TraceRing(object):
 
     @property
     def capacity(self):
-        return self._events.maxlen  # maxlen is fixed per deque
+        return self._events.maxlen  # noqa: PT1301 - atomic attr fetch; maxlen is immutable on whichever deque is current
 
     def set_capacity(self, capacity):
         with self._lock:
@@ -73,7 +73,7 @@ class TraceRing(object):
                 self._events = deque(self._events, maxlen=capacity)
 
     def __len__(self):
-        return len(self._events)
+        return len(self._events)  # noqa: PT1301 - len(deque) is GIL-atomic; lock-free diagnostics read
 
     @property
     def dropped(self):

@@ -27,6 +27,12 @@ process-wide and shipped to process-pool workers, :attr:`Reader.diagnostics`
 merges the metrics registry, the workers' snapshots and the pool's counters,
 and :attr:`Reader.last_trace` links the loader's spans to the item a block
 came from.
+
+With ``serve=`` ('auto' or a service directory) both factories read through
+the per-host shared reader daemon instead (:mod:`petastorm_tpu_torch.serve`)
+and return a :class:`~petastorm_tpu_torch.serve.ServedReader`: the same
+results readers assemble rows, blocks or batches on the consumer's side of
+the broadcast ring (:func:`_make_served`).
 """
 
 from __future__ import annotations
@@ -63,8 +69,6 @@ _NOT_YET_PORTED = {
     'chunk_cache': (None, 'remote filesystems'),
     'chunk_cache_size_limit': (None, 'remote filesystems'),
     'protocol_monitor': (None, 'protocol monitor'),
-    'serve': (None, 'serve'),
-    'serve_weight': (1, 'serve'),
     'elastic': (None, 'elastic'),
 }
 
@@ -185,7 +189,7 @@ def make_reader(dataset_url,
                 resume_state=None,
                 telemetry=None, autotune=None,
                 on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                piece_filter=None, **not_yet_ported):
+                piece_filter=None, serve=None, serve_weight=1, **not_yet_ported):
     """Reader for datasets written by :func:`materialize_dataset`.
 
     :param schema_fields: field names / regex patterns / UnischemaFields to
@@ -275,9 +279,32 @@ def make_reader(dataset_url,
         predicate and the shard: it scopes the reader to a subset of row
         groups identified by ``(path, row_group)``. Selector index sets and
         version-2 resume cursors are then expressed in the filtered
-        enumeration
+        enumeration. Not with ``serve``
+    :param serve: ``'auto'`` or a service directory: read through the
+        per-host shared reader daemon, spawning it when none runs
+        (``python -m petastorm_tpu_torch.serve``), and return a
+        :class:`~petastorm_tpu_torch.serve.ServedReader`. Consumers of the
+        same dataset and decode arguments share one decode. ``'auto'`` is
+        ``$PSTPU_TORCH_SERVE_DIR``, else ``$TMPDIR/pstpu-torch-serve-<uid>``;
+        ``reader_pool_type`` and ``workers_count`` size a daemon this call
+        spawns. Not with ``resume_state``, ``autotune`` or ``piece_filter``
+    :param serve_weight: this consumer's weight in the daemon's fair share
     """
     _refuse_not_yet_ported('make_reader', not_yet_ported)
+    if serve:
+        return _make_served(dataset_url, batch_reader=False, schema_fields=schema_fields,
+                            seed=seed, shuffle_row_groups=shuffle_row_groups,
+                            shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                            predicate=predicate, rowgroup_selector=rowgroup_selector,
+                            num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
+                            cache_type=cache_type, cache_location=cache_location,
+                            cache_size_limit=cache_size_limit,
+                            cache_row_size_estimate=cache_row_size_estimate,
+                            transform_spec=transform_spec, ngram=ngram, output=output,
+                            batch_size=batch_size, drop_last=drop_last,
+                            resume_state=resume_state, telemetry=telemetry, autotune=autotune,
+                            piece_filter=piece_filter, serve=serve, serve_weight=serve_weight,
+                            reader_pool_type=reader_pool_type, workers_count=workers_count)
     if output not in ('rows', 'columnar'):
         raise ValueError("output must be 'rows' or 'columnar', got {!r}".format(output))
     if output == 'rows' and batch_size is not None:
@@ -336,7 +363,7 @@ def make_batch_reader(dataset_url,
                       resume_state=None,
                       telemetry=None, autotune=None,
                       on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                      piece_filter=None, **not_yet_ported):
+                      piece_filter=None, serve=None, serve_weight=1, **not_yet_ported):
     """Columnar reader for ANY Parquet store: one namedtuple of numpy column
     arrays per row group, or per ``batch_size`` rows with ``batch_size``
     (the last batch of a pass shorter unless ``drop_last``). The columns are
@@ -345,8 +372,22 @@ def make_batch_reader(dataset_url,
     The schema is the stored Unischema when the store has one, else it is
     inferred from the Arrow schema (:func:`~petastorm_tpu_torch.etl.
     dataset_metadata.infer_or_load_unischema`). The other arguments are
-    :func:`make_reader`'s; ``TransformSpec.func`` gets the column dict."""
+    :func:`make_reader`'s, ``serve`` and ``serve_weight`` included;
+    ``TransformSpec.func`` gets the column dict."""
     _refuse_not_yet_ported('make_batch_reader', not_yet_ported)
+    if serve:
+        return _make_served(dataset_url, batch_reader=True, schema_fields=schema_fields,
+                            seed=seed, shuffle_row_groups=shuffle_row_groups,
+                            shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                            predicate=predicate, rowgroup_selector=None, num_epochs=num_epochs,
+                            cur_shard=cur_shard, shard_count=shard_count, cache_type=cache_type,
+                            cache_location=cache_location, cache_size_limit=cache_size_limit,
+                            cache_row_size_estimate=cache_row_size_estimate,
+                            transform_spec=transform_spec, ngram=None, output='columnar',
+                            batch_size=batch_size, drop_last=drop_last,
+                            resume_state=resume_state, telemetry=telemetry, autotune=autotune,
+                            piece_filter=piece_filter, serve=serve, serve_weight=serve_weight,
+                            reader_pool_type=reader_pool_type, workers_count=workers_count)
     results_reader = _columnar_results_reader_factory('columnar', batch_size, drop_last, None)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
                       max_item_retries=max_item_retries, zero_copy=zero_copy,
@@ -360,6 +401,73 @@ def make_batch_reader(dataset_url,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   worker_class=ArrowBatchWorker, telemetry=telemetry, autotune=autotune,
                   piece_filter=piece_filter)
+
+
+def _make_served(dataset_url, batch_reader, schema_fields, seed, shuffle_row_groups,
+                 shuffle_row_drop_partitions, predicate, rowgroup_selector, num_epochs,
+                 cur_shard, shard_count, cache_type, cache_location, cache_size_limit,
+                 cache_row_size_estimate, transform_spec, ngram, output, batch_size, drop_last,
+                 resume_state, telemetry, autotune, piece_filter, serve, serve_weight,
+                 reader_pool_type, workers_count):
+    """The ``serve=`` path of the factories: check the combination, build
+    the canonical stream spec (the JAX package's keys) and attach through
+    the shared daemon. The consumer's results readers are the private
+    path's, which is what makes the served reader a drop-in."""
+    if piece_filter is not None:
+        raise ValueError('piece_filter is not supported with serve=: the shared daemon owns '
+                         'one static stream plan')
+    if resume_state is not None:
+        raise ValueError('resume_state is not supported with serve=: the read position '
+                         'belongs to the shared stream')
+    if autotune:
+        raise ValueError('autotune is not supported with serve=: the daemon owns the shared '
+                         'worker fleet')
+    obs.configure(telemetry)
+    if output not in ('rows', 'columnar'):
+        raise ValueError("output must be 'rows' or 'columnar', got {!r}".format(output))
+    if output == 'rows' and batch_size is not None:
+        raise ValueError("batch_size requires output='columnar'")
+    columnar_ngram = output == 'columnar' and ngram is not None
+    if columnar_ngram:
+        if batch_size is not None:
+            raise ValueError('batch_size rebatching is not supported with ngram')
+
+        def results_reader(out_schema):
+            return NgramBlockResultsQueueReader(out_schema, ngram)
+    elif batch_reader:
+        results_reader = _columnar_results_reader_factory('columnar', batch_size, drop_last,
+                                                          None)
+    else:
+        def rows_reader(out_schema):
+            return RowResultsQueueReader(out_schema, ngram)
+
+        results_reader = _columnar_results_reader_factory(output, batch_size, drop_last,
+                                                          rows_reader)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
+    spec = {
+        'dataset_url': dataset_url,
+        'batch_reader': batch_reader,
+        'schema_fields': schema_fields,
+        'seed': seed,
+        'shuffle_row_groups': shuffle_row_groups,
+        'shuffle_row_drop_partitions': shuffle_row_drop_partitions,
+        'predicate': predicate,
+        'rowgroup_selector': rowgroup_selector,
+        'num_epochs': num_epochs,
+        'cur_shard': cur_shard,
+        'shard_count': shard_count,
+        'transform_spec': transform_spec,
+        'ngram': ngram,
+        'columnar_ngram': columnar_ngram,
+        'storage_retry_policy': None,
+        'chunk_cache': None,
+        'chunk_cache_size_limit': None,
+        'cache': cache,
+    }
+    from petastorm_tpu_torch.serve.client import make_served_reader
+    return make_served_reader(spec, serve, results_reader, weight=serve_weight,
+                              spawn_args={'pool_type': reader_pool_type,
+                                          'workers_count': workers_count})
 
 
 class Reader(object):

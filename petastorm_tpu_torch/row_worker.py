@@ -30,8 +30,11 @@ In a process pool on the shm transport the publish function offers
 and no NGram (the JAX package's gate), the whole row group is then decoded
 by the fused native call straight into the ring slot the consumer maps,
 page-scan columns included, and published with a header write
-(:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Not ported yet: the
-serve plane's fused blob publish.
+(:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Under the serve
+daemon the publish function offers ``reserve_fused`` instead: behind the
+same gate the fused call decodes the batch straight into a shared blob and
+only its column layout is published
+(:meth:`RowGroupDecoderWorker._publish_fused_blob`).
 
 With an NGram (``args['ngram']``) the worker reads the fields every
 timestep needs and publishes windows instead of the block: one nested
@@ -141,8 +144,10 @@ class RowGroupDecoderWorker(WorkerBase):
         if worker_predicate is None and shuffle_row_drop_partition is None:
             # windows are assembled from the block: no in-place publish
             if (transform is None and ngram is None and isinstance(cache, NullCache)
-                    and self._publish_fused_inplace(piece, names)):
-                # the batch was decoded into the ring slot the consumer maps
+                    and (self._publish_fused_blob(piece, names)
+                         or self._publish_fused_inplace(piece, names))):
+                # the batch was decoded straight into shared memory: the serve
+                # daemon's blob, or the ring slot the consumer maps
                 return
             key = _cache_key(args['dataset_path'], piece, names,
                              getattr(transform, 'image_decode_hints', None),
@@ -197,6 +202,64 @@ class RowGroupDecoderWorker(WorkerBase):
                            piece.row_group, exc_info=True)
             return {}
         return block
+
+    def _publish_fused_blob(self, piece, names):
+        """The serve plane's zero-copy mode: when the publish function offers
+        ``reserve_fused`` (the daemon's blob plane), run the fused decode
+        straight into a shared blob mapping and publish only the column
+        layout; the consumers view the mapping in place, so the batch is
+        written once, by the decode, however many consumers attach. A blob
+        is random access, so sizes need not be known ahead. Returns False,
+        with no effect, when any precondition fails."""
+        reserve = getattr(self.publish_func, 'reserve_fused', None)
+        pf = self._parquet_file(piece.path) if reserve is not None else None
+        if pf is None or not hasattr(pf, 'fused_plan'):
+            return False
+        schema = self.args['schema']
+        if any(c in piece.partition_keys for c in names):
+            return False  # partition columns would need a post-decode append
+        physical = [c for c in names if c in schema.fields]
+        if not physical or len(physical) != len(names):
+            return False
+        plan = pf.fused_plan(piece.row_group, physical, schema.fields, include_pagescan=True)
+        if plan is None or plan.rest or not plan.columns:
+            return False
+        n = plan.expected_rows
+        if n <= 0:
+            return False
+        offsets, total = [], 0
+        for p in plan.columns:
+            offsets.append(total)
+            total += p.out_bound
+        reserved = reserve(total, n)
+        if reserved is None:
+            return False
+        view, finish, abort = reserved
+        try:
+            results = pf.fused_read_into(plan, view, offsets)
+        except Exception:  # noqa: BLE001 - a kernel refusal: the copy path serves it
+            logger.warning('fused blob read of %s rg=%s failed; copy path', piece.path,
+                           piece.row_group, exc_info=True)
+            abort()
+            return False
+        from petastorm_tpu_torch.native import fused
+        cols = []
+        for p, res, off in zip(plan.columns, results, offsets):
+            region = fused.column_region(p, res, n)
+            if region is None:
+                abort()
+                fused.count_fallbacks({p.name: fused.REASON_BY_STATUS.get(res[0],
+                                                                         'post-validate')})
+                return False
+            dtype_str, shape, nbytes = region
+            cols.append((p.name, dtype_str, shape, off, nbytes))
+        finish(cols)
+        count_route('fused_columns_total', len(plan.columns))
+        count_route('fused_batches_total')
+        count_route('serve_fused_blob_batches_total')
+        obs.count('worker_rows_decoded_total', n)
+        fused.count_fallbacks(plan.reasons)
+        return True
 
     def _publish_fused_inplace(self, piece, names):
         """The shm ring's in-place mode: reserve the ring slot the consumer

@@ -115,7 +115,7 @@ class NumpyBlockSerializer(object):
         # (empty blocks): tobytes() for both, b'' is free anyway
         if v.dtype.kind in 'Mm' or v.size == 0:
             return v.tobytes()
-        return memoryview(v).cast('B')
+        return memoryview(v).cast('B')  # noqa: PT500 - serialize-side source view, read only
 
     def serialize(self, obj):
         parts = self.serialize_parts(obj)
@@ -166,7 +166,7 @@ class NumpyBlockSerializer(object):
         """Write a :meth:`serialize_parts` result into ``target`` (an mmapped
         /dev/shm blob): the single-copy channel. Returns the memoryview over
         ``target``, which the caller releases."""
-        buf = memoryview(target)
+        buf = memoryview(target)  # noqa: PT500 - target is a caller-provided writable buffer
         off = 0
         for p in parts:
             if isinstance(p, np.ndarray):

@@ -108,11 +108,15 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
         duration = time.perf_counter() - t0
         routes = read_routes.snapshot()
         diagnostics = loader.diagnostics
-        extra = {'steps': steps, 'cache': reader.cache.stats(),
+        # a served reader decodes nothing itself: no cache, and its ring
+        # facade's counters stand for a pool
+        cache = getattr(reader, 'cache', None)
+        pool = getattr(reader, '_pool', None) or reader._facade
+        extra = {'steps': steps, 'cache': cache.stats() if cache is not None else None,
                  'read_routes': {k: v - routes_before.get(k, 0) for k, v in routes.items()},
                  # the pool's own counters (the reader's diagnostics add the
                  # whole metrics registry)
-                 'pool': reader._pool.diagnostics, 'diagnostics': diagnostics,
+                 'pool': pool.diagnostics, 'diagnostics': diagnostics,
                  'stall': obs.stall_report(diagnostics) if obs.counters_on() else None}
         if events:
             extra['step_ms'] = [s.elapsed_time(e) for s, e in events]

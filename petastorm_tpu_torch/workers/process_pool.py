@@ -166,8 +166,12 @@ def _read_blob(path):
     The views built over it keep the mapping alive; the name goes at once,
     so nothing leaks if deserializing fails. ``ACCESS_COPY`` gives writable
     views without an upfront copy, as the ring and zmq channels give writable
-    buffers. The caller adopts the deserialized arrays into ``slot`` and
-    seals it, so the map closes when the batch dies."""
+    buffers.
+
+    :borrows: the returned view borrows the mapping; the caller adopts the
+        deserialized arrays into ``slot`` and seals it, so the map closes
+        (and counts in ``lifetime_live_borrows`` while alive) exactly when
+        the batch dies."""
     with open(path, 'rb') as f:
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
     os.unlink(path)
@@ -179,7 +183,7 @@ def _read_blob(path):
             pass  # a straggler export closes it when the GC drops the chain
 
     slot = lifetime_registry().open_slot(on_release=_close, label='pool-blob')
-    return memoryview(mm), slot
+    return memoryview(mm), slot  # noqa: PT500 - registered with the lifetime registry
 
 
 def _shm_free_bytes():

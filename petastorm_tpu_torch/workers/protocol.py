@@ -13,8 +13,9 @@ a ring message framed by either package reads the same in the other:
   ``MSG_ERROR`` releases the claim (the channel is FIFO, so the claim always
   precedes its item's completion).
 
-The serve plane's broadcast frame kinds are not ported yet (ROADMAP.md,
-"serve").
+The serve plane's frame kinds (``SERVE_*``) frame daemon -> consumer traffic
+on the broadcast ring (``native/shm_ring.BcastRing``), with the same ring
+header; the pools' consumer loops never see them.
 """
 
 from __future__ import annotations
@@ -36,6 +37,24 @@ MSG_ERROR = b'E'      #: pickled worker-side exception report (releases the clai
 MSG_BLOB = b'B'       #: an item's payload parked in a /dev/shm blob; payload = path
 MSG_METRICS = b'M'    #: cumulative counts, metrics snapshot and span events piggyback
 MSG_HEARTBEAT = b'H'  #: liveness + item-ownership beacon (claim when busy is set)
+
+# -- serve-plane frame kinds (daemon -> consumers, on the broadcast ring) ---
+
+SERVE_DATA = b'd'    #: one decoded batch payload, in-band (serializer framing)
+SERVE_BLOB = b'b'    #: one decoded batch parked in a shared /dev/shm blob;
+                     #: payload = ``<size>|<path>``: consumers map it
+                     #: copy-on-write and the daemon reclaims the file once
+                     #: every consumer's ring cursor passed the frame
+SERVE_COLS = b'c'    #: a fused batch decoded straight into a shared blob:
+                     #: payload = pickled ``{'path','size','rows','cols'}``
+                     #: column layout; consumers view the mapping in place
+SERVE_DONE = b'f'    #: item completion sentinel (carries the item seq)
+SERVE_END = b'z'     #: per-tenant end of stream: the tenant's epochs finished
+SERVE_ERROR = b'e'   #: pickled daemon-side error report; the stream is over
+
+#: every serve-plane frame kind, in protocol order
+SERVE_KINDS = (SERVE_DATA, SERVE_BLOB, SERVE_COLS, SERVE_DONE, SERVE_END,
+               SERVE_ERROR)
 
 # -- shm-ring framing -------------------------------------------------------
 

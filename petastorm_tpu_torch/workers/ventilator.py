@@ -1,6 +1,6 @@
 """Ventilator: feeds work items into a pool with a bounded in-flight count.
 
-Trimmed twin of ``ConcurrentVentilator`` in
+Trimmed twin of ``ConcurrentVentilator`` and ``FairShareVentilator`` in
 ``petastorm_tpu/workers/ventilator.py``. The per-epoch reshuffle is the same
 ``np.random.default_rng(seed).permutation`` draw, so a seed gives the JAX
 package's row-group order.
@@ -12,8 +12,12 @@ when an item's last row is yielded), and :meth:`ConcurrentVentilator.state_dict`
 / ``resume_state`` capture and restore the position: undelivered items and
 the unventilated tail of the current epoch replay first, then the remaining
 epochs continue from the saved RNG state. The states are the JAX package's
-plain dicts, so either package resumes the other's. The multi-tenant
-``FairShareVentilator`` is not ported yet (ROADMAP.md, "serve").
+plain dicts, so either package resumes the other's.
+
+The serve daemon's :class:`FairShareVentilator` multiplexes many tenants'
+item streams onto one pool by weighted round-robin, with a per-tenant
+in-flight budget; for the same tenants, weights, budgets and completions it
+dispatches the JAX package's sequence.
 
 Telemetry: each dispatch is a ``ventilate`` stage; a tagged item's dispatch
 runs inside :func:`~petastorm_tpu_torch.observability.mint_trace` keyed on
@@ -189,9 +193,9 @@ class ConcurrentVentilator(object):
             indices, counted = list(range(len(self._items))), True
             if self._randomize_item_order:
                 indices = [int(i) for i in self._rng.permutation(len(self._items))]
-        self._epoch_indices = indices
-        self._epoch_pos = 0
-        self._epochs_after_current = (self._iterations_remaining - 1
+        self._epoch_indices = indices  # noqa: PT100 - the only caller, _ventilate_loop, holds _cv
+        self._epoch_pos = 0  # noqa: PT100 - the only caller, _ventilate_loop, holds _cv
+        self._epochs_after_current = (self._iterations_remaining - 1  # noqa: PT100 - caller holds _cv
                                       if counted and self._iterations_remaining is not None
                                       else self._iterations_remaining)
         return indices, counted
@@ -235,3 +239,280 @@ class ConcurrentVentilator(object):
                     self._iterations_remaining -= 1
         with self._cv:
             self._completed = True
+
+
+class _TenantQueue(object):
+    """One tenant's item stream inside a :class:`FairShareVentilator`: its
+    items, remaining epochs, weight, in-flight budget and counters. Mutated
+    under the ventilator's condition lock only."""
+
+    __slots__ = ('tenant_id', 'items', 'iterations_remaining', 'weight',
+                 'max_in_flight', 'in_flight', 'dispatched', 'completed',
+                 'epoch_indices', 'epoch_pos', 'rng', 'shuffle', 'credits',
+                 'finished', 'removed')
+
+    def __init__(self, tenant_id, items, iterations, weight, max_in_flight, shuffle, seed):
+        self.tenant_id = tenant_id
+        self.items = list(items)
+        self.iterations_remaining = iterations
+        self.weight = max(1, int(weight))
+        self.max_in_flight = max(1, int(max_in_flight))
+        self.in_flight = 0
+        self.dispatched = 0
+        self.completed = 0
+        self.epoch_indices = []
+        self.epoch_pos = 0
+        self.rng = np.random.default_rng(seed)
+        self.shuffle = shuffle
+        self.credits = 0
+        self.finished = not self.items or iterations == 0
+        self.removed = False
+
+    def _lay_out_epoch(self):
+        """Start the next epoch's order, or mark the stream finished."""
+        if self.iterations_remaining is not None:
+            if self.iterations_remaining <= 0:
+                self.finished = True
+                return False
+            self.iterations_remaining -= 1
+        order = list(range(len(self.items)))
+        if self.shuffle:
+            order = [int(i) for i in self.rng.permutation(len(order))]
+        self.epoch_indices = order
+        self.epoch_pos = 0
+        return True
+
+    def next_item(self):
+        """The next item to dispatch, or None when the stream is exhausted
+        (the scheduler checks the in-flight budget)."""
+        if self.finished:
+            return None
+        if self.epoch_pos >= len(self.epoch_indices):
+            if not self._lay_out_epoch():
+                return None
+        item = self.items[self.epoch_indices[self.epoch_pos]]
+        self.epoch_pos += 1
+        return item
+
+    def exhausted(self):
+        """No further dispatch will ever happen for this tenant."""
+        if self.removed:
+            return True
+        if not self.finished:
+            if self.epoch_pos < len(self.epoch_indices):
+                return False
+            if self.iterations_remaining is None or self.iterations_remaining > 0:
+                return False
+        return True
+
+    def stats(self):
+        return {'weight': self.weight, 'max_in_flight': self.max_in_flight,
+                'in_flight': self.in_flight, 'dispatched': self.dispatched,
+                'completed': self.completed, 'finished': self.finished,
+                'removed': self.removed}
+
+
+class FairShareVentilator(object):
+    """Multiplexes many tenants' item streams onto one pool with weighted
+    fair-share scheduling: the serve daemon's broker half.
+
+    Each tenant registers its items, an epoch count, a ``weight`` and a
+    ``max_in_flight`` budget (admission control: a tenant never holds more
+    pool slots than its budget, however fast it drains). Dispatch is
+    starvation-free weighted round-robin: each cycle refills every eligible
+    tenant's credits to its weight, then drains them in rotation, so a
+    weight-2 tenant gets two dispatches to a weight-1 tenant's one, and a
+    tenant with credits, backlog and budget is never skipped.
+
+    Every dispatch carries a globally unique ``_seq``; the pool reports
+    completions through :meth:`processed_item` (``seq``), which releases the
+    owning tenant's budget and fires ``on_tenant_done(tenant_id)`` once, when
+    the last in-flight item of its last epoch completes. The ventilator is
+    long-lived: it completes only when stopped; tenants attach and detach at
+    run time, and a removed tenant's in-flight items drain with no done
+    callback.
+    """
+
+    def __init__(self, ventilate_fn, on_tenant_done=None):
+        self._ventilate_fn = ventilate_fn
+        self._on_tenant_done = on_tenant_done
+        #: the trace-id namespace of the dispatches ('<ns>:<seq>'); the
+        #: daemon hands it to its clients, which derive each frame's trace
+        #: root from the seq in the ring header
+        self.trace_ns = os.urandom(4).hex()
+        self._cv = threading.Condition()
+        self._tenants = {}          # tenant_id -> _TenantQueue
+        self._order = []            # round-robin order of tenant ids
+        self._final_stats = {}      # drained tenants' last counters (bounded)
+        self._seq = 0
+        self._seq_tenant = {}       # seq -> tenant_id of live dispatches
+        self._stop_requested = False
+        self._completed = False
+        self._thread = None
+
+    # -- tenants ---------------------------------------------------------------
+
+    def add_tenant(self, tenant_id, items, iterations=1, weight=1, max_in_flight=2,
+                   shuffle=False, seed=None):
+        """Register a tenant's stream; dispatching starts on the feeding
+        thread's next cycle. Safe mid-run."""
+        if iterations is not None and (not isinstance(iterations, int) or iterations < 0):
+            raise ValueError('iterations must be a non-negative int or None')
+        with self._cv:
+            if tenant_id in self._tenants:
+                raise ValueError('tenant {!r} already registered'.format(tenant_id))
+            tq = _TenantQueue(tenant_id, items, iterations, weight, max_in_flight, shuffle,
+                              seed)
+            if not tq.finished:
+                self._tenants[tenant_id] = tq
+                self._order.append(tenant_id)
+            self._cv.notify_all()
+        if tq.finished:
+            # no items or no epochs: the stream ends at once
+            self._fire_done(tenant_id)
+
+    def remove_tenant(self, tenant_id):
+        """Stop feeding a tenant. Its in-flight items drain (their
+        completions release pool budget); no done callback fires."""
+        with self._cv:
+            tq = self._tenants.get(tenant_id)
+            if tq is None:
+                return False
+            tq.removed = True
+            tq.finished = True
+            if tq.in_flight == 0:
+                self._forget(tenant_id)
+            self._cv.notify_all()
+        return True
+
+    def _forget(self, tenant_id):
+        """Under the lock: drop a drained tenant, keeping its final counters
+        for the diagnostics (a finished stream's fair-share occupancy stays
+        readable)."""
+        tq = self._tenants.pop(tenant_id, None)  # noqa: PT100 - every caller holds _cv
+        if tq is not None:
+            self._final_stats[tenant_id] = tq.stats()  # noqa: PT100 - caller holds _cv
+            while len(self._final_stats) > 64:  # bounded history
+                self._final_stats.pop(next(iter(self._final_stats)))  # noqa: PT100 - caller holds _cv
+        if tenant_id in self._order:
+            self._order.remove(tenant_id)  # noqa: PT100 - every caller holds _cv
+
+    def tenant_stats(self):
+        """Per-tenant scheduling counters: the live tenants and the final
+        counters of recently drained ones."""
+        with self._cv:
+            out = dict(self._final_stats)
+            out.update({tid: tq.stats() for tid, tq in self._tenants.items()})
+            return out
+
+    def set_tenant_weight(self, tenant_id, weight):
+        """Retune a tenant's share at run time (from the next credit
+        refill). True when the tenant is still registered."""
+        with self._cv:
+            tq = self._tenants.get(tenant_id)
+            if tq is None:
+                return False
+            tq.weight = max(1, int(weight))
+            return True
+
+    def tenant_of_seq(self, seq):
+        """The owning tenant of a live dispatch seq (None once completed)."""
+        with self._cv:
+            return self._seq_tenant.get(seq)
+
+    # -- the pool's side ---------------------------------------------------------
+
+    def start(self):
+        if self._thread is not None:
+            raise RuntimeError('Ventilator already started')
+        self._thread = threading.Thread(target=self._ventilate_loop, daemon=True,
+                                        name='pstpu-torch-fairshare-ventilator')
+        self._thread.start()
+
+    def processed_item(self, seq=None):
+        """The pool's completion callback: releases the owning tenant's
+        budget and fires ``on_tenant_done`` when its stream drained."""
+        done_tenant = None
+        with self._cv:
+            tenant_id = self._seq_tenant.pop(seq, None)
+            tq = self._tenants.get(tenant_id) if tenant_id is not None else None
+            if tq is not None:
+                tq.in_flight -= 1
+                tq.completed += 1
+                if tq.exhausted() and tq.in_flight == 0:
+                    if not tq.removed:
+                        done_tenant = tenant_id
+                    self._forget(tenant_id)
+            self._cv.notify_all()
+        if done_tenant is not None:
+            self._fire_done(done_tenant)
+
+    def _fire_done(self, tenant_id):
+        if self._on_tenant_done is not None:
+            self._on_tenant_done(tenant_id)
+
+    def completed(self):
+        """Only a stop completes this ventilator."""
+        with self._cv:
+            return self._completed
+
+    def stop(self):
+        with self._cv:
+            self._stop_requested = True
+            self._cv.notify_all()
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join()
+        with self._cv:
+            self._completed = True
+
+    # -- the scheduler -----------------------------------------------------------
+
+    def _pick_next(self):
+        """Under the lock: the next ``(tenant, item, seq)`` by weighted
+        round-robin, or None when nothing is eligible. Credits refill when
+        every backlogged tenant is out of them, so weights shape the shares
+        without starving anyone."""
+        for refill in (False, True):
+            if refill:
+                eligible = [self._tenants[tid] for tid in self._order
+                            if not self._tenants[tid].finished
+                            and self._tenants[tid].in_flight < self._tenants[tid].max_in_flight]
+                if not eligible:
+                    return None
+                for tq in eligible:
+                    tq.credits = tq.weight
+            for tid in list(self._order):
+                tq = self._tenants[tid]
+                if tq.finished or tq.credits <= 0 or tq.in_flight >= tq.max_in_flight:
+                    continue
+                item = tq.next_item()
+                if item is None:
+                    continue
+                tq.credits -= 1
+                tq.in_flight += 1
+                tq.dispatched += 1
+                seq = self._seq
+                self._seq += 1
+                self._seq_tenant[seq] = tid  # noqa: PT100 - _pick_next runs under _cv
+                # rotate: equal-credit tenants alternate instead of one
+                # draining its whole credit run
+                self._order.remove(tid)  # noqa: PT100 - _pick_next runs under _cv
+                self._order.append(tid)  # noqa: PT100 - _pick_next runs under _cv
+                return tq, item, seq
+        return None
+
+    def _ventilate_loop(self):
+        while True:
+            with self._cv:
+                while not self._stop_requested:
+                    picked = self._pick_next()
+                    if picked is not None:
+                        break
+                    self._cv.wait(timeout=0.1)
+                if self._stop_requested:
+                    return
+                _tq, item, seq = picked
+            # the seq is unique across tenants, so '<ns>:<seq>' names the item
+            with obs.mint_trace(self.trace_ns, seq):
+                with obs.stage('ventilate', cat='ventilator'):
+                    self._ventilate_fn(**dict(item, _seq=seq))

@@ -9,6 +9,8 @@ A state taken by either package resumes the other's reader and loader, and
 gives the same remaining rows as the JAX resume."""
 
 import pickle
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +23,36 @@ from petastorm_tpu.predicates import in_lambda as jax_in_lambda
 from petastorm_tpu_torch import make_batch_reader, make_reader, merge_resume_states
 from petastorm_tpu_torch.predicates import in_lambda
 from petastorm_tpu_torch.torch import TorchDataLoader
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _leave_no_telemetry_state():
+    """Both packages' readers arm a process-wide flight recorder and count
+    into a process-wide registry: switch off what this module armed and
+    clear what it counted, so later files in this process see neither, and
+    hold the module to leaving no thread behind."""
+    from petastorm_tpu import observability as jax_obs
+    from petastorm_tpu.observability import blackbox as jax_blackbox
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.observability import blackbox
+
+    armed = (jax_blackbox.get_recorder(), blackbox.get_recorder())
+    threads = set(threading.enumerate())
+    yield
+    if armed[0] is None:
+        jax_blackbox.disable()
+    if armed[1] is None:
+        blackbox.disable()
+    for module in (jax_obs, obs):
+        module.get_registry().reset()
+        module.get_ring().clear()
+    # every reader was closed: none of their threads is left running
+    deadline = time.monotonic() + 10
+    while {t for t in threading.enumerate() if t not in threads and t.is_alive()}:
+        assert time.monotonic() < deadline, sorted(
+            t.name for t in threading.enumerate() if t not in threads)
+        time.sleep(0.05)
+
 
 PACKAGES = {
     'jax': (jax_make_reader, jax_make_batch_reader, JaxDataLoader, jax_in_lambda),

@@ -4,6 +4,7 @@ prefetch_to_device) against the JAX package's, on the CPU. The CUDA side
 in ``chip_smoke.py``, which checks the staged batch against the store."""
 
 import threading
+import time
 
 import jax
 import numpy as np
@@ -13,6 +14,35 @@ import torch
 from petastorm_tpu.jax import prefetch_to_device as jax_prefetch_to_device
 from petastorm_tpu.jax.infeed import stage_batch as jax_stage_batch
 from petastorm_tpu_torch.torch import prefetch_to_device, stage_batch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _leave_no_telemetry_state():
+    """Both packages' readers arm a process-wide flight recorder and count
+    into a process-wide registry: switch off what this module armed and
+    clear what it counted, so later files in this process see neither, and
+    hold the module to leaving no thread behind."""
+    from petastorm_tpu import observability as jax_obs
+    from petastorm_tpu.observability import blackbox as jax_blackbox
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.observability import blackbox
+
+    armed = (jax_blackbox.get_recorder(), blackbox.get_recorder())
+    threads = set(threading.enumerate())
+    yield
+    if armed[0] is None:
+        jax_blackbox.disable()
+    if armed[1] is None:
+        blackbox.disable()
+    for module in (jax_obs, obs):
+        module.get_registry().reset()
+        module.get_ring().clear()
+    # every reader was closed: none of their threads is left running
+    deadline = time.monotonic() + 10
+    while {t for t in threading.enumerate() if t not in threads and t.is_alive()}:
+        assert time.monotonic() < deadline, sorted(
+            t.name for t in threading.enumerate() if t not in threads)
+        time.sleep(0.05)
 
 
 def _batch(seed=0):

@@ -8,6 +8,7 @@ out of the equalities."""
 import collections
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -29,6 +30,36 @@ from petastorm_tpu_torch.observability import history
 from petastorm_tpu_torch.observability.metrics import MetricsRegistry
 from petastorm_tpu_torch.observability.trace import TraceRing
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _leave_no_telemetry_state():
+    """Both packages' readers arm a process-wide flight recorder and count
+    into a process-wide registry: switch off what this module armed and
+    clear what it counted, so later files in this process see neither, and
+    hold the module to leaving no thread behind."""
+    from petastorm_tpu import observability as jax_obs
+    from petastorm_tpu.observability import blackbox as jax_blackbox
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.observability import blackbox
+
+    armed = (jax_blackbox.get_recorder(), blackbox.get_recorder())
+    threads = set(threading.enumerate())
+    yield
+    if armed[0] is None:
+        jax_blackbox.disable()
+    if armed[1] is None:
+        blackbox.disable()
+    for module in (jax_obs, obs):
+        module.get_registry().reset()
+        module.get_ring().clear()
+    # every reader was closed: none of their threads is left running
+    deadline = time.monotonic() + 10
+    while {t for t in threading.enumerate() if t not in threads and t.is_alive()}:
+        assert time.monotonic() < deadline, sorted(
+            t.name for t in threading.enumerate() if t not in threads)
+        time.sleep(0.05)
+
 
 ROWS = 60
 ROWS_PER_GROUP = 10
@@ -336,9 +367,9 @@ def test_history_windows_and_regressions_match_jax(tmp_path):
 
 # -- the diagnostics surfaces --------------------------------------------------------
 
-#: process pool keys of the JAX diagnostics the port lacks, by name: the JAX
-#: ring counts the consumer's idle spins, the port's idle wait does not
-JAX_ONLY_KEYS = {'process': {'ring_idle_spins'}}
+#: process pool keys of the JAX diagnostics the port lacks, by name: none
+#: since both idle waits count the consumer's spins (``ring_idle_spins``)
+JAX_ONLY_KEYS = {}
 #: process pool keys only the port reports, by name: its transport, ring
 #: size and publishes per channel
 PORT_ONLY_KEYS = {'process': {'transport', 'ring_bytes', 'publish_inplace', 'publish_ring',

@@ -20,6 +20,7 @@ import gc
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import jax
@@ -55,6 +56,36 @@ from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device, stage
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers import DummyPool, ProcessPool, ThreadPool
 from petastorm_tpu_torch.workers import process_pool as pp
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _leave_no_telemetry_state():
+    """Both packages' readers arm a process-wide flight recorder and count
+    into a process-wide registry: switch off what this module armed and
+    clear what it counted, so later files in this process see neither, and
+    hold the module to leaving no thread behind."""
+    from petastorm_tpu import observability as jax_obs
+    from petastorm_tpu.observability import blackbox as jax_blackbox
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.observability import blackbox
+
+    armed = (jax_blackbox.get_recorder(), blackbox.get_recorder())
+    threads = set(threading.enumerate())
+    yield
+    if armed[0] is None:
+        jax_blackbox.disable()
+    if armed[1] is None:
+        blackbox.disable()
+    for module in (jax_obs, obs):
+        module.get_registry().reset()
+        module.get_ring().clear()
+    # every reader was closed: none of their threads is left running
+    deadline = time.monotonic() + 10
+    while {t for t in threading.enumerate() if t not in threads and t.is_alive()}:
+        assert time.monotonic() < deadline, sorted(
+            t.name for t in threading.enumerate() if t not in threads)
+        time.sleep(0.05)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 8

@@ -4,6 +4,9 @@ made with numpy from a seed. Both packages read each other's stores, and for
 one seed they give the same row groups in the same order and the same
 shuffled batches."""
 
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -19,6 +22,36 @@ from petastorm_tpu_torch.codecs import RawTensorCodec, ScalarCodec
 from petastorm_tpu_torch.errors import SchemaError
 from petastorm_tpu_torch.etl import get_schema, materialize_dataset
 from petastorm_tpu_torch.torch import TorchDataLoader
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _leave_no_telemetry_state():
+    """Both packages' readers arm a process-wide flight recorder and count
+    into a process-wide registry: switch off what this module armed and
+    clear what it counted, so later files in this process see neither, and
+    hold the module to leaving no thread behind."""
+    from petastorm_tpu import observability as jax_obs
+    from petastorm_tpu.observability import blackbox as jax_blackbox
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.observability import blackbox
+
+    armed = (jax_blackbox.get_recorder(), blackbox.get_recorder())
+    threads = set(threading.enumerate())
+    yield
+    if armed[0] is None:
+        jax_blackbox.disable()
+    if armed[1] is None:
+        blackbox.disable()
+    for module in (jax_obs, obs):
+        module.get_registry().reset()
+        module.get_ring().clear()
+    # every reader was closed: none of their threads is left running
+    deadline = time.monotonic() + 10
+    while {t for t in threading.enumerate() if t not in threads and t.is_alive()}:
+        assert time.monotonic() < deadline, sorted(
+            t.name for t in threading.enumerate() if t not in threads)
+        time.sleep(0.05)
+
 
 IMAGE_SHAPE = (8, 8, 3)
 NUM_ROWS = 100
@@ -205,8 +238,13 @@ def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
         make_reader(jax_store, ngram=NGram({0: ['no_such_field']}, 1, 'no_such_field'))
     with pytest.raises(NotImplementedError, match='protocol monitor'):
         make_reader(jax_store, protocol_monitor=True)
-    with pytest.raises(NotImplementedError, match='"serve"'):
-        make_reader(jax_store, serve='localhost:1')
+    with pytest.raises(NotImplementedError, match='"remote filesystems"'):
+        make_reader(jax_store, chunk_cache=str(tmp_path / 'chunks'))
+    # serve is ported: a combination the JAX reader refuses is refused before
+    # any daemon is spawned
+    with pytest.raises(ValueError, match='resume_state'):
+        make_reader(jax_store, serve=str(tmp_path / 'svc'), resume_state={'version': 2})
+    assert not (tmp_path / 'svc').exists()
     with pytest.raises(NotImplementedError, match='"elastic"'):
         make_reader(jax_store, elastic=object())
     with pytest.raises(TypeError, match='unexpected keyword'):
