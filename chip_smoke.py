@@ -75,6 +75,25 @@ Phases, each printed as one JSON line:
    replay's within 1e-2 (bf16 convolutions need not be bit-reproducible):
 
    - ``raw``: the raw store, no decode;
+   - ``raw_elastic``: ``raw``'s trainer as host ``h0`` of an elastic pod
+     (``make_reader(elastic=ElasticConfig(host_id='h0', lease_s=1.0,
+     poll_s=0.05))``, ``docs/parallelism.md:66-130``, ``bench_pod.py
+     --chaos``) whose other hosts are ``petastorm_tpu_torch.elastic.
+     _hostproc`` processes reading the labels at 2 ms a row: ``h1`` and
+     ``h2`` from the start; once the measured steps begin,
+     ``drive_host_churn`` SIGKILLs ``h1`` after 4 more commits and starts
+     ``h3`` (the last measured step waits for it); the survivors are stopped after the trainer (SIGTERM: they
+     leave the pod). A fresh pod for each step kind. Checks: the kill fell
+     inside the measured steps; ``h1`` died of SIGKILL, the others exited 0;
+     at least 3 generations; no ``elastic_ventilator_errors``; every commit
+     at its item's rank in ``global_order(16, 7, epoch)``, no item committed
+     twice, every closed epoch (the kill's included) one commit per done
+     marker; the row groups ``h1`` held in flight at the kill committed by
+     other hosts; ``h3`` committed row groups of its own before the
+     survivors stopped; no lease left but ``h1``'s. An ``elastic`` line per run
+     (commits at the kill, generations, handoffs, each host's share of the
+     commits, the seconds from the kill until the last of ``h1``'s claims
+     was committed) and an ``elastic_vs_raw`` line;
    - ``raw_mesh``: ``raw`` through the example's mesh flow
      (``jax_resnet_example.py:81-102``): ``make_mesh(('data',))`` (a world
      of one over NCCL), ``shard_train_state``, the reader on
@@ -116,8 +135,8 @@ Phases, each printed as one JSON line:
    before each path and read just after it, and the read routes are counted
    over the path's run: a kernel of the path that was not launched, an image
    decoded or resized by a route other than the one the decode checks named,
-   or a column read by a route other than the path's (``raw``: page scan
-   only; ``png``/``jpeg``: images to the codec with reason ``image-hints``,
+   or a column read by a route other than the path's (``raw``,
+   ``raw_elastic``: page scan only; ``png``/``jpeg``: images to the codec with reason ``image-hints``,
    strings with reason ``codec``; ``png_cached``: no read; ``png_fixed``:
    fused only; ``png_served`` no read) fails the run. The first staged batch of each path is checked
    against the store's rows, the losses for being finite and starting near
@@ -1634,6 +1653,7 @@ def check_read_routes(path, counts):
     to the codec's columnar decode (reason ``image-hints``: a resize target)
     and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
     ``png_cached`` no read at all, nor ``png_served`` (the daemon reads);
+    ``raw_elastic`` as ``raw``;
     ``png_fixed`` fused only; ``png_process``
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
     place into a ring slot, two columns each; ``png_fixed_pred`` every row
@@ -1654,7 +1674,7 @@ def check_read_routes(path, counts):
                if k.startswith('fused_fallback_reason:') and v}
     fused, fallback = c('fused_batches_total'), c('fused_fallback_total')
     pagescan, arrow = c('pagescan_columns_total'), c('arrow_fallback_columns_total')
-    if path in ('raw', 'raw_mesh'):
+    if path in ('raw', 'raw_mesh', 'raw_elastic'):
         ok = pagescan > 0 and not (fused or fallback or arrow or reasons)
     elif path in ('png', 'jpeg', 'png_process'):
         n = reasons.get('image-hints', 0)
@@ -1718,6 +1738,9 @@ SAME_BATCHES = 4
 STALL_STAGES = {
     'raw': ({'worker.read_io'}, {'worker.fused_decode'}),
     'raw_mesh': ({'worker.read_io'}, {'worker.fused_decode'}),
+    # the wait at the pod's epoch barrier has no stage of its own: the pool
+    # wait is shared out over the timed worker stages, here the read
+    'raw_elastic': ({'worker.read_io'}, {'worker.fused_decode'}),
     'png': ({'worker.decode', 'worker.read_io'}, {'worker.fused_decode'}),
     'jpeg': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_process': ({'worker.decode'}, {'worker.fused_decode'}),
@@ -2377,6 +2400,304 @@ def phase_raw_mesh(torch, url):
                                          losses[:len(plain)], plain))
     finally:
         dist.destroy_process_group()
+    return total
+
+
+#: ``raw_elastic``'s pod (``bench_pod.py --chaos``): 1 s leases, the trainer
+#: polling every 50 ms, host processes throttled to 2 ms a row, the kill 4
+#: commits into the measured steps, a joiner right after it
+ELASTIC_LEASE_S = 1.0
+ELASTIC_POLL_S = 0.05
+ELASTIC_SLEEP_PER_ROW = 0.002
+ELASTIC_KILL_AFTER = 4
+#: the host processes' epochs: more than they can read before they are
+#: stopped after the trainer
+ELASTIC_HOST_EPOCHS = 1000
+ELASTIC_HOSTS = ('h1', 'h2')
+ELASTIC_KILL, ELASTIC_JOIN = 'h1', 'h3'
+
+
+def spawn_elastic_host(url, coord, host, out_dir):
+    """One pod host: ``python -m petastorm_tpu_torch.elastic._hostproc``
+    reading the store's labels (no torch, no device); its log and events go
+    to ``out_dir``."""
+    cmd = [sys.executable, '-m', 'petastorm_tpu_torch.elastic._hostproc', '--url', url,
+           '--coord', coord, '--host', host, '--out', os.path.join(out_dir, host + '.jsonl'),
+           '--field', 'label', '--seed', str(SEED), '--lease-s', str(ELASTIC_LEASE_S),
+           '--sleep-per-row', str(ELASTIC_SLEEP_PER_ROW),
+           '--num-epochs', str(ELASTIC_HOST_EPOCHS),
+           '--ready-file', os.path.join(out_dir, host + '.ready')]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    with open(os.path.join(out_dir, host + '.log'), 'ab') as log:
+        return subprocess.Popen(cmd, stdout=log, stderr=log, env=env, cwd=ROOT)
+
+
+def _host_log(out_dir, host):
+    try:
+        with open(os.path.join(out_dir, host + '.log')) as f:
+            return f.read()[-3000:]
+    except OSError:
+        return ''
+
+
+def _epoch_dir(coord, epoch):
+    return os.path.join(coord, 'epochs', '{:06d}'.format(epoch))
+
+
+def _done_markers(coord, epoch):
+    try:
+        return {int(n) for n in os.listdir(os.path.join(_epoch_dir(coord, epoch), 'done'))}
+    except OSError:
+        return set()
+
+
+def _epochs(coord):
+    try:
+        return sorted(int(n) for n in os.listdir(os.path.join(coord, 'epochs')) if n.isdigit())
+    except OSError:
+        return []
+
+
+def _kill_epoch_inflight(coord, host):
+    """At the kill: the latest epoch holding ``host``'s in-flight file, the
+    items in it and the done markers of that epoch."""
+    for epoch in reversed(_epochs(coord)):
+        path = os.path.join(_epoch_dir(coord, epoch), 'inflight', host + '.json')
+        try:
+            with open(path) as f:
+                items = json.load(f).get('items') or []
+        except (OSError, ValueError):
+            continue
+        return epoch, sorted(int(i) for i in items), _done_markers(coord, epoch)
+    return None, [], set()
+
+
+def check_elastic_pod(name, coord, items, kill):
+    """The pod's scoreboard after a run: every commit's rank is its item's
+    rank in ``global_order(items, SEED, epoch)``, no item of any epoch was
+    committed twice, and every epoch that closed (all done markers present)
+    has one commit record per marker; the kill's epoch closed, and the row
+    groups the killed host held in flight and had not committed were
+    committed by other hosts. Returns the summary of the line."""
+    from petastorm_tpu_torch.elastic import global_order
+
+    records = collections.defaultdict(list)
+    commits_dir = os.path.join(coord, 'commits')
+    for log_name in sorted(os.listdir(commits_dir)):
+        with open(os.path.join(commits_dir, log_name)) as f:
+            for line in f:
+                rec = json.loads(line)
+                records[(rec['epoch'], rec['item'])].append(rec)
+    ranks = {}
+    for (epoch, item), recs in sorted(records.items()):
+        if len(recs) != 1:
+            raise AssertionError('{}: epoch {} item {} committed {} times: {}'.format(
+                name, epoch, item, len(recs), recs))
+        if epoch not in ranks:
+            ranks[epoch] = {it: r for r, it in enumerate(global_order(items, SEED, epoch))}
+        if recs[0]['rank'] != ranks[epoch][item]:
+            raise AssertionError('{}: epoch {} item {} committed at rank {}, global order {}'
+                                 .format(name, epoch, item, recs[0]['rank'], ranks[epoch][item]))
+    closed = []
+    for epoch in _epochs(coord):
+        markers = _done_markers(coord, epoch)
+        if len(markers) == items:
+            if markers != set(range(items)) or {i for e, i in records if e == epoch} != markers:
+                raise AssertionError('{}: closed epoch {} has markers {} and commits {}'.format(
+                    name, epoch, sorted(markers), sorted(i for e, i in records if e == epoch)))
+            closed.append(epoch)
+    if kill['epoch'] not in closed:
+        raise AssertionError('{}: the kill\'s epoch {} did not close (closed: {})'.format(
+            name, kill['epoch'], closed))
+    pending = [i for i in kill['inflight'] if i not in kill['done']]
+    adopters = {i: records[(kill['epoch'], i)][0]['host'] for i in pending}
+    if any(host == ELASTIC_KILL for host in adopters.values()):
+        raise AssertionError('{}: {} held {} in flight at the kill, committed by {}'.format(
+            name, ELASTIC_KILL, pending, adopters))
+    # the markers' mtimes against the kill's wall time: seconds until the
+    # last of the killed host's in-flight row groups was committed
+    done_dir = os.path.join(_epoch_dir(coord, kill['epoch']), 'done')
+    handoff_s = (max(os.stat(os.path.join(done_dir, '{:08d}'.format(i))).st_mtime
+                     for i in pending) - kill['wall'] if pending else None)
+    shares = collections.Counter(recs[0]['host'] for recs in records.values())
+    return {'closed_epochs': closed, 'commits': len(records),
+            'host_commit_share': {h: shares[h] / len(records) for h in sorted(shares)},
+            'kill_epoch': kill['epoch'], 'inflight_at_kill': kill['inflight'],
+            'pending_at_kill': pending, 'adopted_by': adopters, 'handoff_s': handoff_s}
+
+
+def phase_raw_elastic(torch, url, work_dir, raw_runs):
+    """``raw_elastic``: the ``raw`` path's trainer as host ``h0`` of an
+    elastic pod (``make_reader(elastic=ElasticConfig(host_id='h0',
+    lease_s=1.0, poll_s=0.05), num_epochs=None)``) whose other hosts are
+    host processes (``petastorm_tpu_torch.elastic._hostproc``, labels only,
+    2 ms a row): ``h1`` and ``h2`` are up before the first step; when the
+    measured steps begin a thread runs ``drive_host_churn``, which SIGKILLs
+    ``h1`` once the pod has committed 4 more row groups and starts ``h3``;
+    the last measured step waits for that if the buffered rows carried the
+    steps past it, so the measured window always holds the churn. After the
+    run the survivors are stopped (SIGTERM: they leave the pod).
+    Eager, then graphed, each with a fresh coordination directory and pod.
+    Checks: the kill and the join fell inside the measured steps, ``h3``
+    committed before the survivors stopped, ``h1`` died of SIGKILL and the
+    others exited 0, at least 3 generations, the
+    trainer's ``elastic_ventilator_errors`` is 0, the scoreboard's
+    exactly-once and global-order properties (:func:`check_elastic_pod`), no
+    lease left but the killed host's, no process left. An ``elastic`` line
+    per run and an ``elastic_vs_raw`` line beside ``raw``'s numbers of the
+    same call. Returns the launches."""
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.elastic import ElasticConfig
+    from petastorm_tpu_torch.faults import HostChurnPlan, count_committed, drive_host_churn
+
+    total = collections.Counter()
+    results = {}
+    runs = {}
+    for graphed in (False, True):
+        kind = 'graphed' if graphed else 'eager'
+        pod_dir = tempfile.mkdtemp(prefix='elastic_{}_'.format(kind), dir=work_dir)
+        coord = os.path.join(pod_dir, 'coord')
+        procs = {}
+        churn = {}
+        marks = {}
+        try:
+            t0 = time.perf_counter()
+            for host in ELASTIC_HOSTS:
+                procs[host] = spawn_elastic_host(url, coord, host, pod_dir)
+            deadline = time.monotonic() + 120
+            while not all(os.path.exists(os.path.join(pod_dir, h + '.ready'))
+                          for h in ELASTIC_HOSTS):
+                dead = {h: p.returncode for h, p in procs.items() if p.poll() is not None}
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError('raw_elastic: hosts did not start ({}): {}'.format(
+                        dead, {h: _host_log(pod_dir, h) for h in ELASTIC_HOSTS}))
+                time.sleep(0.02)
+            hosts_up_s = time.perf_counter() - t0
+
+            def spawn_joiner():
+                # right after the kill was reaped: the killed host's claims
+                churn['wall'] = time.time()
+                marks['kill'] = time.monotonic()
+                churn['epoch'], churn['inflight'], churn['done'] = _kill_epoch_inflight(
+                    coord, ELASTIC_KILL)
+                return spawn_elastic_host(url, coord, ELASTIC_JOIN, pod_dir)
+
+            churned = threading.Event()
+
+            def drive(plan):
+                try:
+                    churn['timeline'] = drive_host_churn(coord, procs, plan,
+                                                         spawn_joiner=spawn_joiner, timeout_s=60)
+                except Exception as e:  # noqa: BLE001 - raised on the main thread below
+                    churn['error'] = e
+                finally:
+                    churned.set()
+
+            def on_step():
+                steps = marks.setdefault('steps', 0) + 1
+                marks['steps'] = steps
+                if steps == WARMUP_STEPS:
+                    # the measured steps begin: the churn starts 4 commits on
+                    marks['measure'] = time.monotonic()
+                    plan = HostChurnPlan(kill_host=ELASTIC_KILL, join_host=ELASTIC_JOIN,
+                                         kill_after_commits=count_committed(coord)
+                                         + ELASTIC_KILL_AFTER)
+                    churn['plan'] = repr(plan)
+                    churn['thread'] = threading.Thread(target=drive, args=(plan,), daemon=True,
+                                                       name='chip-smoke-host-churn')
+                    churn['thread'].start()
+                elif steps == WARMUP_STEPS + STEPS:
+                    # the measured window holds the kill and the join: the
+                    # last step waits for them when the buffered rows carried
+                    # the steps past the pod's 4 commits (the wait counts)
+                    t_wait = time.monotonic()
+                    churned.wait(timeout=60)
+                    marks['last'] = time.monotonic()
+                    marks['wait'] = marks['last'] - t_wait
+
+            config = ElasticConfig(coord_dir=coord, host_id='h0', lease_s=ELASTIC_LEASE_S,
+                                   poll_s=ELASTIC_POLL_S)
+            launches, _, _, batches, result, losses = run_path(
+                torch, 'raw_elastic', url, check_batch, graphed=graphed, on_step=on_step,
+                reader_kwargs={'elastic': config})
+            total.update(launches)
+            runs[kind] = (batches, losses)
+            registry = obs.get_registry()
+            trainer = {k: registry.value(k) for k in (
+                'elastic_commits', 'rowgroups_handed_off', 'elastic_lease_expirations',
+                'reshard_generations', 'elastic_ventilator_errors', 'elastic_generation',
+                'elastic_member_count')}
+            churn['thread'].join(timeout=90)
+            if churn['thread'].is_alive() or 'error' in churn:
+                raise AssertionError('raw_elastic: the churn did not run: {}'.format(
+                    churn.get('error')))
+            if churn.get('epoch') is None:
+                raise AssertionError('raw_elastic: {} held no epoch at the kill'.format(
+                    ELASTIC_KILL))
+            # the kill's epoch closes (the survivors adopt the killed host's
+            # claims after its death is seen) before the survivors stop
+            deadline = time.monotonic() + 60
+            while len(_done_markers(coord, churn['epoch'])) < ROWS // ROWS_PER_ROW_GROUP:
+                if time.monotonic() > deadline:
+                    raise AssertionError('raw_elastic: the kill\'s epoch {} did not close: {}'
+                                         .format(churn['epoch'], sorted(_done_markers(
+                                             coord, churn['epoch']))))
+                time.sleep(0.05)
+            # the joiner takes its share (a commit of its own) before the
+            # survivors stop; a host ends gracefully on SIGTERM once its
+            # handler is in place, which is before its ready file
+            live = [h for h, p in procs.items() if p.poll() is None]
+            joiner_log = os.path.join(coord, 'commits', ELASTIC_JOIN + '.jsonl')
+            while not (all(os.path.exists(os.path.join(pod_dir, h + '.ready')) for h in live)
+                       and os.path.exists(joiner_log) and os.path.getsize(joiner_log)):
+                if time.monotonic() > deadline:
+                    raise AssertionError('raw_elastic: hosts {} never got ready or {} never '
+                                         'committed: {}'.format(live, ELASTIC_JOIN, {
+                                             h: _host_log(pod_dir, h) for h in live}))
+                time.sleep(0.05)
+            for host in live:
+                procs[host].send_signal(signal.SIGTERM)
+            rcs = {host: proc.wait(timeout=60) for host, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        pod = check_elastic_pod('raw_elastic', coord, ROWS // ROWS_PER_ROW_GROUP, churn)
+        generations = len(os.listdir(os.path.join(coord, 'generations')))
+        leases = sorted(os.listdir(os.path.join(coord, 'members')))
+        timeline = churn['timeline']
+        during = marks['measure'] <= marks['kill'] <= marks['last']
+        line = {'phase': 'elastic', 'path': 'raw_elastic', 'step': kind,
+                'hosts_up_s': hosts_up_s, 'plan': churn['plan'],
+                'commits_at_kill': timeline['commits_at_kill'],
+                'killed': timeline['killed'], 'joined': timeline['joined'],
+                'kill_s_into_measured_steps': marks['kill'] - marks['measure'],
+                'measured_steps_s': marks['last'] - marks['measure'],
+                'kill_during_measured_steps': during,
+                'last_step_waited_for_churn_s': marks['wait'], 'return_codes': rcs,
+                'generations': generations, 'leases_left': leases, 'trainer': trainer, **pod}
+        emit(line)
+        expected_rcs = {h: (-signal.SIGKILL if h == ELASTIC_KILL else 0) for h in rcs}
+        if (not during or rcs != expected_rcs or generations < 3
+                or trainer['elastic_ventilator_errors'] or leases != [ELASTIC_KILL + '.lease']
+                or timeline['killed'] != ELASTIC_KILL or timeline['joined'] != ELASTIC_JOIN):
+            raise AssertionError('raw_elastic ({}): the churn checks failed: {} {}'.format(
+                kind, line, {h: _host_log(pod_dir, h) for h in rcs}))
+        results[kind] = result
+        shutil.rmtree(pod_dir, ignore_errors=True)
+    check_graphed_losses(torch, 'raw_elastic', runs['graphed'][1], runs['graphed'][0])
+    check_no_leftovers()
+
+    def numbers(result):
+        return {'examples_per_sec': result.samples_per_second,
+                'median_step_ms': result.extra['median_step_ms'],
+                'input_stall_fraction': result.input_stall_fraction,
+                'bottleneck': (result.extra['stall'] or {}).get('bottleneck')}
+
+    emit({'phase': 'elastic_vs_raw',
+          'raw': {k: numbers(v[3]) for k, v in raw_runs.items()},
+          'raw_elastic': {k: numbers(v) for k, v in results.items()}})
     return total
 
 
@@ -3726,6 +4047,9 @@ def main():
         check_no_leftovers()
 
         total, raw = run_path_both_ways(torch, 'raw', urls['raw'], check_batch)
+        # the raw trainer as one host of an elastic pod, through a kill and
+        # a join
+        total.update(phase_raw_elastic(torch, urls['raw'], work_dir, raw))
         total.update(phase_raw_mesh(torch, urls['raw']))
         routes = probe['routes']
         cache_kwargs = {'cache_type': 'local-disk',

@@ -493,6 +493,9 @@ _RECORDER = None
 #: the stage-timer hook (non-None only while enabled)
 _ACTIVITY = None
 _ENABLE_COUNT = 0
+#: serializes enable(): readers started on two threads at once would each
+#: create a recorder, and the one not kept would run its thread forever
+_ENABLE_LOCK = threading.Lock()
 
 
 def get_recorder():
@@ -505,9 +508,15 @@ def enable(label='', run_dir=None, capacity=None, snapshot_interval_s=None,
     the existing one when already enabled): mmap the flight file, start the
     snapshot/watchdog thread, arm faulthandler on the ``.crash`` sidecar,
     install signal markers and the atexit clean-shutdown hook."""
+    with _ENABLE_LOCK:
+        if _RECORDER is not None:
+            return _RECORDER
+        return _enable(label, run_dir, capacity, snapshot_interval_s, stall_threshold_s)
+
+
+def _enable(label, run_dir, capacity, snapshot_interval_s, stall_threshold_s):
+    """:func:`enable`'s work, under its lock."""
     global _RECORDER, _ACTIVITY, _ENABLE_COUNT
-    if _RECORDER is not None:
-        return _RECORDER
     run_dir = run_dir or default_dir()
     try:
         os.makedirs(run_dir, exist_ok=True)

@@ -33,6 +33,13 @@ the per-host shared reader daemon instead (:mod:`petastorm_tpu_torch.serve`)
 and return a :class:`~petastorm_tpu_torch.serve.ServedReader`: the same
 results readers assemble rows, blocks or batches on the consumer's side of
 the broadcast ring (:func:`_make_served`).
+
+With ``elastic=`` the hosts of a pod share the row groups through a
+coordination directory instead of static shard arithmetic
+(:mod:`petastorm_tpu_torch.elastic`): the reader's ventilator is an
+:class:`~petastorm_tpu_torch.elastic.coordinator.ElasticVentilator`, which
+ventilates the row groups this host owns under the pod's current shard map
+and commits each delivered one exactly once pod-wide.
 """
 
 from __future__ import annotations
@@ -69,7 +76,6 @@ _NOT_YET_PORTED = {
     'chunk_cache': (None, 'remote filesystems'),
     'chunk_cache_size_limit': (None, 'remote filesystems'),
     'protocol_monitor': (None, 'protocol monitor'),
-    'elastic': (None, 'elastic'),
 }
 
 
@@ -189,7 +195,7 @@ def make_reader(dataset_url,
                 resume_state=None,
                 telemetry=None, autotune=None,
                 on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                piece_filter=None, serve=None, serve_weight=1, **not_yet_ported):
+                piece_filter=None, serve=None, serve_weight=1, elastic=None, **not_yet_ported):
     """Reader for datasets written by :func:`materialize_dataset`.
 
     :param schema_fields: field names / regex patterns / UnischemaFields to
@@ -289,8 +295,24 @@ def make_reader(dataset_url,
         ``reader_pool_type`` and ``workers_count`` size a daemon this call
         spawns. Not with ``resume_state``, ``autotune`` or ``piece_filter``
     :param serve_weight: this consumer's weight in the daemon's fair share
+    :param elastic: elastic pod sharding (``docs/parallelism.md``, "Elastic
+        pod sharding"): ``True`` or an
+        :class:`~petastorm_tpu_torch.elastic.ElasticConfig` replaces the
+        static ``cur_shard``/``shard_count`` arithmetic with a lease-based
+        membership registry and a generation-numbered shard map coordinated
+        through a shared directory (default ``<dataset>/_elastic``). Hosts
+        may join or leave mid-epoch: survivors adopt a departed host's
+        unfinished row groups after its lease expires, ``O_EXCL`` commit
+        markers make the commit exactly-once pod-wide (delivery is
+        at-least-once only in the false-expiry window, which ``lease_s``
+        bounds), and the seeded global order depends only on
+        ``(seed, epoch)``. The directory is the JAX package's, so hosts of
+        both packages can share it. Not with ``cur_shard``/``shard_count``,
+        ``resume_state`` (the pod's commit scoreboard is the read position)
+        or ``serve``
     """
     _refuse_not_yet_ported('make_reader', not_yet_ported)
+    _refuse_served_elastic(serve, elastic)
     if serve:
         return _make_served(dataset_url, batch_reader=False, schema_fields=schema_fields,
                             seed=seed, shuffle_row_groups=shuffle_row_groups,
@@ -345,7 +367,7 @@ def make_reader(dataset_url,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, resume_state=resume_state,
                   telemetry=telemetry, autotune=autotune, piece_filter=piece_filter,
-                  ngram=ngram, columnar_ngram=columnar_ngram)
+                  ngram=ngram, columnar_ngram=columnar_ngram, elastic=elastic)
 
 
 def make_batch_reader(dataset_url,
@@ -363,7 +385,8 @@ def make_batch_reader(dataset_url,
                       resume_state=None,
                       telemetry=None, autotune=None,
                       on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                      piece_filter=None, serve=None, serve_weight=1, **not_yet_ported):
+                      piece_filter=None, serve=None, serve_weight=1, elastic=None,
+                      **not_yet_ported):
     """Columnar reader for ANY Parquet store: one namedtuple of numpy column
     arrays per row group, or per ``batch_size`` rows with ``batch_size``
     (the last batch of a pass shorter unless ``drop_last``). The columns are
@@ -372,9 +395,10 @@ def make_batch_reader(dataset_url,
     The schema is the stored Unischema when the store has one, else it is
     inferred from the Arrow schema (:func:`~petastorm_tpu_torch.etl.
     dataset_metadata.infer_or_load_unischema`). The other arguments are
-    :func:`make_reader`'s, ``serve`` and ``serve_weight`` included;
-    ``TransformSpec.func`` gets the column dict."""
+    :func:`make_reader`'s, ``serve``, ``serve_weight`` and ``elastic``
+    included; ``TransformSpec.func`` gets the column dict."""
     _refuse_not_yet_ported('make_batch_reader', not_yet_ported)
+    _refuse_served_elastic(serve, elastic)
     if serve:
         return _make_served(dataset_url, batch_reader=True, schema_fields=schema_fields,
                             seed=seed, shuffle_row_groups=shuffle_row_groups,
@@ -400,7 +424,13 @@ def make_batch_reader(dataset_url,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   worker_class=ArrowBatchWorker, telemetry=telemetry, autotune=autotune,
-                  piece_filter=piece_filter)
+                  piece_filter=piece_filter, elastic=elastic)
+
+
+def _refuse_served_elastic(serve, elastic):
+    if serve and elastic:
+        raise ValueError('elastic is not supported with serve=: the shared daemon owns one '
+                         'static stream plan (docs/serve.md)')
 
 
 def _make_served(dataset_url, batch_reader, schema_fields, seed, shuffle_row_groups,
@@ -481,7 +511,7 @@ class Reader(object):
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=NullCache(), transform_spec=None, resume_state=None,
                  worker_class=RowGroupDecoderWorker, telemetry=None, autotune=None,
-                 piece_filter=None, ngram=None, columnar_ngram=False):
+                 piece_filter=None, ngram=None, columnar_ngram=False, elastic=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -489,6 +519,17 @@ class Reader(object):
                 cur_shard, shard_count))
         if shuffle_row_drop_partitions < 1:
             raise ValueError('shuffle_row_drop_partitions must be >= 1')
+        if elastic:
+            if cur_shard is not None or shard_count is not None:
+                raise ValueError(
+                    'elastic replaces static sharding: every host opens the FULL piece list '
+                    'and the generation shard map partitions it — pass neither cur_shard nor '
+                    'shard_count (docs/parallelism.md)')
+            if resume_state is not None:
+                raise ValueError(
+                    'resume_state is not supported with elastic=: the pod-wide commit '
+                    'scoreboard in the coordination directory IS the read position — '
+                    'restarted hosts rejoin and skip committed groups')
         if ngram is not None and not ngram.timestamp_overlap and shuffle_row_drop_partitions > 1:
             raise NotImplementedError(
                 'shuffle_row_drop_partitions > 1 with timestamp_overlap=False would duplicate '
@@ -548,11 +589,25 @@ class Reader(object):
         self._num_items = len(items)
         ventilator_resume = (None if resume_state is None else
                              self._resolve_resume_state(resume_state, dataset_url))
-        self._ventilator = ConcurrentVentilator(
-            pool.ventilate, items, iterations=num_epochs,
-            max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
-            randomize_item_order=shuffle_row_groups, random_seed=seed, tag_items=True,
-            resume_state=ventilator_resume)
+        self._elastic_coordinator = None
+        if elastic:
+            # imports stay inside the branch: a plain reader does not load
+            # the elastic package
+            from petastorm_tpu_torch.elastic import resolve_elastic
+            from petastorm_tpu_torch.elastic.coordinator import (ElasticCoordinator,
+                                                                 ElasticVentilator)
+            self._elastic_coordinator = ElasticCoordinator(
+                resolve_elastic(elastic, dataset_path=resolver.get_dataset_path()),
+                num_items=len(items), seed=seed, shuffle=shuffle_row_groups)
+            self._ventilator = ElasticVentilator(
+                pool.ventilate, items, self._elastic_coordinator, iterations=num_epochs,
+                max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS)
+        else:
+            self._ventilator = ConcurrentVentilator(
+                pool.ventilate, items, iterations=num_epochs,
+                max_ventilation_queue_size=pool.workers_count + _VENTILATE_EXTRA_ROWGROUPS,
+                randomize_item_order=shuffle_row_groups, random_seed=seed, tag_items=True,
+                resume_state=ventilator_resume)
         self._results_reader = results_reader_factory(self.transformed_schema)
         # checkpoint wiring, before the pool starts (items may flow at once):
         # the results reader marks an item delivered when its last row is
@@ -739,6 +794,13 @@ class Reader(object):
         diag = obs.flatten_snapshot(obs.merge_snapshots(snapshots))
         diag.update(self._pool.diagnostics)
         return diag
+
+    @property
+    def elastic_coordinator(self):
+        """The :class:`~petastorm_tpu_torch.elastic.coordinator.ElasticCoordinator`
+        when this reader runs elastically, else None. Its ``status()`` dict
+        gives the host, generation, members and the alive set."""
+        return self._elastic_coordinator
 
     @property
     def quarantined_items(self):

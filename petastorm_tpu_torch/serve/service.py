@@ -232,8 +232,12 @@ class ReaderService(object):
                                 on_error='skip')
         self._ventilator = FairShareVentilator(self._pool.ventilate,
                                                on_tenant_done=self._on_stream_done)
-        # the blob plane: the process pool's naming, so its stale-dir sweeper
-        # reaps what a hard-killed daemon left
+        # what a hard-killed daemon left: its broadcast rings (only the owner
+        # unlinks them; a consumer still attached keeps its mapping) and its
+        # blob dir, which has the process pool's naming
+        if os.path.isdir('/dev/shm'):
+            from petastorm_tpu_torch.workers.process_pool import _sweep_dead_owner_entries
+            _sweep_dead_owner_entries('/dev/shm', 'pstpu_bc_', require_pid=True)
         if self._blob_threshold and os.path.isdir('/dev/shm'):
             from petastorm_tpu_torch.workers.process_pool import _sweep_stale_blob_dirs
             _sweep_stale_blob_dirs('/dev/shm')

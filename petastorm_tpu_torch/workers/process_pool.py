@@ -131,16 +131,24 @@ def _sweep_stale_blob_dirs(shm_root):
     whose mtime is older than a grace period: blobs of a hard-killed run stay
     in tmpfs forever. Dirs without a parseable pid count as dead-owner but
     keep the grace. Best effort: an error skips that entry."""
+    _sweep_dead_owner_entries(shm_root, 'pstpu_blobs_', require_pid=False)
+
+
+def _sweep_dead_owner_entries(shm_root, prefix, require_pid):
+    """Remove the ``<prefix><pid>_*`` entries of ``shm_root`` (dirs or files)
+    whose owner pid is dead and whose mtime is older than
+    :data:`_BLOB_SWEEP_GRACE_S`; never this process's. An entry without a
+    parseable pid is kept when ``require_pid``, else counts as dead-owner."""
     try:
         entries = list(os.scandir(shm_root))
     except OSError:
         return
     now = time.time()
     for entry in entries:
-        if not entry.name.startswith('pstpu_blobs_'):
+        if not entry.name.startswith(prefix):
             continue
         try:
-            owner_alive = False
+            owner_alive = require_pid
             parts = entry.name.split('_')
             # <= 10 digits: longer would overflow a C pid_t in os.kill
             if (len(parts) >= 3 and parts[2].isascii() and parts[2].isdigit()
@@ -156,7 +164,10 @@ def _sweep_stale_blob_dirs(shm_root):
                 except PermissionError:
                     owner_alive = True  # exists, owned by someone else
             if not owner_alive and now - entry.stat().st_mtime >= _BLOB_SWEEP_GRACE_S:
-                shutil.rmtree(entry.path, ignore_errors=True)
+                if entry.is_dir(follow_symlinks=False):
+                    shutil.rmtree(entry.path, ignore_errors=True)
+                else:
+                    os.unlink(entry.path)
         except (OSError, OverflowError, ValueError):
             continue
 

@@ -133,6 +133,33 @@ def test_flight_switches(flight_dir, monkeypatch):
     assert blackbox.load_flight(rec.path)['activity'] == ''
 
 
+def test_concurrent_enables_arm_one_recorder(flight_dir):
+    """Readers started on several threads at once (elastic hosts of one
+    process) arm one recorder: no second recorder thread outlives
+    ``disable()``."""
+    threads_before = set(threading.enumerate())
+    barrier = threading.Barrier(8)
+    recorders = []
+
+    def arm():
+        barrier.wait()
+        recorders.append(blackbox.maybe_enable('consumer'))
+
+    callers = [threading.Thread(target=arm) for _ in range(8)]
+    for t in callers:
+        t.start()
+    for t in callers:
+        t.join()
+    assert len({id(r) for r in recorders}) == 1
+    assert recorders[0] is blackbox.get_recorder()
+    assert len([f for f in os.listdir(flight_dir) if f.endswith('.bin')]) == 1
+    blackbox.disable()
+    deadline = time.monotonic() + 10
+    while [t for t in threading.enumerate() if t not in threads_before and t.is_alive()]:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+
+
 def test_watchdog_dumps_once_per_episode(tmp_path):
     rec = blackbox.FlightRecorder(str(tmp_path / 'flight-wd-1-1.bin'), stall_threshold_s=0.05)
     lock = threading.Lock()

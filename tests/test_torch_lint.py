@@ -38,3 +38,19 @@ def test_every_port_suppression_carries_a_reason():
                             bare.append('{}:{}'.format(os.path.relpath(path, PORT_DIR),
                                                        lineno))
     assert bare == []
+
+
+def test_shard_map_determinism_rule_covers_the_port(tmp_path):
+    """PT1200 (no wall clock, unseeded randomness or set iteration in a shard
+    map) applies to the port's ``elastic/shardmap.py``, which lints clean
+    above: a copy with each fault added is caught."""
+    source = os.path.join(PORT_DIR, 'elastic', 'shardmap.py')
+    assert run_analysis([source]) == []
+    target = tmp_path / 'petastorm_tpu_torch' / 'elastic' / 'shardmap.py'
+    target.parent.mkdir(parents=True)
+    with open(source) as f:
+        text = f.read()
+    target.write_text(text + '\n\ndef _drift(members):\n    import time\n'
+                      '    return time.time(), [m for m in set(members)]\n')
+    codes = [f.code for f in run_analysis([str(tmp_path / 'petastorm_tpu_torch')])]
+    assert codes == ['PT1200', 'PT1200']

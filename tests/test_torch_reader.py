@@ -245,7 +245,9 @@ def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
     with pytest.raises(ValueError, match='resume_state'):
         make_reader(jax_store, serve=str(tmp_path / 'svc'), resume_state={'version': 2})
     assert not (tmp_path / 'svc').exists()
-    with pytest.raises(NotImplementedError, match='"elastic"'):
+    # elastic is ported: a value other than True or an ElasticConfig is
+    # refused with the JAX reader's error
+    with pytest.raises(ValueError, match='must be True or an ElasticConfig'):
         make_reader(jax_store, elastic=object())
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_reader(jax_store, no_such_argument=1)

@@ -12,9 +12,10 @@ JAX package's, case for case with ``tests/test_serve.py``.
   fixed order). Two tenants share one decode; a late joiner gets a suffix; a
   detach or a slow consumer stalls nobody; the blob plane is exact and
   collected; the refusals match.
-* Two tests spawn the real daemon (``python -m petastorm_tpu_torch.serve``)
+* Three tests spawn the real daemon (``python -m petastorm_tpu_torch.serve``)
   through ``make_reader(serve=<dir>)`` as a user does; each ends it and
-  checks that its pid is gone and no ``/dev/shm`` segment of it is left. One
+  checks that its pid is gone and no ``/dev/shm`` segment of it is left (one
+  SIGKILLs it, and the next daemon's start reaps its rings). One
   more runs the daemon's entry point in a fresh interpreter and checks that
   it imports neither ``torch`` nor ``jax`` nor ``petastorm_tpu``.
 """
@@ -645,7 +646,7 @@ def test_unsupported_combinations_are_refused(tmp_path, synthetic_dataset, monke
     with pytest.raises(ValueError, match='piece_filter'):
         make_batch_reader(url, serve=svc_dir, piece_filter=lambda p: True)
     for factory in (make_reader, make_batch_reader):
-        with pytest.raises(NotImplementedError, match='"elastic"'):
+        with pytest.raises(ValueError, match='elastic is not supported with serve='):
             factory(url, serve=svc_dir, elastic=object())
         with pytest.raises(NotImplementedError, match='"remote filesystems"'):
             factory(url, serve=svc_dir, chunk_cache='/tmp/chunks')
@@ -743,6 +744,51 @@ def test_killed_daemon_raises_daemon_died(tmp_path, synthetic_dataset):
         for entry in _daemon_shm_entries(pid):
             path = os.path.join('/dev/shm', entry)
             shutil.rmtree(path) if os.path.isdir(path) else os.unlink(path)
+
+
+def test_next_daemon_reaps_a_killed_daemons_rings(tmp_path, synthetic_dataset):
+    """Only its owner unlinks a broadcast ring, so a SIGKILLed daemon's
+    rings outlive it; the next daemon's start removes every ring and blob
+    dir whose owner pid is dead and whose age passed the sweep's grace, and
+    keeps a live pid's ring and its own process's."""
+    from petastorm_tpu_torch.workers.process_pool import _BLOB_SWEEP_GRACE_S
+    svc_dir = str(tmp_path / 'svc')
+    reader = make_reader(synthetic_dataset.url, serve=svc_dir, seed=0, num_epochs=None,
+                         workers_count=1)
+    pid = reader.daemon_pid
+    sleeper = subprocess.Popen([sys.executable, '-c', 'import time; time.sleep(120)'])
+    kept = ['/dev/shm/pstpu_bc_{}_keptg0'.format(p) for p in (sleeper.pid, os.getpid())]
+    svc = None
+    try:
+        for _, _row in zip(range(5), reader):
+            pass
+        os.kill(pid, signal.SIGKILL)
+        reader.stop()
+        reader.join()
+        assert _end_daemon(pid)
+        left = _daemon_shm_entries(pid)
+        assert [e for e in left if e.startswith('pstpu_bc_{}_'.format(pid))], left
+        # past the grace: the sweep reaps only segments older than it
+        old = time.time() - _BLOB_SWEEP_GRACE_S - 60
+        for path in kept:
+            open(path, 'wb').close()
+        for path in [os.path.join('/dev/shm', e) for e in left] + kept:
+            os.utime(path, (old, old))
+        svc = _make_service(tmp_path, name='svc2')
+        assert _daemon_shm_entries(pid) == []
+        assert all(os.path.exists(path) for path in kept)
+    finally:
+        if svc is not None:
+            svc.shutdown()
+        reader.stop()
+        sleeper.kill()
+        sleeper.wait()
+        for entry in _daemon_shm_entries(pid):
+            path = os.path.join('/dev/shm', entry)
+            shutil.rmtree(path) if os.path.isdir(path) else os.unlink(path)
+        for path in kept:
+            if os.path.exists(path):
+                os.unlink(path)
 
 
 def test_daemon_process_imports_no_torch_jax_or_reference(tmp_path, synthetic_dataset):
