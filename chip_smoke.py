@@ -90,7 +90,9 @@ Phases, each printed as one JSON line:
      twice, every closed epoch (the kill's included) one commit per done
      marker; the row groups ``h1`` held in flight at the kill committed by
      other hosts; ``h3`` committed row groups of its own before the
-     survivors stopped; no lease left but ``h1``'s. An ``elastic`` line per run
+     survivors stopped; no lease left but ``h1``'s (and, when the kill
+     landed inside a renewal, ``h1``'s staged ``h1.lease.tmp.<pid>``). An
+     ``elastic`` line per run
      (commits at the kill, generations, handoffs, each host's share of the
      commits, the seconds from the kill until the last of ``h1``'s claims
      was committed) and an ``elastic_vs_raw`` line;
@@ -260,6 +262,35 @@ Phases, each printed as one JSON line:
    and every parameter within 1e-4, and the ranks of each seq group on the
    same labels. Gloo takes the ring's and Ulysses' exchanges through host
    memory (NCCL refuses two ranks on one card);
+16a. ``seq_moe``: the flow of 15 with ``MoESequenceTransformer`` at its own
+   widths (d_model 64, 4 heads, 2 layers, capacity factor 1.25, d_hidden
+   256) and 8 experts on a ``('data', 'expert')`` mesh of a world of one
+   over NCCL (N = 128 tokens, C = 20 slots an expert), stepped on
+   ``moe_loss`` (cross entropy + 0.01 aux), eager and graphed; each line
+   adds every step's aux loss, and a ``routing`` line per step kind gives
+   each layer's expert loads and dropped-token fraction on the last batch,
+   computed outside the step; then ``graph_check``, ``profile`` and
+   ``model_check`` (logits and aux loss) as for 15;
+16b. ``moe_checks``: four spawned ranks on the one card over gloo with CUDA
+   tensors on ``(2, 2)`` and ``(1, 4)`` ``('data', 'expert')`` meshes, the
+   ``seq_moe`` model with its experts sharded over the expert group, each
+   rank reading its data coordinate's shard (a 2-worker thread pool),
+   global batch 16, three steps; against one process stepping the global
+   batches: the losses, aux losses and every parameter (experts gathered)
+   within 1e-4, the ranks of each expert group on the same rows;
+16c. ``pp_checks``: four spawned ranks over gloo on a ``('stage',)`` mesh
+   of 4: the dry run's stage ``gelu(act @ w + b)`` at width 64, stacked
+   parameters from the seed (the dry run's scale 0.3 at width 8, held
+   variance-preserving: 0.3 x sqrt(8/64)), 64 rows of the store staged onto
+   every stage,
+   8 microbatches; the output against the stages run one after another
+   (2e-5), the gradients of ``sum(y**2)`` (rtol 2e-4, atol 2e-5), each
+   rank's seconds per forward and per forward + backward, the bubble
+   fraction 3/11; then the same draws at the dry run's scale 0.3, where the
+   gradients grow past those tolerances' reach, against the stages run in
+   float64: the pipeline's error within twice the float32 sequential run's
+   own (``dry_run_scale``); a ``moe_pp_phases`` line gives 16a-16c's
+   seconds;
 17. ``flight_checks``: a child process runs ``raw_process`` (eager, 3 + 6
    steps) with ``PSTPU_FLIGHT_DIR`` under ``.torch_build/``: its flight file
    and one per worker exist while it runs, and after its exit
@@ -282,8 +313,8 @@ Phases, each printed as one JSON line:
    each rank's seconds per step;
 19. ``entry_checks``: ``petastorm_tpu_torch.entry.entry()``'s ResNet-50 bf16
    forward on the card (shape, dtype, finite values) and
-   ``dryrun_multichip(1)`` over NCCL (the dp/tp, process-pool and sp legs;
-   the legs not yet ported named);
+   ``dryrun_multichip(1)`` over NCCL (all five legs: dp/tp, process pool,
+   sp, ep and pp, none unported; its ``ep_loss`` and ``pp_err``);
 20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
@@ -292,7 +323,8 @@ Phases, each printed as one JSON line:
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, both steps, where a graph replay counts the
    launches it captured, and the spawned ranks' of ``mesh_checks`` and
-   ``entry_checks``; the sequence paths normalize nothing), max error, its time, the plain version's time,
+   ``entry_checks``; the sequence, MoE and pipeline paths normalize
+   nothing), max error, its time, the plain version's time,
    the least time the card could take and what bounds it, and the time of
    the one PyTorch call that computes the same function,
    ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
@@ -1664,9 +1696,9 @@ def check_read_routes(path, counts):
     no fallback reason is counted); ``plain_batch`` the raw ``label`` column
     through the fused read with no schema (one column each) and the
     ``binary`` image column through Arrow (reason ``codec``: not a
-    fixed-width numeric column); ``seq_ring`` and ``seq_ulysses`` all three
-    telemetry columns through the fused read (a window block is assembled
-    from the decoded row group, so none in place)."""
+    fixed-width numeric column); ``seq_ring``, ``seq_ulysses`` and
+    ``seq_moe`` all three telemetry columns through the fused read (a window
+    block is assembled from the decoded row group, so none in place)."""
     def c(key):
         return counts.get(key, 0)
 
@@ -1692,7 +1724,7 @@ def check_read_routes(path, counts):
     elif path == 'plain_batch':
         ok = (fused > 0 and c('fused_columns_total') == fused and reasons == {'codec': fused}
               and fallback == fused and arrow == fused and not pagescan)
-    elif path in ('seq_ring', 'seq_ulysses'):
+    elif path in ('seq_ring', 'seq_ulysses', 'seq_moe'):
         ok = (fused > 0 and c('fused_columns_total') == 3 * fused
               and not (fallback or arrow or pagescan or reasons or
                        c('fused_inplace_batches_total')))
@@ -2472,6 +2504,19 @@ def _kill_epoch_inflight(coord, host):
     return None, [], set()
 
 
+def pod_files(coord):
+    """What a pod left in its coordination directory: the number of
+    generation proposals (``<n>.json``, as the coordinator reads them), the
+    lease files and the other files of ``members/``. A SIGKILL that lands
+    between a lease renewal's write and its rename leaves the killed host's
+    staged ``<host>.lease.tmp.<pid>``; no lease reader looks at it."""
+    proposals = [n for n in os.listdir(os.path.join(coord, 'generations'))
+                 if n.endswith('.json') and n.split('.')[0].isdigit()]
+    members = sorted(os.listdir(os.path.join(coord, 'members')))
+    leases = [n for n in members if n.endswith('.lease')]
+    return len(proposals), leases, [n for n in members if n not in leases]
+
+
 def check_elastic_pod(name, coord, items, kill):
     """The pod's scoreboard after a run: every commit's rank is its item's
     rank in ``global_order(items, SEED, epoch)``, no item of any epoch was
@@ -2543,7 +2588,8 @@ def phase_raw_elastic(torch, url, work_dir, raw_runs):
     others exited 0, at least 3 generations, the
     trainer's ``elastic_ventilator_errors`` is 0, the scoreboard's
     exactly-once and global-order properties (:func:`check_elastic_pod`), no
-    lease left but the killed host's, no process left. An ``elastic`` line
+    lease left but the killed host's (:func:`pod_files`: its staged renewal
+    too, when the kill landed inside one), no process left. An ``elastic`` line
     per run and an ``elastic_vs_raw`` line beside ``raw``'s numbers of the
     same call. Returns the launches."""
     from petastorm_tpu_torch import observability as obs
@@ -2664,8 +2710,7 @@ def phase_raw_elastic(torch, url, work_dir, raw_runs):
                     proc.kill()
                 proc.wait()
         pod = check_elastic_pod('raw_elastic', coord, ROWS // ROWS_PER_ROW_GROUP, churn)
-        generations = len(os.listdir(os.path.join(coord, 'generations')))
-        leases = sorted(os.listdir(os.path.join(coord, 'members')))
+        generations, leases, staged = pod_files(coord)
         timeline = churn['timeline']
         during = marks['measure'] <= marks['kill'] <= marks['last']
         line = {'phase': 'elastic', 'path': 'raw_elastic', 'step': kind,
@@ -2676,11 +2721,14 @@ def phase_raw_elastic(torch, url, work_dir, raw_runs):
                 'measured_steps_s': marks['last'] - marks['measure'],
                 'kill_during_measured_steps': during,
                 'last_step_waited_for_churn_s': marks['wait'], 'return_codes': rcs,
-                'generations': generations, 'leases_left': leases, 'trainer': trainer, **pod}
+                'generations': generations, 'leases_left': leases,
+                'staged_leases_left': staged, 'trainer': trainer, **pod}
         emit(line)
         expected_rcs = {h: (-signal.SIGKILL if h == ELASTIC_KILL else 0) for h in rcs}
+        killed_staged = '{}.lease.tmp.{}'.format(ELASTIC_KILL, procs[ELASTIC_KILL].pid)
         if (not during or rcs != expected_rcs or generations < 3
                 or trainer['elastic_ventilator_errors'] or leases != [ELASTIC_KILL + '.lease']
+                or set(staged) - {killed_staged}
                 or timeline['killed'] != ELASTIC_KILL or timeline['joined'] != ELASTIC_JOIN):
             raise AssertionError('raw_elastic ({}): the churn checks failed: {} {}'.format(
                 kind, line, {h: _host_log(pod_dir, h) for h in rcs}))
@@ -2817,8 +2865,9 @@ def phase_mesh_checks(torch, url):
 
 def phase_entry_checks(torch):
     """``entry()``'s ResNet-50 bf16 forward on the card (its shape, dtype
-    and finite values) and ``dryrun_multichip(1)`` over NCCL (its dp/tp,
-    process-pool and sp legs). Returns the dry run's normalize launches."""
+    and finite values) and ``dryrun_multichip(1)`` over NCCL (all five
+    legs: dp/tp, process pool, sp, ep and pp, none left unported). Returns
+    the dry run's normalize launches."""
     from petastorm_tpu_torch.entry import dryrun_multichip, entry
 
     fn, args = entry(device=DEVICE_TYPE)
@@ -2831,13 +2880,16 @@ def phase_entry_checks(torch):
     dry = dryrun_multichip(1, device=DEVICE_TYPE)
     emit({'phase': 'entry_checks', 'entry_shape': list(out.shape), 'entry_dtype': str(out.dtype),
           'entry_finite': finite, 'entry_forward_s': forward_s, 'dryrun': dry,
+          'ep_loss': dry['ep_loss'], 'pp_err': dry['pp_err'],
           'dryrun_s': time.perf_counter() - t0})
     if tuple(out.shape) != (8, 1000) or out.dtype != torch.float32 or not finite:
         raise AssertionError('entry(): {} {} finite={}'.format(tuple(out.shape), out.dtype,
                                                                finite))
     if not (math.isfinite(dry['loss']) and math.isfinite(dry['process_loss'])
-            and math.isfinite(dry['seq_loss'])
-            and dry['legs_run'] == ['dp/tp', 'process pool', 'sp']):
+            and math.isfinite(dry['seq_loss']) and math.isfinite(dry['ep_loss'])
+            and dry['pp_err'] < 1e-4
+            and dry['legs_run'] == ['dp/tp', 'process pool', 'sp', 'ep', 'pp']
+            and dry['legs_not_ported'] == {}):
         raise AssertionError('dryrun_multichip(1): {}'.format(dry))
     return dry['launches']['normalize']
 
@@ -3594,6 +3646,38 @@ SEQ_CHECK_MODEL = {'num_classes': SEQ_CLASSES, 'seq_len': 4, 'feature_dim': SEQ_
 SEQ_CHECK_BATCH = 16
 SEQ_CHECK_STEPS = 3
 SEQ_CHECK_TOL = 1e-4
+#: seq_moe: the same flow with ``MoESequenceTransformer``'s own widths
+#: (``moe.py:133-136``: d_model 64, 4 heads, 2 layers, capacity factor
+#: 1.25, d_hidden 4 x d_model) and 8 experts, the smallest expert count of
+#: the Switch-Base scaling runs (arXiv:2101.03961); N = 16 x 8 = 128
+#: tokens a layer, C = 20 slots an expert
+SEQ_MOE_MODEL = {'num_classes': SEQ_CLASSES, 'num_experts': 8, 'seq_len': SEQ_WINDOW,
+                 'feature_dim': SEQ_FEATURES, 'd_model': 64, 'num_heads': 4, 'num_layers': 2}
+SEQ_MOE_CAPACITY = 20
+#: moe_checks: four gloo ranks on (2, 2) and (1, 4) ('data', 'expert')
+#: meshes, the seq_moe model, global batch 16, three steps, against one process
+MOE_CHECK_RANKS = 4
+MOE_CHECK_SHAPES = ((2, 2), (1, 4))
+MOE_CHECK_STEPS = 3
+MOE_CHECK_TOL = 1e-4
+#: pp_checks: four gloo ranks on a ('stage',) mesh of 4, the dry run's gelu
+#: stage at the telemetry features' width, 64 rows of the store in 8
+#: microbatches, against the stages run one after another in this process
+#: (the JAX test's tolerances, ``tests/test_ops.py:259-260,276``), with the
+#: weights at the dry run's scale (0.3 at width 8) held variance-preserving
+#: at width 64: 0.3 x sqrt(8 / 64). A second case takes the dry run's 0.3
+#: itself, where four stages grow the gradients by orders of magnitude and
+#: those absolute tolerances measure float32's rounding: it is held against
+#: the stages run one after another in float64, within twice the float32
+#: sequential run's own error (``dist_workers.float32_rounding_excess``)
+PP_STAGES = 4
+PP_MICROBATCHES = 8
+PP_BATCH = 64
+PP_REPEAT = 5
+PP_TOL = 2e-5
+PP_GRAD_RTOL, PP_GRAD_ATOL = 2e-4, 2e-5
+PP_SCALE = 0.3 * math.sqrt(8 / 64)
+PP_DRY_RUN_SCALE = 0.3
 
 
 def build_seq_store(url):
@@ -3661,30 +3745,35 @@ def new_seq_state(torch, mesh, context):
     return shard_train_state(create_train_state(model, device=DEVICE_TYPE), mesh)
 
 
-def run_seq_path(torch, name, url, features, mesh, context, graphed):
-    """One sequence path: a fresh model from the seed, the example's reader
-    (``make_reader(output='columnar', ngram=..., shuffle_row_groups=True,
-    seed=0, num_epochs=None)``, default pool), a loader of batch 16 staged
-    onto the mesh's data sharding, ``stack_ngram_time_axis`` on the card, 3
-    warm-up and 10 measured steps through ``pipeline_duty_cycle``. Returns
-    the state, the step, the first :data:`SAME_BATCHES` staged batches, the
-    result and the losses."""
+def run_seq_path(torch, name, url, features, mesh, new_state, graphed, model_line):
+    """One sequence path: a fresh model from the seed (``new_state()``), the
+    example's reader (``make_reader(output='columnar', ngram=...,
+    shuffle_row_groups=True, seed=0, num_epochs=None)``, default pool), a
+    loader of batch 16 staged onto the mesh's data sharding,
+    ``stack_ngram_time_axis`` on the card, 3 warm-up and 10 measured steps
+    through ``pipeline_duty_cycle``; ``model_line`` describes the model on
+    the path's line. Returns the state, the step, the first
+    :data:`SAME_BATCHES` staged batches, the result, the losses and an MoE
+    model's aux losses (else empty), and the last batch."""
     from petastorm_tpu_torch import observability as obs
     from petastorm_tpu_torch.models.train import make_train_step
     from petastorm_tpu_torch.parallel import data_sharding
     from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
 
-    state = new_seq_state(torch, mesh, context)
+    state = new_state()
     train_step = make_train_step(graphed=graphed)
-    losses, first_batches = [], []
+    losses, auxes, first_batches, last = [], [], [], []
 
     def step_fn(x, labels, timestamps):
         if not losses:
             check_seq_batch(x, timestamps, features)
         if len(first_batches) < SAME_BATCHES:
             first_batches.append((x, labels))
+        last[:] = [x]
         _, metrics = train_step(state, x, labels)
         losses.append(metrics['loss'])
+        if 'aux' in metrics:
+            auxes.append(metrics['aux'])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3698,40 +3787,44 @@ def run_seq_path(torch, name, url, features, mesh, context, graphed):
         loader_kwargs={'seed': SEQ_SEED}, telemetry='counters', to_device=data_sharding(mesh))
     wall_s = time.perf_counter() - t0
     losses = [float(x) for x in losses]
+    auxes = [float(x) for x in auxes]
     stall = result.extra['stall']
-    emit({'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager',
-          'model': 'sequence_transformer', 'context_parallelism': context, 'dtype': 'float32',
-          'd_model': 64, 'num_heads': 4, 'num_layers': 2, 'window': SEQ_WINDOW,
-          'feature_dim': SEQ_FEATURES, 'num_classes': SEQ_CLASSES, 'batch_size': SEQ_BATCH,
-          'rows': SEQ_ROWS, 'mesh': [1, 1], 'warmup_steps': WARMUP_STEPS, 'steps': STEPS,
-          'examples_per_sec': result.samples_per_second,
-          'input_stall_fraction': result.input_stall_fraction,
-          'median_step_ms': result.extra['median_step_ms'], 'step_ms': result.extra['step_ms'],
-          'peak_memory_bytes': torch.cuda.max_memory_allocated(), 'losses': losses,
-          'read_routes': result.extra['read_routes'], 'pool': result.extra['pool'],
-          'stall': stall, 'wall_s': wall_s,
-          'stage_s': {k[len('stage_'):-2]: v
-                      for k, v in sorted(result.extra['diagnostics'].items())
-                      if k.startswith('stage_') and k.endswith('_s')}})
+    line = {'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager'}
+    line.update(model_line)
+    line.update({
+        'dtype': 'float32', 'd_model': 64, 'num_heads': 4, 'num_layers': 2, 'window': SEQ_WINDOW,
+        'feature_dim': SEQ_FEATURES, 'num_classes': SEQ_CLASSES, 'batch_size': SEQ_BATCH,
+        'rows': SEQ_ROWS, 'mesh': list(mesh.shape), 'warmup_steps': WARMUP_STEPS, 'steps': STEPS,
+        'examples_per_sec': result.samples_per_second,
+        'input_stall_fraction': result.input_stall_fraction,
+        'median_step_ms': result.extra['median_step_ms'], 'step_ms': result.extra['step_ms'],
+        'peak_memory_bytes': torch.cuda.max_memory_allocated(), 'losses': losses,
+        'read_routes': result.extra['read_routes'], 'pool': result.extra['pool'],
+        'stall': stall, 'wall_s': wall_s,
+        'stage_s': {k[len('stage_'):-2]: v for k, v in sorted(result.extra['diagnostics'].items())
+                    if k.startswith('stage_') and k.endswith('_s')}})
+    if auxes:
+        line['aux_losses'] = auxes
+    emit(line)
     check_stall(name, stall)
-    if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses):
-        raise AssertionError('{}: losses {}'.format(name, losses))
+    if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError('{}: losses {}, aux losses {}'.format(name, losses, auxes))
     # a fresh model's logits are small: the first loss is close to log(classes)
     if abs(losses[0] - math.log(SEQ_CLASSES)) > 1.0:
         raise AssertionError('{}: first loss {} is far from log({})'.format(
             name, losses[0], SEQ_CLASSES))
     check_read_routes(name, result.extra['read_routes'])
-    return state, train_step, first_batches, result, losses
+    return state, train_step, first_batches, result, losses, auxes, last[0]
 
 
-def check_seq_graphed_losses(torch, name, mesh, context, graphed_losses, batches):
+def check_seq_graphed_losses(torch, name, new_state, graphed_losses, batches):
     """A fresh eager state from the seed on the graphed run's first staged
     batches: its losses against the graphed run's, which replays the eager
     step's float32 kernels (within :data:`SEQ_GRAPH_TOL`; the line says
     whether they are equal to the last bit)."""
     from petastorm_tpu_torch.models.train import make_train_step
 
-    state, step = new_seq_state(torch, mesh, context), make_train_step()
+    state, step = new_state(), make_train_step()
     eager = [float(step(state, x, labels)[1]['loss']) for x, labels in batches]
     diffs = [abs(a - b) for a, b in zip(eager, graphed_losses)]
     emit({'phase': 'graph_check', 'path': name, 'eager_losses': eager,
@@ -3749,8 +3842,11 @@ def check_seq_model(torch, name, model, x):
 
     model.eval()
     with torch.no_grad():
-        card = model(x).cpu()
-        cpu = copy.deepcopy(model).cpu()(x.cpu())
+        card, cpu = model(x), copy.deepcopy(model).cpu()(x.cpu())
+        if isinstance(card, tuple):  # an MoE model: logits and aux loss
+            card, cpu = torch.cat([card[0].flatten(), card[1][None]]), torch.cat(
+                [cpu[0].flatten(), cpu[1][None]])
+        card = card.cpu()
     model.train()
     err = float((card - cpu).abs().max())
     emit({'phase': 'model_check', 'path': name, 'max_abs_err': err,
@@ -3775,17 +3871,68 @@ def phase_seq_paths(torch, url, features):
     try:
         for context in ('ring', 'ulysses'):
             name = 'seq_' + context
+            new_state = functools.partial(new_seq_state, torch, mesh, context)
             runs = {}
             for graphed in (False, True):
                 runs['graphed' if graphed else 'eager'] = run_seq_path(
-                    torch, name, url, features, mesh, context, graphed)
-            check_seq_graphed_losses(torch, name, mesh, context, runs['graphed'][4],
-                                     runs['graphed'][2])
-            x, labels = runs['eager'][2][0]
-            for kind, (state, step, _, result, _) in runs.items():
-                _profile_step(torch, kind, state, step, x, labels,
-                              result.extra['median_step_ms'], path=name)
-            check_seq_model(torch, name, runs['eager'][0].module, x)
+                    torch, name, url, features, mesh, new_state, graphed,
+                    {'model': 'sequence_transformer', 'context_parallelism': context})
+            check_seq_model_paths(torch, name, new_state, runs)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_seq_model_paths(torch, name, new_state, runs):
+    """After a sequence path's eager and graphed runs: the ``graph_check``,
+    a ``profile`` line per step kind on the eager run's first staged batch,
+    and the ``model_check``."""
+    check_seq_graphed_losses(torch, name, new_state, runs['graphed'][4], runs['graphed'][2])
+    x, labels = runs['eager'][2][0]
+    for kind, run in runs.items():
+        _profile_step(torch, kind, run[0], run[1], x, labels,
+                      run[3].extra['median_step_ms'], path=name)
+    check_seq_model(torch, name, runs['eager'][0].module, x)
+
+
+def new_moe_state(torch, mesh):
+    """A fresh ``seq_moe`` model from the seed on ``mesh``, sharded onto it."""
+    from petastorm_tpu_torch.models import MoESequenceTransformer
+    from petastorm_tpu_torch.models.train import create_train_state, shard_train_state
+
+    torch.manual_seed(SEED)
+    model = MoESequenceTransformer(mesh=mesh, **SEQ_MOE_MODEL)
+    return shard_train_state(create_train_state(model, device=DEVICE_TYPE), mesh)
+
+
+def phase_seq_moe(torch, url, features):
+    """``seq_moe``: the sequence paths' flow with the MoE sequence
+    transformer (8 experts) on a ``('data', 'expert')`` mesh of a world of
+    one over NCCL, stepped on ``moe_loss``, eager and graphed; each line
+    adds the aux loss of every step and, computed outside the step on the
+    last batch, each layer's expert loads and dropped-token fraction. Then
+    the ``graph_check``, ``profile`` and ``model_check`` lines."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel import make_mesh
+
+    name = 'seq_moe'
+    mesh = make_mesh(('data', 'expert'), device=DEVICE_TYPE)
+    try:
+        new_state = functools.partial(new_moe_state, torch, mesh)
+        runs = {}
+        for graphed in (False, True):
+            kind = 'graphed' if graphed else 'eager'
+            runs[kind] = run_seq_path(
+                torch, name, url, features, mesh, new_state, graphed,
+                {'model': 'moe_sequence_transformer', 'num_experts': SEQ_MOE_MODEL['num_experts'],
+                 'capacity_factor': 1.25, 'capacity': SEQ_MOE_CAPACITY, 'loss': 'moe_loss'})
+            routing = runs[kind][0].module.routing_stats(runs[kind][6])
+            emit({'phase': 'routing', 'path': name, 'step': kind, 'batch': 'last',
+                  'layers': routing})
+            if any(layer['capacity'] != SEQ_MOE_CAPACITY
+                   or sum(layer['expert_load']) != SEQ_BATCH * SEQ_WINDOW for layer in routing):
+                raise AssertionError('{}: routing {}'.format(name, routing))
+        check_seq_model_paths(torch, name, new_state, runs)
     finally:
         dist.destroy_process_group()
 
@@ -3852,6 +3999,174 @@ def phase_seq_checks(torch, url):
                 and all(math.isfinite(x) for x in line['losses'])):
             raise AssertionError('seq_checks ({context}, causal={causal}): the sharded step is not '
                                  'the single-process step'.format(**line))
+
+
+def phase_moe_pp_checks(torch, url):
+    """``moe_checks`` and ``pp_checks`` in one spawn of four ranks on the one
+    card over gloo with CUDA tensors (the ranks' start-up paid once)."""
+    from petastorm_tpu_torch.parallel.launch import spawn
+    from petastorm_tpu_torch.test_util import dist_workers
+
+    specs = [{'device': DEVICE_TYPE, 'axis_shapes': shape, 'model': SEQ_MOE_MODEL, 'seed': SEED,
+              'url': url, 'ngram_fields': ('timestamp', 'features', 'sensor_id'),
+              'timestamp_field': 'timestamp', 'delta_threshold': 1, 'feature_field': 'features',
+              'label_field': 'sensor_id', 'reader_seed': SEQ_SEED, 'global_batch': SEQ_BATCH,
+              'steps': MOE_CHECK_STEPS, 'record': (MOE_CHECK_STEPS,), 'shard': True}
+             for shape in MOE_CHECK_SHAPES]
+    rng = np.random.default_rng(SEED)
+    normal = rng.standard_normal((PP_STAGES, SEQ_FEATURES, SEQ_FEATURES))
+    b = (rng.standard_normal((PP_STAGES, SEQ_FEATURES)) * 0.1).astype(np.float32)
+    ws = [(normal * scale).astype(np.float32) for scale in (PP_SCALE, PP_DRY_RUN_SCALE)]
+    cases = [{'device': DEVICE_TYPE, 'microbatches': PP_MICROBATCHES, 'w': w, 'b': b, 'url': url,
+              'global_batch': PP_BATCH, 'field': 'features', 'repeat': repeat}
+             for w, repeat in zip(ws, (PP_REPEAT, 1))]
+    t0 = time.perf_counter()
+    ranks = spawn(dist_workers.moe_and_pipeline_runs, MOE_CHECK_RANKS, (specs, cases),
+                  backend='gloo')
+    spawn_s = time.perf_counter() - t0
+    check_moe_runs(torch, [moe for moe, _ in ranks], spawn_s)
+    check_pipeline_runs(torch, [pp for _, pp in ranks], ws, b, spawn_s)
+
+
+def check_moe_runs(torch, ranks, spawn_s):
+    """``moe_checks``: each rank's runs on ``(2, 2)`` and ``(1, 4)``
+    ``('data', 'expert')`` meshes of the ``seq_moe`` model from the seed,
+    experts sharded over the expert group, each rank reading its data
+    coordinate's shard of the telemetry store's windows of 8 through a
+    2-worker thread pool, global batch 16, three steps on ``moe_loss``.
+    This process steps one model from the same seed on the global batches
+    the ranks trained on: the losses, the aux losses and every parameter
+    after step 3 (the experts gathered) within 1e-4, and the ranks of each
+    expert group on the same rows."""
+    from petastorm_tpu_torch.models.train import create_train_state, gather_state, make_train_step
+    from petastorm_tpu_torch.test_util import dist_workers
+
+    lines = []
+    for i, shape in enumerate(MOE_CHECK_SHAPES):
+        by_coord = {r[i]['coord'][::2]: r[i] for r in ranks}
+        same_rows = all(np.array_equal(by_coord[(d, 0)]['slices'][s], by_coord[(d, e)]['slices'][s])
+                        for d in range(shape[0]) for e in range(shape[1])
+                        for s in range(MOE_CHECK_STEPS))
+        state = create_train_state(dist_workers.build_moe_model(SEQ_MOE_MODEL, seed=SEED),
+                                   device=DEVICE_TYPE)
+        step = make_train_step()
+        losses, auxes = [], []
+        for s in range(MOE_CHECK_STEPS):
+            x = np.concatenate([by_coord[(d, 0)]['slices'][s] for d in range(shape[0])])
+            y = np.concatenate([by_coord[(d, 0)]['labels'][s] for d in range(shape[0])])
+            state, metrics = step(state, torch.from_numpy(x).to(DEVICE_TYPE),
+                                  torch.from_numpy(y).to(DEVICE_TYPE))
+            losses.append(metrics['loss'].item())
+            auxes.append(metrics['aux'].item())
+        reference = gather_state(state)
+        loss_err = max(abs(a - b) for r in ranks
+                       for a, b in zip(r[i]['losses'] + r[i]['auxes'], losses + auxes))
+        state_err = max(float(np.max(np.abs(r[i]['states'][MOE_CHECK_STEPS][k] - reference[k])))
+                        for r in ranks for k in reference)
+        lines.append({'mesh': list(shape), 'losses': ranks[0][i]['losses'],
+                      'aux_losses': ranks[0][i]['auxes'], 'single_process_losses': losses,
+                      'single_process_aux_losses': auxes, 'max_loss_err': loss_err,
+                      'max_state_err': state_err, 'expert_groups_same_rows': same_rows,
+                      'reader_shards': sorted({tuple(r[i]['reader_shard']) for r in ranks}),
+                      'routing_last_batch': ranks[0][i]['routing'],
+                      'step_s': [r[i]['step_s'] for r in ranks]})
+    emit({'phase': 'moe_checks', 'ranks': MOE_CHECK_RANKS, 'backend': 'gloo',
+          'device': DEVICE_TYPE, 'model': SEQ_MOE_MODEL, 'global_batch': SEQ_BATCH,
+          'steps': MOE_CHECK_STEPS, 'spawn_with_pp_checks_s': spawn_s, 'runs': lines,
+          'max_err': max(max(line['max_loss_err'], line['max_state_err']) for line in lines),
+          'tolerance': MOE_CHECK_TOL})
+    for line in lines:
+        if not (line['max_loss_err'] <= MOE_CHECK_TOL and line['max_state_err'] <= MOE_CHECK_TOL
+                and line['expert_groups_same_rows']
+                and all(math.isfinite(x) for x in line['losses'] + line['aux_losses'])):
+            raise AssertionError('moe_checks ({}): the sharded step is not the single-process '
+                                 'step'.format(line['mesh']))
+
+
+def _pipeline_witness(torch, ranks, w, b):
+    """The float64 witness of ``pp_checks`` at the dry run's weight scale:
+    the pipeline's largest errors (output, stacked gradients) against the
+    stages run one after another in float64 on the card, the float32
+    sequential run's own, and ``float32_rounding_excess`` of each."""
+    from petastorm_tpu_torch.test_util.dist_workers import (float32_rounding_excess,
+                                                            sequential_stages)
+
+    x = ranks[0]['x']
+    exact = sequential_stages(w, b, x, torch.float64, DEVICE_TYPE)
+    plain = sequential_stages(w, b, x, torch.float32, DEVICE_TYPE)
+    by_stage = sorted(ranks, key=lambda r: r['stage'])
+    ours = (by_stage[0]['y'], np.stack([r['w_grad'] for r in by_stage]),
+            np.stack([r['b_grad'] for r in by_stage]))
+    out = {'weight_scale': PP_DRY_RUN_SCALE, 'max_abs_y': float(np.abs(exact[0]).max()),
+           'max_abs_grad': float(np.abs(exact[1]).max()),
+           'same_input': all(np.array_equal(r['x'], x) for r in ranks)}
+    for name, o, p, e in zip(('y', 'w_grad', 'b_grad'), ours, plain, exact):
+        out[name] = {'pipeline_err_vs_f64': float(np.abs(o - e).max()),
+                     'sequential_f32_err_vs_f64': float(np.abs(p - e).max()),
+                     'pipeline_err_vs_sequential_f32': float(np.abs(o - p).max()),
+                     'rounding_excess': float32_rounding_excess(o, p, e)}
+    return out
+
+
+def check_pipeline_runs(torch, ranks, ws, b, spawn_s):
+    """``pp_checks``: each rank's stage of a ``('stage',)`` mesh of 4 (the
+    shifts through host memory on gloo): the dry run's stage ``gelu(act @ w
+    + b)`` at the telemetry features' width (64) with stacked parameters
+    ``ws[0]``, ``b`` from the seed (``w`` scaled 0.3 x sqrt(8 / 64)), a
+    global batch of 64 rows of the store's ``features`` read through a
+    2-worker thread pool and staged onto ``data_sharding(mesh,
+    batch_axes=())`` (rank 0's rows on every stage), 8 microbatches. The
+    output against the stages run one after another in this process
+    (2e-5), the gradients of ``sum(y**2)`` (rtol 2e-4, atol 2e-5), each
+    rank's seconds per forward and per forward + backward over 5 runs, and
+    the bubble fraction ``(S-1)/(S+M-1)``. Then the same with ``ws[1]``
+    (the same draws at the dry run's 0.3) against float64
+    (:func:`_pipeline_witness`)."""
+    from petastorm_tpu_torch.entry import gelu_stage
+
+    witness = _pipeline_witness(torch, [r[1] for r in ranks], ws[1], b)
+    ranks = [r[0] for r in ranks]
+    wt = torch.from_numpy(ws[0]).to(DEVICE_TYPE).requires_grad_()
+    bt = torch.from_numpy(b).to(DEVICE_TYPE).requires_grad_()
+    x = torch.from_numpy(ranks[0]['x']).to(DEVICE_TYPE)
+    ref = x
+    for stage in range(PP_STAGES):
+        ref = gelu_stage((wt[stage], bt[stage]), ref)
+    (ref ** 2).sum().backward()
+    ref, w_grad, b_grad = ref.detach().cpu().numpy(), wt.grad.cpu().numpy(), bt.grad.cpu().numpy()
+    same_input = all(np.array_equal(r['x'], ranks[0]['x']) for r in ranks)
+    err = max(float(np.abs(r['y'] - ref).max()) for r in ranks)
+    grad_excess = max(float(np.max(np.abs(ours - theirs) - (PP_GRAD_ATOL + PP_GRAD_RTOL
+                                                              * np.abs(theirs))))
+                      for r in ranks for ours, theirs in ((r['w_grad'], w_grad[r['stage']]),
+                                                          (r['b_grad'], b_grad[r['stage']])))
+    grad_err = max(float(np.abs(ours - theirs).max())
+                   for r in ranks for ours, theirs in ((r['w_grad'], w_grad[r['stage']]),
+                                                       (r['b_grad'], b_grad[r['stage']])))
+    emit({'phase': 'pp_checks', 'ranks': PP_STAGES, 'backend': 'gloo', 'device': DEVICE_TYPE,
+          'stages': PP_STAGES, 'microbatches': PP_MICROBATCHES, 'batch': PP_BATCH,
+          'width': SEQ_FEATURES, 'spawn_with_moe_checks_s': spawn_s,
+          'bubble_fraction': (PP_STAGES - 1) / (PP_STAGES + PP_MICROBATCHES - 1),
+          'weight_scale': PP_SCALE, 'max_abs_y': float(np.abs(ref).max()),
+          'max_abs_grad': float(np.abs(w_grad).max()),
+          'max_abs_err': err, 'tolerance': PP_TOL, 'max_grad_abs_err': grad_err,
+          'grad_tolerance': {'rtol': PP_GRAD_RTOL, 'atol': PP_GRAD_ATOL},
+          'stages_same_input': same_input,
+          'other_stage_rows_zero': all(r['other_rows_zero'] for r in ranks),
+          'forward_s': [r['forward_s'] for r in ranks],
+          'forward_backward_s': [r['forward_backward_s'] for r in ranks],
+          'median_forward_s': statistics.median(t for r in ranks for t in r['forward_s'][1:]),
+          'median_forward_backward_s': statistics.median(
+              t for r in ranks for t in r['forward_backward_s'][1:]),
+          'dry_run_scale': witness})
+    if not (err <= PP_TOL and grad_excess <= 0 and same_input
+            and all(r['other_rows_zero'] for r in ranks)):
+        raise AssertionError('pp_checks: the pipeline is not the stages run one after another '
+                             '(output {}, gradients {})'.format(err, grad_err))
+    if not (witness['same_input'] and all(witness[name]['rounding_excess'] <= 0
+                                          for name in ('y', 'w_grad', 'b_grad'))):
+        raise AssertionError('pp_checks: at the dry run scale the pipeline is further from '
+                             'float64 than float32 rounding: {}'.format(witness))
 
 
 def _all_windows(url, **kwargs):
@@ -4149,6 +4464,10 @@ def main():
         phase_ngram_checks(seq_url, ring)
         phase_seq_paths(torch, seq_url, seq_features)
         phase_seq_checks(torch, seq_url)
+        t0 = time.perf_counter()
+        phase_seq_moe(torch, seq_url, seq_features)
+        phase_moe_pp_checks(torch, seq_url)
+        emit({'phase': 'moe_pp_phases', 'seconds': time.perf_counter() - t0})
         phase_flight_checks(urls['raw'], ring)
         from petastorm_tpu_torch.entry import dryrun_store
         mesh_url = 'file://' + os.path.join(work_dir, 'mesh')

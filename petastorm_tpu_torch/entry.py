@@ -11,9 +11,13 @@ head tensor-parallel over ``model``) with ``random_flip`` and ``normalize``
 inside; then one batch through the process pool; then the sequence-parallel
 (sp) leg on a ``('data', 'seq')`` mesh: each rank's columnar NGram windows
 of a sequence store -> ``stack_ngram_time_axis`` -> its ``[B/data, T/seq,
-F]`` slice -> one ring-attention transformer train step. The JAX dry run's
-expert- and pipeline-parallel legs are not ported yet and are named, never
-reported as run.
+F]`` slice -> one ring-attention transformer train step; then the
+expert-parallel (ep) leg on a ``('data', 'expert')`` mesh: the same windows
+staged ``P('data')`` (replicated over ``expert``) -> one train step of the
+MoE sequence transformer, experts sharded over ``expert``; then the
+pipeline-parallel (pp) leg: a batch of the sequence store through a GPipe
+pipeline of gelu layers over a ``stage`` axis, held against running the
+stages one after another. Every leg of the JAX dry run runs.
 """
 
 from __future__ import annotations
@@ -25,14 +29,15 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from petastorm_tpu_torch.device import resolve_device
 
 #: the legs of the JAX dry run this one runs
-LEGS_RUN = ('dp/tp', 'process pool', 'sp')
+LEGS_RUN = ('dp/tp', 'process pool', 'sp', 'ep', 'pp')
 
 #: the legs it does not run yet, with the ROADMAP.md item that ports each
-LEGS_NOT_PORTED = {'ep': 'Expert parallelism', 'pp': 'Pipeline parallelism'}
+LEGS_NOT_PORTED = {}
 
 
 def entry(device=None):
@@ -130,6 +135,99 @@ def _dryrun_sequence_parallel(world, device_type, url):
     return (world // seq_axis, seq_axis), metrics['loss'].item()
 
 
+def _dryrun_expert_parallel(world, device_type, url):
+    """The ep leg on one rank: a ``('data', 'expert')`` mesh of the world
+    (an expert axis of 2 when the world is even), this rank's reader shard
+    of columnar NGram windows of 4 (a 1-worker thread pool, seed 3), the
+    features and labels (``ts[:, 0] % 4``) staged onto the data sharding
+    (replicated over ``expert``), one train step of a one-layer MoE
+    sequence transformer (d_model 16, two heads, two experts per expert
+    rank) on the loss ``ce + 0.01 aux``. Returns the mesh and the loss;
+    raises on a non-finite loss or gradient."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.models import MoESequenceTransformer
+    from petastorm_tpu_torch.models.train import (create_train_state, make_train_step,
+                                                  shard_train_state)
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.parallel import (data_sharding, make_global_batch, make_mesh,
+                                              process_local_batch_size, reader_shard_for_process)
+    from petastorm_tpu_torch.torch import TorchDataLoader, stack_ngram_time_axis
+
+    expert_axis = 2 if world % 2 == 0 else 1
+    mesh = make_mesh(('data', 'expert'), axis_shapes=(-1, expert_axis), device=device_type)
+    batch = 2 * (world // expert_axis)
+    window = 4
+    torch.manual_seed(3)
+    model = MoESequenceTransformer(num_classes=4, num_experts=2 * expert_axis, seq_len=window,
+                                   feature_dim=8, d_model=16, num_heads=2, num_layers=1,
+                                   mesh=mesh)
+    rows = data_sharding(mesh)
+    state = shard_train_state(create_train_state(model, device=rows.device), mesh)
+    ngram = NGram(fields={o: ['ts', 'f'] for o in range(window)}, delta_threshold=window,
+                  timestamp_field='ts')
+    cur_shard, shard_count = reader_shard_for_process(mesh)
+    with make_reader(url, output='columnar', ngram=ngram, reader_pool_type='thread',
+                     workers_count=1, seed=3, num_epochs=None, cur_shard=cur_shard,
+                     shard_count=shard_count) as reader:
+        loader = TorchDataLoader(reader, batch_size=process_local_batch_size(batch, mesh))
+        windows = stack_ngram_time_axis(next(iter(loader)))
+    staged = make_global_batch({'x': np.asarray(windows['f'], dtype=np.float32),
+                                'y': windows['ts'][:, 0] % 4}, rows)
+    state, metrics = make_train_step()(state, staged['x'], staged['y'])
+    loss = metrics['loss'].item()
+    if not math.isfinite(loss):
+        raise RuntimeError('non-finite loss in the ep leg of the dry run: {}'.format(loss))
+    if not all(bool(torch.isfinite(p.grad).all()) for p in state.module.parameters()):
+        raise RuntimeError('non-finite MoE gradients in the ep leg of the dry run')
+    return (world // expert_axis, expert_axis), loss
+
+
+def gelu_stage(params, act):
+    """The dry run's pipeline stage: ``gelu(act @ w + b)`` (tanh GELU, as
+    ``jax.nn.gelu``)."""
+    w, b = params
+    return F.gelu(act @ w + b, approximate='tanh')
+
+
+def _dryrun_pipeline_parallel(world, device_type, url):
+    """The pp leg on one rank: a ``('data', 'stage')`` mesh with the JAX dry
+    run's stage count (the world for 2, 4 or 8 ranks, else the largest of
+    1, 2, 4, 8 that divides it), whose first data coordinate runs the leg
+    (the other ranks sit it out); seeded stacked parameters ``w [S, 8, 8]``
+    and ``b [S, 8]`` (seed 4), a batch of ``4 S`` rows of the sequence store's
+    ``f`` (a 1-worker thread pool, seed 4) staged onto the data sharding
+    (the same rows on every stage), ``2 S`` microbatches. Returns the stage
+    count and the largest deviation from running the stages one after
+    another; raises above 1e-4."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.parallel import data_sharding, make_global_batch, make_mesh
+    from petastorm_tpu_torch.parallel.pipeline import make_pipelined_apply
+    from petastorm_tpu_torch.torch import TorchDataLoader
+
+    stages = world if world in (2, 4, 8) else max(s for s in (1, 2, 4, 8) if world % s == 0)
+    mesh = make_mesh(('data', 'stage'), axis_shapes=(-1, stages), device=device_type)
+    rows = data_sharding(mesh)
+    if rows.index:
+        return stages, None
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((stages, 8, 8)).astype(np.float32) * 0.3)
+    b = torch.from_numpy(rng.standard_normal((stages, 8)).astype(np.float32) * 0.1)
+    w, b = w.to(rows.device), b.to(rows.device)
+    with make_reader(url, output='columnar', reader_pool_type='thread', workers_count=1, seed=4,
+                     num_epochs=None) as reader:
+        batch = next(iter(TorchDataLoader(reader, batch_size=4 * stages)))
+    x = make_global_batch({'f': np.asarray(batch['f'], dtype=np.float32)}, rows)['f']
+    apply = make_pipelined_apply(mesh, gelu_stage, num_microbatches=2 * stages)
+    y = apply((w, b), x)
+    ref = x
+    for s in range(stages):
+        ref = gelu_stage((w[s], b[s]), ref)
+    err = float((y - ref).abs().max())
+    if not err < 1e-4:
+        raise RuntimeError('the pipeline deviates from sequential by {}'.format(err))
+    return stages, err
+
+
 def _model_axis(n_ranks):
     return 2 if n_ranks % 2 == 0 and n_ranks >= 4 else 1
 
@@ -194,9 +292,12 @@ def _dryrun_rank(rank, world, device_type, url, seq_url):
     seq_mesh, seq_loss = _dryrun_sequence_parallel(world, device_type, seq_url)
     if not math.isfinite(seq_loss):
         raise RuntimeError('non-finite loss in the sp leg of the dry run: {}'.format(seq_loss))
+    ep_mesh, ep_loss = _dryrun_expert_parallel(world, device_type, seq_url)
+    pp_stages, pp_err = _dryrun_pipeline_parallel(world, device_type, seq_url)
     return {'mesh': (world // model_axis, model_axis), 'batch': batch, 'loss': loss,
             'process_loss': process_loss, 'head_rows': head.weight.shape[0],
-            'seq_mesh': seq_mesh, 'seq_loss': seq_loss,
+            'seq_mesh': seq_mesh, 'seq_loss': seq_loss, 'ep_mesh': ep_mesh, 'ep_loss': ep_loss,
+            'pp_stages': pp_stages, 'pp_err': pp_err,
             'launches': {'normalize': normalize_kernel.launches}}
 
 
@@ -205,8 +306,10 @@ def dryrun_multichip(n_devices, device=None):
     CUDA (``device=None``; raises when CUDA or the cards are missing), gloo
     with ``device='cpu'``. Prints and returns what ran: the mesh, the global
     batch, the losses, rank 0's normalize launches, the legs run and the
-    legs not yet ported. The sp leg's mesh and loss are ``seq_mesh`` and
-    ``seq_loss``."""
+    legs not yet ported (none). The sp leg's mesh and loss are ``seq_mesh``
+    and ``seq_loss``; the ep leg's ``ep_mesh`` and ``ep_loss``; the pp leg's
+    stage count and deviation from sequential execution ``pp_stages`` and
+    ``pp_err``."""
     from petastorm_tpu_torch.parallel.launch import spawn
 
     device = resolve_device(device)
@@ -226,11 +329,14 @@ def dryrun_multichip(n_devices, device=None):
         shutil.rmtree(store, ignore_errors=True)
     result.update(legs_run=list(LEGS_RUN), legs_not_ported=dict(LEGS_NOT_PORTED))
     print('dryrun_multichip OK: mesh=({}x{}), batch={}, loss={:.4f}, process_loss={:.4f}, '
-          'seq_mesh=({}x{}), seq_loss={:.4f}; legs run: {}; not yet ported: {}'.format(
+          'seq_mesh=({}x{}), seq_loss={:.4f}, ep_mesh=({}x{}), ep_loss={:.4f}, pp_stages={}, '
+          'pp_err={:.3g}; legs run: {}; not yet ported: {}'.format(
               result['mesh'][0], result['mesh'][1], result['batch'], result['loss'],
               result['process_loss'], result['seq_mesh'][0], result['seq_mesh'][1],
-              result['seq_loss'], ', '.join(LEGS_RUN),
-              ', '.join('{} (ROADMAP.md, "{}")'.format(k, v) for k, v in LEGS_NOT_PORTED.items())))
+              result['seq_loss'], result['ep_mesh'][0], result['ep_mesh'][1], result['ep_loss'],
+              result['pp_stages'], result['pp_err'], ', '.join(LEGS_RUN),
+              ', '.join('{} (ROADMAP.md, "{}")'.format(k, v)
+                        for k, v in LEGS_NOT_PORTED.items()) or 'none'))
     return result
 
 

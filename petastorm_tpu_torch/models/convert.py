@@ -10,6 +10,14 @@ scale/bias/mean/var renamed one to one.
 ``SequenceTransformer``'s ``params``: ``block{i}`` becomes ``blocks.{i}``,
 each ``LayerNorm_0`` the module's ``norm`` (``scale`` its ``weight``), dense
 kernels are transposed and ``pos_embed`` is kept as it is.
+
+``flax_moe_to_torch(params)`` does it for the flax ``MoESequenceTransformer``:
+the blocks' unnamed LayerNorms ``LayerNorm_0 ... LayerNorm_{L-1}`` become
+``norm0 ...``, the last one ``LayerNorm_{L}`` the final ``norm``; inside each
+``attn{i}`` ``LayerNorm_0`` is the attention's ``norm``. Dense kernels
+(``embed``, ``qkv``, ``attn_out``, ``gate``, ``head``) are transposed; the
+experts' einsum parameters ``w1 [E, D, H]``, ``b1``, ``w2 [E, H, D]``,
+``b2`` are kept as they are.
 """
 
 from __future__ import annotations
@@ -51,6 +59,27 @@ def flax_sequence_to_torch(params):
         *modules, name = path
         modules = ['norm' if m == 'LayerNorm_0' else
                    'blocks.' + m[len('block'):] if m.startswith('block') else m for m in modules]
+        if name == 'kernel':
+            name, value = 'weight', value.T
+        elif name == 'scale':
+            name = 'weight'
+        state['.'.join(modules + [name])] = torch.from_numpy(
+            np.array(value, dtype=np.float32, order='C'))
+    return state
+
+
+def flax_moe_to_torch(params):
+    """flax ``MoESequenceTransformer`` ``params`` (numpy leaves) -> the
+    ``state_dict`` of :class:`~petastorm_tpu_torch.models.moe.MoESequenceTransformer`
+    (all E experts; a model sharded over an expert axis loads its slice)."""
+    final = 'LayerNorm_{}'.format(sum(1 for key in params if key.startswith('moe')))
+    state = OrderedDict()
+    for path, value in _flatten(params):
+        *modules, name = path
+        if modules and modules[0].startswith('LayerNorm_'):
+            modules[0] = 'norm' if modules[0] == final else 'norm' + modules[0][len('LayerNorm_'):]
+        elif modules and modules[0].startswith('attn') and modules[1:] == ['LayerNorm_0']:
+            modules[1] = 'norm'
         if name == 'kernel':
             name, value = 'weight', value.T
         elif name == 'scale':

@@ -31,6 +31,19 @@ on each rank of the ``seq`` group, which XLA's SPMD sums and the step here
 sums over the group (one all-reduce after the backward); the head after
 the pool is replicated over the group and keeps its gradient. DDP then
 averages both over the data group, as for the ResNet.
+
+On a ``('data', 'expert')`` mesh the MoE model
+(:mod:`petastorm_tpu_torch.models.moe`) holds this rank's experts, and its
+layers sum the partial gradients over the expert group themselves: every
+parameter's gradient is whole when the backward ends, and DDP averages
+them over the data group, the experts' included (the ranks of one data
+group hold the same experts).
+
+A model with an ``objective(output, labels)`` method is stepped and
+evaluated on it: it returns the metrics, whose ``'loss'`` the step
+differentiates (the MoE model's adds its aux loss,
+:func:`~petastorm_tpu_torch.models.moe.moe_loss`); any other model on
+:func:`classification_objective`.
 """
 
 from __future__ import annotations
@@ -101,6 +114,17 @@ def cross_entropy_loss(logits, labels):
     return F.cross_entropy(logits.float(), labels.long())
 
 
+def classification_objective(logits, labels):
+    """The metrics of a model without an ``objective`` method: the loss
+    (:func:`cross_entropy_loss`) and the accuracy."""
+    return {'loss': cross_entropy_loss(logits, labels),
+            'accuracy': (logits.detach().argmax(-1) == labels).float().mean()}
+
+
+def _objective(state):
+    return getattr(state.module, 'objective', classification_objective)
+
+
 def _step_seed(preprocess_seed, step):
     """Per-step preprocess seed from ``(preprocess_seed, step)``: the role of
     ``jax.random.fold_in`` (the bits differ, the reproducibility does not)."""
@@ -132,28 +156,35 @@ def _flip_mask(state, preprocess_fn, preprocess_seed, images):
                           images.device)[start:start + batch]
 
 
-def _global_means(state, loss, accuracy):
+def _global_means(state, metrics):
     """The metrics of the global batch: the data group's mean of the local
     means (equal local batches), detached."""
     if state.data_group is None:
-        return {'loss': loss, 'accuracy': accuracy}
-    both = torch.stack([loss, accuracy])
-    dist.all_reduce(both, group=state.data_group)
-    both /= dist.get_world_size(state.data_group)
-    return {'loss': both[0], 'accuracy': both[1]}
+        return metrics
+    names = list(metrics)
+    values = torch.stack([metrics[name] for name in names])
+    dist.all_reduce(values, group=state.data_group)
+    values /= dist.get_world_size(state.data_group)
+    return dict(zip(names, values))
 
 
 def _spec_for_path(name, mesh_axis_names):
     """The default tensor-parallel rule, the JAX package's: the classifier
     head's output dimension (flax ``head/kernel`` ``P(None, 'model')`` and
     ``head/bias`` ``P('model')``, dimension 0 of torch's ``head.weight`` and
-    ``head.bias``) shards on ``model``; everything else replicates. Returns
-    one DTensor placement per mesh dimension."""
+    ``head.bias``) shards on ``model``; the MoE layers' expert weights
+    (``moe{i}.w1``, ``b1``, ``w2``, ``b2``) shard their expert dimension on
+    ``expert``, as ``moe.py``'s ``P('expert')``; everything else replicates.
+    Returns one DTensor placement per mesh dimension."""
     from torch.distributed.tensor import Replicate, Shard
 
-    sharded = 'model' in mesh_axis_names and re.search(r'(^|\.)head\.(weight|bias)$', name)
-    return tuple(Shard(0) if sharded and axis == 'model' else Replicate()
-                 for axis in mesh_axis_names)
+    if re.search(r'(^|\.)moe\d+\.(w1|b1|w2|b2)$', name):
+        sharded_on = 'expert'
+    elif re.search(r'(^|\.)head\.(weight|bias)$', name):
+        sharded_on = 'model'
+    else:
+        sharded_on = None
+    return tuple(Shard(0) if axis == sharded_on else Replicate() for axis in mesh_axis_names)
 
 
 def state_shardings(state, mesh):
@@ -194,7 +225,10 @@ def shard_train_state(state, mesh):
     ``head`` becomes a :class:`ColumnParallelHead`; with a ``seq`` axis of
     more than one rank the step sums the gradients of the model's
     ``sequence_parameters()`` over the seq group (the model must be built on
-    the mesh, ``make_sequence_transformer(mesh=mesh)``); with a ``data``
+    the mesh, ``make_sequence_transformer(mesh=mesh)``); with an ``expert``
+    axis of more than one rank the model must be an MoE model built on the
+    mesh (``MoESequenceTransformer(mesh=mesh)``: each rank holds its
+    experts); with a ``data``
     axis of more than one rank the model is wrapped in
     ``DistributedDataParallel`` over the data group (built on a side stream
     on a card, buffers not broadcast: the synchronised statistics are
@@ -204,12 +238,16 @@ def shard_train_state(state, mesh):
         raise ValueError('the train state is already sharded')
     sharding = data_sharding(mesh)
     data_group, model_group = axis_group(mesh, 'data'), axis_group(mesh, 'model')
-    seq_group = axis_group(mesh, 'seq')
+    seq_group, expert_group = axis_group(mesh, 'seq'), axis_group(mesh, 'expert')
     model = state.module
     if seq_group is not None and getattr(model, 'seq_group', None) is not seq_group:
         raise ValueError('the mesh has a seq axis of {} ranks, and the model was not built on it: '
                          'build it with make_sequence_transformer(mesh=mesh)'.format(
                              dist.get_world_size(seq_group)))
+    if expert_group is not None and getattr(model, 'expert_group', None) is not expert_group:
+        raise ValueError('the mesh has an expert axis of {} ranks, and the model was not built on '
+                         'it: build it with MoESequenceTransformer(mesh=mesh)'.format(
+                             dist.get_world_size(expert_group)))
     momentum = {name: state.optimizer.state.get(p, {}).get('momentum_buffer')
                 for name, p in model.named_parameters()}
     for module in model.modules():
@@ -245,20 +283,33 @@ def shard_train_state(state, mesh):
     return state
 
 
+def gather_rows(local, group):
+    """The ranks' ``local`` tensors concatenated on dimension 0, in group
+    rank order, as numpy: a collective of ``group``."""
+    local = local.detach().contiguous()
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts).cpu().numpy()
+
+
 def gather_state(state):
     """The model's full parameters and statistics as ``{name: numpy}`` (the
-    ``state_dict`` names), the column-parallel head gathered over its
-    group: a collective, called on every rank of the model group."""
-    module = state.module
+    ``state_dict`` names). On a sharded state every tensor that
+    :func:`state_shardings` shards on an axis of more than one rank is
+    gathered over that axis's group: the column-parallel head over the
+    model group, the MoE layers' experts over the expert group (expert
+    coordinate ``r`` holds experts ``[r E/n, (r+1) E/n)``). A collective,
+    called on every rank of those groups."""
+    tensors = state.module.state_dict()
     out = OrderedDict((name, t.detach().to('cpu', copy=True).numpy())
-                      for name, t in module.state_dict().items())
-    head = getattr(module, 'head', None)
-    if isinstance(head, ColumnParallelHead):
-        for name in ('weight', 'bias'):
-            local = getattr(head, name).detach().contiguous()
-            parts = [torch.empty_like(local) for _ in range(dist.get_world_size(head.group))]
-            dist.all_gather(parts, local, group=head.group)
-            out['head.' + name] = torch.cat(parts).cpu().numpy()
+                      for name, t in tensors.items())
+    if state.mesh is None:
+        return out
+    for name, placements in state_shardings(state, state.mesh).items():
+        for axis, placement in zip(state.mesh.mesh_dim_names, placements):
+            group = axis_group(state.mesh, axis) if placement.is_shard() else None
+            if group is not None:
+                out[name] = gather_rows(tensors[name], group)
     return out
 
 
@@ -277,18 +328,17 @@ def _sum_sequence_grads(state):
 def _forward_backward(state, preprocess_fn, images, labels, mask):
     """Preprocess, forward, loss and backward, with the gradients written
     into (or, where they exist, added to) ``.grad`` and, on a seq group,
-    summed over it."""
+    summed over it. Returns this rank's metrics, the model's objective's
+    (:func:`classification_objective` for a model without one), detached."""
     model = state.model
     model.train()
     if preprocess_fn is not None:
         images = preprocess_fn(images, mask)
-    logits = model(images)
-    loss = cross_entropy_loss(logits, labels)
-    loss.backward()
+    metrics = _objective(state)(model(images), labels)
+    metrics['loss'].backward()
     if state.seq_group is not None:
         _sum_sequence_grads(state)
-    accuracy = (logits.detach().argmax(-1) == labels).float().mean()
-    return loss.detach(), accuracy
+    return {name: value.detach() for name, value in metrics.items()}
 
 
 def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
@@ -312,10 +362,10 @@ def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
     def train_step(state, images, labels):
         mask = _flip_mask(state, preprocess_fn, preprocess_seed, images)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, accuracy = _forward_backward(state, preprocess_fn, images, labels, mask)
+        metrics = _forward_backward(state, preprocess_fn, images, labels, mask)
         state.optimizer.step()
         state.step += 1
-        return state, _global_means(state, loss, accuracy)
+        return state, _global_means(state, metrics)
 
     return train_step
 
@@ -340,8 +390,9 @@ class GraphedTrainStep(object):
       backward then writes them instead of adding to them, so they are never
       zeroed or freed again (``zero_grad(set_to_none=True)`` would free
       memory the graph owns).
-    - The captured loss and accuracy are overwritten by the next replay; the
-      metrics returned are copies taken on the device right after the replay.
+    - The captured metrics (loss, accuracy, an MoE model's aux loss) are
+      overwritten by the next replay; the metrics returned are copies taken
+      on the device right after the replay.
     - A replay launches the captured kernels without their Python wrappers,
       so each replay adds to each kernel module's ``launches`` what the
       capture recorded (the capture itself launches nothing).
@@ -362,7 +413,7 @@ class GraphedTrainStep(object):
         self._preprocess_seed = preprocess_seed
         self._calls = 0
         self._graph = None
-        self._static = None        # images, labels, mask, loss, accuracy
+        self._static = None        # images, labels, mask, metrics
         self._captured_launches = None
         self._side = None
 
@@ -408,7 +459,7 @@ class GraphedTrainStep(object):
         else:
             if self._graph is None:
                 self._capture(state, images, labels, mask)
-            static_images, static_labels, static_mask, loss, accuracy = self._static
+            static_images, static_labels, static_mask, static_metrics = self._static
             static_images.copy_(images)
             static_labels.copy_(labels)
             if mask is not None:
@@ -416,7 +467,7 @@ class GraphedTrainStep(object):
             self._graph.replay()
             for module, count in zip(_COUNTED_KERNELS, self._captured_launches):
                 module.launches += count
-            metrics = {'loss': loss.clone(), 'accuracy': accuracy.clone()}
+            metrics = {name: value.clone() for name, value in static_metrics.items()}
         self._calls += 1
         state.step += 1
         return state, metrics
@@ -429,9 +480,9 @@ class GraphedTrainStep(object):
         self._side.wait_stream(current)
         with torch.cuda.stream(self._side):
             state.optimizer.zero_grad(set_to_none=True)
-            loss, accuracy = _forward_backward(state, self._preprocess_fn, images, labels, mask)
+            metrics = _forward_backward(state, self._preprocess_fn, images, labels, mask)
             state.optimizer.step()
-            metrics = _global_means(state, loss, accuracy)
+            metrics = _global_means(state, metrics)
         current.wait_stream(self._side)
         for t in (images, labels, mask):
             if t is not None:
@@ -453,16 +504,15 @@ class GraphedTrainStep(object):
         # thread_local: the infeed's thread keeps staging batches (pinned
         # copies, allocations on its own stream) while this thread captures
         with torch.cuda.graph(graph, capture_error_mode='thread_local'):
-            loss, accuracy = _forward_backward(state, self._preprocess_fn, static_images,
-                                               static_labels, static_mask)
+            metrics = _forward_backward(state, self._preprocess_fn, static_images,
+                                        static_labels, static_mask)
             state.optimizer.step()
-            metrics = _global_means(state, loss, accuracy)
+            metrics = _global_means(state, metrics)
         self._captured_launches = []
         for module, count in zip(_COUNTED_KERNELS, before):
             self._captured_launches.append(module.launches - count)
             module.launches = count
-        self._static = (static_images, static_labels, static_mask, metrics['loss'],
-                        metrics['accuracy'])
+        self._static = (static_images, static_labels, static_mask, metrics)
         self._graph = graph
 
 
@@ -474,8 +524,6 @@ def make_eval_step():
         model = state.model
         model.eval()
         with torch.no_grad():
-            logits = model(images)
-            return _global_means(state, cross_entropy_loss(logits, labels),
-                                 (logits.argmax(-1) == labels).float().mean())
+            return _global_means(state, _objective(state)(model(images), labels))
 
     return eval_step

@@ -90,24 +90,33 @@ class _AllReduceSum(torch.autograd.Function):
         return _sum(grad, ctx.group), None
 
 
+def _group_size(group):
+    return 1 if group is None else dist.get_world_size(group)
+
+
 def copy_to_group(x, group):
-    """``x`` forward; its gradient summed over ``group`` backward."""
+    """``x`` forward; its gradient summed over ``group`` backward. The
+    identity on a group of one."""
+    if _group_size(group) == 1:
+        return x
     return _CopyToGroup.apply(x, group)
 
 
 def gather_from_group(x, group):
     """The ranks' ``x`` concatenated on the last dimension, in rank order;
-    backward keeps this rank's slice of the gradient."""
+    backward keeps this rank's slice of the gradient. The identity on a
+    group of one."""
+    if _group_size(group) == 1:
+        return x
     return _GatherFromGroup.apply(x, group)
 
 
 def all_reduce_sum(x, group):
-    """``x`` summed over ``group``, forward and backward."""
+    """``x`` summed over ``group``, forward and backward. The identity on a
+    group of one."""
+    if _group_size(group) == 1:
+        return x
     return _AllReduceSum.apply(x, group)
-
-
-def _group_size(group):
-    return 1 if group is None else dist.get_world_size(group)
 
 
 def _through_host(tensors, group):

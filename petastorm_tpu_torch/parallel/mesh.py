@@ -7,9 +7,11 @@ and the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the
 same axis names and the same axis-shape rules.
 
 One thing differs by construction. In JAX one *host* reads one reader shard
-and feeds all its devices, so the devices of one ``model`` (or ``seq``)
-group see the same rows. With one process per card every rank reads, so the
-ranks of one ``model`` or ``seq`` group must read the same shard
+and feeds all its devices, so the devices of one ``model``, ``seq``,
+``expert`` or ``stage`` group see the same rows (JAX stages an MoE batch
+``P('data')``, replicated over ``expert``, and a pipeline's input ``P()``,
+replicated over ``stage``). With one process per card every rank reads, so
+the ranks of one such group must read the same shard
 (:func:`reader_shard_for_process` gives the *data* coordinate, not the rank)
 and train on the same rows in the same order: a thread pool of several
 workers delivers them in another order in each process, so staging onto a
@@ -160,7 +162,8 @@ class DataSharding(object):
 
 def data_sharding(mesh, batch_axes='data', seq_axis=None):
     """The :class:`DataSharding` that splits the leading (batch) dimension
-    over ``batch_axes`` (an axis name or a tuple of them) and, with
+    over ``batch_axes`` (an axis name or a tuple of them; ``()`` replicates
+    it, as ``P()``: a pipeline's input on a ``('stage',)`` mesh) and, with
     ``seq_axis``, axis 1 (time) over that mesh axis."""
     if isinstance(batch_axes, str):
         batch_axes = (batch_axes,)
@@ -185,15 +188,15 @@ def data_sharding(mesh, batch_axes='data', seq_axis=None):
 
 
 #: mesh axes whose ranks hold the same rows: one reader shard for the group
-_SAME_ROWS_AXES = ('model', 'seq')
+_SAME_ROWS_AXES = ('model', 'seq', 'expert', 'stage')
 
 
 def reader_shard_for_process(mesh=None):
     """``(cur_shard, shard_count)`` for this rank's reader. With no mesh, or
-    a mesh without a ``model`` or ``seq`` axis, that is
-    ``(rank, world_size)``; with one it is the coordinate over the other
-    axes, so the ranks of one model or seq group read the same shard (as one
-    JAX host feeds its devices)."""
+    a mesh without a ``model``, ``seq``, ``expert`` or ``stage`` axis, that
+    is ``(rank, world_size)``; with one it is the coordinate over the other
+    axes, so the ranks of one such group read the same shard (as one JAX
+    host feeds its devices)."""
     if mesh is None or not set(_SAME_ROWS_AXES) & set(mesh.mesh_dim_names):
         if not dist.is_initialized():
             return 0, 1
@@ -203,8 +206,8 @@ def reader_shard_for_process(mesh=None):
 
 def process_local_batch_size(global_batch_size, mesh=None):
     """Rows this rank's loader must produce per global batch: the global
-    batch over the data size (the world size without a mesh or a ``model``
-    or ``seq`` axis)."""
+    batch over the data size (the world size without a mesh or an axis of
+    ranks that hold the same rows)."""
     size = reader_shard_for_process(mesh)[1]
     if global_batch_size % size:
         raise ValueError('global_batch_size {} not divisible by the data size {}'.format(

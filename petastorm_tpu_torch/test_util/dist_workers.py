@@ -15,7 +15,9 @@ the rank's normalize launches.
 :func:`attention_cases` runs the ring and Ulysses attention ops on a
 ``('data', 'seq')`` mesh, and :func:`sequence_steps` the sequence
 transformer's sharded train step, fed fixed batches or the columnar NGram
-windows of a store.
+windows of a store. :func:`moe_steps` does the same for the MoE sequence
+transformer on a ``('data', 'expert')`` mesh, and :func:`pipeline_cases`
+runs GPipe pipelines of gelu stages on a ``('stage',)`` mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from petastorm_tpu_torch.models import BasicBlock, BottleneckBlock, ResNet
 from petastorm_tpu_torch.models.train import (create_train_state, gather_state, make_eval_step,
@@ -68,6 +71,10 @@ def state_digest(state):
         h.update(name.encode())
         h.update(np.ascontiguousarray(value).tobytes())
     return h.hexdigest()
+
+
+def _group_size(group):
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def _sync(device):
@@ -462,3 +469,217 @@ def sequence_steps(rank, world, spec):
 def several_sequence_runs(rank, world, specs):
     """:func:`sequence_steps` for each of ``specs`` in one world."""
     return [sequence_steps(rank, world, spec) for spec in specs]
+
+
+def build_moe_model(config, mesh=None, weights=None, seed=0):
+    """A float32 :class:`~petastorm_tpu_torch.models.moe.MoESequenceTransformer`
+    from ``config`` (``num_classes``, ``num_experts``, ``seq_len``,
+    ``feature_dim``, ``d_model``, ``num_heads``, ``num_layers``), on
+    ``mesh``, loaded with ``weights`` (all experts; a sharded model keeps
+    its slice) or initialised from ``seed``."""
+    from petastorm_tpu_torch.models import MoESequenceTransformer
+
+    torch.manual_seed(seed)
+    model = MoESequenceTransformer(mesh=mesh, **config)
+    if weights is not None:
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in weights.items()})
+    return model
+
+
+def full_grads(module):
+    """Every parameter's gradient as numpy, each MoE layer's experts
+    gathered over the expert group (a collective of the group)."""
+    from petastorm_tpu_torch.models.moe import EXPERT_PARAMS, MoEMlp
+    from petastorm_tpu_torch.models.train import gather_rows
+
+    layers = {prefix: layer for prefix, layer in module.named_modules()
+              if isinstance(layer, MoEMlp) and layer.expert_group is not None}
+    grads = {}
+    for name, p in module.named_parameters():
+        prefix, _, leaf = name.rpartition('.')
+        if prefix in layers and leaf in EXPERT_PARAMS:
+            grads[name] = gather_rows(p.grad, layers[prefix].expert_group)
+        else:
+            grads[name] = p.grad.detach().cpu().numpy()
+    return grads
+
+
+def moe_steps(rank, world, spec):
+    """``spec['steps']`` MoE train steps on a ``('data', 'expert')`` mesh of
+    ``spec['axis_shapes']`` over ``spec['device']``: the model of
+    :func:`build_moe_model` (``model``, ``weights`` or ``seed``),
+    ``shard_train_state``, the plain step on ``moe_loss``, each batch's
+    features and labels staged onto the data sharding (replicated over the
+    expert group). Batches: ``batches`` (global ``(x, y)`` pairs; each rank
+    takes its data coordinate's rows) or the NGram windows of ``url``
+    (:func:`_window_batches`). Returns the coordinates, the losses and aux
+    losses, every parameter's whole gradient after step 1, the gathered
+    state after each step in ``record``, each step's staged rows and
+    labels, the model's logits on the first batch before any step (this
+    rank's rows), the routing statistics of the last batch and the step
+    seconds. With ``refuse_experts``, instead, the errors that a layer of
+    that many experts and ``shard_train_state`` of a model not built on the
+    mesh raise."""
+    from petastorm_tpu_torch.models import MoEMlp
+
+    device = torch.device(spec['device'])
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(('data', 'expert'), spec['axis_shapes'], device=spec['device'])
+    if 'refuse_experts' in spec:
+        refusals = {}
+        for name, make in (('experts', lambda: MoEMlp(8, spec['refuse_experts'], 8, mesh=mesh)),
+                           ('unsharded', lambda: shard_train_state(create_train_state(
+                               build_moe_model(spec['model']), device=spec['device']), mesh))):
+            try:
+                make()
+            except ValueError as e:
+                refusals[name] = str(e)
+        return refusals
+    rows_sharding = data_sharding(mesh)
+    model = build_moe_model(spec['model'], mesh, spec.get('weights'), spec.get('seed', 0))
+    state = create_train_state(model, device=rows_sharding.device,
+                               learning_rate=spec.get('lr', 0.1))
+    state = shard_train_state(state, mesh)
+    step = make_train_step()
+    if 'batches' in spec:
+        local = len(spec['batches'][0][1]) // rows_sharding.size
+        rows = slice(rows_sharding.index * local, (rows_sharding.index + 1) * local)
+        batches = ((x[rows], y[rows]) for x, y in spec['batches'][:spec['steps']])
+    else:
+        batches = _window_batches(spec, mesh)
+    out = {'coord': (rows_sharding.index, rows_sharding.size, mesh.get_local_rank('expert'),
+                     mesh.shape[1]),
+           'reader_shard': reader_shard_for_process(mesh),
+           'replicas': _group_size(rows_sharding.replica_group),
+           'losses': [], 'auxes': [], 'slices': [], 'labels': [], 'states': {}, 'step_s': []}
+    for i, (x, y) in enumerate(batches, 1):
+        staged = make_global_batch({'x': np.ascontiguousarray(x, dtype=np.float32),
+                                    'y': np.ascontiguousarray(y, dtype=np.int64)}, rows_sharding)
+        x, y = staged['x'], staged['y']
+        out['slices'].append(x.cpu().numpy())
+        out['labels'].append(y.cpu().numpy())
+        if i == 1:
+            with torch.no_grad():
+                out['logits'] = state.module(x)[0].cpu().numpy()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, x, y)
+        _sync(device)
+        out['step_s'].append(time.perf_counter() - t0)
+        out['losses'].append(metrics['loss'].item())
+        out['auxes'].append(metrics['aux'].item())
+        if i == 1:
+            out['grads'] = full_grads(state.module)
+        if i in spec.get('record', ()):
+            out['states'][i] = gather_state(state)
+    out['routing'] = state.module.routing_stats(x)
+    return out
+
+
+def several_moe_runs(rank, world, specs):
+    """:func:`moe_steps` for each of ``specs`` in one world."""
+    return [moe_steps(rank, world, spec) for spec in specs]
+
+
+def pipeline_cases(rank, world, cases):
+    """GPipe pipelines of :func:`~petastorm_tpu_torch.entry.gelu_stage` on a
+    ``('stage',)`` mesh of the world over ``case['device']``, one per case:
+    stacked ``w``, ``b`` (numpy), ``microbatches``, and the global batch
+    ``x`` (numpy) or ``global_batch`` rows of ``url``'s ``field`` (a
+    2-worker thread pool, staged onto ``data_sharding(mesh, batch_axes=())``
+    so every stage holds rank 0's rows). Returns per case the staged batch,
+    the output, this stage's rows of the gradients of ``sum(y**2)`` and,
+    over ``repeat`` runs, the seconds of each forward and each forward +
+    backward; with ``refuse``, the errors of a stack of ``S + 1`` stages
+    and of a batch of ``microbatches + 1`` rows instead."""
+    from petastorm_tpu_torch.entry import gelu_stage
+    from petastorm_tpu_torch.parallel.pipeline import make_pipelined_apply
+
+    results = []
+    for case in cases:
+        device = torch.device(case['device'])
+        if device.type == 'cuda':
+            torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_mesh(('stage',), device=case['device'])
+        stage = mesh.get_local_rank('stage')
+        apply = make_pipelined_apply(mesh, gelu_stage, num_microbatches=case['microbatches'])
+        w = torch.from_numpy(case['w']).to(device).requires_grad_()
+        b = torch.from_numpy(case['b']).to(device).requires_grad_()
+        if case.get('refuse'):
+            errors = []
+            for params, x in (((torch.cat([w, w[:1]]), torch.cat([b, b[:1]])),
+                               torch.zeros(case['microbatches'], w.shape[1])),
+                              ((w, b), torch.zeros(case['microbatches'] + 1, w.shape[1]))):
+                try:
+                    apply(params, x.to(device))
+                except ValueError as e:
+                    errors.append(str(e))
+            results.append({'errors': errors})
+            continue
+        if 'x' in case:
+            x = torch.from_numpy(case['x']).to(device)
+        else:
+            from petastorm_tpu_torch import make_reader
+            from petastorm_tpu_torch.torch import TorchDataLoader
+
+            with make_reader(case['url'], reader_pool_type='thread', workers_count=2, seed=0,
+                             output='columnar', num_epochs=None) as reader:
+                batch = next(iter(TorchDataLoader(reader, batch_size=case['global_batch'])))
+            x = make_global_batch({'x': np.asarray(batch[case['field']], dtype=np.float32)},
+                                  data_sharding(mesh, batch_axes=()))['x']
+        forward_s, backward_s = [], []
+        for _ in range(case.get('repeat', 1)):
+            _sync(device)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                y = apply((w, b), x)
+            _sync(device)
+            forward_s.append(time.perf_counter() - t0)
+            w.grad = b.grad = None
+            t0 = time.perf_counter()
+            (apply((w, b), x) ** 2).sum().backward()
+            _sync(device)
+            backward_s.append(time.perf_counter() - t0)
+        replicated = data_sharding(mesh, batch_axes=())
+        results.append({'stage': stage, 'reader_shard': reader_shard_for_process(mesh),
+                        'sharding': (replicated.index, replicated.size,
+                                     _group_size(replicated.replica_group)),
+                        'x': x.cpu().numpy(), 'y': y.cpu().numpy(),
+                        'w_grad': w.grad[stage].cpu().numpy(),
+                        'b_grad': b.grad[stage].cpu().numpy(),
+                        'other_rows_zero': all(bool((g[torch.arange(len(g)) != stage] == 0).all())
+                                               for g in (w.grad, b.grad)),
+                        'forward_s': forward_s, 'forward_backward_s': backward_s})
+    return results
+
+
+def sequential_stages(w, b, x, dtype=torch.float32, device='cpu'):
+    """The stacked stages ``w [S, D, D]``, ``b [S, D]`` (numpy) of
+    :func:`~petastorm_tpu_torch.entry.gelu_stage` run one after another on
+    ``x`` in ``dtype`` on ``device``: the output and the gradients of
+    ``sum(y**2)`` with respect to ``w`` and ``b``, as float64 numpy."""
+    from petastorm_tpu_torch.entry import gelu_stage
+
+    w, b = (torch.from_numpy(t).to(device, dtype).requires_grad_() for t in (w, b))
+    y = torch.from_numpy(x).to(device, dtype)
+    for s in range(w.shape[0]):
+        y = gelu_stage((w[s], b[s]), y)
+    (y ** 2).sum().backward()
+    return tuple(t.detach().cpu().double().numpy() for t in (y, w.grad, b.grad))
+
+
+def float32_rounding_excess(ours, f32, f64):
+    """How far the float32 result ``ours`` lies from the float64 ``f64``
+    beyond float32's rounding: its largest error, less twice the largest
+    error of ``f32`` (the same function computed plainly in float32) and
+    less float32's epsilon times ``f64``'s largest magnitude. At most 0
+    when ``ours`` is as close as a float32 computation gets."""
+    return float(np.abs(ours - f64).max() - 2 * np.abs(f32 - f64).max()
+                 - np.finfo(np.float32).eps * np.abs(f64).max())
+
+
+def moe_and_pipeline_runs(rank, world, moe_specs, cases):
+    """:func:`several_moe_runs` of ``moe_specs``, then
+    :func:`pipeline_cases` of ``cases``, in one world."""
+    return several_moe_runs(rank, world, moe_specs), pipeline_cases(rank, world, cases)

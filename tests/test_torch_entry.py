@@ -3,7 +3,8 @@
 entry's weights (moved by ``flax_to_torch``) on the JAX entry's batch,
 within 5% of the largest logit: the tolerance ``chip_smoke.py`` holds the
 bf16 model to (each of ~50 layers rounds at 2**-9 relative). The dry run
-on four gloo ranks of the CPU, and the refusals without CUDA."""
+on four gloo ranks of the CPU, all five legs of the JAX dry run, and the
+refusals without CUDA."""
 
 import tempfile
 
@@ -40,12 +41,17 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys, monkeypatch, tmp_path):
     assert np.isfinite(result['loss']) and np.isfinite(result['process_loss'])
     # the sp leg: a (2, 2) ('data', 'seq') mesh, as the JAX dry run's on 4 devices
     assert result['seq_mesh'] == (2, 2) and np.isfinite(result['seq_loss'])
-    assert result['legs_run'] == ['dp/tp', 'process pool', 'sp']
-    assert set(result['legs_not_ported']) == {'ep', 'pp'}
+    # the ep leg: a (2, 2) ('data', 'expert') mesh; the pp leg: 4 stages,
+    # exact against sequential execution
+    assert result['ep_mesh'] == (2, 2) and np.isfinite(result['ep_loss'])
+    assert result['pp_stages'] == 4 and result['pp_err'] < 1e-4
+    assert result['legs_run'] == ['dp/tp', 'process pool', 'sp', 'ep', 'pp']
+    assert result['legs_not_ported'] == {} and LEGS_NOT_PORTED == {}
     out = capsys.readouterr().out
     assert 'dryrun_multichip OK: mesh=(2x2)' in out and 'seq_mesh=(2x2)' in out
-    for leg, item in LEGS_NOT_PORTED.items():
-        assert '{} (ROADMAP.md, "{}")'.format(leg, item) in out
+    assert 'ep_mesh=(2x2), ep_loss={:.4f}'.format(result['ep_loss']) in out
+    assert 'pp_stages=4, pp_err={:.3g}'.format(result['pp_err']) in out
+    assert 'legs run: dp/tp, process pool, sp, ep, pp; not yet ported: none' in out
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch):

@@ -192,3 +192,33 @@ def test_graphed_sequence_step_equals_the_eager_step(cuda, context, monkeypatch)
     eager, graphed = run(False), run(True)
     np.testing.assert_allclose(graphed, eager, atol=1e-5, rtol=0)
     assert len(set(graphed)) == steps
+
+
+@pytest.mark.gpu
+def test_graphed_moe_step_equals_the_eager_step(cuda, monkeypatch):
+    # the MoE sequence transformer (8 experts, the smoke's widths) stepped
+    # on moe_loss: five steps from one seed on the same [B, T, F] batches,
+    # graphed against eager. Routing builds its one-hots by comparison and
+    # reads nothing back to the host, so the step captures; the losses and
+    # aux losses agree within 1e-5
+    from petastorm_tpu_torch.models import MoESequenceTransformer
+    from petastorm_tpu_torch.models.train import create_train_state, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    steps = 5
+    gen = np.random.default_rng(5)
+    batches = [(torch.from_numpy(gen.standard_normal((16, 8, 64)).astype(np.float32)).to(cuda),
+                torch.from_numpy(gen.integers(0, 8, 16)).to(cuda)) for _ in range(steps)]
+
+    def run(graphed):
+        torch.manual_seed(0)
+        state = create_train_state(MoESequenceTransformer(8, 8, seq_len=8, feature_dim=64), cuda)
+        step = make_train_step(graphed=graphed)
+        metrics = [step(state, x, y)[1] for x, y in batches]
+        torch.cuda.synchronize()
+        assert state.step == steps
+        return [[float(m[k]) for m in metrics] for k in ('loss', 'aux')]
+
+    eager, graphed = run(False), run(True)
+    np.testing.assert_allclose(graphed, eager, atol=1e-5, rtol=0)
+    assert len(set(graphed[0])) == steps
