@@ -252,6 +252,16 @@ Phases, each printed as one JSON line:
    ``profile`` line per step kind (the device's idle share on a staged
    batch) and a ``model_check`` (the trained model against a float32 CPU
    copy, 1e-4);
+15a. ``seq_example``: ``petastorm_tpu_torch.examples.sequence.
+   torch_sequence_example.train`` on the same store, the example's own
+   flow: the window stacked on the host and only ``features`` and the
+   labels staged (2 tensors a batch, synchronously), against ``seq_ring``'s
+   graphed flow (24 on the prefetch thread; its ``path`` lines tagged
+   ``beside_seq_example``), 3 + 100 graphed steps each, in turns (ring,
+   example, example, ring): examples/s, the stall (the loop's wait for its
+   batch over the wall time of the measured steps), the median device ms
+   between consecutive steps' ends, and the ratio of the median
+   examples/s;
 16. ``seq_checks``: four spawned ranks on the one card over gloo with CUDA
    tensors, a ``(2, 2)`` ``('data', 'seq')`` mesh at ``bench_pod.py``'s
    sequence shape (windows of 4, 64 features, batch 16, d_model 64, 2
@@ -315,6 +325,29 @@ Phases, each printed as one JSON line:
    forward on the card (shape, dtype, finite values) and
    ``dryrun_multichip(1)`` over NCCL (all five legs: dp/tp, process pool,
    sp, ep and pp, none unported; its ``ep_loss`` and ``pp_err``);
+19a. the last device ops, ``MnistCNN`` and the example twins
+   (``petastorm_tpu_torch.examples``; their prints captured, counted on
+   their lines; an ``example_phases`` line gives each phase's seconds):
+   a ``store`` line for the MNIST store (``BASELINE.json`` config 1 at
+   MNIST's published split: 60000 train and 10000 test rows of the
+   generator's synthetic digits, 200 rows per row group); ``mnist``, one
+   line per step kind: ``torch_example.train_and_test`` (batch 32, lr 0.05,
+   seed 0, one epoch; test accuracy above 0.5, finite losses) with the
+   final loss, the test accuracy and the example's seconds, beside the
+   examples/s, median step ms and stall of ``pipeline_duty_cycle`` over the
+   example's reader and loader arguments (3 + 200 steps), then a
+   ``graph_check`` (1e-5); ``mnist_resume``: ``resume_example.
+   train_with_checkpointing`` on the dummy pool to step 100 with a
+   checkpoint every 50, the last deleted and the call repeated: steps 51-100
+   train on the uninterrupted run's rows (images and digits equal) and
+   losses (1e-5); ``imagenet_example``: ``torch_resnet_example.train`` on
+   the PNG store for 3 + 10 graphed steps (its normalize launches count in
+   the ``kernels`` line); ``hello_checks``: both hello-world stores, each
+   ``torch_hello_world``'s batches on the card equal to its CPU read;
+   ``augment_checks``: ``random_crop`` (128), ``mixup`` (alpha 0.2) and
+   ``cutmix`` (alpha 1.0) on a 64x160x160x3 uint8 batch with 1000 classes,
+   each apply on the card equal to the CPU's from the same draws (mixup
+   within 1, soft labels within 1e-6), its time beside its HBM-bytes bound;
 20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
@@ -323,9 +356,10 @@ Phases, each printed as one JSON line:
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, both steps, where a graph replay counts the
    launches it captured, and the spawned ranks' of ``mesh_checks`` and
-   ``entry_checks``; the sequence, MoE and pipeline paths normalize
-   nothing), max error, its time, the plain version's time,
-   the least time the card could take and what bounds it, and the time of
+   ``entry_checks``, and ``imagenet_example``'s; the sequence, MoE,
+   pipeline and MNIST paths normalize nothing), max error, its time, the
+   plain version's time, the least time the card could take and what
+   bounds it, and the time of
    the one PyTorch call that computes the same function,
    ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
    gives them, and last ``{"ok": true, "device": {...}}``.
@@ -3745,14 +3779,15 @@ def new_seq_state(torch, mesh, context):
     return shard_train_state(create_train_state(model, device=DEVICE_TYPE), mesh)
 
 
-def run_seq_path(torch, name, url, features, mesh, new_state, graphed, model_line):
+def run_seq_path(torch, name, url, features, mesh, new_state, graphed, model_line, steps=STEPS,
+                 tag=None):
     """One sequence path: a fresh model from the seed (``new_state()``), the
     example's reader (``make_reader(output='columnar', ngram=...,
     shuffle_row_groups=True, seed=0, num_epochs=None)``, default pool), a
     loader of batch 16 staged onto the mesh's data sharding,
-    ``stack_ngram_time_axis`` on the card, 3 warm-up and 10 measured steps
-    through ``pipeline_duty_cycle``; ``model_line`` describes the model on
-    the path's line. Returns the state, the step, the first
+    ``stack_ngram_time_axis`` on the card, 3 warm-up and ``steps`` measured
+    steps through ``pipeline_duty_cycle``; ``model_line`` describes the
+    model on the path's line, ``tag`` marks a repeated run. Returns the state, the step, the first
     :data:`SAME_BATCHES` staged batches, the result, the losses and an MoE
     model's aux losses (else empty), and the last batch."""
     from petastorm_tpu_torch import observability as obs
@@ -3781,7 +3816,7 @@ def run_seq_path(torch, name, url, features, mesh, new_state, graphed, model_lin
     obs.get_ring().clear()
     t0 = time.perf_counter()
     result = pipeline_duty_cycle(
-        url, step_fn, seq_args, batch_size=SEQ_BATCH, steps=STEPS, warmup_steps=WARMUP_STEPS,
+        url, step_fn, seq_args, batch_size=SEQ_BATCH, steps=steps, warmup_steps=WARMUP_STEPS,
         reader_kwargs={'ngram': seq_ngram(SEQ_WINDOW), 'output': 'columnar',
                        'shuffle_row_groups': True, 'seed': SEQ_SEED},
         loader_kwargs={'seed': SEQ_SEED}, telemetry='counters', to_device=data_sharding(mesh))
@@ -3789,12 +3824,12 @@ def run_seq_path(torch, name, url, features, mesh, new_state, graphed, model_lin
     losses = [float(x) for x in losses]
     auxes = [float(x) for x in auxes]
     stall = result.extra['stall']
-    line = {'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager'}
+    line = {'phase': 'path', 'path': name, 'step': 'graphed' if graphed else 'eager', 'tag': tag}
     line.update(model_line)
     line.update({
         'dtype': 'float32', 'd_model': 64, 'num_heads': 4, 'num_layers': 2, 'window': SEQ_WINDOW,
         'feature_dim': SEQ_FEATURES, 'num_classes': SEQ_CLASSES, 'batch_size': SEQ_BATCH,
-        'rows': SEQ_ROWS, 'mesh': list(mesh.shape), 'warmup_steps': WARMUP_STEPS, 'steps': STEPS,
+        'rows': SEQ_ROWS, 'mesh': list(mesh.shape), 'warmup_steps': WARMUP_STEPS, 'steps': steps,
         'examples_per_sec': result.samples_per_second,
         'input_stall_fraction': result.input_stall_fraction,
         'median_step_ms': result.extra['median_step_ms'], 'step_ms': result.extra['step_ms'],
@@ -3807,7 +3842,7 @@ def run_seq_path(torch, name, url, features, mesh, new_state, graphed, model_lin
         line['aux_losses'] = auxes
     emit(line)
     check_stall(name, stall)
-    if len(losses) != WARMUP_STEPS + STEPS or not all(math.isfinite(x) for x in losses + auxes):
+    if len(losses) != WARMUP_STEPS + steps or not all(math.isfinite(x) for x in losses + auxes):
         raise AssertionError('{}: losses {}, aux losses {}'.format(name, losses, auxes))
     # a fresh model's logits are small: the first loss is close to log(classes)
     if abs(losses[0] - math.log(SEQ_CLASSES)) > 1.0:
@@ -4311,6 +4346,410 @@ def phase_model_check(torch, model, images):
         raise AssertionError('bf16 ResNet-50 on the card is {} from float32 on the CPU'.format(err))
 
 
+# -- the last device ops, MnistCNN and the example twins ---------------------
+
+#: BASELINE.json config 1 (examples/mnist, single-process make_reader) at
+#: MNIST's published split, on the generator's synthetic digits (real IDX
+#: files are not in the repository); the example's batch, rate and seed
+MNIST_TRAIN_ROWS = 60000
+MNIST_TEST_ROWS = 10000
+MNIST_BATCH = 32
+MNIST_LR = 0.05
+MNIST_SEED = 0
+#: measured steps of each step kind's pipeline_duty_cycle run
+MNIST_DUTY_STEPS = 200
+#: chance is 0.1
+MNIST_MIN_ACCURACY = 0.5
+#: graphed MNIST losses against the eager step's on the same batches: the
+#: replay runs the eager step's float32 kernels
+MNIST_GRAPH_TOL = 1e-5
+#: the resume check: a checkpoint every K steps, to step 2K; the resumed
+#: losses against the uninterrupted ones
+MNIST_RESUME_EVERY = 50
+MNIST_RESUME_TOL = 1e-5
+AUGMENT_CROP = 128
+AUGMENT_MIXUP_ALPHA = 0.2
+AUGMENT_CUTMIX_ALPHA = 1.0
+AUGMENT_LABEL_TOL = 1e-6
+
+
+def quietly(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its prints captured (the examples print
+    progress; this script's output is JSON lines). Returns the result and
+    the number of lines printed."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    return result, len(out.getvalue().splitlines())
+
+
+def build_mnist_store(work_dir):
+    """The MNIST store at the published split, written by the example
+    twin's generator; a ``store`` line."""
+    from petastorm_tpu_torch.examples.mnist.generate_petastorm_mnist import \
+        mnist_data_to_petastorm_dataset
+
+    path = os.path.join(work_dir, 'mnist')
+    t0 = time.perf_counter()
+    mnist_data_to_petastorm_dataset('file://' + path, train_rows=MNIST_TRAIN_ROWS,
+                                    test_rows=MNIST_TEST_ROWS)
+    emit({'phase': 'store', 'store': 'mnist', 'rows': MNIST_TRAIN_ROWS + MNIST_TEST_ROWS,
+          'bytes': _dir_bytes(path), 'build_s': time.perf_counter() - t0})
+    return 'file://' + path
+
+
+def phase_mnist(torch, url):
+    """``mnist``: ``torch_example.train_and_test`` (batch 32, lr 0.05, seed
+    0, one epoch) with the eager and with the graphed step, each line with
+    the final loss, the test accuracy (> 0.5) and the example's seconds, and
+    beside them examples/s, median step ms and stall of
+    ``pipeline_duty_cycle`` over the example's reader and loader arguments
+    with the same step (3 + 200 steps); then a ``graph_check``: a fresh
+    eager step on the graphed duty run's first four batches."""
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.examples.mnist import torch_example
+    from petastorm_tpu_torch.models.train import make_train_step
+    from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
+
+    graphed_run = None
+    for graphed in (False, True):
+        kind = 'graphed' if graphed else 'eager'
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, losses, accuracy), printed = quietly(
+            torch_example.train_and_test, url, batch_size=MNIST_BATCH, epochs=1, lr=MNIST_LR,
+            seed=MNIST_SEED, graphed=graphed)
+        torch.cuda.synchronize()
+        example_wall_s = time.perf_counter() - t0
+        duty_state = torch_example.new_mnist_state(MNIST_SEED, MNIST_LR)
+        step = make_train_step(graphed=graphed)
+        duty_losses, batches = [], []
+
+        def step_fn(images, labels):
+            if len(batches) < SAME_BATCHES:
+                batches.append((images, labels))
+            duty_losses.append(step(duty_state, images, labels)[1]['loss'])
+
+        obs.get_registry().reset()
+        obs.get_ring().clear()
+        result = pipeline_duty_cycle(
+            url + '/train', step_fn, lambda b: (b['image'], b['digit']), batch_size=MNIST_BATCH,
+            steps=MNIST_DUTY_STEPS, warmup_steps=WARMUP_STEPS,
+            reader_kwargs={'output': 'rows', 'seed': MNIST_SEED,
+                           'transform_spec': torch_example.TRANSFORM},
+            loader_kwargs={'shuffling_queue_capacity': 256, 'seed': MNIST_SEED},
+            telemetry='counters')
+        duty_losses = [float(x) for x in duty_losses]
+        stall = result.extra['stall']
+        emit({'phase': 'mnist', 'step': kind, 'model': 'MnistCNN', 'dtype': 'float32',
+              'batch_size': MNIST_BATCH, 'lr': MNIST_LR, 'train_rows': MNIST_TRAIN_ROWS,
+              'test_rows': MNIST_TEST_ROWS, 'example_steps': len(losses),
+              'example_s': example_wall_s, 'example_lines_printed': printed,
+              'final_loss': losses[-1], 'test_accuracy': accuracy,
+              'examples_per_sec': result.samples_per_second,
+              'input_stall_fraction': result.input_stall_fraction,
+              'median_step_ms': result.extra['median_step_ms'],
+              'duty_steps': [WARMUP_STEPS, MNIST_DUTY_STEPS], 'stall': stall,
+              'stage_s': {k[len('stage_'):-2]: v
+                          for k, v in sorted(result.extra['diagnostics'].items())
+                          if k.startswith('stage_') and k.endswith('_s')}})
+        if len(losses) != MNIST_TRAIN_ROWS // MNIST_BATCH or not all(
+                math.isfinite(x) for x in losses + duty_losses):
+            raise AssertionError('mnist {}: {} losses, not all finite'.format(kind, len(losses)))
+        if not accuracy > MNIST_MIN_ACCURACY:
+            raise AssertionError('mnist {}: test accuracy {} (chance 0.1)'.format(kind, accuracy))
+        check_stall('mnist', stall)
+        if graphed:
+            graphed_run = (batches, duty_losses)
+    batches, graphed_losses = graphed_run
+    state, step = torch_example.new_mnist_state(MNIST_SEED, MNIST_LR), make_train_step()
+    eager = [float(step(state, images, labels)[1]['loss']) for images, labels in batches]
+    diffs = [abs(a - b) for a, b in zip(eager, graphed_losses)]
+    emit({'phase': 'graph_check', 'path': 'mnist', 'eager_losses': eager,
+          'graphed_losses': graphed_losses[:len(eager)], 'abs_diff': diffs,
+          'bit_equal': eager == graphed_losses[:len(eager)], 'tolerance': MNIST_GRAPH_TOL})
+    if max(diffs) > MNIST_GRAPH_TOL:
+        raise AssertionError('mnist: the graphed step\'s losses {} are not the eager step\'s {} '
+                             'on the same batches'.format(graphed_losses[:len(eager)], eager))
+
+
+def phase_mnist_resume(torch, url, work_dir):
+    """``mnist_resume``: ``resume_example.train_with_checkpointing`` on the
+    dummy pool (graphed step) to step 2K with a checkpoint every K; the last
+    checkpoint deleted, the same call again resumes from step K. Its batches
+    must be the uninterrupted run's row for row (images and digits), its
+    losses within 1e-5; the line says whether they and the parameters are
+    equal to the last bit."""
+    from petastorm_tpu_torch.examples.mnist import resume_example
+
+    k = MNIST_RESUME_EVERY
+    checkpoints = os.path.join(work_dir, 'mnist_ckpt')
+    runs = {}
+
+    def record(run):
+        def on_step(step, batch, metrics):
+            runs.setdefault(run, {})[step] = (batch['image'], batch['digit'], metrics['loss'])
+        return on_step
+
+    kwargs = dict(total_steps=2 * k, checkpoint_every=k, batch_size=MNIST_BATCH, lr=MNIST_LR,
+                  seed=MNIST_SEED, reader_pool_type='dummy')
+    seconds = {}
+    for run in ('whole', 'resumed'):
+        t0 = time.perf_counter()
+        state, _ = quietly(resume_example.train_with_checkpointing, url, checkpoints,
+                           on_step=record(run), **kwargs)
+        torch.cuda.synchronize()
+        seconds[run] = time.perf_counter() - t0
+        if run == 'whole':
+            whole, saved = state, sorted(os.listdir(checkpoints))
+            shutil.rmtree(os.path.join(checkpoints, 'step_{:08d}'.format(2 * k)))
+    steps = sorted(runs['resumed'])
+    rows_equal = steps == list(range(k + 1, 2 * k + 1)) and all(
+        torch.equal(runs['resumed'][s][0], runs['whole'][s][0])
+        and torch.equal(runs['resumed'][s][1], runs['whole'][s][1]) for s in steps)
+    losses = {run: [float(runs[run][s][2]) for s in steps] for run in runs}
+    loss_diff = max(abs(a - b) for a, b in zip(losses['whole'], losses['resumed']))
+    params = whole.module.state_dict()
+    param_diff = max(float((t - params[name]).abs().max())
+                     for name, t in state.module.state_dict().items())
+    emit({'phase': 'mnist_resume', 'checkpoints': saved, 'resumed_steps': [steps[0], steps[-1]],
+          'rows_equal': rows_equal, 'max_loss_diff': loss_diff,
+          'losses_bit_equal': losses['whole'] == losses['resumed'],
+          'max_param_diff': param_diff, 'seconds': seconds, 'tolerance': MNIST_RESUME_TOL})
+    if saved != ['step_{:08d}'.format(k), 'step_{:08d}'.format(2 * k)]:
+        raise AssertionError('mnist_resume: checkpoints {}'.format(saved))
+    if not rows_equal:
+        raise AssertionError('mnist_resume: the resumed steps {} did not train on the '
+                             'uninterrupted run\'s rows'.format(steps))
+    if not loss_diff <= MNIST_RESUME_TOL:
+        raise AssertionError('mnist_resume: resumed losses {} against {}'.format(
+            losses['resumed'], losses['whole']))
+
+
+def phase_imagenet_example(torch, png_url):
+    """``imagenet_example``: ``torch_resnet_example.train`` on the PNG store
+    for 3 + 10 steps, graphed (ResNet-50 bf16, 1000 classes, batch 64, 160
+    px, a ``('data',)`` mesh of a world of one over NCCL): finite losses,
+    the first near log(1000), the normalize kernel launched every step.
+    Returns the launches."""
+    from petastorm_tpu_torch.examples.imagenet import torch_resnet_example
+    from petastorm_tpu_torch.ops.kernels import normalize as nk
+
+    steps = WARMUP_STEPS + STEPS
+    torch.cuda.synchronize()
+    nk.launches = 0
+    t0 = time.perf_counter()
+    (state, losses), printed = quietly(
+        torch_resnet_example.train, png_url, batch_size=BATCH, steps=steps,
+        image_size=IMAGE_SIZE, num_classes=NUM_CLASSES, seed=SEED)
+    torch.cuda.synchronize()
+    launches = {'normalize': nk.launches}
+    emit({'phase': 'imagenet_example', 'step': 'graphed', 'steps': steps, 'losses': losses,
+          'launches': launches, 'wall_s': time.perf_counter() - t0, 'lines_printed': printed})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError('imagenet_example: losses {}'.format(losses))
+    if abs(losses[0] - math.log(NUM_CLASSES)) > 1.0:
+        raise AssertionError('imagenet_example: first loss {}'.format(losses[0]))
+    if launches['normalize'] < steps:
+        raise AssertionError('imagenet_example: normalize launched {} times in {} steps'.format(
+            launches['normalize'], steps))
+    return launches
+
+
+def _seq_example_run(torch, url, steps):
+    """One run of ``torch_sequence_example.train`` (graphed) for 3 +
+    ``steps`` steps, measured as ``pipeline_duty_cycle`` measures a path:
+    examples/s and the stall (the loop's wait for its batch over the wall
+    time) of the measured steps, and the device clock between consecutive
+    steps' ends (the wait included)."""
+    from petastorm_tpu_torch.examples.sequence import torch_sequence_example
+
+    total = WARMUP_STEPS + steps
+    ends, waits, times = [], [], []
+
+    def on_step(i, metrics, wait_s):
+        if i in (WARMUP_STEPS - 1, total - 1):
+            torch.cuda.synchronize()
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        ends.append(end)
+        waits.append(wait_s)
+        times.append(time.perf_counter())
+
+    (_, losses), printed = quietly(
+        torch_sequence_example.train, url, steps=total, batch_size=SEQ_BATCH, window=SEQ_WINDOW,
+        num_classes=SEQ_CLASSES, seed=SEQ_SEED, on_step=on_step)
+    torch.cuda.synchronize()
+    if len(losses) != total or not all(math.isfinite(x) for x in losses):
+        raise AssertionError('seq_example: losses {}'.format(losses))
+    if abs(losses[0] - math.log(SEQ_CLASSES)) > 1.0:
+        raise AssertionError('seq_example: first loss {}'.format(losses[0]))
+    wall = times[-1] - times[WARMUP_STEPS - 1]
+    iter_ms = [ends[i - 1].elapsed_time(ends[i]) for i in range(WARMUP_STEPS, total)]
+    return {'examples_per_sec': steps * SEQ_BATCH / wall,
+            'input_stall_fraction': sum(waits[WARMUP_STEPS:]) / wall,
+            'median_iter_ms': statistics.median(iter_ms),
+            'median_wait_ms': 1e3 * statistics.median(waits[WARMUP_STEPS:]),
+            'first_loss': losses[0], 'last_loss': losses[-1], 'lines_printed': printed}
+
+
+#: measured steps of each run of ``seq_example`` and of the ``seq_ring``
+#: runs beside it: ten are too few to compare the two flows
+SEQ_EXAMPLE_STEPS = 100
+
+
+def phase_seq_example(torch, url, features):
+    """``seq_example``: the sequence example's own flow
+    (``torch_sequence_example.train``: the window stacked on the host,
+    ``features`` and the labels the only tensors staged, 2 a batch,
+    synchronously) against ``seq_ring``'s graphed flow (the nested batch's
+    24 tensors staged on the prefetch thread, ``tag`` ``beside_seq_example``
+    on its path lines), 3 + 100 graphed steps each on the ``seq`` store, in
+    turns: ring, example, example, ring. One line with every run and the
+    ratio of the medians of examples/s."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel import make_mesh
+
+    runs = {'seq_ring': [], 'seq_example': []}
+    for flow in ('seq_ring', 'seq_example', 'seq_example', 'seq_ring'):
+        if flow == 'seq_example':
+            runs[flow].append(_seq_example_run(torch, url, SEQ_EXAMPLE_STEPS))
+            continue
+        mesh = make_mesh(('data', 'seq'), device=DEVICE_TYPE)
+        try:
+            result = run_seq_path(
+                torch, 'seq_ring', url, features, mesh,
+                functools.partial(new_seq_state, torch, mesh, 'ring'), True,
+                {'model': 'sequence_transformer', 'context_parallelism': 'ring'},
+                steps=SEQ_EXAMPLE_STEPS, tag='beside_seq_example')[3]
+        finally:
+            dist.destroy_process_group()
+        runs[flow].append({'examples_per_sec': result.samples_per_second,
+                           'input_stall_fraction': result.input_stall_fraction,
+                           'median_step_ms': result.extra['median_step_ms']})
+    medians = {flow: statistics.median(r['examples_per_sec'] for r in flow_runs)
+               for flow, flow_runs in runs.items()}
+    emit({'phase': 'seq_example', 'step': 'graphed', 'window': SEQ_WINDOW,
+          'batch_size': SEQ_BATCH, 'steps': [WARMUP_STEPS, SEQ_EXAMPLE_STEPS],
+          'staged_tensors_per_batch': {'seq_example': 2, 'seq_ring': 3 * SEQ_WINDOW},
+          'runs': runs, 'median_examples_per_sec': medians,
+          'example_vs_ring': medians['seq_example'] / medians['seq_ring']})
+
+
+def phase_hello_checks(torch, work_dir):
+    """``hello_checks``: both hello worlds' stores, written by the twins'
+    generators; each ``torch_hello_world`` on the card, every batch equal
+    to the same twin's read on the CPU; the row and reference-API twins'
+    reads beside them."""
+    from petastorm_tpu_torch.examples.hello_world.external_dataset import (
+        generate_external_dataset, python_hello_world as ext_python,
+        pytorch_hello_world as ext_pytorch, torch_hello_world as ext_torch)
+    from petastorm_tpu_torch.examples.hello_world.petastorm_dataset import (
+        generate_petastorm_dataset, python_hello_world as hw_python,
+        pytorch_hello_world as hw_pytorch, torch_hello_world as hw_torch)
+
+    urls = {name: 'file://' + os.path.join(work_dir, name)
+            for name in ('hello_world', 'external')}
+    quietly(generate_petastorm_dataset.generate_petastorm_dataset, urls['hello_world'])
+    quietly(generate_external_dataset.generate_external_dataset, urls['external'])
+    line = {'phase': 'hello_checks'}
+    for name, module, python, pytorch in (
+            ('hello_world', hw_torch, hw_python, hw_pytorch),
+            ('external', ext_torch, ext_python, ext_pytorch)):
+        card, _ = quietly(module.torch_hello_world, urls[name])
+        cpu, _ = quietly(module.torch_hello_world, urls[name], device='cpu')
+        equal = len(card) == len(cpu) > 0 and all(
+            sorted(a) == sorted(b) and all(a[k].device.type == DEVICE_TYPE
+                                           and torch.equal(a[k].cpu(), b[k]) for k in a)
+            for a, b in zip(card, cpu))
+        rows, _ = quietly(python.python_hello_world, urls[name])
+        sample, _ = quietly(pytorch.pytorch_hello_world, urls[name])
+        line[name] = {'batches': len(card), 'rows': sum(len(b['id']) for b in card),
+                      'fields': sorted(card[0]), 'device': str(card[0]['id'].device),
+                      'equal_to_cpu': equal, 'python_items': len(rows),
+                      'pytorch_sample_ids': sample['id'].tolist()}
+        if not equal:
+            raise AssertionError('hello_checks: {} batches on the card differ from the CPU '
+                                 'read'.format(name))
+    emit(line)
+
+
+def phase_augment_checks(torch):
+    """``augment_checks``: ``random_crop`` to 128x128, ``mixup`` (alpha
+    0.2) and ``cutmix`` (alpha 1.0) on a 64x160x160x3 uint8 batch with 1000
+    classes: draws from a generator on the card, each apply on the card and
+    on the CPU from the same draws (images exact, mixup within 1 where the
+    float32 blend lands on .5; soft labels within 1e-6), then each apply's
+    CUDA-event time over 16 rotating batches beside the time its bytes take
+    at the HBM rate. Plain torch ops, as plain ``jnp`` in JAX."""
+    from petastorm_tpu_torch.ops import augment, cutmix, mixup, random_crop
+
+    dev = torch.device(DEVICE_TYPE)
+    gen = np.random.default_rng(SEED)
+    shape = (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
+    inputs = [torch.from_numpy(gen.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+              for _ in range(16)]
+    labels = torch.from_numpy(gen.integers(0, NUM_CLASSES, BATCH)).to(dev)
+    images = inputs[0]
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(SEED)
+    ys, xs = augment.crop_offsets(BATCH, IMAGE_SIZE, IMAGE_SIZE, AUGMENT_CROP, AUGMENT_CROP,
+                                  generator)
+    mix = augment.mixup_draw(BATCH, generator, AUGMENT_MIXUP_ALPHA)
+    cut = augment.cutmix_draw(BATCH, IMAGE_SIZE, IMAGE_SIZE, generator, AUGMENT_CUTMIX_ALPHA)
+
+    applies = {
+        'random_crop': lambda x, y, d: (augment.crop_with_offsets(x, *d, AUGMENT_CROP,
+                                                                  AUGMENT_CROP), None),
+        'mixup': lambda x, y, d: augment.mixup_with(x, y, *d, num_classes=NUM_CLASSES),
+        'cutmix': lambda x, y, d: augment.cutmix_with(x, y, *d, num_classes=NUM_CLASSES)}
+    draws = {'random_crop': (ys, xs), 'mixup': mix, 'cutmix': cut}
+    image_bytes = images.numel()
+    crop_bytes = BATCH * AUGMENT_CROP * AUGMENT_CROP * 3
+    soft_bytes = BATCH * NUM_CLASSES * 4
+    bytes_moved = {'random_crop': (crop_bytes + 2 * BATCH * 8, crop_bytes),
+                   'mixup': (image_bytes + 2 * BATCH * 8 + 4, image_bytes + soft_bytes),
+                   'cutmix': (image_bytes + 2 * BATCH * 8 + 4 + 16, image_bytes + soft_bytes)}
+    line = {'phase': 'augment_checks', 'shape': list(shape), 'num_classes': NUM_CLASSES,
+            'crop': AUGMENT_CROP, 'alpha': {'mixup': AUGMENT_MIXUP_ALPHA,
+                                            'cutmix': AUGMENT_CUTMIX_ALPHA},
+            'lam': {'mixup': float(mix[1]), 'cutmix': float(cut[1])}, 'ops': {}}
+    cpu_images, cpu_labels = images.cpu(), labels.cpu()
+    for name, apply in applies.items():
+        card_images, card_labels = apply(images, labels, draws[name])
+        host_images, host_labels = apply(cpu_images, cpu_labels,
+                                         tuple(d.cpu() for d in draws[name]))
+        torch.cuda.synchronize()
+        diff = (card_images.cpu().int() - host_images.int()).abs()
+        image_err = int(diff.max())
+        label_err = (0.0 if card_labels is None
+                     else float((card_labels.cpu() - host_labels).abs().max()))
+        allowed = 1 if name == 'mixup' else 0
+        read, written = bytes_moved[name]
+        ms = cuda_ms(torch, lambda x, apply=apply, d=draws[name]: apply(x, labels, d), inputs)
+        line['ops'][name] = {
+            'shape_out': list(card_images.shape), 'max_abs_err_images': image_err,
+            'differing_elements': int((diff > 0).sum()), 'images_tolerance': allowed,
+            'max_abs_err_labels': label_err, 'labels_tolerance': AUGMENT_LABEL_TOL,
+            'ms': ms, 'bound_ms': (read + written) / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+            'bytes_read': read, 'bytes_written': written}
+        if image_err > allowed or not label_err <= AUGMENT_LABEL_TOL:
+            emit(line)
+            raise AssertionError('augment_checks: {} on the card differs from the CPU: images '
+                                 '{}, labels {}'.format(name, image_err, label_err))
+    # the whole ops (draw and apply) once on the card, at the path's shapes
+    whole = {'random_crop': random_crop(images, generator, AUGMENT_CROP, AUGMENT_CROP).shape,
+             'mixup': mixup(images, labels, generator, AUGMENT_MIXUP_ALPHA, NUM_CLASSES)[1].shape,
+             'cutmix': cutmix(images, labels, generator, AUGMENT_CUTMIX_ALPHA,
+                              NUM_CLASSES)[1].shape}
+    line['whole_op_shapes'] = {k: list(v) for k, v in whole.items()}
+    emit(line)
+    del inputs
+
+
 def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
@@ -4334,6 +4773,7 @@ def main():
     card = phase_device(torch)
     kernels = phase_kernels(torch)
     work_dir = tempfile.mkdtemp(prefix='smoke_', dir=BUILD_DIR)
+    example_s = {}
     try:
         probe = probe_host(builds)
         urls, stores = {}, {}
@@ -4463,6 +4903,10 @@ def main():
               'bytes': _dir_bytes(seq_url[len('file://'):]), 'build_s': time.perf_counter() - t0})
         phase_ngram_checks(seq_url, ring)
         phase_seq_paths(torch, seq_url, seq_features)
+        # the sequence example's own flow beside seq_ring's, in turns
+        t0 = time.perf_counter()
+        phase_seq_example(torch, seq_url, seq_features)
+        example_s['seq_example'] = time.perf_counter() - t0
         phase_seq_checks(torch, seq_url)
         t0 = time.perf_counter()
         phase_seq_moe(torch, seq_url, seq_features)
@@ -4474,6 +4918,22 @@ def main():
         dryrun_store(mesh_url, 64)
         total['normalize'] += phase_mesh_checks(torch, mesh_url)
         total['normalize'] += phase_entry_checks(torch)
+        # the last device ops and MnistCNN, and the example twins
+        t0 = time.perf_counter()
+        mnist_url = build_mnist_store(work_dir)
+        example_s['mnist_store'] = time.perf_counter() - t0
+        for name, phase, args in (
+                ('mnist', phase_mnist, (mnist_url,)),
+                ('mnist_resume', phase_mnist_resume, (mnist_url, work_dir)),
+                ('imagenet_example', phase_imagenet_example, (urls['png'],)),
+                ('hello_checks', phase_hello_checks, (work_dir,)),
+                ('augment_checks', phase_augment_checks, ())):
+            t0 = time.perf_counter()
+            launches = phase(torch, *args)
+            example_s[name] = time.perf_counter() - t0
+            total.update(launches or {})
+        emit({'phase': 'example_phases', 'seconds': example_s,
+              'total_s': sum(example_s.values())})
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     # the raw path's first staged batch (eager run)

@@ -202,6 +202,14 @@ def materialize_dataset(dataset_url, schema, row_group_size_mb=None, rows_per_ro
         raise PetastormMetadataError('Dataset at {} has no row groups after write'.format(dataset_url))
 
 
+def write_petastorm_dataset(dataset_url, schema, rows, **writer_kwargs):
+    """Write an iterable of row dicts as a dataset in one call
+    (:func:`materialize_dataset` with ``writer_kwargs``)."""
+    with materialize_dataset(dataset_url, schema, **writer_kwargs) as writer:
+        for row in rows:
+            writer.write(row)
+
+
 def _write_dataset_metadata(dataset_url, schema, row_groups_per_file):
     resolver = FilesystemResolver(dataset_url)
     fs, root = resolver.filesystem(), resolver.get_dataset_path()

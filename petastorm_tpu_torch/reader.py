@@ -614,6 +614,12 @@ class Reader(object):
         # yielded; the pool's completions cover items that published nothing
         self._results_reader.delivered_callback = self._ventilator.mark_delivered
         pool.done_callback = self._results_reader.on_item_done
+        # the items a resumed reader's first pass replays (a loader resume
+        # skips the rows it already holds of one of them)
+        self._replayed_items = set(ventilator_resume['replay_indices']
+                                   if ventilator_resume is not None else ())
+        if hasattr(self._results_reader, 'partly_yielded'):
+            self._results_reader.item_of_seq = getattr(self._ventilator, 'item_of_seq', None)
         self._pool = pool
         self.last_row_consumed = False
         self._stopped = False
@@ -762,6 +768,35 @@ class Reader(object):
             'remaining_global_parts': [list(cell) for cell in remaining],
             'iterations_remaining': vent['iterations_remaining'],
         }
+
+    def yielded_rows(self):
+        """``[[global piece, part, rows]]`` for the row group a row reader
+        has partly yielded (its block is being sliced), else ``[]``. A
+        reader resumed from :meth:`state_dict` reads that row group again
+        whole; a loader that already holds those rows saves this beside the
+        state and hands it to :meth:`skip_yielded_rows`."""
+        partly = getattr(self._results_reader, 'partly_yielded', lambda: None)()
+        item_of_seq = getattr(self._ventilator, 'item_of_seq', None)
+        index = None if partly is None or item_of_seq is None else item_of_seq(partly[0])
+        if index is None:
+            return []
+        sdp = self._shuffle_row_drop_partitions
+        return [[int(self._global_piece_indices[index // sdp]), int(index % sdp), int(partly[1])]]
+
+    def skip_yielded_rows(self, cells):
+        """Start the replayed row groups ``cells`` (:meth:`yielded_rows`
+        of the checkpointed reader) past the rows yielded before the
+        checkpoint, so a loader resume delivers each row once. Only row
+        groups this resumed reader replays count; call it before reading."""
+        if not hasattr(self._results_reader, 'skip_rows'):
+            return
+        sdp = self._shuffle_row_drop_partitions
+        local_of = {g: lp for lp, g in enumerate(self._global_piece_indices)}
+        skips = {}
+        for piece, part, rows in cells:
+            if piece in local_of and local_of[piece] * sdp + part in self._replayed_items:
+                skips[local_of[piece] * sdp + part] = rows
+        self._results_reader.skip_rows(skips)
 
     def reset(self):
         """Read the dataset again for another ``num_epochs``. Only valid

@@ -501,7 +501,10 @@ class RowResultsQueueReader(object):
     Checkpoints: the block being sliced (or each buffered window list)
     remembers the seq of the item it came from, and ``delivered_callback(seq)``
     fires when its last row is yielded, so a reader's state never counts a
-    partly yielded row group as read."""
+    partly yielded row group as read. :meth:`partly_yielded` says how many
+    rows of the block being sliced were yielded, and :meth:`skip_rows`
+    makes a resumed reader start the replayed block of an item past them
+    (``item_of_seq`` maps a block's seq to its item index)."""
 
     batched_output = False
 
@@ -518,6 +521,8 @@ class RowResultsQueueReader(object):
         self._windows = deque()
         self._spans = deque()
         self.delivered_callback = None
+        self.item_of_seq = None
+        self._skip = {}  # item index -> rows to skip at the item's next block
 
     def on_item_done(self, seq):
         """The pool consumed the completion of ``seq``. A completion comes
@@ -526,16 +531,34 @@ class RowResultsQueueReader(object):
         if self.delivered_callback is not None:
             self.delivered_callback(seq)
 
+    def partly_yielded(self):
+        """``(seq, rows)`` of the row block being sliced when some of its
+        rows were yielded, else None (between blocks, and for windows)."""
+        if self._ngram is None and self._cols is not None and self._i:
+            return self._seq, self._i
+        return None
+
+    def skip_rows(self, skips):
+        """``{item index: rows}``: the next block of each item starts past
+        that many rows (they were yielded before a checkpoint)."""
+        self._skip = dict(skips)
+
     def read_next(self, pool):
         if self._ngram is not None:
             return self._read_next_window(pool)
         while self._cols is None:
             block = pool.get_results()  # raises EmptyResultError at the end
             n = block_num_rows(block)
-            if n:
+            seq = getattr(pool, 'last_result_seq', None)
+            start = (self._skip.pop(self.item_of_seq(seq), 0)
+                     if self._skip and seq is not None else 0)
+            if n > start:
                 self._cols = [block[name] for name in self._field_order]
-                self._n, self._i = n, 0
-                self._seq = getattr(pool, 'last_result_seq', None)
+                self._n, self._i = n, start
+                self._seq = seq
+            elif n and seq is not None and self.delivered_callback is not None:
+                # every row of it was yielded before the checkpoint
+                self.delivered_callback(seq)
         row = self._namedtuple(*[col[self._i] for col in self._cols])
         self._i += 1
         if self._i == self._n:

@@ -18,14 +18,17 @@ def default_min_after(capacity, min_after_retrieve=None):
     return min_after_retrieve if min_after_retrieve is not None else max(1, capacity // 2)
 
 
-def make_shuffling_buffer_factory(capacity, min_after_retrieve=None, seed=None, batch_size=1):
+def make_shuffling_buffer_factory(capacity, min_after_retrieve=None, seed=None, batch_size=1,
+                                  batched_reader=False):
     """``capacity <= 0`` -> FIFO passthrough, else a seeded random buffer of
-    rows (the columnar path uses :class:`ShuffledColumnarBuffer` instead)."""
+    rows (the columnar path uses :class:`ShuffledColumnarBuffer` instead).
+    For the rows of a batched (columnar) reader the extra headroom is
+    effectively unbounded: a whole row group is added at once."""
     if capacity <= 0:
         return NoopShufflingBuffer
     floor = default_min_after(capacity, min_after_retrieve)
-    return lambda: RandomShufflingBuffer(capacity, floor, extra_capacity=max(1000, batch_size),
-                                         seed=seed)
+    extra = 10 ** 8 if batched_reader else max(1000, batch_size)
+    return lambda: RandomShufflingBuffer(capacity, floor, extra_capacity=extra, seed=seed)
 
 
 class NoopShufflingBuffer(object):

@@ -12,7 +12,13 @@ the rows buffered client-side as plain rows and the shuffling buffer's RNG
 state, in the JAX loader's version-1 layout, so either package resumes the
 other's (``resume_state=``). Batches that ``prefetch_to_device`` has staged
 count as delivered: a checkpoint that must resume exactly uses the loader's
-own ``to_device`` with no prefetch queue.
+own ``to_device`` with no prefetch queue. On the row path the state also
+holds ``reader_yielded``, the rows of a partly read row group that the
+loader already took (:meth:`~petastorm_tpu_torch.reader.Reader.yielded_rows`):
+the resumed reader reads that row group again and skips them, so every row
+arrives once and, with the dummy pool and a seed, the resumed batches are
+the uninterrupted run's. The JAX loader has no such key: its resume, and
+the port's resume of its state, deliver those rows twice.
 
 Variable-length rows: ``collate_spec=`` pads the named fields per batch
 (:mod:`petastorm_tpu_torch.sequence.collate`), and ``bucket_boundaries=``
@@ -132,6 +138,13 @@ def _unflatten_ngram_batch(flat):
     return out
 
 
+def _rows_from_columnar_batch(batch_namedtuple):
+    """A batched reader's column block (a namedtuple) -> row dicts."""
+    d = batch_namedtuple._asdict()
+    n = len(next(iter(d.values())))
+    return [{k: v[i] for k, v in d.items()} for i in range(n)]
+
+
 def _to_plain_row(row):
     """A checkpoint-friendly row: schema namedtuple types are made at run
     time and do not unpickle, so rows are kept as plain dicts, and an NGram
@@ -224,6 +237,9 @@ class TorchDataLoader(object):
         self._pending = []
         self._resume_rows = None
         self._resume_rng = None
+        #: the reader's :meth:`~petastorm_tpu_torch.reader.Reader.yielded_rows`
+        #: when the last row entered the buffer (row path)
+        self._reader_yielded = []
         # the diagnostics keys exist from construction (zeros before the
         # first batch)
         self._iter_start = None
@@ -239,6 +255,13 @@ class TorchDataLoader(object):
                                  'TorchDataLoader.state_dict())')
             self._resume_rows = list(resume_state['rows'])
             self._resume_rng = resume_state.get('buffer_rng')
+            # the rows of a partly yielded row group that the restored rows
+            # hold (or that were consumed): the reader replays that group
+            # whole, and skips them (a JAX package state has none)
+            self._reader_yielded = list(resume_state.get('reader_yielded') or ())
+            skip = getattr(reader, 'skip_yielded_rows', None)
+            if self._reader_yielded and skip is not None:
+                skip(self._reader_yielded)
         # an autotuned reader's controller reads this loader's diagnostics
         # (they carry the consumer's wait) and gains the shuffle knob
         tuner = getattr(reader, 'autotuner', None)
@@ -395,6 +418,7 @@ class TorchDataLoader(object):
         self._start_iteration()
         bs = self.batch_size
         reader_it = iter(self.reader)
+        yielded_rows = getattr(self.reader, 'yielded_rows', list)
         exhausted = False
         while True:
             with self._state_lock:
@@ -422,6 +446,9 @@ class TorchDataLoader(object):
                     # one row: no telemetry here (the occupancy gauge rides
                     # the per-batch emit)
                     buffer.add_many([item])
+                    # taken with the row, so a checkpoint's count matches
+                    # the rows it saves
+                    self._reader_yielded = yielded_rows()
 
     def _emit_rows(self, rows):
         self._rows_out += len(rows)
@@ -479,10 +506,13 @@ class TorchDataLoader(object):
                                 else getattr(self._buffer, '_items', []))
                 rows.extend(self._pending)
                 rng = getattr(self._buffer, 'rng_state', None)
-            return {'version': 1,
-                    'reader': self.reader.state_dict(),
-                    'buffer_rng': rng,
-                    'rows': [_to_plain_row(r) for r in rows]}
+            state = {'version': 1,
+                     'reader': self.reader.state_dict(),
+                     'buffer_rng': rng,
+                     'rows': [_to_plain_row(r) for r in rows]}
+            if self._reader_yielded:
+                state['reader_yielded'] = [list(cell) for cell in self._reader_yielded]
+            return state
 
     @property
     def diagnostics(self):

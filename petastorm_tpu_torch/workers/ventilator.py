@@ -124,6 +124,12 @@ class ConcurrentVentilator(object):
         with self._cv:
             self._undelivered.pop(seq, None)
 
+    def item_of_seq(self, seq):
+        """The index of the item ventilated with ``_seq == seq`` while it is
+        not delivered, else None."""
+        with self._cv:
+            return self._undelivered.get(seq)
+
     def state_dict(self):
         """The read position as a picklable dict: resuming from it ventilates
         every item not fully delivered now (in-flight row groups are re-read

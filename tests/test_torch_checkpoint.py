@@ -320,22 +320,39 @@ def test_loader_checkpoint_with_shuffle_buffer(synthetic_dataset, case):
     assert state['reader'] == j_state['reader'] and state['buffer_rng'] == j_state['buffer_rng']
     assert pickle.dumps(state['rows']) == pickle.dumps(j_state['rows'])
     rest = _loader_resume('torch', url, state, loader_kwargs, reader_kwargs)
-    assert rest == _loader_resume('jax', url, j_state, loader_kwargs, reader_kwargs)
+    j_rest = _loader_resume('jax', url, j_state, loader_kwargs, reader_kwargs)
     combined = first + rest
     assert set(combined) == set(range(100))
-    assert len([i for i in range(100) if combined.count(i) > 1]) <= 10
+    # the JAX resume reads the partly yielded row group again whole: its
+    # rows the loader already took arrive twice
+    assert len([i for i in range(100) if (first + j_rest).count(i) > 1]) <= 10
+    if case == 'columnar':
+        # whole row groups enter the buffer: nothing is partly yielded
+        assert 'reader_yielded' not in state and rest == j_rest
+    else:
+        # the port's state also counts those rows, and its resume skips
+        # them: every row once, the uninterrupted stream's batches
+        assert state['reader_yielded'] and len(combined) == 100
+        make, _, loader_cls, _ = PACKAGES['torch']
+        with loader_cls(make(url, **reader_kwargs), **loader_kwargs) as loader:
+            assert combined == [int(i) for b in loader for i in b['id']]
 
 
 @pytest.mark.parametrize('case', sorted(LOADER_CASES))
 @pytest.mark.parametrize('taken_by,resumed_by', [('jax', 'torch'), ('torch', 'jax')])
 def test_loader_state_resumes_across_packages(synthetic_dataset, case, taken_by, resumed_by):
     # a state taken by one package resumes the other's reader and loader and
-    # gives the rows the taking package's own resume gives, in its order
+    # gives the rows the taking package's own resume gives, in its order;
+    # the JAX loader ignores a port state's reader_yielded, so it gives the
+    # rows the port's resume gives without it
     loader_kwargs, reader_kwargs = LOADER_CASES[case]
     url = synthetic_dataset.url
     first, state = _loader_checkpoint(taken_by, url, 3, loader_kwargs, reader_kwargs)
     rest = _loader_resume(resumed_by, url, state, loader_kwargs, reader_kwargs)
-    assert rest == _loader_resume(taken_by, url, state, loader_kwargs, reader_kwargs)
+    expected_state = state
+    if resumed_by == 'jax':
+        expected_state = {k: v for k, v in state.items() if k != 'reader_yielded'}
+    assert rest == _loader_resume(taken_by, url, expected_state, loader_kwargs, reader_kwargs)
     assert set(first + rest) == set(range(100))
 
 

@@ -237,7 +237,20 @@ def test_port_imports_nothing_of_jax():
         '          "retry", "faults", "elastic", "elastic.shardmap", "elastic.membership",',
         '          "elastic.coordinator", "elastic._hostproc",',
         # the expert- and pipeline-parallel slice's
-        '          "models.moe", "parallel.pipeline"):',
+        '          "models.moe", "parallel.pipeline",',
+        # the last device ops and models, the reference-API loader and the
+        # example twins
+        '          "ops.augment", "models.mnist", "torch_utils", "examples",',
+        '          "examples.mnist.torch_example", "examples.mnist.pytorch_example",',
+        '          "examples.mnist.resume_example", "examples.mnist.generate_petastorm_mnist",',
+        '          "examples.imagenet.torch_resnet_example",',
+        '          "examples.imagenet.generate_petastorm_imagenet",',
+        '          "examples.sequence.torch_sequence_example",',
+        '          "examples.sequence.generate_petastorm_sequence",',
+        '          "examples.hello_world.petastorm_dataset.torch_hello_world",',
+        '          "examples.hello_world.petastorm_dataset.pytorch_hello_world",',
+        '          "examples.hello_world.external_dataset.torch_hello_world",',
+        '          "examples.hello_world.external_dataset.pytorch_hello_world"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
