@@ -179,6 +179,38 @@ Phases, each printed as one JSON line:
      column came from the fused read and the ``binary`` image column through
      Arrow (reason ``codec``), and the first staged batch is rows of the
      store;
+8a. remote stores (``mock-remote://``: the store's local files behind the
+   retry wrapper the object stores get, so a cold epoch measures mirroring,
+   not a network), right after ``png_fixed`` so that both local paths of
+   the call stand beside them:
+
+   - ``raw_remote``: one cold epoch of the raw store through the thread pool
+     into an empty ``chunk_cache`` with ``storage_retry_policy`` and
+     ``faults.FaultPlan(storage_fail_first=8)`` installed: exactly the
+     store's rows, every fault retried, and every chunk that qualifies (each
+     footer's tail and every ``pagescan.column_qualifies`` chunk) fetched
+     once, by a demand miss or ahead by the prefetcher, into one mirror
+     (``remote_cold`` line: rows/s, retries, bytes fetched and on disk);
+     then ``raw``'s two runs from the warm cache: no miss, byte fetched or
+     prefetch during either, the page scan over the mirrors (``pagescan``
+     stages, hits covering every column ``raw`` served by the page scan in
+     this call, no ``arrow_decode`` or ``chunk_fetch`` stage), graphed
+     losses as eager; a ``remote_vs_local`` line beside ``raw``'s numbers;
+   - ``png_fixed_remote``: the fixed-shape PNG store the same way, every
+     chunk mirrored and decoded by the fused call from the mirrors (one
+     ``fused_decode`` stage per row group read, two columns each);
+   - ``remote_checks``: the process pool (``zero_copy=True``) over the raw
+     store into an empty cache, its blocks equal to the thread pool's,
+     every row group decoded in place from the mirrors, and the counters
+     merged from the workers' stats files adding up to the epoch's chunks;
+     a cache bounded at three image chunks under batches held while
+     ``prefetch_to_device`` stages them (chunks skipped as pinned, every
+     held and staged row equal to the store's after more eviction pressure);
+     the prefetcher ahead of demand and within its in-flight budget; an
+     exhausted retry policy raising the original error, a permanent error
+     not retried; the fixed-shape PNG store through the serve daemon with
+     ``chunk_cache``, the tenant's blocks equal to a private reader's and
+     the stream's cache in the daemon's stats; each check's seconds;
 9. ``plain_resume``, once with each step: the ``plain_batch`` reader and
    loader on the dummy pool with the loader's ``to_device`` (no prefetch
    queue), so the run is deterministic: 13 steps uninterrupted; then 5 from
@@ -356,7 +388,8 @@ Phases, each printed as one JSON line:
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
    launches over all paths, both steps, where a graph replay counts the
    launches it captured, and the spawned ranks' of ``mesh_checks`` and
-   ``entry_checks``, and ``imagenet_example``'s; the sequence, MoE,
+   ``entry_checks``, and ``imagenet_example``'s and the remote paths'; the
+   sequence, MoE,
    pipeline and MNIST paths normalize nothing), max error, its time, the
    plain version's time, the least time the card could take and what
    bounds it, and the time of
@@ -1124,7 +1157,7 @@ def _row_worker(url, route):
     from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker
 
     worker = RowGroupDecoderWorker(0, None, {'schema': get_schema(url),
-                                             'filesystem': pafs.LocalFileSystem()})
+                                             'filesystem_factory': pafs.LocalFileSystem})
     if route == 'pyarrow':
         worker._parquet_file = functools.lru_cache(maxsize=None)(pq.ParquetFile)
     return worker
@@ -1591,7 +1624,7 @@ def phase_pool_checks(raw_url, fixed_url, probe, work_dir):
     pool = ProcessPool(workers, serializer=NumpyBlockSerializer(), results_timeout_s=120,
                        **pool_kwargs)
     pool.start(KillOnceWorker, {
-        'filesystem': pafs.LocalFileSystem(), 'dataset_path': raw_url[len('file://'):],
+        'filesystem_factory': pafs.LocalFileSystem, 'dataset_path': raw_url[len('file://'):],
         'cache': NullCache(), 'pieces': pieces, 'schema': schema, 'output_schema': schema,
         'transform_spec': None, 'transformed_schema': schema, 'kill_piece': len(pieces) // 2,
         'flag_path': os.path.join(work_dir, 'killed')})
@@ -1647,11 +1680,19 @@ def check_pool(path, pool, read_counts):
 
 def check_no_leftovers():
     """No zero-copy borrow is live and no ``/dev/shm`` entry of this
-    process's rings or blob dirs is left."""
+    process's rings or blob dirs is left. The chunk stores of this process
+    keep their hottest mirror mappings alive by design (a strong pool of
+    64 each): they are closed first, so that a mapping still counted is one
+    a batch holds."""
     import gc
 
+    from petastorm_tpu_torch.chunkstore import store as chunk_store
     from petastorm_tpu_torch.native.lifetime import registry
 
+    with chunk_store._stores_lock:
+        stores = list(chunk_store._stores.values())
+    for store in stores:
+        store.close()
     gc.collect()
     live = registry().counters()['lifetime_live_borrows']
     left = sorted(f for f in os.listdir('/dev/shm')
@@ -1719,8 +1760,9 @@ def check_read_routes(path, counts):
     to the codec's columnar decode (reason ``image-hints``: a resize target)
     and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
     ``png_cached`` no read at all, nor ``png_served`` (the daemon reads);
-    ``raw_elastic`` as ``raw``;
-    ``png_fixed`` fused only; ``png_process``
+    ``raw_elastic`` as ``raw``; ``raw_remote`` no route counted (the chunk
+    reader counts none: :func:`phase_remote_path` checks its stages);
+    ``png_fixed`` and ``png_fixed_remote`` fused only; ``png_process``
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
     place into a ring slot, two columns each; ``png_fixed_pred`` every row
     group through the fused predicate call, two columns each, with pages
@@ -1746,7 +1788,10 @@ def check_read_routes(path, counts):
         n = reasons.get('image-hints', 0)
         ok = (n > 0 and reasons == {'image-hints': n, 'codec': 2 * n} and fallback == 3 * n
               and arrow == 3 * n and not (fused or pagescan))
-    elif path in ('png_cached', 'png_served'):
+    elif path in ('png_cached', 'png_served', 'raw_remote'):
+        # raw_remote: the chunk reader serves the page scan over its mirrors
+        # and counts no read route; its stage timers and chunk_cache_*
+        # counters show the route (phase_remote_path)
         ok = not any(counts.values())
     elif path == 'png_fixed_pred':
         ok = (fused > 0 and c('fused_pred_batches_total') == fused
@@ -1812,6 +1857,11 @@ STALL_STAGES = {
     'png_process': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_select': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_fixed': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
+    # a warm chunk cache: the page scan over the mirrors inside the read
+    # stage, the fused call from the mirrors; no chunk is fetched
+    'raw_remote': ({'worker.read_io'}, {'worker.fused_decode', 'worker.chunk_fetch'}),
+    'png_fixed_remote': ({'worker.fused_decode'},
+                         {'worker.decode', 'worker.read_io', 'worker.chunk_fetch'}),
     'raw_process': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
     'png_fixed_pred': ({'worker.fused_predicate'}, {'worker.decode', 'worker.read_io'}),
     'png_cached': (set(), {'worker.decode', 'worker.read_io', 'worker.fused_decode'}),
@@ -4750,6 +4800,476 @@ def phase_augment_checks(torch):
     del inputs
 
 
+
+# -- remote stores: mock-remote:// through the chunk cache -----------------------------
+
+#: storage faults injected into each cold epoch. They are consecutive in one
+#: process, so the first storage operation of the run meets them all: the
+#: policy allows one attempt more than the faults, with short sleeps
+REMOTE_FAULTS = 8
+REMOTE_RETRY = {'max_attempts': REMOTE_FAULTS + 1, 'initial_backoff_s': 0.005,
+                'max_backoff_s': 0.05}
+#: the footer's first tail read (``chunkstore/reader.py``): a footer larger
+#: than this less its trailer costs one more mirror
+REMOTE_FOOTER_GUESS = 64 * 1024
+#: the prefetcher check's in-flight budget: two and a half of the raw
+#: store's 4.9 MB image chunks
+PREFETCH_CHECK_BUDGET = 12 << 20
+
+
+def remote_url(url):
+    """The ``mock-remote://`` URL of a local ``file://`` store: the same
+    files behind the retry wrapper the object stores get."""
+    return 'mock-remote://' + url[len('file://'):]
+
+
+def remote_policy():
+    from petastorm_tpu_torch.retry import RetryPolicy
+
+    return RetryPolicy(**REMOTE_RETRY)
+
+
+def mirrored_chunks(url, fused):
+    """How many mirrors a full read of the store at ``url`` makes,
+    computed from its Parquet footers: each file's footer tail (two when it
+    outgrows the first read) and every column chunk the page scan
+    qualifies (``pagescan.column_qualifies``), or with ``fused`` every column
+    chunk (the fused read decodes dictionary, snappy and PNG chunks from
+    their mirrors)."""
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch.native import pagescan
+
+    path = url[len('file://'):]
+    count = 0
+    for name in sorted(os.listdir(path)):
+        if not name.endswith('.parquet'):
+            continue
+        full = os.path.join(path, name)
+        with open(full, 'rb') as f:
+            f.seek(-8, os.SEEK_END)
+            footer_len = int.from_bytes(f.read(4), 'little')
+        count += 1 if footer_len + 8 + 64 <= min(REMOTE_FOOTER_GUESS,
+                                                 os.path.getsize(full)) else 2
+        meta = pq.ParquetFile(full).metadata
+        for rg in range(meta.num_row_groups):
+            for c in range(meta.num_columns):
+                schema_col = meta.schema.column(c)
+                count += bool(fused or pagescan.column_qualifies(
+                    meta.row_group(rg).column(c), schema_col.max_definition_level,
+                    schema_col.max_repetition_level))
+    return count
+
+
+def mirror_files(root):
+    """The mirrors under a chunk-cache root: relative path -> size."""
+    out = {}
+    for dirpath, dirnames, names in os.walk(root):
+        if os.path.basename(dirpath) == 'stats':
+            dirnames[:] = []
+            continue
+        for name in names:
+            if name.endswith('.chunk'):
+                full = os.path.join(dirpath, name)
+                out[os.path.relpath(full, root)] = os.path.getsize(full)
+    return out
+
+
+def chunk_counters(root, **config):
+    """The ``chunk_cache_*`` counters of ``root``, merged over every process
+    that wrote its stats there."""
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig, cache_diagnostics
+
+    return cache_diagnostics(ChunkCacheConfig(root, **config))
+
+
+def _block_keys(block):
+    """Row keys of a columnar block (its label and its image's crc32)."""
+    return _row_keys(block.image, block.label)
+
+
+def remote_cold_epoch(name, url, root, fused):
+    """One epoch of the mock-remote store at ``url`` through the thread pool
+    into an empty chunk cache at ``root``, with :data:`REMOTE_FAULTS` storage
+    faults injected (``faults.FaultPlan(storage_fail_first=...)``): exactly
+    the store's rows, every fault retried, and every chunk that qualifies
+    fetched once (a demand miss, or ahead by the prefetcher) into one
+    mirror. The rate measures mirroring from local files, not a network."""
+    from petastorm_tpu_torch import faults, make_reader
+    from petastorm_tpu_torch import observability as obs
+
+    expected = mirrored_chunks(url, fused)
+    keys = collections.Counter()
+    obs.get_registry().reset()
+    faults.install(faults.FaultPlan(storage_fail_first=REMOTE_FAULTS))
+    try:
+        t0 = time.perf_counter()
+        with make_reader(remote_url(url), output='columnar', seed=SEED, num_epochs=1,
+                         workers_count=max(1, os.cpu_count() or 1), chunk_cache=root,
+                         storage_retry_policy=remote_policy()) as reader:
+            for block in reader:
+                keys.update(_block_keys(block))
+            diag = reader.diagnostics
+        seconds = time.perf_counter() - t0
+        fired = faults.storage_faults_fired()
+    finally:
+        faults.uninstall()
+    counters = chunk_counters(root)
+    mirrors = mirror_files(root)
+    fetched = counters['chunk_cache_misses'] + counters['chunk_cache_prefetch_chunks']
+    line = {'phase': 'remote_cold', 'path': name, 'rows': sum(keys.values()),
+            'seconds': seconds, 'rows_per_s': sum(keys.values()) / seconds,
+            'faults_injected': REMOTE_FAULTS, 'faults_retried': fired,
+            'retry_policy': REMOTE_RETRY, 'qualifying_chunks': expected,
+            'chunks_fetched': fetched, 'mirror_files': len(mirrors),
+            'bytes_fetched': (counters['chunk_cache_bytes_fetched']
+                              + counters['chunk_cache_prefetch_bytes']),
+            'bytes_on_disk': sum(mirrors.values()),
+            'counters': counters,
+            # where the epoch's time went: the workers' stages summed over
+            # threads (chunk_fetch: demand fetches inside the read or before
+            # the fused call; chunk_prefetch: the prefetcher's thread)
+            'stage_s': {k[len('stage_'):-2]: v for k, v in sorted(diag.items())
+                        if k.startswith('stage_') and k.endswith('_s')},
+            'note': 'mock-remote: local files behind the retry wrapper, so the cold epoch '
+                    'measures mirroring, not a network'}
+    emit(line)
+    if keys != store_row_keys():
+        raise AssertionError('{}: the cold epoch delivered {} rows, not the store\'s {}'.format(
+            name, sum(keys.values()), ROWS))
+    if fired != REMOTE_FAULTS:
+        raise AssertionError('{}: {} of {} storage faults fired'.format(name, fired,
+                                                                       REMOTE_FAULTS))
+    if not fetched == len(mirrors) == expected:
+        raise AssertionError('{}: {} chunks fetched into {} mirrors; {} qualify'.format(
+            name, fetched, len(mirrors), expected))
+    return line
+
+
+def _chunk_deltas(before, after):
+    return {k[len('chunk_cache_'):]: after[k] - before[k]
+            for k in ('chunk_cache_hits', 'chunk_cache_misses', 'chunk_cache_bytes_fetched',
+                      'chunk_cache_prefetch_chunks', 'chunk_cache_prefetch_bytes')}
+
+
+def phase_remote_path(torch, name, url, local_runs, work_dir):
+    """``raw_remote`` / ``png_fixed_remote``: the cold epoch
+    (:func:`remote_cold_epoch`), then the local path's two runs from the
+    mock-remote store with ``chunk_cache`` and ``storage_retry_policy``:
+    no miss and no byte fetched during either run (every chunk is served
+    from its mirror), and the stage timers show which route served. The raw
+    store is read by the page scan over the mirrors: the hits cover every
+    column the local ``raw`` path (``local_runs``, this call) serves through
+    the page scan, and no ``arrow_decode`` stage runs. The fixed-shape PNG
+    store is decoded by the fused call from the mirrors: one ``fused_decode``
+    stage per row group read, two columns each. A ``remote_vs_local`` line
+    gives both paths' numbers per step kind. Returns the launches."""
+    local_name = name[:-len('_remote')]
+    fused = local_name == 'png_fixed'
+    root = os.path.join(work_dir, 'chunk_cache_' + local_name)
+    cold = remote_cold_epoch(name, url, root, fused)
+    before = chunk_counters(root)
+    total, runs = run_path_both_ways(
+        torch, name, remote_url(url), check_batch,
+        reader_kwargs={'chunk_cache': root, 'storage_retry_policy': remote_policy()})
+    after = chunk_counters(root)
+    compare = {}
+    mark = before
+    for kind in ('eager', 'graphed'):
+        result = runs[kind][3]
+        diag = result.extra['diagnostics']
+        counters = {k: v for k, v in diag.items() if k.startswith('chunk_cache_')}
+        deltas = _chunk_deltas(mark, counters)
+        mark = counters
+        stage_count = {k[len('stage_'):-len('_count')]: v for k, v in diag.items()
+                       if k.startswith('stage_') and k.endswith('_count')}
+        local = local_runs[kind][3]
+        local_diag = local.extra['diagnostics']
+        routes = result.extra['read_routes']
+        if fused:
+            reads = stage_count.get('fused_decode', 0)
+            ok = (reads > 0 and reads == routes.get('fused_batches_total')
+                  and routes.get('fused_columns_total') == 2 * reads
+                  and deltas['hits'] >= 2 * reads)
+        else:
+            reads = stage_count.get('pagescan', 0)
+            columns = (local.extra['read_routes']['pagescan_columns_total']
+                       / local_diag['stage_pagescan_count'])
+            ok = reads > 0 and deltas['hits'] >= columns * reads
+        ok = (ok and not stage_count.get('arrow_decode') and not stage_count.get('chunk_fetch')
+              and not (deltas['misses'] or deltas['bytes_fetched'] or deltas['prefetch_chunks']))
+        compare[kind] = {
+            'examples_per_sec': [local.samples_per_second, result.samples_per_second],
+            'median_step_ms': [local.extra['median_step_ms'], result.extra['median_step_ms']],
+            'input_stall_fraction': [local.input_stall_fraction, result.input_stall_fraction],
+            'chunk_cache': deltas, 'reads': reads,
+            'stage_count': {k: stage_count.get(k, 0) for k in
+                            ('read', 'pagescan', 'arrow_decode', 'fused_decode',
+                             'chunk_fetch')}}
+        if not ok:
+            raise AssertionError('{} ({}): not served from the mirrors: {}'.format(
+                name, kind, compare[kind]))
+    emit({'phase': 'remote_vs_local', 'path': name, 'local': local_name,
+          'order': [local_name, name], 'runs': compare,
+          'cold_rows_per_s': cold['rows_per_s'],
+          'chunk_cache_run': _chunk_deltas(before, after)})
+    return total
+
+
+def _prefetch_outstanding(prefetcher):
+    """The prefetcher's fetched-but-unconsumed bytes, read from another
+    thread (its deque may change while read: try again)."""
+    for _ in range(100):
+        try:
+            return sum(size for _, size, _ in list(prefetcher._outstanding))
+        except RuntimeError:
+            continue
+    return 0
+
+
+def _check_remote_process(raw_url, work_dir, ring):
+    """The process pool (``zero_copy=True``, shm) over the mock-remote raw
+    store into an empty cache: every block equals the thread pool's,
+    every row group decoded in place by the fused call from the mirrors,
+    and the counters, merged from the workers' ``stats/pid-*.json``, add up
+    to the epoch's chunks: each row group's two demanded once, and each
+    process that opened the file its footer once."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+
+    workers = max(1, os.cpu_count() or 1)
+    groups = len(load_row_groups(raw_url))
+    blocks = {}
+    for pool in ('thread', 'process'):
+        root = os.path.join(work_dir, 'chunk_cache_{}'.format(pool))
+        kwargs = ({'reader_pool_type': 'process', 'zero_copy': True,
+                   'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm',
+                                   'results_timeout_s': 120}}
+                  if pool == 'process' else {})
+        with make_reader(remote_url(raw_url), output='columnar', shuffle_row_groups=False,
+                         workers_count=workers, chunk_cache=root,
+                         storage_retry_policy=remote_policy(), **kwargs) as reader:
+            blocks[pool] = sorted(tuple(_block_keys(block)) for block in reader)
+            diag = reader.diagnostics
+    counters = chunk_counters(root)
+    demands = counters['chunk_cache_hits'] + counters['chunk_cache_misses']
+    stats = sorted(n for n in os.listdir(os.path.join(root, 'stats')) if n.endswith('.json'))
+    out = {'workers': workers, 'row_groups': groups, 'blocks': len(blocks['process']),
+           'demands': demands, 'mirror_files': len(mirror_files(root)),
+           'stats_files': len(stats), 'counters': counters,
+           'fused_inplace_batches_total': diag.get('fused_inplace_batches_total'),
+           'worker_restarts': diag['worker_restarts'], 'transport': diag['transport']}
+    if (blocks['process'] != blocks['thread'] or len(blocks['process']) != groups
+            or not 2 * groups + 1 <= demands <= 2 * groups + workers + 1
+            or out['mirror_files'] != mirrored_chunks(raw_url, False)
+            or out['fused_inplace_batches_total'] != groups or len(stats) < 2
+            or diag['worker_restarts'] or diag['transport'] != 'shm'):
+        raise AssertionError('remote process pool: {}'.format(out))
+    return out
+
+
+def _check_remote_eviction(torch, raw_url, work_dir):
+    """A cache bounded below the store's size (three image chunks): every
+    batch the loader hands to ``prefetch_to_device`` is held on the host
+    (views over mirrors) while the pinned copy is staged, so the evictor
+    skips their chunks (``evict_skipped_pinned > 0``); after more pressure
+    every held batch and every staged copy still equals the store's rows."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig, open_store
+    from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+
+    image_chunk = ROWS_PER_ROW_GROUP * IMAGE_SIZE * IMAGE_SIZE * 3
+    config = ChunkCacheConfig(os.path.join(work_dir, 'chunk_cache_evict'),
+                              size_limit_bytes=3 * image_chunk)
+    held, staged = [], []
+    with make_reader(remote_url(raw_url), output='columnar', reader_pool_type='dummy',
+                     shuffle_row_groups=False, chunk_cache=config,
+                     storage_retry_policy=remote_policy()) as reader:
+        loader = TorchDataLoader(reader, BATCH)
+
+        def holding():
+            for batch in loader:
+                held.append(batch)
+                yield batch
+
+        batches = prefetch_to_device(holding(), DEVICE_TYPE, size=2)
+        for batch in batches:
+            staged.append((batch['image'], batch['label']))
+        batches.close()
+        counters = chunk_counters(config.root, size_limit_bytes=config.size_limit_bytes)
+        pinned = counters['chunk_cache_chunks_pinned']
+        open_store(config).ensure('pressure', image_chunk, lambda: b'\0' * image_chunk)
+        after = chunk_counters(config.root, size_limit_bytes=config.size_limit_bytes)
+        host_keys = collections.Counter(k for b in held for k in _row_keys(b['image'],
+                                                                          b['label']))
+        card_keys = collections.Counter(k for images, labels in staged
+                                        for k in _row_keys(images, labels))
+    out = {'size_limit_bytes': config.size_limit_bytes, 'batches': len(held),
+           'chunks_pinned': pinned, 'counters': after,
+           'rows_equal': host_keys == card_keys == store_row_keys()}
+    del held, staged
+    if not (out['rows_equal'] and after['chunk_cache_evict_skipped_pinned'] > 0
+            and after['chunk_cache_chunks_evicted'] > 0 and pinned > 0):
+        raise AssertionError('remote eviction under live batches: {}'.format(out))
+    return out
+
+
+def _check_remote_prefetcher(raw_url, work_dir):
+    """The chunk prefetcher over the raw store's first row groups with no
+    consumer: it fetches ahead before any demand (``prefetch_chunks > 0``)
+    and stops at its in-flight budget; a demand read of the first row group
+    consumes what it fetched and lets it go on. The in-flight bytes, sampled
+    every millisecond, never exceed the budget."""
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig
+    from petastorm_tpu_torch.chunkstore.prefetch import ChunkPrefetcher
+    from petastorm_tpu_torch.chunkstore.reader import ChunkCachedParquetFile
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+    from petastorm_tpu_torch.fs import FilesystemResolver
+
+    class Upcoming(object):
+        def __init__(self, items):
+            self._items = items
+
+        def upcoming_items(self, max_items):
+            return self._items[:max_items]
+
+    pieces = load_row_groups(raw_url)[:6]
+    resolver = FilesystemResolver(remote_url(raw_url), retry_policy=remote_policy())
+    config = ChunkCacheConfig(os.path.join(work_dir, 'chunk_cache_prefetch'),
+                              prefetch_budget_bytes=PREFETCH_CHECK_BUDGET)
+    prefetcher = ChunkPrefetcher(Upcoming([{'piece_index': i} for i in range(len(pieces))]),
+                                 pieces, ['image', 'label'], resolver.filesystem_factory(),
+                                 config)
+    peak = [0]
+    sampling = threading.Event()
+
+    def sample():
+        while not sampling.is_set():
+            peak[0] = max(peak[0], _prefetch_outstanding(prefetcher))
+            time.sleep(0.001)
+
+    sampler = threading.Thread(target=sample, name='smoke-prefetch-sampler')
+    sampler.start()
+    prefetcher.start()
+    try:
+        deadline = time.monotonic() + 60
+        last, since = -1, time.monotonic()
+        while time.monotonic() < deadline:
+            now = chunk_counters(config.root)['chunk_cache_prefetch_chunks']
+            if now != last:
+                last, since = now, time.monotonic()
+            elif now and time.monotonic() - since > 0.5:
+                break
+            time.sleep(0.01)
+        stalled = chunk_counters(config.root)
+        pf = ChunkCachedParquetFile(pieces[0].path, resolver.filesystem(), config)
+        try:
+            pf.read_row_group(0, ['image', 'label'])
+        finally:
+            pf.close()
+        deadline = time.monotonic() + 60
+        while (chunk_counters(config.root)['chunk_cache_prefetch_chunks']
+               <= stalled['chunk_cache_prefetch_chunks'] and time.monotonic() < deadline):
+            time.sleep(0.01)
+        resumed = chunk_counters(config.root)
+    finally:
+        prefetcher.stop()
+        prefetcher.join()
+        sampling.set()
+        sampler.join()
+    out = {'budget_bytes': PREFETCH_CHECK_BUDGET, 'peak_inflight_bytes': peak[0],
+           'prefetch_chunks_at_stall': stalled['chunk_cache_prefetch_chunks'],
+           'misses_at_stall': stalled['chunk_cache_misses'],
+           'prefetch_chunks_after_demand': resumed['chunk_cache_prefetch_chunks'],
+           'hits_of_demand': resumed['chunk_cache_hits'] - stalled['chunk_cache_hits']}
+    # the only demand before the read is the prefetcher's own footer read
+    if not (stalled['chunk_cache_prefetch_chunks'] > 0 and stalled['chunk_cache_misses'] <= 1
+            and 0 < peak[0] <= PREFETCH_CHECK_BUDGET
+            and out['prefetch_chunks_after_demand'] > out['prefetch_chunks_at_stall']
+            and out['hits_of_demand'] >= 2):
+        raise AssertionError('remote prefetcher: {}'.format(out))
+    return out
+
+
+def _check_remote_retries():
+    """An exhausted policy raises the original error after its attempts; a
+    permanent error is raised at once, not retried."""
+    from petastorm_tpu_torch.retry import RetryPolicy
+
+    policy = RetryPolicy(max_attempts=3, initial_backoff_s=0.001, max_backoff_s=0.002)
+    outcomes = {}
+    for kind, error in (('transient', ConnectionResetError('connection reset by peer')),
+                        ('permanent', FileNotFoundError('no such object'))):
+        calls = []
+
+        def fail(error=error, calls=calls):
+            calls.append(1)
+            raise error
+        try:
+            policy.call(fail)
+            raised = None
+        except Exception as e:  # noqa: BLE001 - the check names what came out
+            raised = e
+        outcomes[kind] = {'attempts': len(calls), 'original': raised is error}
+    if outcomes != {'transient': {'attempts': 3, 'original': True},
+                    'permanent': {'attempts': 1, 'original': True}}:
+        raise AssertionError('retry policy: {}'.format(outcomes))
+    return outcomes
+
+
+def _check_remote_served(fixed_url, work_dir, ring):
+    """The fixed-shape PNG store (mock-remote) through the serve daemon with
+    ``chunk_cache``: the tenant's blocks equal a private reader's, and the
+    daemon's stats show the stream's cache, every qualifying chunk fetched
+    once into it."""
+    from petastorm_tpu_torch import make_reader
+
+    svc_dir = os.path.join(work_dir, 'svc_remote')
+    root = os.path.join(work_dir, 'chunk_cache_served')
+    workers = max(1, os.cpu_count() or 1)
+    kwargs = {'output': 'columnar', 'seed': SEED, 'num_epochs': 1, 'chunk_cache': root,
+              'storage_retry_policy': remote_policy()}
+    proc = start_daemon(svc_dir, ring, workers)
+    try:
+        with make_reader(remote_url(fixed_url), serve=svc_dir, **kwargs) as served:
+            tenant = sorted(tuple(_block_keys(block)) for block in served)
+            stats = service_stats(svc_dir)
+    finally:
+        shutdown_s = stop_daemon(proc, svc_dir)
+    private_root = os.path.join(work_dir, 'chunk_cache_private')
+    with make_reader(remote_url(fixed_url), workers_count=workers,
+                     **dict(kwargs, chunk_cache=private_root)) as private:
+        mine = sorted(tuple(_block_keys(block)) for block in private)
+    cache = [s['chunk_cache'] for s in stats['streams'].values()]
+    expected = mirrored_chunks(fixed_url, True)
+    out = {'blocks': len(tenant), 'stream_chunk_cache': cache, 'qualifying_chunks': expected,
+           'mirror_files': len(mirror_files(root)), 'daemon_shutdown_s': shutdown_s}
+    fetched = [c['chunk_cache_misses'] + c['chunk_cache_prefetch_chunks'] for c in cache
+               if c is not None]
+    if tenant != mine or not tenant or fetched != [expected] \
+            or out['mirror_files'] != expected:
+        raise AssertionError('remote serve: {}'.format(out))
+    return out
+
+
+def phase_remote_checks(torch, raw_url, fixed_url, work_dir, ring, serve_ring):
+    """``remote_checks``: the host side of the remote stores (the process
+    pool, eviction under live batches with the staging, the prefetcher's
+    budget, the retry policy's outcomes, the serve daemon), each with its
+    seconds. No failure is caught."""
+    seconds, checks = {}, {}
+    for name, fn, args in (('process_pool', _check_remote_process, (raw_url, work_dir, ring)),
+                           ('eviction', _check_remote_eviction, (torch, raw_url, work_dir)),
+                           ('prefetcher', _check_remote_prefetcher, (raw_url, work_dir)),
+                           ('retries', _check_remote_retries, ()),
+                           ('serve', _check_remote_served, (fixed_url, work_dir, serve_ring))):
+        t0 = time.perf_counter()
+        checks[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    emit({'phase': 'remote_checks', 'checks': checks, 'seconds': seconds,
+          'total_s': sum(seconds.values())})
+
+
 def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
@@ -4850,7 +5370,16 @@ def main():
         phase_serve_checks(urls['raw'], urls['png_fixed'], serve_ring, work_dir)
         check_no_leftovers()
         # the pre-resized PNG store: every image decoded by the fused native read
-        total.update(run_path_both_ways(torch, 'png_fixed', urls['png_fixed'], check_batch)[0])
+        fixed_total, fixed_runs = run_path_both_ways(torch, 'png_fixed', urls['png_fixed'],
+                                                     check_batch)
+        total.update(fixed_total)
+        # the same two stores as mock-remote stores through the chunk cache,
+        # beside the local paths of this call
+        for name, url, runs in (('raw_remote', urls['raw'], raw),
+                                ('png_fixed_remote', urls['png_fixed'], fixed_runs)):
+            total.update(phase_remote_path(torch, name, url, runs, work_dir))
+        phase_remote_checks(torch, urls['raw'], urls['png_fixed'], work_dir, ring, serve_ring)
+        check_no_leftovers()
         # the process pool: one spawned worker per core, shm rings
         process = {'reader_pool_type': 'process',
                    'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm'}}

@@ -9,10 +9,9 @@ The control loop (one :meth:`Autotuner.tick` per ``interval_s``):
 2. compute the tick-to-tick **window delta** and its windowed stall report —
    attribution of the *last interval's* wait, not the run's cumulative total;
 3. decide (:meth:`Autotuner.evaluate`): a stalled window names its bottleneck
-   and the bottleneck names the knob — grow the worker pool, shrink the
-   shuffle buffer; a persistently calm pipeline gives a grown worker slot
-   back (the JAX package's chunk-prefetch knob waits for the chunk cache,
-   which is not ported);
+   and the bottleneck names the knob — grow the worker pool, raise the chunk
+   prefetch in-flight budget, shrink the shuffle buffer; a persistently calm
+   pipeline gives a grown worker slot back;
 4. act, **always** through code that (a) clamps the target into the
    config's explicit ``[min, max]``, (b) runs inside a
    ``decision_span`` so the change lands in the trace ring as an
@@ -123,6 +122,8 @@ class AutotuneConfig(object):
         worker slot retire)
     :param min_workers/max_workers: worker-pool bounds (``max_workers=None``
         defaults to ``min(2 * cpu_count, 16)`` at attach time)
+    :param min_prefetch_bytes/max_prefetch_bytes: chunk-prefetch in-flight
+        byte-budget bounds
     :param min_shuffle_capacity: floor for shuffle-buffer shrinks (growing
         re-uses the loader's configured capacity as the ceiling)
     :param cooldown_s: min seconds between moves of one knob (default
@@ -149,6 +150,7 @@ class AutotuneConfig(object):
     def __init__(self, interval_s=2.0, history_capacity=_history.DEFAULT_CAPACITY,
                  stall_threshold=0.15, low_water=0.02,
                  min_workers=1, max_workers=None,
+                 min_prefetch_bytes=8 << 20, max_prefetch_bytes=512 << 20,
                  min_shuffle_capacity=2,
                  cooldown_s=None, reverse_cooldown_s=None, freeze_s=None,
                  shrink_after_windows=5, shrink_workers=True,
@@ -164,6 +166,8 @@ class AutotuneConfig(object):
         if max_workers is not None and max_workers < min_workers:
             raise ValueError('max_workers ({}) < min_workers ({})'.format(
                 max_workers, min_workers))
+        if min_prefetch_bytes > max_prefetch_bytes:
+            raise ValueError('min_prefetch_bytes > max_prefetch_bytes')
         if shrink_after_windows < 1:
             raise ValueError('shrink_after_windows must be >= 1')
         if not 0.0 < rollback_throughput_ratio <= 1.0:
@@ -176,6 +180,8 @@ class AutotuneConfig(object):
         self.low_water = low_water
         self.min_workers = min_workers
         self.max_workers = max_workers
+        self.min_prefetch_bytes = min_prefetch_bytes
+        self.max_prefetch_bytes = max_prefetch_bytes
         self.min_shuffle_capacity = min_shuffle_capacity
         self.cooldown_s = cooldown_s if cooldown_s is not None else 2 * interval_s
         self.reverse_cooldown_s = (reverse_cooldown_s if reverse_cooldown_s is not None
@@ -233,15 +239,19 @@ class Autotuner(object):
 
     :param pool: needs ``workers_count`` and (for the knob to be live)
         ``add_worker_slot``/``retire_worker_slot``
+    :param chunk_cache: a :class:`~petastorm_tpu_torch.chunkstore.ChunkCacheConfig`
+        (or anything with ``prefetch_budget_bytes`` + ``set_prefetch_budget``)
     :param ventilator: optional; its in-flight budget follows pool growth
     :param diagnostics_fn: evidence source (``Reader.diagnostics`` by default;
         :meth:`attach_loader` rebinds it to the loader, which adds the
         consumer-side ``reader_wait_*`` signal)
     """
 
-    def __init__(self, config, pool=None, ventilator=None, diagnostics_fn=None, loader=None):
+    def __init__(self, config, pool=None, chunk_cache=None, ventilator=None,
+                 diagnostics_fn=None, loader=None):
         self.config = config
         self._pool = pool
+        self._chunk_cache = chunk_cache
         self._ventilator = ventilator
         self._loader = loader
         self._diagnostics_fn = diagnostics_fn
@@ -354,6 +364,11 @@ class Autotuner(object):
 
     def _on_stalled(self, report, window, now):
         bottleneck = report.get('bottleneck')
+        if bottleneck == 'worker.chunk_fetch':
+            decision = self._raise_prefetch(report, window, now)
+            if decision is not None:
+                return decision
+            return self._grow_workers(report, window, now)
         if bottleneck in _WORKER_BOTTLENECKS:
             return self._grow_workers(report, window, now)
         if bottleneck == 'consumer.assembly':
@@ -484,6 +499,24 @@ class Autotuner(object):
         return self._record('workers', 'shrink', before, after, reason, report,
                             window, clamped=target != before - 1)
 
+    def _raise_prefetch(self, report, window, now):
+        cache = self._chunk_cache
+        if cache is None or not hasattr(cache, 'set_prefetch_budget'):
+            return None
+        before = cache.prefetch_budget_bytes
+        target = clamp(before * 2, self.config.min_prefetch_bytes,
+                       self.config.max_prefetch_bytes)
+        if target <= before or not self._allow('prefetch_bytes', 'grow', now):
+            return None
+        reason = ('chunk-fetch bound: raising the prefetch in-flight byte '
+                  'budget to overlap fetches with decode')
+        with decision_span(knob='prefetch_bytes', action='grow', before=before,
+                           target=target, reason=reason):
+            cache.set_prefetch_budget(target)
+        self._mark('prefetch_bytes', 'grow', now)
+        return self._record('prefetch_bytes', 'grow', before, target, reason,
+                            report, window, clamped=target != before * 2)
+
     def _shrink_shuffle(self, report, window, now):
         loader = self._loader
         if loader is None or not hasattr(loader, 'set_shuffle_capacity'):
@@ -535,6 +568,17 @@ class Autotuner(object):
                 if self._ventilator is not None \
                         and hasattr(self._ventilator, 'set_max_queue_size'):
                     self._ventilator.set_max_queue_size(after + 2)
+        elif knob == 'prefetch_bytes':
+            cache = self._chunk_cache
+            if cache is None or not hasattr(cache, 'set_prefetch_budget'):
+                return None
+            before = cache.prefetch_budget_bytes
+            target = clamp(rec['from'], self.config.min_prefetch_bytes,
+                           self.config.max_prefetch_bytes)
+            with decision_span(knob=knob, action='rollback', before=before,
+                               target=target, reason=reason):
+                cache.set_prefetch_budget(target)
+            after = target
         elif knob == 'shuffle_capacity':
             loader = self._loader
             if loader is None or not hasattr(loader, 'set_shuffle_capacity'):
@@ -580,6 +624,9 @@ class Autotuner(object):
         out = {}
         if self._pool is not None and hasattr(self._pool, 'workers_count'):
             out['workers_count'] = self._pool.workers_count
+        if self._chunk_cache is not None \
+                and hasattr(self._chunk_cache, 'prefetch_budget_bytes'):
+            out['prefetch_budget_bytes'] = self._chunk_cache.prefetch_budget_bytes
         if self._loader is not None and hasattr(self._loader, 'shuffle_capacity'):
             out['shuffling_queue_capacity'] = self._loader.shuffle_capacity
         return out

@@ -64,19 +64,26 @@ def _column_to_numpy(column):
 
 
 class ArrowBatchWorker(WorkerBase):
-    """``args``: dataset_path, filesystem, pieces, schema (stored or
-    inferred), output_schema, transform_spec, transformed_schema, cache."""
+    """``args``: dataset_path, filesystem_factory (a picklable zero-argument
+    callable; the filesystem is made on first use, in the worker's process),
+    pieces, schema (stored or inferred), output_schema, transform_spec,
+    transformed_schema, cache, chunk_cache (a ``ChunkCacheConfig`` for a
+    remote store, or None)."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
+        self._fs = None
         self._open_files = {}
 
     def _parquet_file(self, path):
+        if self._fs is None:
+            self._fs = self.args['filesystem_factory']()
         if path not in self._open_files:
             if len(self._open_files) >= _MAX_OPEN_FILES:
                 _, old = self._open_files.popitem()
                 old.close()
-            self._open_files[path] = open_parquet(path, self.args['filesystem'])
+            self._open_files[path] = open_parquet(path, self._fs,
+                                                  chunk_cache=self.args.get('chunk_cache'))
         return self._open_files[path]
 
     def shutdown(self):

@@ -497,6 +497,9 @@ class ElasticVentilator(object):
         self._epochs_remaining = iterations
         self._stop_requested = False
         self._completed = len(self._items) == 0
+        # the claimable items of the last poll, in order: the chunk
+        # prefetcher's peek (upcoming_items)
+        self._pending_peek = []
         self._thread = None
 
     def start(self):
@@ -543,6 +546,14 @@ class ElasticVentilator(object):
             self._max_q = max(1, int(n))
             self._cv.notify_all()
 
+    def upcoming_items(self, max_items):
+        """A read-only peek at the next (up to ``max_items``) items this host
+        would ventilate: the claimable items of the coordinator's last poll,
+        in order, for the chunk prefetcher."""
+        with self._cv:
+            indices = self._pending_peek[:max_items]
+        return [self._items[i] for i in indices]
+
     def completed(self):
         """True when no more items will ever be ventilated."""
         with self._cv:
@@ -564,6 +575,7 @@ class ElasticVentilator(object):
             self._epochs_remaining = self._iterations
             self._in_flight = 0
             self._undelivered.clear()
+            self._pending_peek = []
         self.start()
 
     def stop(self):
@@ -617,6 +629,8 @@ class ElasticVentilator(object):
             if coord.epoch_complete(epoch):
                 return
             claimable = coord.claimable_items(epoch)
+            with self._cv:
+                self._pending_peek = list(claimable)
             if not claimable:
                 # nothing to do here: peers are finishing their share, or
                 # in-flight groups are pinned by live leases

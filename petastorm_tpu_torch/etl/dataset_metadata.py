@@ -9,8 +9,10 @@ codec stores compressed cells (images, ``compressed_ndarray``) are written
 uncompressed, as the JAX writer does. Row-group indexes live under
 ``petastorm_tpu.rowgroups_index.v1`` (:func:`add_dataset_metadata` rewrites
 the footer keeping every other key). A plain Parquet store's schema is
-inferred from its first file (:func:`infer_or_load_unischema`). Not ported
-yet: hive partitioning (pieces carry an empty ``partition_keys`` mapping),
+inferred from its first file (:func:`infer_or_load_unischema`). The readers
+take a ``retry_policy`` for the resolver of a remote store (``s3``, ``gs``,
+``mock-remote``; ``False`` wraps nothing). Not ported yet: hive
+partitioning (pieces carry an empty ``partition_keys`` mapping),
 append/publish, the ``_metadata`` summary-file and legacy petastorm
 fallbacks.
 """
@@ -250,9 +252,9 @@ def add_dataset_metadata(dataset_url, key, value_bytes):
         pq.write_metadata(arrow_schema.with_metadata(metadata), sink)
 
 
-def read_metadata_dict(dataset_url):
+def read_metadata_dict(dataset_url, retry_policy=None):
     """All KV metadata of ``_common_metadata`` as a dict (one footer read)."""
-    resolver = FilesystemResolver(dataset_url)
+    resolver = FilesystemResolver(dataset_url, retry_policy=retry_policy)
     return _read_common_metadata(resolver.filesystem(), resolver.get_dataset_path())
 
 
@@ -273,11 +275,12 @@ def _check_unpartitioned(relpath):
                                   'petastorm_tpu_torch (see ROADMAP.md): {}'.format(relpath))
 
 
-def load_row_groups(dataset_url):
+def load_row_groups(dataset_url, retry_policy=None):
     """All row-group pieces of the dataset, in the JAX package's order: from
     the stored per-file counts when present (no footer reads), else from
-    every data file's footer."""
-    resolver = FilesystemResolver(dataset_url)
+    every data file's footer. ``retry_policy`` is the resolver's
+    (:class:`~petastorm_tpu_torch.fs.FilesystemResolver`)."""
+    resolver = FilesystemResolver(dataset_url, retry_policy=retry_policy)
     fs, root = resolver.filesystem(), resolver.get_dataset_path()
     meta = _read_common_metadata(fs, root)
     pieces = []
@@ -299,9 +302,9 @@ def load_row_groups(dataset_url):
     return pieces
 
 
-def get_schema(dataset_url):
+def get_schema(dataset_url, retry_policy=None):
     """Load the stored Unischema; raise if the dataset has none."""
-    resolver = FilesystemResolver(dataset_url)
+    resolver = FilesystemResolver(dataset_url, retry_policy=retry_policy)
     meta = _read_common_metadata(resolver.filesystem(), resolver.get_dataset_path())
     if UNISCHEMA_KEY not in meta:
         raise PetastormMetadataError(
@@ -311,12 +314,18 @@ def get_schema(dataset_url):
     return Unischema.from_json(json.loads(meta[UNISCHEMA_KEY].decode('utf-8')))
 
 
-def infer_or_load_unischema(dataset_url):
+def get_schema_from_dataset_url(dataset_url, storage_retry_policy=None):
+    """The reference's name for :func:`get_schema`; ``storage_retry_policy``
+    is threaded through as ``make_reader(storage_retry_policy=)`` does."""
+    return get_schema(dataset_url, retry_policy=storage_retry_policy)
+
+
+def infer_or_load_unischema(dataset_url, retry_policy=None):
     """The stored Unischema, else one inferred from the first data file's
     Arrow schema (:meth:`Unischema.from_arrow_schema`: columns of types it
     cannot map are left out). Hive-partitioned stores and stores written by
     the original petastorm library are refused: neither is ported yet."""
-    resolver = FilesystemResolver(dataset_url)
+    resolver = FilesystemResolver(dataset_url, retry_policy=retry_policy)
     fs, root = resolver.filesystem(), resolver.get_dataset_path()
     meta = _read_common_metadata(fs, root)
     if UNISCHEMA_KEY in meta:

@@ -72,9 +72,9 @@ def build_rowgroup_index(dataset_url, indexers, max_workers=10):
     return combined
 
 
-def get_row_group_indexes(dataset_url):
+def get_row_group_indexes(dataset_url, retry_policy=None):
     """The stored indexes: dict index_name -> indexer."""
-    meta = dataset_metadata.read_metadata_dict(dataset_url)
+    meta = dataset_metadata.read_metadata_dict(dataset_url, retry_policy=retry_policy)
     raw = meta.get(dataset_metadata.ROW_GROUP_INDEX_KEY)
     if raw is None:
         if meta.get(LEGACY_ROW_GROUP_INDEX_KEY) is not None:

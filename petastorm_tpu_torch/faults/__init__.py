@@ -1,22 +1,149 @@
-"""Host churn for an elastic pod: a deterministic kill/join schedule.
+"""Seeded fault injection for the storage plane, and host churn for an
+elastic pod.
 
-Trimmed twin of the host-churn part of ``petastorm_tpu/faults/__init__.py``
-(:class:`HostChurnPlan`, :func:`count_committed`, :func:`drive_host_churn`),
-driving pods of :mod:`petastorm_tpu_torch.elastic._hostproc` subprocesses
-(``docs/parallelism.md``, "Elastic pod sharding"). The seeded fault injection
-of the JAX package's ``faults`` (storage, worker and network faults) comes
-with the port of the fault lanes.
+Trimmed twin of ``petastorm_tpu/faults/__init__.py``:
+
+* **storage faults**: :meth:`petastorm_tpu_torch.retry.RetryPolicy.call`
+  consults :data:`petastorm_tpu_torch.retry.FAULT_POINT` before every
+  attempt; installing a :class:`FaultPlan` with ``storage_fail_first > 0``
+  makes the first N retried storage operations of the process raise a
+  transient ``OSError(ECONNRESET)``, which drives the backoff path end to
+  end. The plan is honoured only for that: its item, segfault and hang
+  kinds come with the port of the fault lanes and raise
+  :class:`NotImplementedError` when asked for.
+* **host churn**: :class:`HostChurnPlan`, :func:`count_committed` and
+  :func:`drive_host_churn` kill and join hosts of a pod of
+  :mod:`petastorm_tpu_torch.elastic._hostproc` subprocesses
+  (``docs/parallelism.md``, "Elastic pod sharding").
+
+Usage::
+
+    from petastorm_tpu_torch import faults
+    faults.install(faults.FaultPlan(storage_fail_first=3))
+    try:
+        ...  # build readers; their first three storage operations fail
+    finally:
+        faults.uninstall()
 """
 
 from __future__ import annotations
 
+import errno
 import logging
 import os
 import signal
+import threading
 import time
+
+from petastorm_tpu_torch.errors import PetastormTpuError
 
 logger = logging.getLogger(__name__)
 
+
+class FaultInjectedError(PetastormTpuError):
+    """The deterministic error of an injected item fault (the JAX package's
+    item hooks; not ported yet)."""
+
+
+class FaultPlan(object):
+    """Picklable fault schedule, the JAX package's arguments.
+
+    :param storage_fail_first: the first N storage operations of the process
+        routed through :meth:`petastorm_tpu_torch.retry.RetryPolicy.call`
+        raise a transient ``OSError(ECONNRESET)``.
+
+    The item kinds (``kill_items``, ``error_items``, ``segv_items``,
+    ``hang_items``) are not ported yet: a plan that asks for any of them
+    raises :class:`NotImplementedError`. Their flags and ``state_dir`` are
+    kept, so a plan built for the JAX package constructs here when it asks
+    only for storage faults.
+    """
+
+    def __init__(self, kill_items=(), kill_once=True, error_items=(),
+                 error_times=None, segv_items=(), segv_once=True,
+                 hang_items=(), hang_once=True, hang_s=5.0,
+                 storage_fail_first=0, state_dir=None):
+        asked = [name for name, value in (('kill_items', kill_items),
+                                          ('error_items', error_items),
+                                          ('segv_items', segv_items),
+                                          ('hang_items', hang_items)) if value]
+        if asked:
+            raise NotImplementedError(
+                'FaultPlan({}=...) is not yet ported to petastorm_tpu_torch '
+                '(ROADMAP.md, "sanitizer and fault lanes"): only storage_fail_first '
+                'is'.format(asked[0]))
+        self.kill_items = ()
+        self.kill_once = bool(kill_once)
+        self.error_items = ()
+        self.error_times = error_times
+        self.segv_items = ()
+        self.segv_once = bool(segv_once)
+        self.hang_items = ()
+        self.hang_once = bool(hang_once)
+        self.hang_s = float(hang_s)
+        self.storage_fail_first = int(storage_fail_first)
+        self.state_dir = state_dir
+
+    def __repr__(self):
+        return ('FaultPlan(kill_items={}, kill_once={}, error_items={}, '
+                'error_times={}, segv_items={}, hang_items={}, hang_s={}, '
+                'storage_fail_first={})'.format(
+                    self.kill_items, self.kill_once, self.error_items,
+                    self.error_times, self.segv_items, self.hang_items,
+                    self.hang_s, self.storage_fail_first))
+
+
+#: the process-wide installed plan (None: fault injection off, the
+#: production state)
+_PLAN = None
+_storage_faults_fired = 0
+_storage_lock = threading.Lock()
+
+
+def install(plan):
+    """Install ``plan`` process-wide and arm the storage hook. Returns the
+    plan. ``install(None)`` is :func:`uninstall`."""
+    global _PLAN, _storage_faults_fired
+    from petastorm_tpu_torch import retry
+    with _storage_lock:
+        _PLAN = plan
+        _storage_faults_fired = 0
+    retry.FAULT_POINT = _storage_fault_point if (
+        plan is not None and plan.storage_fail_first > 0) else None
+    return plan
+
+
+def uninstall():
+    """Remove the installed plan and disarm every hook."""
+    install(None)
+
+
+def get_plan():
+    return _PLAN
+
+
+def storage_faults_fired():
+    """How many storage faults the installed plan has raised so far."""
+    with _storage_lock:
+        return _storage_faults_fired
+
+
+def _storage_fault_point():
+    """The hook :meth:`RetryPolicy.call` invokes before each attempt."""
+    global _storage_faults_fired
+    with _storage_lock:
+        plan = _PLAN
+        if plan is None or _storage_faults_fired >= plan.storage_fail_first:
+            return
+        _storage_faults_fired += 1
+        fired = _storage_faults_fired
+    raise OSError(errno.ECONNRESET, 'injected transient storage fault {}/{}'.format(
+        fired, plan.storage_fail_first))
+
+
+# ---------------------------------------------------------------------------
+# elastic-pod host churn (docs/parallelism.md, "Elastic pod sharding")
+# ---------------------------------------------------------------------------
 
 class HostChurnPlan(object):
     """A deterministic kill/join schedule for an elastic pod of
@@ -92,4 +219,5 @@ def drive_host_churn(coord_dir, procs, plan, spawn_joiner=None, timeout_s=60.0, 
     return timeline
 
 
-__all__ = ['HostChurnPlan', 'count_committed', 'drive_host_churn']
+__all__ = ['FaultInjectedError', 'FaultPlan', 'HostChurnPlan', 'count_committed',
+           'drive_host_churn', 'get_plan', 'install', 'storage_faults_fired', 'uninstall']

@@ -29,8 +29,9 @@ consumer maps (:meth:`NativeParquetFile.fused_read_into`), counted as
 it :mod:`~petastorm_tpu_torch.native.lifetime`. A filtered read
 (:meth:`NativeParquetFile.read_fused_predicate`) evaluates a predicate,
 skips pages by their statistics and decodes only the surviving rows in the
-same kind of single call. Not ported yet: the blob fused publish of the
-serve plane and the chunk-cached remote reader.
+same kind of single call. A remote file opened with a chunk cache is a
+:class:`~petastorm_tpu_torch.chunkstore.reader.ChunkCachedParquetFile`: the
+same fused and page-scan routes, served from local mirrors of its chunks.
 
 Telemetry, as the JAX package's: each fused call is a ``fused_decode`` (or
 ``fused_predicate``) stage, the page scan a ``pagescan`` stage and the
@@ -400,10 +401,20 @@ class NativeParquetFile(object):
         self.close()
 
 
-def open_parquet(path, filesystem=None):
+def open_parquet(path, filesystem=None, chunk_cache=None):
     """``path`` through the native reader when it can serve it (a local
     file, a library that built), else a ``pq.ParquetFile`` over
-    ``filesystem``."""
+    ``filesystem``.
+
+    ``chunk_cache`` (a :class:`~petastorm_tpu_torch.chunkstore.ChunkCacheConfig`)
+    routes a REMOTE file through the chunk store: its qualifying column
+    chunks are mirrored locally once and served by the page scan and the
+    fused read, the routes local files take. Ignored for local filesystems
+    and without the native library (the mirror exists to feed it). When the
+    chunk-cached open raises (a bad cache directory, a failed remote stat),
+    the file is read plainly. Any other remote file is opened with
+    ``pre_buffer``: a row group's column-chunk ranges coalesce into few large
+    reads issued ahead of decode."""
     import pyarrow.fs as pafs
     import pyarrow.parquet as pq
 
@@ -413,5 +424,13 @@ def open_parquet(path, filesystem=None):
             return NativeParquetFile(path)
         except IOError as e:
             logger.warning('native open failed for %s (%s); pyarrow fallback', path, e)
+    if not local and chunk_cache is not None and is_available():
+        from petastorm_tpu_torch.chunkstore.reader import ChunkCachedParquetFile
+        try:
+            return ChunkCachedParquetFile(path, filesystem, chunk_cache)
+        except Exception as e:  # noqa: BLE001 - cache directory or remote stat trouble: plain read
+            logger.warning('chunk-cached open failed for %s (%s); plain remote read', path, e)
     # the ParquetFile opens the file itself, so its close() closes it
-    return pq.ParquetFile(path, filesystem=filesystem)
+    if local:
+        return pq.ParquetFile(path, filesystem=filesystem)
+    return pq.ParquetFile(path, filesystem=filesystem, pre_buffer=True)

@@ -17,6 +17,9 @@ FLOAT or DOUBLE. Any other chunk is left to the Arrow path; tables split per
 column, so one dictionary-encoded label does not cost the image column next
 to it its views.
 
+A remote chunk mirrored by the chunk store is served by the same scan over
+its mirror (:func:`scan_mirrored_chunk`, :func:`read_mirrored_chunk`).
+
 The views are read-only. The row worker copies them where a user transform
 may write into its block; the infeed copies non-writable arrays into pinned
 memory anyway.
@@ -130,6 +133,53 @@ def _column_qualifies(meta_col, max_def_level, max_rep_level):
     if pt != 'FIXED_LEN_BYTE_ARRAY' and pt not in _PHYSICAL_FIXED:
         return False
     return 'def' if max_def_level == 1 else True
+
+
+def column_qualifies(meta_col, max_def_level, max_rep_level):
+    """The strict check of the local path, public: the chunk store
+    qualifies remote chunks with it (``chunkstore/reader.py``)."""
+    return _column_qualifies(meta_col, max_def_level, max_rep_level)
+
+
+def scan_mirrored_chunk(lib, mm, meta_col, has_def_levels=False):
+    """Page plan ``[(offset_in_mirror, num_values, values_region_len)]`` of a
+    byte-exact local mirror of one column chunk (the chunk's bytes alone, at
+    offset 0), or None. The mirror must be exactly ``total_compressed_size``
+    bytes: any other length means the cache entry does not match the footer.
+
+    The plan depends only on the mirror's bytes, which the chunk store keys
+    by content and never changes, so callers keep it per chunk key."""
+    length = int(mm.size)
+    if length <= 0 or length != meta_col.total_compressed_size:
+        return None
+    offs, counts, vlens = _scratch_arrays()
+    n = lib.pstpu_scan_plain_pages(
+        mm.ctypes.data_as(ctypes.c_void_p), length, offs, counts, vlens,
+        _MAX_PAGES, 1 if has_def_levels else 0)
+    if n < 0:
+        _note_scan_failure(lib, 'mirrored chunk')
+        return None
+    return [(offs[i], counts[i], vlens[i]) for i in range(n)]
+
+
+def read_mirrored_chunk(lib, mm, meta_col, expected_rows, flba_width,
+                        has_def_levels=False, require_exact=True, pages=None):
+    """Arrow arrays (one per page) of a column chunk served from a
+    byte-exact local mirror ``mm`` (the chunk's bytes alone, at offset 0)
+    instead of the whole mmapped file: how a remote chunk, mirrored once by
+    the chunk store (:mod:`petastorm_tpu_torch.chunkstore`), rides the local
+    zero-copy path, with the same per-page bounds checks
+    (:func:`_chunk_to_arrays`) and the same Arrow fallback on any mismatch.
+
+    ``pages`` is an optional :func:`scan_mirrored_chunk` plan (valid for any
+    mirror of the same chunk key); without it the mirror is scanned here.
+    Returns None when the chunk cannot be served."""
+    if pages is None:
+        pages = scan_mirrored_chunk(lib, mm, meta_col, has_def_levels=has_def_levels)
+    if pages is None:
+        return None
+    return _chunk_to_arrays(mm, meta_col, pages, expected_rows, flba_width,
+                            require_exact=require_exact)
 
 
 def _scan_chunk(lib, mm, meta_col, has_def_levels=False):

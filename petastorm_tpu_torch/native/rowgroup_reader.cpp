@@ -1,10 +1,12 @@
 // Native Parquet row-group reader kernel (petastorm_tpu_torch).
 //
-// The port's own copy of petastorm_tpu/native/rowgroup_reader.cpp, whole and
-// unchanged below this header: the Arrow C stream read, the zero-copy page
-// scan, the fused read->decode->collate with its first-party snappy/ZSTD/LZ4
-// decompressors, and the predicate kernel (not bound by the port yet). The
-// ABI literal pstpu_abi_version() must equal EXPECTED_ABI in fused.py.
+// The port's own copy of petastorm_tpu/native/rowgroup_reader.cpp, whole
+// below this header: the Arrow C stream read, the zero-copy page scan, the
+// fused read->decode->collate with its first-party snappy/ZSTD/LZ4
+// decompressors, and the predicate kernel (not bound by the port yet). One
+// change: the thrift skipper counts a bool key or value of a map as one byte
+// (TReader::skip_value), where the JAX copy loops on a corrupt map of bools.
+// The ABI literal pstpu_abi_version() must equal EXPECTED_ABI in fused.py.
 //
 // The reference delegates all Parquet decode to pyarrow (Arrow C++) through
 // Python (reference py_dict_reader_worker.py:254-258, arrow_reader_worker.py).
@@ -339,9 +341,15 @@ void TReader::skip_value(int type, int depth) {
       const uint64_t n = varint();
       if (n == 0) return;
       const uint8_t kv = byte();
+      // a bool key or value in a map is one byte, as in a list: skipped as
+      // a bare field bool (no byte), a map of bools with a corrupt count of
+      // up to 2^64 entries consumed nothing and never ended
+      const int types[2] = {kv >> 4, kv & 0x0F};
       for (uint64_t i = 0; i < n && ok; i++) {
-        skip_value(kv >> 4, depth + 1);
-        skip_value(kv & 0x0F, depth + 1);
+        for (const int t : types) {
+          if (t == 1 || t == 2) skip_bytes(1);
+          else skip_value(t, depth + 1);
+        }
       }
       return;
     }

@@ -55,7 +55,7 @@ from petastorm_tpu_torch.observability.report import (decode_collate_share,  # n
                                                       format_stall_report, stall_report)
 from petastorm_tpu_torch.observability.trace import (TraceContext, chrome_trace,  # noqa: F401
                                                      current_trace, export_chrome_trace,
-                                                     get_ring, mint_trace, root_of,
+                                                     get_ring, instant, mint_trace, root_of,
                                                      span, trace_root, use_trace)
 
 _LEVELS = ('off', 'counters', 'spans')
@@ -237,7 +237,7 @@ __all__ = [
     'current_config', 'current_trace', 'decode_collate_share', 'detect_regression',
     'drain_trace_events', 'export_chrome_trace', 'flatten_snapshot',
     'format_postmortem', 'format_stall_report', 'gauge_set', 'get_registry',
-    'get_ring', 'history_windows', 'host_identity', 'load_flight',
+    'get_ring', 'history_windows', 'host_identity', 'instant', 'load_flight',
     'load_history', 'merge_snapshots', 'mint_trace', 'observe', 'postmortem_report',
     'resolve_telemetry', 'root_of', 'slowest_batches', 'snapshot', 'span',
     'span_tree', 'spans_on', 'stage', 'stage_breakdown', 'stall_report',

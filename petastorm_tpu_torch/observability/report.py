@@ -13,33 +13,38 @@ using the stage timers the telemetry layer accumulates:
 * the remainder (``reader_wait_s - pool_wait``) is consumer-side assembly:
   row slicing / rebatching / ngram windowing in the results-queue reader.
 * the pool-wait share is then attributed to the **worker** stages
-  proportionally to their measured busy seconds (read IO, the fused native
-  calls, decode, transform). For thread/dummy pools these
+  proportionally to their measured busy seconds (read IO, chunk fetch, the
+  fused native calls, decode, transform), with the nested chunk-fetch
+  seconds subtracted from the read timer so that no second counts twice.
+  For thread/dummy pools these
   timers live in the same process's registry; for the process pool they
   arrive merged from the workers' own registries.
 
 The result attributes ~100% of the measured wait to *named* stages (the
 acceptance bar is >=90%), so "is it IO, decode, shuffle starvation, or device
 staging?" has a mechanical answer. The report is the JAX package's, key for
-key, less what belongs to features the port lacks (the chunk cache's
-``chunk_fetch`` stage and the mixture reader's per-source counts): one
+key, less what belongs to a feature the port lacks (the mixture reader's
+per-source counts): one
 diagnostics dict of a port reader gives the same report in either package.
 """
 
 from __future__ import annotations
 
 #: worker-side stage timers split proportionally under the pool wait, in
-#: display order. 'read_io' is stage_read_s. 'fused_decode' is the
-#: single-transition native read→decode→collate pass — its seconds INCLUDE
-#: the page faults of cold chunks, so on cold storage it partially overlaps
-#: what read_io would have shown.
-_WORKER_STAGES = ('read_io', 'fused_predicate', 'fused_decode', 'decode', 'transform')
+#: display order. 'read_io' is derived: stage_read_s minus the nested
+#: stage_chunk_fetch_s. 'fused_decode' is the single-transition native
+#: read→decode→collate pass — its seconds INCLUDE the page faults of cold
+#: chunks, so on cold storage it partially overlaps what read_io would have
+#: shown.
+_WORKER_STAGES = ('read_io', 'chunk_fetch', 'fused_predicate', 'fused_decode', 'decode',
+                  'transform')
 
 #: stage -> one-line remedy, surfaced next to the named bottleneck
 #: the JAX package's hint texts, verbatim: one diagnostics dict gives one
 #: report in either package
 _HINTS = {
     'worker.read_io': 'storage-bound: enable chunk_cache for remote stores, or add IO parallelism (workers_count)',
+    'worker.chunk_fetch': 'cold chunk mirror: warm the cache (epoch 2+ reads locally) or raise prefetch_budget',
     'worker.fused_predicate': 'fused predicate+decode dominates: tighten the predicate (page-stat skipping prunes more when clauses are selective) or add cores/workers (docs/native.md)',
     'worker.fused_decode': 'fused native decode dominates: add cores/workers — the pass is already one GIL-released call per batch (docs/native.md)',
     'worker.decode': 'decode-bound: more workers/cores, batched TransformSpec, image_decode_hints, or a RawTensorCodec store; check fused_fallback_reason:* counters for columns off the fused path',
@@ -65,8 +70,11 @@ def stall_report(diagnostics):
     pool_wait = min(pool_wait, wait)
     assembly = max(wait - pool_wait, 0.0)
 
+    read = float(diagnostics.get('stage_read_s', 0.0) or 0.0)
+    chunk_fetch = float(diagnostics.get('stage_chunk_fetch_s', 0.0) or 0.0)
     busy = {
-        'read_io': float(diagnostics.get('stage_read_s', 0.0) or 0.0),
+        'read_io': max(read - chunk_fetch, 0.0),
+        'chunk_fetch': chunk_fetch,
         'fused_predicate': float(diagnostics.get('stage_fused_predicate_s', 0.0) or 0.0),
         'fused_decode': float(diagnostics.get('stage_fused_decode_s', 0.0) or 0.0),
         'decode': float(diagnostics.get('stage_decode_s', 0.0) or 0.0),

@@ -300,6 +300,14 @@ def span(name, cat='pipeline', **args):
     return _Span(name, cat, args or None)
 
 
+def instant(name, cat='pipeline', **args):
+    """Zero-duration event (a chunk-cache hit, say) at level ``'spans'``,
+    stamped into the active trace as a leaf when a context is installed."""
+    if not _metrics.spans_on():
+        return
+    record_span(name, cat, time.time(), 0.0, stamp_trace_args(args or None, current_trace()))
+
+
 def chrome_trace(events=None):
     """The Chrome trace-event JSON document (dict) for ``events`` (default:
     the process ring's current contents)."""

@@ -34,6 +34,15 @@ and return a :class:`~petastorm_tpu_torch.serve.ServedReader`: the same
 results readers assemble rows, blocks or batches on the consumer's side of
 the broadcast ring (:func:`_make_served`).
 
+A remote store (``s3://``, ``gs://``, ``hdfs://``, ``mock-remote://``) is
+read through the filesystem of :mod:`petastorm_tpu_torch.fs`, retry-wrapped
+under ``storage_retry_policy``; the workers get a picklable filesystem
+factory and resolve it in their own process. With ``chunk_cache=`` its
+qualifying column chunks are mirrored to local disk
+(:mod:`petastorm_tpu_torch.chunkstore`) and served by the page scan and the
+fused read, and a prefetcher thread fetches the ventilator's upcoming
+chunks ahead of the workers.
+
 With ``elastic=`` the hosts of a pod share the row groups through a
 coordination directory instead of static shard arithmetic
 (:mod:`petastorm_tpu_torch.elastic`): the reader's ventilator is an
@@ -49,6 +58,7 @@ import warnings
 
 from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.batch_worker import ArrowBatchWorker
+from petastorm_tpu_torch.chunkstore import resolve_chunk_cache
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.columnar import BatchResultsQueueReader
 from petastorm_tpu_torch.errors import EmptyResultError, NoDataAvailableError, PetastormTpuError
@@ -72,9 +82,6 @@ _VENTILATE_EXTRA_ROWGROUPS = 2
 #: name -> (JAX default, ROADMAP item that ports it); make_batch_reader has
 #: every one
 _NOT_YET_PORTED = {
-    'storage_retry_policy': (None, 'remote filesystems'),
-    'chunk_cache': (None, 'remote filesystems'),
-    'chunk_cache_size_limit': (None, 'remote filesystems'),
     'protocol_monitor': (None, 'protocol monitor'),
 }
 
@@ -193,6 +200,7 @@ def make_reader(dataset_url,
                 transform_spec=None, ngram=None,
                 output='rows', batch_size=None, drop_last=False,
                 resume_state=None,
+                storage_retry_policy=None, chunk_cache=None, chunk_cache_size_limit=None,
                 telemetry=None, autotune=None,
                 on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
                 piece_filter=None, serve=None, serve_weight=1, elastic=None, **not_yet_ported):
@@ -243,6 +251,25 @@ def make_reader(dataset_url,
         package): continue from that read position. Construct the reader
         with otherwise the same arguments; ``cur_shard``/``shard_count`` may
         differ for version-2 states (see :func:`merge_resume_states`)
+    :param storage_retry_policy: a
+        :class:`~petastorm_tpu_torch.retry.RetryPolicy` for transient errors
+        of object-store IO (``s3``, ``gs``, ``mock-remote``); ``None`` takes
+        its defaults, ``False`` wraps nothing. It reaches the metadata reads,
+        the workers (through a picklable filesystem factory) and the chunk
+        fetches
+    :param chunk_cache: REMOTE stores only: ``'auto'`` (a directory per
+        dataset under the system temp directory,
+        ``pstpu_torch_chunk_cache/<hash>``), a cache directory, or a
+        :class:`~petastorm_tpu_torch.chunkstore.ChunkCacheConfig`. Qualifying
+        column chunks are mirrored to local disk once and served by the page
+        scan and the fused read as local files are, and a prefetcher thread
+        fetches the ventilator's upcoming chunks ahead; later epochs read at
+        local speed. The counters appear as ``chunk_cache_*`` keys in
+        :attr:`Reader.diagnostics`. A local ``file://`` store ignores it.
+        ``None`` disables it
+    :param chunk_cache_size_limit: on-disk byte bound of the chunk cache
+        (default 10 GiB); LRU eviction keeps usage under it and never
+        invalidates a chunk a live batch still references
     :param telemetry: ``'off'``, ``'counters'`` (the process default: stage
         timers and counters, read by :attr:`Reader.diagnostics` and
         :func:`~petastorm_tpu_torch.observability.stall_report`), ``'spans'``
@@ -313,6 +340,8 @@ def make_reader(dataset_url,
     """
     _refuse_not_yet_ported('make_reader', not_yet_ported)
     _refuse_served_elastic(serve, elastic)
+    remote = {'storage_retry_policy': storage_retry_policy, 'chunk_cache': chunk_cache,
+              'chunk_cache_size_limit': chunk_cache_size_limit}
     if serve:
         return _make_served(dataset_url, batch_reader=False, schema_fields=schema_fields,
                             seed=seed, shuffle_row_groups=shuffle_row_groups,
@@ -326,7 +355,8 @@ def make_reader(dataset_url,
                             batch_size=batch_size, drop_last=drop_last,
                             resume_state=resume_state, telemetry=telemetry, autotune=autotune,
                             piece_filter=piece_filter, serve=serve, serve_weight=serve_weight,
-                            reader_pool_type=reader_pool_type, workers_count=workers_count)
+                            reader_pool_type=reader_pool_type, workers_count=workers_count,
+                            **remote)
     if output not in ('rows', 'columnar'):
         raise ValueError("output must be 'rows' or 'columnar', got {!r}".format(output))
     if output == 'rows' and batch_size is not None:
@@ -354,7 +384,7 @@ def make_reader(dataset_url,
                       max_item_retries=max_item_retries, zero_copy=zero_copy,
                       pool_kwargs=pool_kwargs)
     try:
-        schema = dataset_metadata.get_schema(dataset_url)
+        schema = dataset_metadata.get_schema(dataset_url, retry_policy=storage_retry_policy)
     except dataset_metadata.PetastormMetadataError:
         raise PetastormTpuError(
             'Dataset at {} is missing unischema metadata. If it is a plain Parquet store, '
@@ -367,7 +397,7 @@ def make_reader(dataset_url,
                   cur_shard=cur_shard, shard_count=shard_count, cache=cache,
                   transform_spec=transform_spec, resume_state=resume_state,
                   telemetry=telemetry, autotune=autotune, piece_filter=piece_filter,
-                  ngram=ngram, columnar_ngram=columnar_ngram, elastic=elastic)
+                  ngram=ngram, columnar_ngram=columnar_ngram, elastic=elastic, **remote)
 
 
 def make_batch_reader(dataset_url,
@@ -383,6 +413,7 @@ def make_batch_reader(dataset_url,
                       transform_spec=None,
                       batch_size=None, drop_last=False,
                       resume_state=None,
+                      storage_retry_policy=None, chunk_cache=None, chunk_cache_size_limit=None,
                       telemetry=None, autotune=None,
                       on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
                       piece_filter=None, serve=None, serve_weight=1, elastic=None,
@@ -395,10 +426,14 @@ def make_batch_reader(dataset_url,
     The schema is the stored Unischema when the store has one, else it is
     inferred from the Arrow schema (:func:`~petastorm_tpu_torch.etl.
     dataset_metadata.infer_or_load_unischema`). The other arguments are
-    :func:`make_reader`'s, ``serve``, ``serve_weight`` and ``elastic``
-    included; ``TransformSpec.func`` gets the column dict."""
+    :func:`make_reader`'s, ``serve``, ``serve_weight``, ``elastic`` and the
+    remote-store ones (``storage_retry_policy``, ``chunk_cache``,
+    ``chunk_cache_size_limit``) included; ``TransformSpec.func`` gets the
+    column dict."""
     _refuse_not_yet_ported('make_batch_reader', not_yet_ported)
     _refuse_served_elastic(serve, elastic)
+    remote = {'storage_retry_policy': storage_retry_policy, 'chunk_cache': chunk_cache,
+              'chunk_cache_size_limit': chunk_cache_size_limit}
     if serve:
         return _make_served(dataset_url, batch_reader=True, schema_fields=schema_fields,
                             seed=seed, shuffle_row_groups=shuffle_row_groups,
@@ -411,12 +446,14 @@ def make_batch_reader(dataset_url,
                             batch_size=batch_size, drop_last=drop_last,
                             resume_state=resume_state, telemetry=telemetry, autotune=autotune,
                             piece_filter=piece_filter, serve=serve, serve_weight=serve_weight,
-                            reader_pool_type=reader_pool_type, workers_count=workers_count)
+                            reader_pool_type=reader_pool_type, workers_count=workers_count,
+                            **remote)
     results_reader = _columnar_results_reader_factory('columnar', batch_size, drop_last, None)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
                       max_item_retries=max_item_retries, zero_copy=zero_copy,
                       pool_kwargs=pool_kwargs)
-    schema = dataset_metadata.infer_or_load_unischema(dataset_url)
+    schema = dataset_metadata.infer_or_load_unischema(dataset_url,
+                                                      retry_policy=storage_retry_policy)
     cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
     return Reader(dataset_url, schema, pool, results_reader, schema_fields=schema_fields,
                   seed=seed, shuffle_row_groups=shuffle_row_groups,
@@ -424,7 +461,7 @@ def make_batch_reader(dataset_url,
                   num_epochs=num_epochs, cur_shard=cur_shard, shard_count=shard_count,
                   cache=cache, transform_spec=transform_spec, resume_state=resume_state,
                   worker_class=ArrowBatchWorker, telemetry=telemetry, autotune=autotune,
-                  piece_filter=piece_filter, elastic=elastic)
+                  piece_filter=piece_filter, elastic=elastic, **remote)
 
 
 def _refuse_served_elastic(serve, elastic):
@@ -438,7 +475,8 @@ def _make_served(dataset_url, batch_reader, schema_fields, seed, shuffle_row_gro
                  cur_shard, shard_count, cache_type, cache_location, cache_size_limit,
                  cache_row_size_estimate, transform_spec, ngram, output, batch_size, drop_last,
                  resume_state, telemetry, autotune, piece_filter, serve, serve_weight,
-                 reader_pool_type, workers_count):
+                 reader_pool_type, workers_count, storage_retry_policy, chunk_cache,
+                 chunk_cache_size_limit):
     """The ``serve=`` path of the factories: check the combination, build
     the canonical stream spec (the JAX package's keys) and attach through
     the shared daemon. The consumer's results readers are the private
@@ -489,9 +527,9 @@ def _make_served(dataset_url, batch_reader, schema_fields, seed, shuffle_row_gro
         'transform_spec': transform_spec,
         'ngram': ngram,
         'columnar_ngram': columnar_ngram,
-        'storage_retry_policy': None,
-        'chunk_cache': None,
-        'chunk_cache_size_limit': None,
+        'storage_retry_policy': storage_retry_policy,
+        'chunk_cache': chunk_cache,
+        'chunk_cache_size_limit': chunk_cache_size_limit,
         'cache': cache,
     }
     from petastorm_tpu_torch.serve.client import make_served_reader
@@ -511,7 +549,8 @@ class Reader(object):
                  predicate=None, rowgroup_selector=None, num_epochs=1, cur_shard=None,
                  shard_count=None, cache=NullCache(), transform_spec=None, resume_state=None,
                  worker_class=RowGroupDecoderWorker, telemetry=None, autotune=None,
-                 piece_filter=None, ngram=None, columnar_ngram=False, elastic=None):
+                 piece_filter=None, ngram=None, columnar_ngram=False, elastic=None,
+                 storage_retry_policy=None, chunk_cache=None, chunk_cache_size_limit=None):
         if (cur_shard is None) != (shard_count is None):
             raise ValueError('cur_shard and shard_count must be specified together')
         if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -542,7 +581,12 @@ class Reader(object):
         self.schema = schema
         #: the decoded-block cache (``stats()`` counts its hits and misses)
         self.cache = cache
-        resolver = FilesystemResolver(dataset_url)
+        resolver = FilesystemResolver(dataset_url, retry_policy=storage_retry_policy)
+        #: the :class:`~petastorm_tpu_torch.chunkstore.ChunkCacheConfig` of a
+        #: remote store read with ``chunk_cache``, else None
+        self.chunk_cache_config = resolve_chunk_cache(chunk_cache, dataset_url,
+                                                      resolver.is_local,
+                                                      size_limit_bytes=chunk_cache_size_limit)
         if ngram is not None:
             # the NGram names the fields it reads: schema_fields is not used
             ngram.resolve_regex_field_names(schema)
@@ -562,11 +606,12 @@ class Reader(object):
 
         # piece filter -> selector (its index sets refer to the enumeration
         # before the predicate, so it runs next) -> predicate -> shard
-        pieces = dataset_metadata.load_row_groups(dataset_url)
+        pieces = dataset_metadata.load_row_groups(dataset_url, retry_policy=storage_retry_policy)
         if piece_filter is not None:
             pieces = [p for p in pieces if piece_filter(p)]
         if rowgroup_selector is not None:
-            pieces = self._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector)
+            pieces = self._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector,
+                                                   storage_retry_policy)
         pieces, worker_predicate = self._apply_predicate_to_pieces(pieces, predicate)
         # the enumeration before sharding is the same on every host, so a
         # version-2 state's cursor in these global piece indices resumes on
@@ -623,27 +668,51 @@ class Reader(object):
         self._pool = pool
         self.last_row_consumed = False
         self._stopped = False
-        pool.start(worker_class,
-                   {'filesystem': resolver.filesystem(),
-                    'dataset_path': resolver.get_dataset_path(),
-                    'cache': self.cache,
-                    'pieces': pieces,
-                    'schema': schema,
-                    'output_schema': output_schema,
-                    'transform_spec': transform_spec,
-                    'transformed_schema': self.transformed_schema,
-                    'ngram': ngram,
-                    'columnar_ngram': columnar_ngram,
-                    'telemetry': self._telemetry_config},
-                   ventilator=self._ventilator)
+        # the chunk prefetcher walks the ventilator's exact upcoming order
+        # and mirrors remote chunks before the workers ask for them: the
+        # output columns, and the predicate's, which a filtered read reads
+        # first
+        self._chunk_prefetcher = None
+        if self.chunk_cache_config is not None:
+            from petastorm_tpu_torch.chunkstore.prefetch import ChunkPrefetcher
+            prefetch_cols = list(output_schema.fields)
+            if worker_predicate is not None:
+                prefetch_cols += [f for f in sorted(worker_predicate.get_fields())
+                                  if f not in prefetch_cols]
+            self._chunk_prefetcher = ChunkPrefetcher(
+                self._ventilator, pieces, prefetch_cols, resolver.filesystem_factory(),
+                self.chunk_cache_config)
+            self._chunk_prefetcher.start()
+        try:
+            pool.start(worker_class,
+                       {'filesystem_factory': resolver.filesystem_factory(),
+                        'dataset_path': resolver.get_dataset_path(),
+                        'cache': self.cache,
+                        'chunk_cache': self.chunk_cache_config,
+                        'pieces': pieces,
+                        'schema': schema,
+                        'output_schema': output_schema,
+                        'transform_spec': transform_spec,
+                        'transformed_schema': self.transformed_schema,
+                        'ngram': ngram,
+                        'columnar_ngram': columnar_ngram,
+                        'telemetry': self._telemetry_config},
+                       ventilator=self._ventilator)
+        except BaseException:
+            if self._chunk_prefetcher is not None:
+                self._chunk_prefetcher.stop()
+                self._chunk_prefetcher.join()
+            raise
         # the autotuner starts after the pool, so its first window sees a
-        # running pipeline; no chunk cache is ported, so it has no prefetch
-        # knob
+        # running pipeline; with a chunk cache it also steers the
+        # prefetcher's in-flight byte budget
         self.autotuner = None
         from petastorm_tpu_torch.autotune import Autotuner, resolve_autotune
         autotune_config = resolve_autotune(autotune)
         if autotune_config is not None:
-            self.autotuner = Autotuner(autotune_config, pool=pool, ventilator=self._ventilator,
+            self.autotuner = Autotuner(autotune_config, pool=pool,
+                                       chunk_cache=self.chunk_cache_config,
+                                       ventilator=self._ventilator,
                                        diagnostics_fn=lambda: self.diagnostics)
             self.autotuner.start()
 
@@ -664,11 +733,11 @@ class Reader(object):
         return pieces, predicate
 
     @staticmethod
-    def _apply_rowgroup_selector(dataset_url, pieces, selector):
+    def _apply_rowgroup_selector(dataset_url, pieces, selector, retry_policy=None):
         """Filter pieces through the stored row-group indexes. Their index
         sets refer to the unfiltered piece enumeration, so this runs before
         any other filter."""
-        indexes = get_row_group_indexes(dataset_url)
+        indexes = get_row_group_indexes(dataset_url, retry_policy=retry_policy)
         for name in selector.get_index_names():
             if name not in indexes:
                 raise PetastormTpuError('Index {!r} does not exist in the dataset'.format(name))
@@ -824,10 +893,14 @@ class Reader(object):
         completed and in flight, the recovery counters (``worker_restarts``,
         ``items_requeued``, ``items_quarantined``), the ``lifetime_*``
         borrow counters and, for a process pool, its transport and
-        publishes per channel."""
+        publishes per channel; with a chunk cache, its ``chunk_cache_*``
+        counters, merged over every process that shares its root."""
         snapshots = [obs.snapshot()] + list(self._pool.telemetry_snapshots())
         diag = obs.flatten_snapshot(obs.merge_snapshots(snapshots))
         diag.update(self._pool.diagnostics)
+        if self.chunk_cache_config is not None:
+            from petastorm_tpu_torch.chunkstore import cache_diagnostics
+            diag.update(cache_diagnostics(self.chunk_cache_config))
         return diag
 
     @property
@@ -845,10 +918,14 @@ class Reader(object):
     def stop(self):
         if self.autotuner is not None:
             self.autotuner.stop()
+        if self._chunk_prefetcher is not None:
+            self._chunk_prefetcher.stop()
         self._pool.stop()
         self._stopped = True
 
     def join(self):
+        if self._chunk_prefetcher is not None:
+            self._chunk_prefetcher.join()
         self._pool.join()
 
     def __enter__(self):

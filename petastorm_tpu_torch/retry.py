@@ -1,14 +1,30 @@
-"""Transient-storage retry: bounded exponential backoff with jitter.
+"""Transient-storage retry: bounded exponential backoff around object-store IO.
 
-Trimmed twin of ``petastorm_tpu/retry.py``: the error classifier
-(:func:`is_transient_io_error`) and :class:`RetryPolicy`, which the elastic
-membership leases and scoreboard ride, so that a slow or flaky shared
-filesystem retries instead of looking like a host death. The wrappers of
-remote filesystems (the retrying input file, the filesystem handler,
-``fetch_range``) come with the port of remote filesystems.
+Twin of ``petastorm_tpu/retry.py``. Object stores (``s3://``, ``gs://``) fail
+not by losing an endpoint to fail over from (HDFS's model,
+``hdfs/namenode.py``) but by the same endpoint answering transiently:
+throttles (429/503 SlowDown), connection resets, timeouts. Every filesystem
+operation and positional read therefore gets a bounded exponential-backoff
+retry with jitter (:class:`RetryPolicy`), and a fresh underlying stream is
+opened when a read fails mid-flight (:class:`_RetryingInputFile`).
 
-Jitter draws from a ``random.Random`` the policy owns (the JAX policy draws
-from the module-global ``random``); the bounds are the same.
+Only idempotent operations are retried: metadata calls, input opens and
+reads, and ``create_dir``/``copy_file`` (re-running converges). Deletes and
+moves pass through unretried: a success whose response was lost would make
+the retry raise a spurious ``FileNotFoundError``. Output streams retry their
+open only, since a half-written object is not safely resumable.
+
+Input files route through ``pa.PythonFile`` so a failed read resumes on a
+fresh stream: a Python hop per read, on schemes where one network round trip
+costs milliseconds. The resolver (``fs.py``) wraps ``s3``, ``gs`` and
+``mock-remote`` only; local ``file://`` reads never see it.
+:func:`fetch_range` is the chunk store's fetch primitive: one exact byte
+window, retried as a unit.
+
+The elastic membership leases and scoreboard ride :class:`RetryPolicy` too,
+so that a slow or flaky shared filesystem retries instead of looking like a
+host death. Jitter draws from a ``random.Random`` the policy owns (the JAX
+policy draws from the module-global ``random``); the bounds are the same.
 """
 
 from __future__ import annotations
@@ -18,6 +34,11 @@ import logging
 import random
 import re
 import time
+
+import pyarrow as pa
+import pyarrow.fs as pafs
+
+from petastorm_tpu_torch.pafs_util import DelegatingHandler
 
 logger = logging.getLogger(__name__)
 
@@ -122,6 +143,16 @@ class RetryPolicy(object):
     def __hash__(self):
         return hash(self._key())
 
+    def __getstate__(self):
+        # the jitter RNG stays out: equal policies pickle to equal bytes (a
+        # served stream's id hashes its spec), and each process draws its
+        # own jitter
+        return {k: v for k, v in self.__dict__.items() if k != '_rng'}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._rng = random.Random()
+
     def backoff_s(self, attempt):
         """The sleep before retry number ``attempt`` (1-based)."""
         base = min(self.initial_backoff_s * self.multiplier ** (attempt - 1),
@@ -155,4 +186,169 @@ class RetryPolicy(object):
                     on_retry()
 
 
-__all__ = ['FAULT_POINT', 'RetryPolicy', 'is_transient_io_error']
+
+class _RetryingInputFile(object):
+    """File-like over ``fs.open_input_file`` that survives a transient
+    failure mid-read by reopening the underlying stream and seeking back to
+    the last good position. Wrapped in ``pa.PythonFile``, so Arrow and
+    Parquet C++ consume it as a random-access file."""
+
+    def __init__(self, fs, path, policy):
+        self._fs = fs
+        self._path = path
+        self._policy = policy
+        self._pos = 0
+        self._file = policy.call(fs.open_input_file, path)
+        self._size = None
+
+    def _reopen(self):
+        try:
+            self._file.close()
+        except Exception:  # noqa: BLE001 - the old handle is already broken
+            pass
+        self._file = self._fs.open_input_file(self._path)
+        self._file.seek(self._pos)
+
+    def _with_stream_retry(self, op):
+        # a failed read leaves the stream in an unknown state: resume on a
+        # fresh stream at the last good offset
+        return self._policy.call(op, on_retry=lambda: self._policy.call(self._reopen))
+
+    # -- the file protocol pa.PythonFile consumes --
+
+    def read(self, nbytes=None):
+        def _do():
+            self._file.seek(self._pos)
+            return self._file.read(nbytes) if nbytes is not None else self._file.read()
+        data = self._with_stream_retry(_do)
+        self._pos += len(data)
+        return data
+
+    def seek(self, offset, whence=0):
+        if whence == 0:
+            self._pos = offset
+        elif whence == 1:
+            self._pos += offset
+        elif whence == 2:
+            self._pos = self.size() + offset
+        else:
+            raise ValueError('invalid whence {}'.format(whence))
+        return self._pos
+
+    def tell(self):
+        return self._pos
+
+    def size(self):
+        if self._size is None:
+            self._size = self._with_stream_retry(lambda: self._file.size())
+        return self._size
+
+    @property
+    def closed(self):
+        return self._file.closed
+
+    def close(self):
+        self._file.close()
+
+
+class RetryingHandler(DelegatingHandler):
+    """A ``pyarrow.fs.FileSystemHandler`` delegating to another pyarrow
+    filesystem with transient-error retries on idempotent operations: every
+    delegated op retries under the policy, input opens return streams that
+    resume mid-read, and output streams retry their open only.
+
+    :func:`wrap_retrying` gives a genuine ``pyarrow.fs.PyFileSystem`` over
+    it, usable wherever a filesystem is (Parquet reads, dataset listing).
+    """
+
+    def __init__(self, fs, policy=None):
+        super(RetryingHandler, self).__init__(fs)
+        self.policy = policy or RetryPolicy()
+
+    def __eq__(self, other):
+        # pyarrow dedupes filesystems by equality: the same store under
+        # different retry policies must not compare equal
+        if type(other) is type(self):
+            return self.fs == other.fs and self.policy == other.policy
+        return NotImplemented
+
+    def __hash__(self):
+        # __eq__ alone would set __hash__ = None, making the handler and any
+        # PyFileSystem over it unhashable. self.fs stays out of the tuple:
+        # pyarrow filesystems are unhashable; same-policy handlers over
+        # different stores merely collide
+        return hash((type(self), self.policy))
+
+    def _invoke(self, fn, *args, **kwargs):
+        return self.policy.call(fn, *args, **kwargs)
+
+    def get_type_name(self):
+        return 'retrying+' + self.fs.type_name
+
+    # mutations that are not idempotent pass through unretried: had the
+    # server done the op and the response been lost, a retry would raise a
+    # spurious FileNotFoundError (create_dir and copy_file stay retried:
+    # running them again converges to the same state)
+
+    def delete_file(self, path):
+        self.fs.delete_file(path)
+
+    def delete_dir(self, path):
+        self.fs.delete_dir(path)
+
+    def delete_dir_contents(self, path, missing_dir_ok=False):
+        self.fs.delete_dir_contents(path, missing_dir_ok=missing_dir_ok)
+
+    def delete_root_dir_contents(self):
+        self.fs.delete_dir_contents('/', accept_root_dir=True)
+
+    def move(self, src, dest):
+        self.fs.move(src, dest)
+
+    def open_input_stream(self, path):
+        return pa.PythonFile(_RetryingInputFile(self.fs, path, self.policy), mode='r')
+
+    def open_input_file(self, path):
+        return pa.PythonFile(_RetryingInputFile(self.fs, path, self.policy), mode='r')
+
+
+def wrap_retrying(fs, policy=None):
+    """``fs`` wrapped so that transient IO errors are retried with bounded
+    exponential backoff: a genuine ``pyarrow.fs.PyFileSystem``."""
+    return pafs.PyFileSystem(RetryingHandler(fs, policy))
+
+
+def fetch_range(fs, path, offset, length, policy=None, deadline_s=None):
+    """Exactly ``[offset, offset + length)`` of ``path``, read as one retried
+    unit: each attempt opens a fresh stream (a positional read that failed
+    leaves an object-store stream in an unknown state), reads the range and
+    closes it. A short body raises an error classified transient, so a
+    truncated transfer is retried instead of cached.
+
+    ``deadline_s`` bounds the whole retried fetch end to end. ``fs`` may be
+    raw or already retry-wrapped; wrapped, its inner operations retry
+    individually too."""
+    policy = policy or RetryPolicy()
+    if deadline_s is not None:
+        policy = policy.with_deadline(deadline_s)
+
+    def _attempt():
+        f = fs.open_input_file(path)
+        try:
+            if hasattr(f, 'read_at'):
+                data = f.read_at(length, offset)
+            else:
+                f.seek(offset)
+                data = f.read(length)
+        finally:
+            f.close()
+        if len(data) != length:
+            raise IOError('short read: got {} of {} bytes at offset {} from {}'.format(
+                len(data), length, offset, path))
+        return bytes(data)
+
+    return policy.call(_attempt)
+
+
+__all__ = ['FAULT_POINT', 'RetryPolicy', 'RetryingHandler', 'fetch_range',
+           'is_transient_io_error', 'wrap_retrying']

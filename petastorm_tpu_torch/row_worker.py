@@ -2,7 +2,8 @@
 
 Twin of ``RowGroupDecoderWorker.process`` in ``petastorm_tpu/row_worker.py``.
 Each task opens its file through :func:`~petastorm_tpu_torch.native.open_parquet`
-(the native reader for a local file, else ``pyarrow.parquet``) and serves the
+(the native reader for a local file, the chunk-cached reader for a remote
+file with a chunk cache, else ``pyarrow.parquet``) and serves the
 row group's columns in the JAX package's order: first the columns the fused
 native read decodes in one call (:meth:`NativeParquetFile.read_fused`),
 adopted as they are; then the rest through ``read_row_group``, which gives
@@ -111,18 +112,26 @@ def select_row_drop_indices(num_rows, partition_spec, ngram=None):
 class RowGroupDecoderWorker(WorkerBase):
     """``args``: dataset_path, pieces, schema (full stored schema),
     output_schema (post column selection, pre transform), transform_spec,
-    transformed_schema, filesystem, cache, ngram, columnar_ngram."""
+    transformed_schema, filesystem_factory (a picklable zero-argument
+    callable; the filesystem is made on first use, in the worker's process),
+    cache, chunk_cache (a ``ChunkCacheConfig`` for a remote store, or None),
+    ngram, columnar_ngram."""
 
     def __init__(self, worker_id, publish_func, args):
         super().__init__(worker_id, publish_func, args)
-        self._open_files = OrderedDict()  # path -> NativeParquetFile or ParquetFile
+        self._fs = None
+        # path -> NativeParquetFile, ChunkCachedParquetFile or ParquetFile
+        self._open_files = OrderedDict()
 
     def _parquet_file(self, path):
+        if self._fs is None:
+            self._fs = self.args['filesystem_factory']()
         if path not in self._open_files:
             if len(self._open_files) >= _MAX_OPEN_FILES:
                 _, old = self._open_files.popitem(last=False)
                 old.close()
-            self._open_files[path] = open_parquet(path, self.args['filesystem'])
+            self._open_files[path] = open_parquet(path, self._fs,
+                                                  chunk_cache=self.args.get('chunk_cache'))
         return self._open_files[path]
 
     def shutdown(self):

@@ -9,14 +9,17 @@ so the construction is a function of data, not of a reader object. The
 filters and :func:`build_work_items` are the reader's own
 (:mod:`petastorm_tpu_torch.reader`).
 
-Not ported yet: the chunk cache of remote stores (``chunk_cache``) and the
-storage retry policy; both are refused here as they are by the reader
-factories.
+A stream over a remote store carries its storage retry policy (the workers
+get a picklable filesystem factory) and its chunk cache: the daemon's
+workers open the store's files through the chunk store
+(:attr:`ReadPlan.chunk_cache_config`), so one host mirrors each chunk once
+for every tenant.
 """
 
 from __future__ import annotations
 
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.chunkstore import resolve_chunk_cache
 from petastorm_tpu_torch.errors import NoDataAvailableError, PetastormTpuError
 from petastorm_tpu_torch.etl import dataset_metadata
 from petastorm_tpu_torch.fs import FilesystemResolver
@@ -35,7 +38,8 @@ class ReadPlan(object):
 
     __slots__ = ('worker_class', 'worker_args', 'items', 'pieces', 'schema',
                  'output_schema', 'transformed_schema', 'ngram',
-                 'columnar_ngram', 'num_epochs', 'shuffle_row_groups', 'seed')
+                 'columnar_ngram', 'chunk_cache_config', 'num_epochs',
+                 'shuffle_row_groups', 'seed')
 
     def client_plan(self):
         """The picklable consumer-side slice of this plan (schemas and
@@ -70,13 +74,6 @@ def build_read_plan(dataset_url,
     worker arguments of one stream. Raises what
     :func:`~petastorm_tpu_torch.make_reader` raises for the same arguments
     (missing metadata, an empty selection, a bad shard)."""
-    for name, value in (('storage_retry_policy', storage_retry_policy),
-                        ('chunk_cache', chunk_cache),
-                        ('chunk_cache_size_limit', chunk_cache_size_limit)):
-        if value is not None:
-            raise NotImplementedError(
-                'serve stream with {}=... is not yet ported to petastorm_tpu_torch '
-                '(ROADMAP.md, "remote filesystems")'.format(name))
     if (cur_shard is None) != (shard_count is None):
         raise ValueError('cur_shard and shard_count must be specified together')
     if cur_shard is not None and not 0 <= cur_shard < shard_count:
@@ -87,16 +84,19 @@ def build_read_plan(dataset_url,
 
     if batch_reader:
         from petastorm_tpu_torch.batch_worker import ArrowBatchWorker as worker_class
-        schema = dataset_metadata.infer_or_load_unischema(dataset_url)
+        schema = dataset_metadata.infer_or_load_unischema(dataset_url,
+                                                          retry_policy=storage_retry_policy)
     else:
         from petastorm_tpu_torch.row_worker import RowGroupDecoderWorker as worker_class
         try:
-            schema = dataset_metadata.get_schema(dataset_url)
+            schema = dataset_metadata.get_schema(dataset_url, retry_policy=storage_retry_policy)
         except dataset_metadata.PetastormMetadataError:
             raise PetastormTpuError(
                 'Dataset at {} is missing unischema metadata. If it is a plain Parquet '
                 'store, use make_batch_reader instead.'.format(dataset_url))
-    resolver = FilesystemResolver(dataset_url)
+    resolver = FilesystemResolver(dataset_url, retry_policy=storage_retry_policy)
+    chunk_cache_config = resolve_chunk_cache(chunk_cache, dataset_url, resolver.is_local,
+                                             size_limit_bytes=chunk_cache_size_limit)
 
     if ngram is not None:
         ngram.resolve_regex_field_names(schema)
@@ -113,9 +113,10 @@ def build_read_plan(dataset_url,
             'shuffle_row_drop_partitions > 1 with timestamp_overlap=False would duplicate '
             'rows across partition-boundary windows')
 
-    pieces = dataset_metadata.load_row_groups(dataset_url)
+    pieces = dataset_metadata.load_row_groups(dataset_url, retry_policy=storage_retry_policy)
     if rowgroup_selector is not None:
-        pieces = Reader._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector)
+        pieces = Reader._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector,
+                                                 storage_retry_policy)
     pieces, worker_predicate = Reader._apply_predicate_to_pieces(pieces, predicate)
     if cur_shard is not None:
         pieces = pieces[cur_shard::shard_count]
@@ -133,11 +134,12 @@ def build_read_plan(dataset_url,
     plan.transformed_schema = transformed_schema
     plan.ngram = ngram
     plan.columnar_ngram = columnar_ngram
+    plan.chunk_cache_config = chunk_cache_config
     plan.num_epochs = num_epochs
     plan.shuffle_row_groups = shuffle_row_groups
     plan.seed = seed
     plan.worker_args = {
-        'filesystem': resolver.filesystem(),
+        'filesystem_factory': resolver.filesystem_factory(),
         'dataset_path': resolver.get_dataset_path(),
         'pieces': pieces,
         'schema': schema,
@@ -147,6 +149,7 @@ def build_read_plan(dataset_url,
         'ngram': ngram,
         'columnar_ngram': columnar_ngram,
         'cache': cache or NullCache(),
+        'chunk_cache': chunk_cache_config,
     }
     return plan
 

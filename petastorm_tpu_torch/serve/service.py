@@ -19,6 +19,9 @@ broadcast rings (:class:`~petastorm_tpu_torch.native.shm_ring.BcastRing`):
   evicted from its ring slot with a loud log; the others keep flowing and
   the evictee's next read raises
   :class:`~petastorm_tpu_torch.errors.ConsumerEvictedError`.
+* a stream over a remote store read with ``chunk_cache`` mirrors each
+  chunk once for every tenant; :meth:`ReaderService.stats` shows the
+  cache's counters per stream.
 * the control plane is a ``multiprocessing.connection`` AF_UNIX listener in
   the service directory; the spawn handshake and the client live in
   ``serve/client.py``.
@@ -44,6 +47,7 @@ import time
 import numpy as np
 
 from petastorm_tpu_torch import observability as obs
+from petastorm_tpu_torch.chunkstore import cache_diagnostics
 from petastorm_tpu_torch.errors import EmptyResultError, ServeError
 from petastorm_tpu_torch.observability import blackbox
 from petastorm_tpu_torch.serializers import NumpyBlockSerializer
@@ -762,7 +766,9 @@ class ReaderService(object):
 
     def stats(self):
         """The serving evidence per stream and tenant: fair-share occupancy,
-        shared-decode hits, evictions and the pool's diagnostics."""
+        shared-decode hits, evictions, the pool's diagnostics and, for a
+        stream read through a chunk cache, its ``chunk_cache_*`` counters
+        (merged over every process that shares the cache's root)."""
         with self._lock:
             fsv = self._ventilator.tenant_stats() if self._ventilator else {}
             total_dispatched = sum(s['dispatched'] for s in fsv.values()) or 1
@@ -778,6 +784,8 @@ class ReaderService(object):
                         sched.get('dispatched', 0) / total_dispatched, 4)),
                     'ring_free_bytes': stream.ring.free_space(),
                     'ring_capacity': stream.ring.capacity,
+                    'chunk_cache': (None if stream.plan.chunk_cache_config is None else
+                                    cache_diagnostics(stream.plan.chunk_cache_config)),
                 }
             return {
                 'pid': os.getpid(),

@@ -152,6 +152,18 @@ class ConcurrentVentilator(object):
             self._max_in_flight = max(1, int(n))
             self._cv.notify_all()
 
+    def upcoming_items(self, max_items):
+        """A read-only peek at the next (up to ``max_items``) items this
+        ventilator will emit: the unventilated head of the current pass, in
+        its exact shuffled order. The chunk prefetcher
+        (:mod:`petastorm_tpu_torch.chunkstore.prefetch`) fetches remote
+        column chunks ahead of the workers from it. Items already ventilated
+        are not included; between passes the list is empty until the
+        feeding thread lays out the next pass."""
+        with self._cv:
+            indices = self._epoch_indices[self._epoch_pos:self._epoch_pos + max_items]
+            return [self._items[i] for i in indices]
+
     def completed(self):
         """True when no more items will ever be ventilated."""
         with self._cv:
@@ -456,6 +468,25 @@ class FairShareVentilator(object):
     def _fire_done(self, tenant_id):
         if self._on_tenant_done is not None:
             self._on_tenant_done(tenant_id)
+
+    def upcoming_items(self, max_items):
+        """A read-only peek at the next items across tenants, for the chunk
+        prefetcher: each live tenant's unventilated head, interleaved in
+        round-robin order."""
+        with self._cv:
+            heads = []
+            for tid in self._order:
+                tq = self._tenants[tid]
+                if tq.finished:
+                    continue
+                idxs = tq.epoch_indices[tq.epoch_pos:tq.epoch_pos + max_items]
+                heads.append([tq.items[i] for i in idxs])
+            out = []
+            for layer in zip(*heads) if heads else ():
+                out.extend(layer)
+                if len(out) >= max_items:
+                    break
+            return out[:max_items]
 
     def completed(self):
         """Only a stop completes this ventilator."""

@@ -245,15 +245,12 @@ def _victim(run_dir, url, die):
 
 def _jax_postmortem(run_dir):
     """The JAX package's post-mortem, its windowed stall reports less the
-    parts of features the port lacks: the chunk cache's ``chunk_fetch`` busy
-    seconds (0 without one) and the mixture reader's counts (none)."""
+    part of a feature the port lacks: the mixture reader's counts (none)."""
     report = jax_blackbox.postmortem_report(run_dir)
     for proc in report['processes']:
         window = proc.get('window_stall_report')
         if window is not None:
-            busy = dict(window['worker_busy_s'])
-            assert window.pop('mixture') == {} and busy.pop('chunk_fetch') == 0.0
-            window['worker_busy_s'] = busy
+            assert window.pop('mixture') == {}
     return report
 
 

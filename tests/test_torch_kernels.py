@@ -222,3 +222,54 @@ def test_graphed_moe_step_equals_the_eager_step(cuda, monkeypatch):
     eager, graphed = run(False), run(True)
     np.testing.assert_allclose(graphed, eager, atol=1e-5, rtol=0)
     assert len(set(graphed[0])) == steps
+
+
+@pytest.mark.gpu
+def test_mirror_backed_batch_staged_and_normalized_equals_plain(cuda, tmp_path):
+    # a warm chunk cache of a mock-remote raw store serves its blocks as views
+    # over the mirrors; the pinned host copy of prefetch_to_device is taken
+    # from them while the mapping stays alive, and the kernel on the staged
+    # batch equals the plain version on the same host rows
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig, cache_diagnostics
+    from petastorm_tpu_torch.codecs import RawTensorCodec, ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    store = str(tmp_path / 'raw')
+    schema = Unischema('Raw', [
+        UnischemaField('image', np.uint8, (32, 32, 3), RawTensorCodec(), False),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64), False)])
+    rng = np.random.default_rng(0)
+    with materialize_dataset('file://' + store, schema, rows_per_row_group=16,
+                             compression='none') as writer:
+        for i in range(64):
+            writer.write({'image': rng.integers(0, 256, (32, 32, 3), dtype=np.uint8),
+                          'label': np.int64(i)})
+    config = ChunkCacheConfig(str(tmp_path / 'chunks'))
+    url = 'mock-remote://' + store
+    with make_reader(url, reader_pool_type='dummy', output='columnar',
+                     chunk_cache=config) as reader:
+        list(reader)
+    cold = cache_diagnostics(config)
+    with make_reader(url, reader_pool_type='dummy', output='columnar', seed=1,
+                     chunk_cache=config) as reader:
+        loader = TorchDataLoader(reader, 16, shuffling_queue_capacity=0)
+        batches = iter(prefetch_to_device(loader, cuda, size=2))
+        for batch in batches:
+            staged = batch['image']
+            assert staged.device.type == 'cuda' and staged.dtype == torch.uint8
+            before = normalize_kernel.launches
+            out = normalize_images(staged, MEAN, STD)
+            assert normalize_kernel.launches == before + 1
+            host = staged.cpu()
+            expected = normalize_kernel.normalize_reference(host, *_stats(3, 'cpu'),
+                                                            torch.bfloat16).float()
+            # the same float32 arithmetic, rounded once: at most one bf16 ulp
+            err = (out.cpu().float() - expected).abs()
+            assert (err <= 2.0 ** -7 * expected.abs() + 1e-6).all()
+        batches.close()
+    warm = cache_diagnostics(config)
+    assert warm['chunk_cache_misses'] == cold['chunk_cache_misses']
+    assert warm['chunk_cache_hits'] > cold['chunk_cache_hits']

@@ -15,6 +15,8 @@ import logging
 import os
 import pickle
 import re
+import subprocess
+import sys
 import threading
 import time
 import zlib
@@ -161,11 +163,63 @@ def test_reader_builds_into_the_build_dir_and_reports_abi_4():
     mtime = os.path.getmtime(build.OUTPUT)
     assert build.build() == build.OUTPUT  # fresh: not rebuilt
     assert os.path.getmtime(build.OUTPUT) == mtime
-    # the C++ is the JAX package's, whole, below the port's header
+    # the C++ is the JAX package's, whole, below the port's header, but for
+    # the map skip of the thrift reader (MAP_SKIP_FIX)
     with open(build.SOURCE) as ours, open(os.path.join(REPO, 'petastorm_tpu', 'native',
                                                        'rowgroup_reader.cpp')) as theirs:
         body = theirs.read()
-        assert ours.read().endswith(body[body.index('#include <arrow/api.h>'):])
+        body = body[body.index('#include <arrow/api.h>'):]
+        assert body.count(MAP_SKIP_FIX[0]) == 1
+        assert ours.read().endswith(body.replace(*MAP_SKIP_FIX))
+
+
+#: the port's one change to the JAX package's C++: a bool key or value of a
+#: thrift map is one byte (the JAX skipper consumes none, so a corrupt map of
+#: bools with a huge count never ends)
+MAP_SKIP_FIX = ('''
+      const uint8_t kv = byte();
+      for (uint64_t i = 0; i < n && ok; i++) {
+        skip_value(kv >> 4, depth + 1);
+        skip_value(kv & 0x0F, depth + 1);
+      }
+''', '''
+      const uint8_t kv = byte();
+      // a bool key or value in a map is one byte, as in a list: skipped as
+      // a bare field bool (no byte), a map of bools with a corrupt count of
+      // up to 2^64 entries consumed nothing and never ended
+      const int types[2] = {kv >> 4, kv & 0x0F};
+      for (uint64_t i = 0; i < n && ok; i++) {
+        for (const int t : types) {
+          if (t == 1 || t == 2) skip_bytes(1);
+          else skip_value(t, depth + 1);
+        }
+      }
+''')
+
+#: page-header statistics that spell a map of bools with a count near 2^62:
+#: a random blob the JAX package's fuzz test can draw, on which its scanner
+#: never returns
+SPINNING_STATS = bytes.fromhex('2bb7a0899c4411889fbb63bd964af01d81a705a43b4b6ab40e2f8ba90d4391dceeda')
+
+
+def test_page_scan_rejects_a_corrupt_map_of_bools():
+    # in a child with a time limit: the defect hangs instead of failing
+    code = '\n'.join([
+        'import ctypes, numpy as np',
+        'from petastorm_tpu_torch import native',
+        'from petastorm_tpu.test_util import native_corpus',
+        'lib = native._load_library()',
+        'page = native_corpus.plain_page(4, stats={!r} + bytes(1))'.format(SPINNING_STATS),
+        'chunk = np.frombuffer(page, np.uint8)',
+        'out = [(ctypes.c_ulonglong * 16)(), (ctypes.c_longlong * 16)(),',
+        '       (ctypes.c_ulonglong * 16)()]',
+        'print([lib.pstpu_scan_plain_pages(chunk.ctypes.data_as(ctypes.c_void_p), chunk.size,',
+        '                                  *out, 16, has_def) for has_def in (0, 1)])',
+    ])
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True, text=True,
+                         timeout=120, cwd=REPO, env=dict(os.environ, PSTPU_FLIGHT='0'))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == '[-1, -1]'
 
 
 def test_ctypes_mirrors_match_the_cpp_under_the_jax_packages_abi_rules(tmp_path):

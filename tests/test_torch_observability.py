@@ -179,15 +179,17 @@ STALL_DIAGNOSTICS = [
     {'reader_wait_s': 0.5, 'stage_pool_wait_s': 0.5},
     {'reader_wait_s': 0.3, 'stage_pool_wait_s': 0.9, 'stage_fused_predicate_s': 0.2,
      'items_quarantined': 1},
+    # a cold chunk cache: the mirror fetches nest in the read stage
+    {'reader_wait_s': 1.5, 'stage_pool_wait_s': 1.2, 'stage_read_s': 0.9,
+     'stage_chunk_fetch_s': 0.7, 'stage_decode_s': 0.1},
 ]
 
 
 def jax_stall_report(report):
-    """The JAX package's report, less the parts of features the port lacks:
-    the chunk cache's ``chunk_fetch`` busy seconds (always 0 without one) and
+    """The JAX package's report, less the part of a feature the port lacks:
     the mixture reader's per-source counts (empty without one)."""
-    report = dict(report, worker_busy_s=dict(report['worker_busy_s']))
-    assert report.pop('mixture') == {} and report['worker_busy_s'].pop('chunk_fetch') == 0.0
+    report = dict(report)
+    assert report.pop('mixture') == {}
     return report
 
 

@@ -238,8 +238,14 @@ def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
         make_reader(jax_store, ngram=NGram({0: ['no_such_field']}, 1, 'no_such_field'))
     with pytest.raises(NotImplementedError, match='protocol monitor'):
         make_reader(jax_store, protocol_monitor=True)
-    with pytest.raises(NotImplementedError, match='"remote filesystems"'):
-        make_reader(jax_store, chunk_cache=str(tmp_path / 'chunks'))
+    # remote stores are ported: a local file:// store ignores chunk_cache,
+    # as the JAX reader does (no chunk_cache_* counters, no cache directory)
+    with make_reader(jax_store, reader_pool_type='dummy',
+                     chunk_cache=str(tmp_path / 'chunks')) as reader:
+        next(iter(reader))
+        assert reader.chunk_cache_config is None
+        assert not any(k.startswith('chunk_cache') for k in reader.diagnostics)
+    assert not (tmp_path / 'chunks').exists()
     # serve is ported: a combination the JAX reader refuses is refused before
     # any daemon is spawned
     with pytest.raises(ValueError, match='resume_state'):

@@ -648,11 +648,29 @@ def test_unsupported_combinations_are_refused(tmp_path, synthetic_dataset, monke
     for factory in (make_reader, make_batch_reader):
         with pytest.raises(ValueError, match='elastic is not supported with serve='):
             factory(url, serve=svc_dir, elastic=object())
-        with pytest.raises(NotImplementedError, match='"remote filesystems"'):
-            factory(url, serve=svc_dir, chunk_cache='/tmp/chunks')
+    # remote stores are ported: as in the JAX package, the served spec
+    # carries chunk_cache and the storage retry policy to the daemon, and
+    # the daemon's plan resolves the cache for a remote store only
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig
+    from petastorm_tpu_torch.retry import RetryPolicy
+    from petastorm_tpu_torch.serve import client as serve_client
+    specs = []
+    monkeypatch.setattr(serve_client, 'make_served_reader',
+                        lambda spec, *args, **kwargs: specs.append(spec))
+    policy = RetryPolicy(max_attempts=2)
+    for factory in (make_reader, make_batch_reader):
+        factory(url, serve=svc_dir, chunk_cache='/tmp/chunks', storage_retry_policy=policy,
+                chunk_cache_size_limit=1 << 20)
+    assert [(s['chunk_cache'], s['storage_retry_policy'], s['chunk_cache_size_limit'])
+            for s in specs] == [('/tmp/chunks', policy, 1 << 20)] * 2
+    monkeypatch.undo()
     from petastorm_tpu_torch.serve.plan import build_read_plan
-    with pytest.raises(NotImplementedError, match='"remote filesystems"'):
-        build_read_plan(url, chunk_cache='/tmp/chunks')
+    assert build_read_plan(url, chunk_cache='/tmp/chunks').chunk_cache_config is None
+    remote = build_read_plan('mock-remote://' + url[len('file://'):], chunk_cache='/tmp/chunks',
+                             chunk_cache_size_limit=1 << 20)
+    assert remote.chunk_cache_config == ChunkCacheConfig('/tmp/chunks',
+                                                         size_limit_bytes=1 << 20)
+    assert remote.worker_args['chunk_cache'] == remote.chunk_cache_config
     with pytest.raises(NotImplementedError, match='"protocol monitor"'):
         ReaderService(svc_dir, monitor=True)
     monkeypatch.setenv('PSTPU_SERVE_MONITOR', '1')

@@ -250,7 +250,10 @@ def test_port_imports_nothing_of_jax():
         '          "examples.hello_world.petastorm_dataset.torch_hello_world",',
         '          "examples.hello_world.petastorm_dataset.pytorch_hello_world",',
         '          "examples.hello_world.external_dataset.torch_hello_world",',
-        '          "examples.hello_world.external_dataset.pytorch_hello_world"):',
+        '          "examples.hello_world.external_dataset.pytorch_hello_world",',
+        # the remote stores'
+        '          "pafs_util", "fs", "hdfs", "hdfs.namenode", "chunkstore",',
+        '          "chunkstore.store", "chunkstore.reader", "chunkstore.prefetch"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
