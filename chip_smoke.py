@@ -167,7 +167,41 @@ Phases, each printed as one JSON line:
      with ``rowgroup_selector=SingleIndexSelector('noun_id_idx', <the first
      16 of 32 synsets>)`` and ``shuffle_row_drop_partitions=2`` (512 rows an
      epoch, read as 64 half row groups through Arrow), every delivered label
-     that of a selected synset.
+     that of a selected synset;
+   - ``png_part``: the ``png`` store's rows, cells as written,
+     Hive-partitioned by ``noun_id`` through ``materialize_dataset(
+     partition_by=['noun_id'])`` (32 ``noun_id=<synset>/`` directories, 64
+     row groups; a ``store`` line), read with the ``png`` path's transform
+     and ``predicate=in_set(<png_select's 16 synsets>, 'noun_id')``: the
+     partition pruning keeps 32 row groups (512 rows an epoch) before any
+     worker opens a file and leaves the workers no predicate, ``noun_id``
+     comes from the path (only ``text`` and ``image`` are read, through
+     Arrow), every delivered label is a selected synset's and the first
+     staged batch matches those synsets' images; a ``png_part_vs`` line sets
+     its examples/s, median step ms and stall beside ``png``'s and
+     ``png_select``'s of the call.
+
+   Then ``etl_checks``, on the host, each sub-check's seconds: the
+   fixed-shape PNG store's cells with an int64 ``day`` partition column
+   (``row // 256``, a file a row group: 64 files), grown by a fifth day of
+   256 rows under ``materialize_dataset(append=True)``: its
+   ``_common_metadata`` lists exactly the five days' 80 files, and one epoch
+   through the process pool (4 workers, ``zero_copy=True``) decodes every
+   row group in place, ``day`` framed as a raw column, to the rows of the
+   thread pool and the rows written (1280); a copy of the fixed-shape PNG
+   store whose ``_common_metadata`` carries only the original petastorm
+   library's keys (its pickled unischema with ``CompressedImageCodec('png')``
+   and ``ScalarCodec(LongType)``, JSON counts, a pickled
+   ``SingleFieldIndexer`` on ``label``; the pickles made by
+   :mod:`petastorm_tpu_torch.test_util.legacy_fakes`) reads through the
+   fused route to the store's rows, a ``SingleIndexSelector`` over its
+   legacy index picks the row groups of a native index and reads them, and
+   ``copy_dataset`` migrates it to a native store that reads equal; the
+   64-file copy of the day store lists the same pieces by its stored
+   counts, by a ``_metadata`` summary file with no counts stored and by its
+   footers (each route's seconds), and ``generate_metadata`` writes its
+   counts back under the stored schema and, once ``_common_metadata`` is
+   deleted, restores it with an inferred schema.
 
    One more reads the plain store through ``make_batch_reader``:
 
@@ -386,16 +420,15 @@ Phases, each printed as one JSON line:
 21. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
-   launches over all paths, both steps, where a graph replay counts the
-   launches it captured, and the spawned ranks' of ``mesh_checks`` and
-   ``entry_checks``, and ``imagenet_example``'s and the remote paths'; the
-   sequence, MoE,
-   pipeline and MNIST paths normalize nothing), max error, its time, the
-   plain version's time, the least time the card could take and what
-   bounds it, and the time of
-   the one PyTorch call that computes the same function,
-   ``torch.addcmul``), the card's name and power limit as ``nvidia-smi``
-   gives them, and last ``{"ok": true, "device": {...}}``.
+   launches over all paths (``png_part`` included), both steps, where a
+   graph replay counts the launches it captured, and the spawned ranks' of
+   ``mesh_checks`` and ``entry_checks``, and ``imagenet_example``'s and the
+   remote paths'; the sequence, MoE, pipeline and MNIST paths normalize
+   nothing), max error, its time, the plain version's time, the least time
+   the card could take and what bounds it, and the time of the one PyTorch
+   call that computes the same function, ``torch.addcmul``), the card's
+   name and power limit as ``nvidia-smi`` gives them, and last
+   ``{"ok": true, "device": {...}}``.
 
 No failure is caught: any exception ends the run with a non-zero exit code and
 no result line. Without CUDA the run fails at once. The native libraries
@@ -1766,7 +1799,9 @@ def check_read_routes(path, counts):
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
     place into a ring slot, two columns each; ``png_fixed_pred`` every row
     group through the fused predicate call, two columns each, with pages
-    skipped by their statistics; ``png_select`` all three columns through
+    skipped by their statistics; ``png_part`` ``text`` and ``image``
+    through Arrow (``noun_id`` is the partition column, filled in from the
+    path); ``png_select`` all three columns through
     Arrow (a shuffle-row-drop partition is a row subset, which the row
     worker reads through Arrow's ``take`` without planning a fused read, so
     no fallback reason is counted); ``plain_batch`` the raw ``label`` column
@@ -1788,6 +1823,11 @@ def check_read_routes(path, counts):
         n = reasons.get('image-hints', 0)
         ok = (n > 0 and reasons == {'image-hints': n, 'codec': 2 * n} and fallback == 3 * n
               and arrow == 3 * n and not (fused or pagescan))
+    elif path == 'png_part':
+        # noun_id comes from the path: only text and image are read
+        n = reasons.get('image-hints', 0)
+        ok = (n > 0 and reasons == {'image-hints': n, 'codec': n} and fallback == 2 * n
+              and arrow == 2 * n and not (fused or pagescan))
     elif path in ('png_cached', 'png_served', 'raw_remote'):
         # raw_remote: the chunk reader serves the page scan over its mirrors
         # and counts no read route; its stage timers and chunk_cache_*
@@ -1856,6 +1896,7 @@ STALL_STAGES = {
     'jpeg': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_process': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_select': ({'worker.decode'}, {'worker.fused_decode'}),
+    'png_part': ({'worker.decode', 'worker.read_io'}, {'worker.fused_decode'}),
     'png_fixed': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
     # a warm chunk cache: the page scan over the mirrors inside the read
     # stage, the fused call from the mirrors; no chunk is fetched
@@ -5270,6 +5311,397 @@ def phase_remote_checks(torch, raw_url, fixed_url, work_dir, ring, serve_ring):
           'total_s': sum(seconds.values())})
 
 
+# -- the store layer: partitioned, appended and legacy stores ---------------------
+
+#: the png_part path reads the png_select path's synsets out of their
+#: partition directories
+PART_PIECES = SELECT_SYNSETS * IMAGES_PER_SYNSET // IMAGE_ROWS_PER_ROW_GROUP
+#: the etl checks' day store: the fixed-shape PNG store's rows in four days
+#: of 256, a file a row group, then a fifth day appended
+DAY_ROWS = 256
+DAYS = ROWS // DAY_ROWS
+ETL_WORKERS = 4
+
+
+def _stored_cells_codec(image_format):
+    """A ``compressed_image`` codec that writes cells which are encoded
+    images already, as they are: a copy of a store is written through the
+    port's writer without encoding its images again."""
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
+
+    class StoredCells(CompressedImageCodec):
+        def encode(self, field, value):
+            return value
+
+    return StoredCells(image_format)
+
+
+def _store_table(url, columns):
+    import pyarrow.parquet as pq
+
+    return pq.read_table(os.path.join(url[len('file://'):], 'part-00000.parquet'),
+                         columns=columns)
+
+
+def build_png_part_store(png_url, url):
+    """The ``png`` store's rows, cells as written, Hive-partitioned by
+    ``noun_id`` through the port's ``materialize_dataset(partition_by=)``:
+    one ``noun_id=<synset>/`` directory a synset, ``IMAGE_ROWS_PER_ROW_GROUP``
+    rows a row group."""
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.etl import materialize_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    schema = Unischema('ImagenetSchema', [
+        UnischemaField('noun_id', np.str_, (), ScalarCodec(), False),
+        UnischemaField('text', np.str_, (), ScalarCodec(), False),
+        UnischemaField('image', np.uint8, (None, None, 3), _stored_cells_codec('png'), False)])
+    table = _store_table(png_url, ['noun_id', 'text', 'image'])
+    with materialize_dataset(url, schema, rows_per_row_group=IMAGE_ROWS_PER_ROW_GROUP,
+                             partition_by=['noun_id']) as writer:
+        for row in table.to_pylist():
+            writer.write(row)
+
+
+def png_part_check(png_images):
+    """The image check of ``png_part``: each staged image within 1 LSB of
+    one of its label's images as written, of the selected synsets only."""
+    synsets = set(selected_synsets())
+    expected = {}
+    for i, img in enumerate(png_images):
+        noun_id = 'n{:08d}'.format(i // IMAGES_PER_SYNSET)
+        if noun_id in synsets:
+            expected.setdefault(label_of(noun_id), []).append(
+                plain_resize(img, IMAGE_SIZE, IMAGE_SIZE))
+    return check_image_batch(expected)
+
+
+def png_part_factory(readers):
+    """``make_reader(output='columnar')``, appended to ``readers``: the
+    ``png_part`` path's reader factory (its reader is checked after the
+    run)."""
+    def factory(url, **kwargs):
+        from petastorm_tpu_torch import make_reader
+
+        reader = make_reader(url, output='columnar', **kwargs)
+        readers.append(reader)
+        return reader
+    return factory
+
+
+def check_png_part_reader(reader):
+    """``png_part``: the partition pruning kept the selected synsets' row
+    groups only (``PART_PIECES`` of them, 512 rows an epoch) before any
+    worker opened a file, and left the workers no predicate."""
+    synsets = set(selected_synsets())
+    pieces = reader._pieces
+    nouns = {p.partition_keys.get('noun_id') for p in pieces}
+    items = reader._ventilator._items
+    if (len(pieces) != PART_PIECES or nouns != synsets
+            or sum(p.num_rows for p in pieces) != PART_PIECES * IMAGE_ROWS_PER_ROW_GROUP
+            or any('worker_predicate' in item for item in items)):
+        raise AssertionError('png_part: {} pieces of {} rows of synsets {}, worker predicates '
+                             '{}'.format(len(pieces), sum(p.num_rows for p in pieces),
+                                         sorted(nouns), [i.get('worker_predicate')
+                                                         for i in items][:3]))
+
+
+def path_numbers(runs):
+    """``{step kind: {examples_per_sec, median_step_ms, input_stall_fraction}}``
+    of a path's two runs."""
+    return {kind: {'examples_per_sec': run[3].samples_per_second,
+                   'median_step_ms': run[3].extra['median_step_ms'],
+                   'input_stall_fraction': run[3].input_stall_fraction}
+            for kind, run in runs.items()}
+
+
+def day_schema():
+    """The fixed-shape PNG store's schema with an int64 ``day`` partition
+    column."""
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    return Unischema('PngFixedDays', [
+        UnischemaField('image', np.uint8, (IMAGE_SIZE, IMAGE_SIZE, 3),
+                       _stored_cells_codec('png'), False),
+        UnischemaField('label', np.int64, (), ScalarCodec(np.int64), False),
+        UnischemaField('day', np.int64, (), ScalarCodec(np.int64), False)])
+
+
+def write_days(url, cells, first_row, append):
+    """Rows ``first_row..`` of the day store from the fixed-shape PNG
+    store's ``cells`` (row ``i`` takes cell ``i % ROWS``, label
+    ``i % NUM_CLASSES``, day ``i // DAY_ROWS``), a file a row group;
+    returns their keys ``(day, label, crc32 of the image)``."""
+    from petastorm_tpu_torch.etl import materialize_dataset
+
+    keys = []
+    with materialize_dataset(url, day_schema(), rows_per_row_group=IMAGE_ROWS_PER_ROW_GROUP,
+                             rows_per_file=IMAGE_ROWS_PER_ROW_GROUP, partition_by=['day'],
+                             append=append) as writer:
+        for i in range(first_row, first_row + len(cells)):
+            day, label = i // DAY_ROWS, i % NUM_CLASSES
+            writer.write({'image': cells[i - first_row], 'label': np.int64(label),
+                          'day': np.int64(day)})
+            keys.append((day, label, zlib.crc32(_image(i % ROWS).tobytes())))
+    return keys
+
+
+def _row_keys_of(block):
+    """``(day or None, label, crc32 of the image)`` of each row of a block."""
+    days = block['day'] if 'day' in block else [None] * len(block['label'])
+    return [(None if d is None else int(d), int(label),
+             zlib.crc32(np.ascontiguousarray(img).tobytes()))
+            for d, label, img in zip(days, block['label'], block['image'])]
+
+
+def read_keys(url, **kwargs):
+    """The keys (:func:`_row_keys_of`) of every row one epoch of
+    ``make_reader(url, output='columnar')`` delivers, and its diagnostics."""
+    from petastorm_tpu_torch import make_reader
+
+    kwargs = {'workers_count': ETL_WORKERS, 'shuffle_row_groups': False, **kwargs}
+    with make_reader(url, output='columnar', num_epochs=1, **kwargs) as reader:
+        keys = collections.Counter(k for block in reader for k in _row_keys_of(block._asdict()))
+        return keys, reader.diagnostics
+
+
+def _listing(pieces):
+    return [(p.path, p.row_group, p.num_rows, p.partition_keys) for p in pieces]
+
+
+def _check_append(day_url, meta_root, cells, ring):
+    """The day store written, copied (the ``_metadata`` checks' store: 64
+    files), grown by a fifth day under ``append``; its ``_common_metadata``
+    lists exactly the five days' files; one epoch through the process pool
+    with ``zero_copy=True`` decodes every row group in place, ``day``
+    framed as a raw column, and delivers the rows of the thread pool and
+    the rows written."""
+    from petastorm_tpu_torch.etl.dataset_metadata import (ROW_GROUPS_PER_FILE_KEY,
+                                                           read_metadata_dict)
+    from petastorm_tpu_torch.test_util.stores import data_files
+
+    out = {}
+    t0 = time.perf_counter()
+    written = write_days(day_url, cells[:ROWS], 0, append=False)
+    out['write_s'] = time.perf_counter() - t0
+    shutil.copytree(day_url[len('file://'):], meta_root)
+    t0 = time.perf_counter()
+    written += write_days(day_url, cells[:DAY_ROWS], ROWS, append=True)
+    out['append_s'] = time.perf_counter() - t0
+    root = day_url[len('file://'):]
+    counts = json.loads(read_metadata_dict(day_url)[ROW_GROUPS_PER_FILE_KEY].decode('utf-8'))
+    files = data_files(root)
+    days = sorted({f.split('/', 1)[0] for f in files})
+    out.update(files=len(files), days=days, counted_files=len(counts))
+    if (sorted(counts) != files or days != ['day={}'.format(d) for d in range(DAYS + 1)]
+            or len(files) != (ROWS + DAY_ROWS) // IMAGE_ROWS_PER_ROW_GROUP):
+        raise AssertionError('append: _common_metadata lists {} files, the store holds {} in '
+                             '{}'.format(len(counts), len(files), days))
+    written = collections.Counter(written)
+    t0 = time.perf_counter()
+    process, diag = read_keys(day_url, reader_pool_type='process', zero_copy=True,
+                              pool_kwargs={'ring_bytes': ring, 'transport': 'shm',
+                                           'results_timeout_s': 60})
+    out['process_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    thread, _ = read_keys(day_url)
+    out['thread_s'] = time.perf_counter() - t0
+    n_groups = (ROWS + DAY_ROWS) // IMAGE_ROWS_PER_ROW_GROUP
+    out.update(rows=sum(process.values()), inplace_batches=diag['fused_inplace_batches_total'],
+               publish_inplace=diag.get('publish_inplace'))
+    if (process != written or thread != written or sum(written.values()) != ROWS + DAY_ROWS
+            or diag['fused_inplace_batches_total'] != n_groups):
+        raise AssertionError('append: {} rows through the process pool, {} through the thread '
+                             'pool, {} written; {}'.format(sum(process.values()),
+                                                           sum(thread.values()),
+                                                           sum(written.values()), out))
+    return out
+
+
+def _legacy_index_pickle(ref):
+    """The original library's ``SingleFieldIndexer`` on ``label`` over the
+    fixed-shape PNG store's row groups, pickled."""
+    import pickle
+
+    index = ref.SingleFieldIndexer('label_idx', 'label')
+    for i in range(ROWS):
+        index._index_data[i % NUM_CLASSES].add(i // IMAGE_ROWS_PER_ROW_GROUP)
+    return pickle.dumps({'label_idx': index}, protocol=2)
+
+
+def _check_legacy(fixed_url, work_dir):
+    """A copy of the fixed-shape PNG store that carries only the original
+    petastorm library's pickled keys reads through the fused route to the
+    store's rows; a selector over its legacy index picks the row groups a
+    native index picks; ``copy_dataset`` migrates it to a native store that
+    reads equal."""
+    import pickle
+
+    from petastorm_tpu_torch.etl import SingleFieldIndexer, build_rowgroup_index
+    from petastorm_tpu_torch.etl.dataset_metadata import UNISCHEMA_KEY, read_metadata_dict
+    from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+    from petastorm_tpu_torch.native import read_routes
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+    from petastorm_tpu_torch.test_util.legacy_fakes import (reference_modules,
+                                                            write_legacy_metadata)
+    from petastorm_tpu_torch.tools.copy_dataset import copy_dataset
+
+    out = {}
+    src = fixed_url[len('file://'):]
+    legacy_root = os.path.join(work_dir, 'png_fixed_legacy')
+    native_root = os.path.join(work_dir, 'png_fixed_label_idx')
+    shutil.copytree(src, legacy_root)
+    shutil.copytree(src, native_root)
+    with reference_modules() as ref:
+        schema = ref.Unischema('PngFixed', [
+            ref.UnischemaField('image', np.uint8, (IMAGE_SIZE, IMAGE_SIZE, 3),
+                               ref.CompressedImageCodec('png'), False),
+            ref.UnischemaField('label', np.int64, (), ref.ScalarCodec(ref.sql_types.LongType()),
+                               False)])
+        write_legacy_metadata(legacy_root, pickle.dumps(schema, protocol=2),
+                              _legacy_index_pickle(ref))
+    legacy_url = 'file://' + legacy_root
+    if any(not k.startswith(b'dataset-toolkit') for k in read_metadata_dict(legacy_url)):
+        raise AssertionError('the legacy copy carries keys of this package')
+    expected = collections.Counter((None, i % NUM_CLASSES, zlib.crc32(_image(i).tobytes()))
+                                   for i in range(ROWS))
+    read_routes.reset()
+    t0 = time.perf_counter()
+    rows, _ = read_keys(legacy_url)
+    out['read_s'] = time.perf_counter() - t0
+    routes = {k: v for k, v in read_routes.snapshot().items() if v}
+    out['routes'] = routes
+    n = ROWS // IMAGE_ROWS_PER_ROW_GROUP
+    if (rows != expected or routes.get('fused_batches_total') != n
+            or routes.get('fused_columns_total') != 2 * n or set(routes) - {
+                'fused_batches_total', 'fused_columns_total'}):
+        raise AssertionError('legacy copy: {} rows equal to the store\'s: {}; routes {}'.format(
+            sum(rows.values()), rows == expected, routes))
+    # its legacy index against a native one on another copy
+    t0 = time.perf_counter()
+    build_rowgroup_index('file://' + native_root, [SingleFieldIndexer('label_idx', 'label')])
+    legacy_indexes = get_row_group_indexes(legacy_url)
+    native_indexes = get_row_group_indexes('file://' + native_root)
+    selected = {}
+    for values in ([3], [0, 500, 999], list(range(100, 110))):
+        selector = SingleIndexSelector('label_idx', values)
+        picked = selector.select_row_groups(legacy_indexes)
+        if picked != selector.select_row_groups(native_indexes) or not picked:
+            raise AssertionError('legacy index: {} picks {}, the native index {}'.format(
+                values, sorted(picked), sorted(selector.select_row_groups(native_indexes))))
+        selected[str(values[:3])] = sorted(picked)
+    with_selector, _ = read_keys(legacy_url, rowgroup_selector=SingleIndexSelector(
+        'label_idx', [0, 500, 999]))
+    picked = set(selected['[0, 500, 999]'])
+    want = collections.Counter((None, i % NUM_CLASSES, zlib.crc32(_image(i).tobytes()))
+                               for i in range(ROWS) if i // IMAGE_ROWS_PER_ROW_GROUP in picked)
+    out.update(index_s=time.perf_counter() - t0, selected=selected)
+    if with_selector != want:
+        raise AssertionError('legacy index: the selector read {} rows, expected {}'.format(
+            sum(with_selector.values()), sum(want.values())))
+    # the migration to a native store
+    migrated = 'file://' + os.path.join(work_dir, 'png_fixed_migrated')
+    t0 = time.perf_counter()
+    copied = copy_dataset(legacy_url, migrated, rows_per_row_group=IMAGE_ROWS_PER_ROW_GROUP,
+                          workers_count=ETL_WORKERS)
+    out['copy_s'] = time.perf_counter() - t0
+    meta = read_metadata_dict(migrated)
+    migrated_rows, _ = read_keys(migrated)
+    if (copied != ROWS or UNISCHEMA_KEY not in meta
+            or any(k.startswith(b'dataset-toolkit') for k in meta) or migrated_rows != expected):
+        raise AssertionError('copy_dataset: {} rows copied, keys {}, rows equal: {}'.format(
+            copied, sorted(meta), migrated_rows == expected))
+    out['copied_rows'] = copied
+    return out
+
+
+def _check_listing_routes(meta_root):
+    """On the 64-file copy of the day store: ``load_row_groups`` lists the
+    same pieces from the stored counts, from a ``_metadata`` summary file
+    with no counts stored, and from the footers; ``generate_metadata``
+    writes the counts back under the stored schema, then restores a deleted
+    ``_common_metadata`` with an inferred schema (the day store's fields,
+    ``day`` typed int64 from the paths) and the same counts and pieces.
+    Each route's seconds."""
+    from petastorm_tpu_torch.etl.dataset_metadata import (ROW_GROUPS_PER_FILE_KEY, UNISCHEMA_KEY,
+                                                           load_row_groups, read_metadata_dict)
+    from petastorm_tpu_torch.test_util.stores import data_files, write_summary_metadata
+    from petastorm_tpu_torch.tools.generate_metadata import generate_metadata
+
+    url = 'file://' + meta_root
+    seconds = {}
+
+    def listing(route, **kwargs):
+        t0 = time.perf_counter()
+        pieces = load_row_groups(url, **kwargs)
+        seconds[route] = time.perf_counter() - t0
+        return _listing(pieces)
+
+    counts = listing('counts')
+    before = read_metadata_dict(url)
+    write_summary_metadata(meta_root)
+    if ROW_GROUPS_PER_FILE_KEY in read_metadata_dict(url):
+        raise AssertionError('the summary copy still stores its counts')
+    summary = listing('summary')
+    footers = listing('footers', use_cached_metadata=False)
+    files = len(data_files(meta_root))
+    if not (counts == summary == footers) or files != ROWS // IMAGE_ROWS_PER_ROW_GROUP or len(
+            counts) != files or {p[3]['day'] for p in counts} != set(range(DAYS)):
+        raise AssertionError('load_row_groups: {} pieces by the counts, {} by the summary, {} by '
+                             'the footers, over {} files'.format(len(counts), len(summary),
+                                                                 len(footers), files))
+    t0 = time.perf_counter()
+    _, n_groups = generate_metadata(url)
+    seconds['generate_metadata'] = time.perf_counter() - t0
+    after = read_metadata_dict(url)
+    restored = (json.loads(after[UNISCHEMA_KEY]) == json.loads(before[UNISCHEMA_KEY])
+                and json.loads(after[ROW_GROUPS_PER_FILE_KEY])
+                == json.loads(before[ROW_GROUPS_PER_FILE_KEY])
+                and _listing(load_row_groups(url)) == counts)
+    if not restored or n_groups != files:
+        raise AssertionError('generate_metadata restored {} row groups; schema and counts equal '
+                             'to the written ones: {}'.format(n_groups, restored))
+    os.unlink(os.path.join(meta_root, '_common_metadata'))
+    t0 = time.perf_counter()
+    inferred, n_groups = generate_metadata(url)
+    seconds['generate_metadata_inferred'] = time.perf_counter() - t0
+    after = read_metadata_dict(url)
+    restored = (set(inferred.fields) == set(day_schema().fields)
+                and inferred.fields['day'].numpy_dtype is np.int64
+                and json.loads(after[ROW_GROUPS_PER_FILE_KEY])
+                == json.loads(before[ROW_GROUPS_PER_FILE_KEY])
+                and _listing(load_row_groups(url)) == counts)
+    if not restored or n_groups != files:
+        raise AssertionError('generate_metadata restored {} row groups of a deleted '
+                             '_common_metadata; inferred fields {}, counts and pieces equal to '
+                             'the written ones: {}'.format(n_groups, sorted(inferred.fields),
+                                                           restored))
+    return {'files': files, 'pieces': len(counts), 'seconds': seconds}
+
+
+def phase_etl_checks(fixed_url, work_dir, ring):
+    """The store layer on the card's host, each sub-check's seconds: a
+    partitioned store grown by ``append`` read through the process pool's
+    in-place route; a store of the original petastorm library read, selected
+    and migrated; the three routes of ``load_row_groups`` and
+    ``generate_metadata``."""
+    t0 = time.perf_counter()
+    cells = _store_table(fixed_url, ['image']).column('image').to_pylist()
+    day_url = 'file://' + os.path.join(work_dir, 'png_fixed_days')
+    meta_root = os.path.join(work_dir, 'png_fixed_days_summary')
+    checks = {}
+    for name, check, args in (('append', _check_append, (day_url, meta_root, cells, ring)),
+                              ('legacy', _check_legacy, (fixed_url, work_dir)),
+                              ('listing_routes', _check_listing_routes, (meta_root,))):
+        t1 = time.perf_counter()
+        checks[name] = check(*args)
+        checks[name]['total_s'] = time.perf_counter() - t1
+    emit({'phase': 'etl_checks', 'checks': checks, 'seconds': time.perf_counter() - t0,
+          'host': _host_cpu()})
+    check_no_leftovers()
+
+
 def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
@@ -5392,8 +5824,10 @@ def main():
             check_no_leftovers()
         # row filtering: a predicate on the fixed-shape PNG store, and a
         # row-group selector with shuffle-row-drop partitions on the PNG store
+        from petastorm_tpu_torch.predicates import in_set
         from petastorm_tpu_torch.selectors import SingleIndexSelector
         selected_labels = {label_of(s) for s in selected_synsets()}
+        filtered_runs = {}
         for name, url, check, kwargs, named, label_check in (
                 ('png_fixed_pred', urls['png_fixed'], check_batch,
                  {'predicate': filter_predicates()['in_set']}, None,
@@ -5403,8 +5837,31 @@ def main():
                       rowgroup_selector=SingleIndexSelector('noun_id_idx', selected_synsets())),
                  routes['png'], check_labels('of a selected synset',
                                              lambda v: np.isin(v, sorted(selected_labels))))):
-            total.update(run_path_both_ways(torch, name, url, check, reader_kwargs=kwargs,
-                                            routes=named, label_check=label_check)[0])
+            path_launches, filtered_runs[name] = run_path_both_ways(
+                torch, name, url, check, reader_kwargs=kwargs, routes=named,
+                label_check=label_check)
+            total.update(path_launches)
+        # the png store Hive-partitioned by synset: the predicate on the
+        # partition key prunes row groups before any worker opens a file
+        part_url = 'file://' + os.path.join(work_dir, 'png_part')
+        t0 = time.perf_counter()
+        build_png_part_store(urls['png'], part_url)
+        emit({'phase': 'store', 'store': 'png_part', 'rows': ROWS,
+              'bytes': _dir_bytes(part_url[len('file://'):]), 'build_s': time.perf_counter() - t0})
+        part_readers = []
+        path_launches, part_runs = run_path_both_ways(
+            torch, 'png_part', part_url, png_part_check(stores['png']),
+            reader_kwargs=dict(image_kwargs, predicate=in_set(selected_synsets(), 'noun_id')),
+            routes=routes['png'], reader_factory=png_part_factory(part_readers),
+            label_check=check_labels('of a selected synset',
+                                     lambda v: np.isin(v, sorted(selected_labels))))
+        total.update(path_launches)
+        for reader in part_readers:
+            check_png_part_reader(reader)
+        emit({'phase': 'png_part_vs', 'png_part': path_numbers(part_runs),
+              'png': path_numbers(png_runs),
+              'png_select': path_numbers(filtered_runs['png_select'])})
+        phase_etl_checks(urls['png_fixed'], work_dir, ring)
         # the plain store through make_batch_reader: rebatched to BATCH rows
         # on the reader side, the PNG bytes decoded by a batched transform
         readers = []

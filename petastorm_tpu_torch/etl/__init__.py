@@ -3,7 +3,7 @@
 
 from petastorm_tpu_torch.etl.dataset_metadata import (  # noqa: F401
     DatasetWriter, PetastormMetadataError, RowGroupPiece, get_schema, get_schema_from_dataset_url,
-    load_row_groups, materialize_dataset, write_petastorm_dataset,
+    infer_or_load_unischema, load_row_groups, materialize_dataset, write_petastorm_dataset,
 )
 from petastorm_tpu_torch.etl.indexer_base import RowGroupIndexerBase  # noqa: F401
 from petastorm_tpu_torch.etl.rowgroup_indexers import (  # noqa: F401

@@ -6,8 +6,9 @@ I/O and C-level work, so threads suffice); the reduced inverted indexes are
 stored as JSON in ``_common_metadata`` under
 :data:`~petastorm_tpu_torch.etl.dataset_metadata.ROW_GROUP_INDEX_KEY`, the
 JAX package's key, so an index built by either package is read by the
-other. Not ported yet: the legacy petastorm index fallback (the "remote
-filesystems" item, with the other legacy-store fallbacks).
+other. A store written by the original petastorm library keeps its indexes
+pickled under its own key: they are decoded by
+:func:`~petastorm_tpu_torch.etl.legacy.load_legacy_rowgroup_indexes`.
 """
 
 from __future__ import annotations
@@ -19,15 +20,12 @@ from concurrent.futures import ThreadPoolExecutor
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import PetastormTpuError
-from petastorm_tpu_torch.etl import dataset_metadata
+from petastorm_tpu_torch.etl import dataset_metadata, legacy
 from petastorm_tpu_torch.etl.rowgroup_indexers import indexer_from_json
 from petastorm_tpu_torch.fs import FilesystemResolver
 from petastorm_tpu_torch.unischema import decode_row
 
 logger = logging.getLogger(__name__)
-
-#: the key under which legacy petastorm stores keep their (pickled) indexes
-LEGACY_ROW_GROUP_INDEX_KEY = b'dataset-toolkit.rowgroups_index.v1'
 
 
 def build_rowgroup_index(dataset_url, indexers, max_workers=10):
@@ -37,7 +35,7 @@ def build_rowgroup_index(dataset_url, indexers, max_workers=10):
     if not indexers:
         raise PetastormTpuError('indexers list must not be empty')
     schema = dataset_metadata.get_schema(dataset_url)
-    pieces = dataset_metadata.load_row_groups(dataset_url)
+    pieces = dataset_metadata.load_row_groups(dataset_url, schema=schema)
     fs = FilesystemResolver(dataset_url).filesystem()
 
     column_names = sorted({c for indexer in indexers for c in indexer.column_names})
@@ -77,10 +75,9 @@ def get_row_group_indexes(dataset_url, retry_policy=None):
     meta = dataset_metadata.read_metadata_dict(dataset_url, retry_policy=retry_policy)
     raw = meta.get(dataset_metadata.ROW_GROUP_INDEX_KEY)
     if raw is None:
-        if meta.get(LEGACY_ROW_GROUP_INDEX_KEY) is not None:
-            raise NotImplementedError(
-                'legacy petastorm row-group indexes are not yet ported to petastorm_tpu_torch '
-                '(ROADMAP.md, "remote filesystems"): {}'.format(dataset_url))
+        legacy_raw = meta.get(legacy.REF_ROW_GROUP_INDEX_KEY)
+        if legacy_raw is not None:
+            return legacy.load_legacy_rowgroup_indexes(legacy_raw)
         raise PetastormTpuError(
             'Dataset at {} has no row-group index. Run build_rowgroup_index first.'.format(
                 dataset_url))

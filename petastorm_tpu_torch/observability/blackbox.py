@@ -54,7 +54,9 @@ which is safe with a live CUDA context. Spawned process-pool workers enable
 their own recorder in the consumer's run directory. The stale-file sweep
 removes only files whose owner pid is gone and whose mtime is over six
 hours old, so the two packages may share a run directory: neither removes
-the other's live files.
+the other's live files. The port's files end in ``.torch.bin``, so a
+process that runs both packages gets two files, not one truncated under
+the other's mapping.
 """
 
 from __future__ import annotations
@@ -524,7 +526,10 @@ def _enable(label, run_dir, capacity, snapshot_interval_s, stall_threshold_s):
         return None
     _sweep_stale(run_dir)
     _ENABLE_COUNT += 1
-    name = 'flight-{}-{}-{}.bin'.format(
+    # '.torch.bin', not the JAX package's '.bin': in a process that runs
+    # both packages each arms a recorder of the same label and count, and
+    # one name would make the second truncate the file the first has mapped
+    name = 'flight-{}-{}-{}.torch.bin'.format(
         _LABEL_SANITIZE.sub('_', label or 'proc'), os.getpid(), _ENABLE_COUNT)
     path = os.path.join(run_dir, name)
     if capacity is None:

@@ -3,9 +3,9 @@
 Trimmed twin of ``make_reader`` / ``make_batch_reader`` / ``Reader`` /
 ``merge_resume_states`` in ``petastorm_tpu/reader.py``: list the row groups,
 keep those a ``piece_filter`` keeps, select columns, filter the row groups
-through a row-group selector's stored
-indexes, then a predicate (row groups of a partition key; never, while hive
-stores are not ported), shard round-robin, ventilate one item per (row group,
+through a row-group selector's stored indexes, then a predicate (whole row
+groups by their hive partition keys, with no I/O, when every predicate field
+is one), shard round-robin, ventilate one item per (row group,
 shuffle-row-drop partition) in the seeded per-epoch order into a thread,
 process or dummy pool, and deliver rows, column blocks or fixed-size batches,
 optionally through a local-disk cache of decoded blocks. The workers filter
@@ -606,7 +606,8 @@ class Reader(object):
 
         # piece filter -> selector (its index sets refer to the enumeration
         # before the predicate, so it runs next) -> predicate -> shard
-        pieces = dataset_metadata.load_row_groups(dataset_url, retry_policy=storage_retry_policy)
+        pieces = dataset_metadata.load_row_groups(dataset_url, schema=schema,
+                                                  retry_policy=storage_retry_policy)
         if piece_filter is not None:
             pieces = [p for p in pieces if piece_filter(p)]
         if rowgroup_selector is not None:
@@ -720,8 +721,7 @@ class Reader(object):
     def _apply_predicate_to_pieces(pieces, predicate):
         """Piece-level pushdown: when every predicate field is a partition
         key, whole pieces are dropped with no I/O and no worker predicate is
-        left. Pieces carry no partition keys while hive stores are not
-        ported, so the workers always filter."""
+        left; otherwise the workers filter the rows."""
         if predicate is None:
             return pieces, None
         predicate_fields = set(predicate.get_fields())

@@ -15,26 +15,31 @@ when that declines. The decoded block goes through the reader's cache (keyed
 by piece, columns, decode hints and resize target), then the optional
 transform runs and one column block is published.
 
+The columns of a hive partition live in the piece's path, not in its file:
+every route reads the stored columns only and fills each partition column
+in from the piece's typed value (:func:`_partition_column`).
+
 A work item may carry a predicate (``worker_predicate``) and a
 shuffle-row-drop partition (``shuffle_row_drop_partition``). With a
 predicate, the fused native read evaluates it, skips pages by their
 statistics and decodes only the surviving rows in one call
 (:meth:`RowGroupDecoderWorker._fused_predicate_block`); where it cannot, the
 predicate columns are read and decoded first, the mask evaluated, and the
-other columns read for the surviving rows only (Arrow ``take``). A partition
-keeps one of ``n`` contiguous slices of the row group's rows. Filtered and
-divided items bypass the cache and the in-place publish; an item that keeps
-no row publishes nothing.
+other columns read for the surviving rows only (Arrow ``take``). A row-drop
+partition keeps one of ``n`` contiguous slices of the row group's rows.
+Filtered and divided items bypass the cache and the in-place publish; an
+item that keeps no row publishes nothing.
 
 In a process pool on the shm transport the publish function offers
-``reserve_block``: with no transform, no cache, no predicate, no partition
-and no NGram (the JAX package's gate), the whole row group is then decoded
-by the fused native call straight into the ring slot the consumer maps,
-page-scan columns included, and published with a header write
+``reserve_block``: with no transform, no cache, no predicate, no row-drop
+partition and no NGram (the JAX package's gate), the whole row group is then
+decoded by the fused native call straight into the ring slot the consumer
+maps, page-scan columns included, the partition columns written after them
+as raw buffers in the same slot, and published with a header write
 (:meth:`RowGroupDecoderWorker._publish_fused_inplace`). Under the serve
 daemon the publish function offers ``reserve_fused`` instead: behind the
-same gate the fused call decodes the batch straight into a shared blob and
-only its column layout is published
+same gate, for a piece with no partition column, the fused call decodes the
+batch straight into a shared blob and only its column layout is published
 (:meth:`RowGroupDecoderWorker._publish_fused_blob`).
 
 With an NGram (``args['ngram']``) the worker reads the fields every
@@ -107,6 +112,21 @@ def select_row_drop_indices(num_rows, partition_spec, ngram=None):
         spill = np.arange(chunk[-1] + 1, min(chunk[-1] + ngram.length, num_rows))
         chunk = np.concatenate([chunk, spill])
     return chunk
+
+
+def _partition_column(field, value, n):
+    """A partition column of ``n`` rows from the value of the piece's path,
+    decoded through the field's codec: ``np.full`` types it from that value
+    (int64, str, bool, ...), so it stages to the card like any other
+    column; a value numpy cannot fill in makes an object column."""
+    if field is not None and field.codec is not None:
+        value = field.codec.decode(field, value)
+    try:
+        return np.full(n, value)
+    except (ValueError, TypeError):
+        col = np.empty(n, dtype=object)
+        col[:] = value
+        return col
 
 
 class RowGroupDecoderWorker(WorkerBase):
@@ -201,9 +221,12 @@ class RowGroupDecoderWorker(WorkerBase):
         pf = self._parquet_file(piece.path)
         if not hasattr(pf, 'read_fused'):
             return {}
+        physical = self._physical(piece, names)
+        if not physical:
+            return {}
         transform = self.args.get('transform_spec')
         try:
-            block, _rest = pf.read_fused(piece.row_group, names, self.args['schema'].fields,
+            block, _rest = pf.read_fused(piece.row_group, physical, self.args['schema'].fields,
                                          getattr(transform, 'image_decode_hints', None),
                                          getattr(transform, 'image_resize', None))
         except Exception:  # noqa: BLE001 - any surprise: the Arrow route serves it all
@@ -282,21 +305,36 @@ class RowGroupDecoderWorker(WorkerBase):
         pf = self._parquet_file(piece.path) if reserve is not None else None
         if pf is None or not hasattr(pf, 'fused_plan'):
             return False
-        plan = pf.fused_plan(piece.row_group, names, self.args['schema'].fields,
-                             include_pagescan=True)
-        if plan is None or plan.rest or not plan.inplace_ok:
+        schema = self.args['schema']
+        physical = self._physical(piece, names)
+        if not physical:
+            return False
+        plan = pf.fused_plan(piece.row_group, physical, schema.fields, include_pagescan=True)
+        if plan is None or plan.rest or not plan.columns or not plan.inplace_ok:
             return False
         if any(p.field_dtype is not None and p.field_dtype != p.out_dtype
                for p in plan.columns):
             return False  # an astype after the decode would need a second buffer
-        if plan.expected_rows <= 0:
+        n = plan.expected_rows
+        if n <= 0:
             return False
+        # the partition columns go into the same slot, after the fused ones,
+        # as raw buffers
+        part_cols = []
+        for name in names:
+            if name in piece.partition_keys:
+                col = _partition_column(schema.fields.get(name), piece.partition_keys[name], n)
+                if col.dtype.hasobject:
+                    return False  # an object column cannot be framed as a raw buffer
+                part_cols.append((name, np.ascontiguousarray(col)))
         meta, offsets, total = [], [], 0
         for p in plan.columns:
             meta.append((p.name, p.out_dtype.str, p.out_shape, None))
             offsets.append(total)
             total += p.out_bound
-        reserved = reserve(meta, total)
+        meta.extend((name, col.dtype.str, col.shape, None) for name, col in part_cols)
+        payload = total + sum(col.nbytes for _, col in part_cols)
+        reserved = reserve(meta, payload)
         if reserved is None:
             return False
         view, commit, abort = reserved
@@ -315,11 +353,20 @@ class RowGroupDecoderWorker(WorkerBase):
             abort()
             fused.count_fallbacks(failed)
             return False
-        commit(total)
+        out = np.frombuffer(view, dtype=np.uint8)  # noqa: PT500 - this reservation's ring slot
+        off = total
+        for _, col in part_cols:
+            # datetimes have no buffer protocol: their bytes are copied out
+            out[off:off + col.nbytes] = np.frombuffer(
+                col.tobytes() if col.dtype.kind in 'Mm' else memoryview(col).cast('B'),
+                dtype=np.uint8)
+            off += col.nbytes
+        commit(payload)
         count_route('fused_columns_total', len(plan.columns))
         count_route('fused_batches_total')
         count_route('fused_inplace_batches_total')
-        obs.count('worker_rows_decoded_total', plan.expected_rows)
+        obs.count('worker_rows_decoded_total', n)
+        fused.count_fallbacks(plan.reasons)
         return True
 
     def _num_rows(self, piece):
@@ -327,13 +374,25 @@ class RowGroupDecoderWorker(WorkerBase):
             return piece.num_rows
         return self._parquet_file(piece.path).metadata.row_group(piece.row_group).num_rows
 
+    def _physical(self, piece, names):
+        """The columns of ``names`` stored in the piece's file: not its
+        partition columns, which live in its path."""
+        schema = self.args['schema']
+        return [name for name in names
+                if name not in piece.partition_keys and name in schema.fields]
+
     def _read_table(self, piece, names, row_indices=None):
-        """The named columns of the piece's row group as an Arrow table, only
-        the rows ``row_indices`` when given."""
+        """The stored columns of ``names`` of the piece's row group as an
+        Arrow table (with no stored column, a table of no column that still
+        counts the rows), only the rows ``row_indices`` when given."""
         pf = self._parquet_file(piece.path)
         with obs.stage('read', cat='worker', piece=piece.path, row_group=piece.row_group):
-            table = pf.read_row_group(piece.row_group, columns=names)
-            return table.take(row_indices) if row_indices is not None else table
+            table = pf.read_row_group(piece.row_group, columns=self._physical(piece, names))
+            if row_indices is None:
+                return table
+            # Arrow's take of a table with no column keeps no row
+            return (table.take(row_indices) if table.num_columns
+                    else table.slice(0, len(row_indices)))
 
     def _load_block(self, piece, names, shuffle_row_drop_partition=None):
         indices = None
@@ -344,13 +403,15 @@ class RowGroupDecoderWorker(WorkerBase):
         # columns first and Arrow only the rest
         pre = self._fused_columns(piece, names) if indices is None else {}
         rest = [name for name in names if name not in pre]
-        table = self._read_table(piece, rest, indices) if rest else None
-        return self._decode_table(table, names, pre)
+        table = (None if pre and not self._physical(piece, rest)
+                 else self._read_table(piece, rest, indices))
+        return self._decode_table(table, names, piece, pre)
 
-    def _decode_table(self, table, names, pre=None):
+    def _decode_table(self, table, names, piece, pre=None):
         """Arrow table -> column block. Columns the fused read decoded
-        (``pre``) are adopted as they are; ``table`` may be None when ``pre``
-        covers every column."""
+        (``pre``) are adopted as they are, the piece's partition columns are
+        filled in from its path; ``table`` may be None when ``pre`` covers
+        every stored column."""
         transform = self.args.get('transform_spec')
         decode_hints = getattr(transform, 'image_decode_hints', None) or {}
         resize_hints = getattr(transform, 'image_resize', None) or {}
@@ -358,16 +419,26 @@ class RowGroupDecoderWorker(WorkerBase):
         pre = pre or {}
         if all(name in pre for name in names):
             return {name: pre[name] for name in names}
-        with obs.stage('decode', cat='worker', rows=table.num_rows):
-            return self._decode_columns(table, names, pre, decode_hints, resize_hints, writable)
+        n = table.num_rows if table is not None else block_num_rows(pre)
+        if table is None or not table.num_columns:
+            # nothing left to decode: the fused columns and the partition ones
+            return self._decode_columns(table, names, piece, pre, n, {}, {}, writable)
+        with obs.stage('decode', cat='worker', rows=n):
+            return self._decode_columns(table, names, piece, pre, n, decode_hints,
+                                        resize_hints, writable)
 
-    def _decode_columns(self, table, names, pre, decode_hints, resize_hints, writable):
+    def _decode_columns(self, table, names, piece, pre, n, decode_hints, resize_hints,
+                        writable):
         schema = self.args['schema']
         block = {}
         for name in names:
             if name in pre:
                 # fused columns are fresh writable views of the batch buffer
                 block[name] = pre[name]
+                continue
+            if name in piece.partition_keys:
+                block[name] = _partition_column(schema.fields.get(name),
+                                                piece.partition_keys[name], n)
                 continue
             field = schema.fields[name]
             codec = field.codec
@@ -409,10 +480,13 @@ class RowGroupDecoderWorker(WorkerBase):
             return None
         schema = self.args['schema']
         if any(f in piece.partition_keys or f not in schema.fields for f in predicate_fields):
+            return None  # a partition-key predicate: the piece-level pushdown decides
+        physical = self._physical(piece, names)
+        if not physical:
             return None
         transform = self.args.get('transform_spec')
         try:
-            res = pf.read_fused_predicate(piece.row_group, names, predicate_fields, clauses,
+            res = pf.read_fused_predicate(piece.row_group, physical, predicate_fields, clauses,
                                           schema.fields,
                                           getattr(transform, 'image_decode_hints', None),
                                           getattr(transform, 'image_resize', None))
@@ -434,7 +508,7 @@ class RowGroupDecoderWorker(WorkerBase):
             return {}
         remaining = [name for name in names if name not in block]
         rem_block = (self._decode_table(self._read_table(piece, remaining, kept_global),
-                                        remaining) if remaining else {})
+                                        remaining, piece) if remaining else {})
         return {name: (block[name] if name in block else rem_block[name]) for name in names}
 
     def _load_block_with_predicate(self, piece, names, predicate, shuffle_row_drop_partition):
@@ -458,7 +532,7 @@ class RowGroupDecoderWorker(WorkerBase):
             return fast or None
         pred_table = self._read_table(piece, predicate_fields,
                                       drop_indices if shuffle_row_drop_partition else None)
-        pred_block = self._decode_table(pred_table, predicate_fields)
+        pred_block = self._decode_table(pred_table, predicate_fields, piece)
         mask = evaluate_predicate_mask(predicate, dict(pred_block), block_num_rows(pred_block))
         if mask is None:  # no batch path: per-row semantics
             mask = [predicate.do_include(r) for r in block_to_rows(pred_block)]
@@ -469,7 +543,7 @@ class RowGroupDecoderWorker(WorkerBase):
         kept_global = base[kept_local]
         remaining = [name for name in names if name not in predicate_fields]
         rem_block = (self._decode_table(self._read_table(piece, remaining, kept_global),
-                                        remaining) if remaining else {})
+                                        remaining, piece) if remaining else {})
         kept_pred = take_block(pred_block, kept_local)
         return {name: (kept_pred[name] if name in kept_pred else rem_block[name])
                 for name in names if name in kept_pred or name in rem_block}

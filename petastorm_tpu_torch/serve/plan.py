@@ -113,7 +113,8 @@ def build_read_plan(dataset_url,
             'shuffle_row_drop_partitions > 1 with timestamp_overlap=False would duplicate '
             'rows across partition-boundary windows')
 
-    pieces = dataset_metadata.load_row_groups(dataset_url, retry_policy=storage_retry_policy)
+    pieces = dataset_metadata.load_row_groups(dataset_url, schema=schema,
+                                              retry_policy=storage_retry_policy)
     if rowgroup_selector is not None:
         pieces = Reader._apply_rowgroup_selector(dataset_url, pieces, rowgroup_selector,
                                                  storage_retry_policy)

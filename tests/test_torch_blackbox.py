@@ -217,6 +217,32 @@ def test_the_sweep_keeps_live_files_of_either_package(tmp_path):
     live.close()
 
 
+def test_both_packages_in_one_process_keep_files_of_their_own(flight_dir, monkeypatch):
+    """Both packages arm their first recorder of one label in one process
+    and one run directory: two files, each intact and readable by the other
+    package, not one file truncated under the other's mapping (which made
+    the port's next activity write raise SIGBUS)."""
+    jax_blackbox.disable()
+    # as in a fresh process: each package's first recorder
+    monkeypatch.setattr(jax_blackbox, '_ENABLE_COUNT', 0)
+    monkeypatch.setattr(blackbox, '_ENABLE_COUNT', 0)
+    try:
+        jax_rec = jax_blackbox.enable(label='consumer', run_dir=flight_dir)
+        rec = blackbox.enable(label='consumer', run_dir=flight_dir)
+        assert rec.path != jax_rec.path
+        assert os.path.basename(rec.path).startswith('flight-consumer-{}-'.format(os.getpid()))
+        for module, recorder in ((blackbox, rec), (jax_blackbox, jax_rec)):
+            recorder.set_activity('worker.decode')
+            recorder.record(module.K_EVENT, {'who': module.__name__})
+        for path in (rec.path, jax_rec.path):
+            assert os.path.getsize(path) == blackbox.HEADER_SIZE + rec.capacity
+            events = [r['data']['who'] for r in jax_blackbox.load_flight(path)['records']
+                      if r['kind'] == jax_blackbox.K_EVENT]
+            assert events == [blackbox.__name__ if path == rec.path else jax_blackbox.__name__]
+    finally:
+        jax_blackbox.disable()
+
+
 _VICTIM = """\
 import os, signal, sys, time
 import numpy as np
