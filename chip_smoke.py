@@ -104,6 +104,26 @@ Phases, each printed as one JSON line:
      fresh unsharded state with the same kind of step on the run's first
      four staged batches gives its losses to the last bit (no DDP and no
      collective at a world of one);
+   - ``raw_mix``: ``raw``'s trainer fed by ``MixtureReader([A, B],
+     weights=[7, 3], seed=7)`` (``docs/sequence.md:97-150``) over
+     ``make_reader(output='columnar', num_epochs=None)`` of the raw store
+     (A) and of a second raw store of 256 rows with the same schema (image
+     indices 1024-1279, a ``store`` line), each with half the workers; every
+     staged row a row of A or B, each source's rows 64 x its count in a host
+     replay of the seeded draws (``default_rng(7)``, ``searchsorted`` over
+     ``[0.7, 1.0]``), exactly, and a two-source ``mixture`` section in the
+     stall report; a ``mixture`` line per run and a ``raw_mix_vs`` line
+     beside ``raw``'s numbers;
+   - ``raw_tail``: ``raw``'s trainer reading ``TailFollowingReader(url,
+     poll_interval=0.05, idle_timeout=120, output='columnar')`` over a fresh
+     store that a host process (no torch) fills with the raw store's 1024
+     rows through ``DatasetWriter``, publishing every 128 rows (8
+     snapshots, the last final) while the trainer reads; a fresh store and
+     writer for each step kind. No row staged twice, every staged row one
+     the writer wrote, ``dataset_grew`` equal to the snapshots adopted, at
+     least 832 rows delivered, the writer exited 0 and reaped; a ``tail``
+     line per run (snapshots adopted, the writer's rows/s, the tail's
+     polling seconds);
    - ``png``: the PNG store with ``TransformSpec(image_resize=160x160)`` and a
      batched label transform (crc32 of the synset id);
    - ``png_cached``: the same with ``cache_type='local-disk'``, after one
@@ -201,7 +221,12 @@ Phases, each printed as one JSON line:
    counts, by a ``_metadata`` summary file with no counts stored and by its
    footers (each route's seconds), and ``generate_metadata`` writes its
    counts back under the stored schema and, once ``_common_metadata`` is
-   deleted, restores it with an inferred schema.
+   deleted, restores it with an inferred schema. Then ``tail_checks``, on
+   the host, on the label column of a raw store a writer process grows (8
+   snapshots): the tail drains to the final snapshot with every row once;
+   a ``state_dict()`` inside the second delta and a resume deliver the rest
+   once; a torn ``snap-000008.json`` is skipped; a store whose only
+   snapshot is not final raises at ``idle_timeout`` after its rows.
 
    One more reads the plain store through ``make_batch_reader``:
 
@@ -291,7 +316,13 @@ Phases, each printed as one JSON line:
    loader, the bucketed loader and ``PackedSequenceLoader``, each batch
    staged to the card and equal to its host collation, every real token
    delivered once, bucketing wasting less padding, two packed runs
-   bit-exact, and each consumer's real tokens/s;
+   bit-exact, and each consumer's real tokens/s; then ``mixture_checks``
+   (host) on the same store split into two sources (shards 0 and 1 of 2,
+   ``token_field='tokens'``): ``renormalize`` delivers every row once,
+   ``stop`` ends at the first dry source, a live ``set_weights`` takes
+   effect, ``MixtureSchedule({0: [7, 3], 1: [5, 5]})`` at ``reset()``
+   (each epoch's rows per source a host replay of the draws), the token
+   counts are the rows' lengths, one seed gives one interleaving;
 14. ``ngram_checks``: ``examples/sequence``'s telemetry store (16384 rows
    of AR(1) features, 64 wide, ``sensor_id = i % 8``, 256 rows per row
    group, seed 0; a ``store`` line) in windows of 8 consecutive timestamps:
@@ -414,13 +445,21 @@ Phases, each printed as one JSON line:
    ``cutmix`` (alpha 1.0) on a 64x160x160x3 uint8 batch with 1000 classes,
    each apply on the card equal to the CPU's from the same draws (mixup
    within 1, soft labels within 1e-6), its time beside its HBM-bytes bound;
+   ``converter_checks``: the MNIST test split as a ``pyarrow.Table``
+   (``digit`` int64, ``image`` list<float32> of 784) through
+   ``make_converter`` (4 MiB row groups; a second call the same cache URL),
+   ``make_torch_loader(batch_size=32, num_epochs=1, device='cuda')``
+   driving ``MnistCNN`` eager steps over the epoch on the card (finite
+   losses), ``make_torch_dataloader`` over two shards (every row once), and
+   ``delete()``; on a host without pandas a declared ``skipped`` line;
 20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
 21. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
-   launches over all paths (``png_part`` included), both steps, where a
+   launches over all paths (``png_part``, ``raw_mix`` and ``raw_tail``
+   included), both steps, where a
    graph replay counts the launches it captured, and the spawned ranks' of
    ``mesh_checks`` and ``entry_checks``, and ``imagenet_example``'s and the
    remote paths'; the sequence, MoE, pipeline and MNIST paths normalize
@@ -698,18 +737,30 @@ def _image(index):
     return _photo(np.random.default_rng([SEED, index]), IMAGE_SIZE, IMAGE_SIZE)
 
 
-def build_store(url):
+def raw_schema():
     from petastorm_tpu_torch.codecs import RawTensorCodec, ScalarCodec
-    from petastorm_tpu_torch.etl import materialize_dataset
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
-    schema = Unischema('RawImagenet', [
+    return Unischema('RawImagenet', [
         UnischemaField('image', np.uint8, (IMAGE_SIZE, IMAGE_SIZE, 3), RawTensorCodec(), False),
         UnischemaField('label', np.int64, (), ScalarCodec(np.int64), False)])
-    with materialize_dataset(url, schema, rows_per_row_group=ROWS_PER_ROW_GROUP,
+
+
+def raw_row(i):
+    """Row ``i`` of the raw stores: image ``i`` and label ``i % 1000``."""
+    return {'image': _image(i), 'label': np.int64(i % NUM_CLASSES)}
+
+
+def build_store(url, first=0, rows=None):
+    """The raw store: ``rows`` (``ROWS``) rows from ``first`` on
+    (:func:`raw_row`), 64 a row group, uncompressed."""
+    from petastorm_tpu_torch.etl import materialize_dataset
+
+    rows = ROWS if rows is None else rows
+    with materialize_dataset(url, raw_schema(), rows_per_row_group=ROWS_PER_ROW_GROUP,
                              compression='none') as writer:
-        for i in range(ROWS):
-            writer.write({'image': _image(i), 'label': np.int64(i % NUM_CLASSES)})
+        for i in range(first, first + rows):
+            writer.write(raw_row(i))
 
 
 def check_batch(images, labels):
@@ -995,6 +1046,10 @@ def probe_host(builds):
             found[module] = __import__(module).__version__
         except ImportError:
             found[module] = None
+    for module in ('pandas', 'tensorflow', 'pyspark'):
+        # looked up, not imported: TensorFlow's import takes seconds and
+        # would claim the card beside the trainer
+        found[module] = _installed_version(module)
     headers = {h: os.path.exists(os.path.join('/usr/include', h))
                for h in ('jpeglib.h', 'png.h', 'libdeflate.h', 'zlib.h')}
     ldconfig = subprocess.run(['ldconfig', '-p'], capture_output=True, text=True, timeout=60)
@@ -1033,6 +1088,21 @@ def probe_host(builds):
         raise AssertionError('the process pool cannot run on its shm transport: {} (pyzmq '
                              '{})'.format(pool, found['zmq']))
     return probe
+
+
+def _installed_version(module):
+    """The installed distribution's version of ``module``, or None when it
+    cannot be imported (``'unknown'`` when its distribution has another
+    name)."""
+    import importlib.metadata
+    import importlib.util
+
+    if importlib.util.find_spec(module) is None:
+        return None
+    try:
+        return importlib.metadata.version(module)
+    except importlib.metadata.PackageNotFoundError:
+        return 'unknown'
 
 
 def _store_cells(url, count):
@@ -1793,7 +1863,9 @@ def check_read_routes(path, counts):
     to the codec's columnar decode (reason ``image-hints``: a resize target)
     and ``noun_id``/``text`` (reason ``codec``: strings), through Arrow;
     ``png_cached`` no read at all, nor ``png_served`` (the daemon reads);
-    ``raw_elastic`` as ``raw``; ``raw_remote`` no route counted (the chunk
+    ``raw_elastic``, ``raw_mix`` and ``raw_tail`` as ``raw`` (a mixture's
+    sources and a tail's delta readers are raw stores read by the row
+    worker); ``raw_remote`` no route counted (the chunk
     reader counts none: :func:`phase_remote_path` checks its stages);
     ``png_fixed`` and ``png_fixed_remote`` fused only; ``png_process``
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
@@ -1817,7 +1889,7 @@ def check_read_routes(path, counts):
                if k.startswith('fused_fallback_reason:') and v}
     fused, fallback = c('fused_batches_total'), c('fused_fallback_total')
     pagescan, arrow = c('pagescan_columns_total'), c('arrow_fallback_columns_total')
-    if path in ('raw', 'raw_mesh', 'raw_elastic'):
+    if path in ('raw', 'raw_mesh', 'raw_elastic', 'raw_mix', 'raw_tail'):
         ok = pagescan > 0 and not (fused or fallback or arrow or reasons)
     elif path in ('png', 'jpeg', 'png_process'):
         n = reasons.get('image-hints', 0)
@@ -1892,6 +1964,11 @@ STALL_STAGES = {
     # the wait at the pod's epoch barrier has no stage of its own: the pool
     # wait is shared out over the timed worker stages, here the read
     'raw_elastic': ({'worker.read_io'}, {'worker.fused_decode'}),
+    # both sources' readers time into the one registry
+    'raw_mix': ({'worker.read_io'}, {'worker.fused_decode'}),
+    # the tail's wait for a snapshot is no pool wait, and between two deltas
+    # its diagnostics hold no reader's, so no stage is sure to be named
+    'raw_tail': (set(), {'worker.fused_decode'}),
     'png': ({'worker.decode', 'worker.read_io'}, {'worker.fused_decode'}),
     'jpeg': ({'worker.decode'}, {'worker.fused_decode'}),
     'png_process': ({'worker.decode'}, {'worker.fused_decode'}),
@@ -1931,7 +2008,7 @@ def check_stall(name, stall):
 
 def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None,
              graphed=False, reader_factory=None, telemetry='counters', steps=STEPS, tag=None,
-             on_step=None, mesh=None):
+             on_step=None, mesh=None, rows_check=None):
     """One path: a fresh model from the seed, 3 warm-up and ``steps``
     measured steps through ``pipeline_duty_cycle``, with the eager step or
     (``graphed``) the graphed one, at the ``telemetry`` level. The normalize
@@ -1939,7 +2016,10 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     counts, the read route counts and the telemetry registry and span ring
     cover this run alone. ``label_check`` is handed every label the steps
     saw, after the run (the labels stay on the card until then: no
-    synchronisation in the steps); ``on_step`` is called after each step.
+    synchronisation in the steps), and ``rows_check`` the keys
+    (:func:`_row_keys`) of every row the steps saw, in order, after the run
+    (the batches stay on the card until then); ``on_step`` is called after
+    each step.
     The line carries the stall report of the loader's diagnostics
     (``stall``), checked against the path's routes. Returns the launches,
     the state, the step, the first :data:`SAME_BATCHES` staged batches, the
@@ -1968,6 +2048,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     losses = []
     first_batches = []
     seen_labels = []
+    staged = []
 
     def step_fn(images, labels):
         if not losses:
@@ -1983,6 +2064,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
         losses.append(metrics['loss'])
         if label_check is not None:
             seen_labels.append(labels)
+        if rows_check is not None:
+            staged.append((images, labels))
         if on_step is not None:
             on_step()
 
@@ -2044,6 +2127,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
                 name, kernel, count, WARMUP_STEPS + steps))
     if label_check is not None:
         label_check(torch.cat(seen_labels).cpu().numpy())
+    if rows_check is not None:
+        rows_check([key for images, labels in staged for key in _row_keys(images, labels)])
     check_routes(counts, routes)
     check_read_routes(name, result.extra['read_routes'])
     check_pool(name, result.extra['pool'], result.extra['read_routes'])
@@ -3620,7 +3705,8 @@ def phase_collate_checks(torch, work_dir):
     slots, 512 pooled rows)``, each staged to the card through
     ``prefetch_to_device``: each staged batch equals its host collation,
     every real token is delivered once, bucketing wastes less padding, and
-    two same-seed packed runs are bit-exact."""
+    two same-seed packed runs are bit-exact. Returns the store's URL and
+    its rows' tokens."""
     import hashlib
 
     url = 'file://' + os.path.join(work_dir, 'tokens')
@@ -3654,6 +3740,7 @@ def phase_collate_checks(torch, work_dir):
     if not out['bucketed']['padding_waste_fraction'] < out['padded']['padding_waste_fraction']:
         raise AssertionError('bucketing did not cut the padding waste: {} vs {}'.format(
             out['bucketed']['padding_waste_fraction'], out['padded']['padding_waste_fraction']))
+    return url, rows
 
 
 FLIGHT_STEPS = 6
@@ -5702,6 +5789,534 @@ def phase_etl_checks(fixed_url, work_dir, ring):
     check_no_leftovers()
 
 
+# -- reader compositions and adapters ------------------------------------------
+
+#: raw_mix: the second source (image indices 1024-1279, by the raw store's
+#: code) and the weights of docs/sequence.md:105
+MIX_B_ROWS = 256
+MIX_WEIGHTS = (7, 3)
+#: raw_tail and tail_checks: the writer publishes every 2 row groups (8
+#: snapshots); the follower polls every 50 ms and gives up after 120 s
+#: without a snapshot
+TAIL_PUBLISH_ROWS = 2 * ROWS_PER_ROW_GROUP
+TAIL_POLL_S = 0.05
+TAIL_IDLE_TIMEOUT_S = 120.0
+#: mixture_checks: draws of each schedule step
+MIX_CHECK_DRAWS = 600
+#: converter_checks: 4 MiB row groups, 8 of the MNIST test split's 10000
+#: rows, so that each of two shards reads some
+CONVERTER_ROW_GROUP_BYTES = 4 << 20
+
+
+def raw_row_keys(first, rows):
+    """The keys (:func:`_row_keys`) of raw rows ``first`` to ``first + rows - 1``."""
+    return {(i % NUM_CLASSES, zlib.crc32(_image(i).tobytes())) for i in range(first, first + rows)}
+
+
+def check_keys(name, keys, allowed):
+    """Every key of ``keys`` is one of ``allowed``."""
+    bad = [key for key in keys if key not in allowed]
+    if bad:
+        raise AssertionError('{}: {} staged rows are rows of no source: {}'.format(
+            name, len(bad), bad[:3]))
+
+
+def mix_factory(b_url, mixtures):
+    """``raw_mix``'s reader: ``MixtureReader([A, B], weights=[7, 3],
+    seed=7)`` over ``make_reader(output='columnar')`` of the ``raw`` store (A)
+    and of ``b_url`` (B), each with half the workers the path gives one
+    reader; the mixture is appended to ``mixtures``."""
+    def factory(url, workers_count=1, **kwargs):
+        from petastorm_tpu_torch import make_reader
+        from petastorm_tpu_torch.sequence import MixtureReader
+
+        sources = []
+        try:
+            for source in (url, b_url):
+                sources.append(make_reader(source, output='columnar',
+                                           workers_count=max(1, workers_count // 2), **kwargs))
+            mixed = MixtureReader(sources, weights=list(MIX_WEIGHTS), seed=SEED)
+        except BaseException:
+            for reader in sources:
+                reader.stop()
+                reader.join()
+            raise
+        mixtures.append(mixed)
+        return mixed
+    return factory
+
+
+def mix_replay(draws, weights=MIX_WEIGHTS, rng=None):
+    """How often each source is picked in ``draws`` draws of a
+    ``MixtureReader`` with ``weights``, no source dry, its stream
+    ``rng`` (``default_rng(SEED)``): its normalization, cumulative vector
+    and ``searchsorted``, replayed on the host."""
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    w = np.asarray(weights, dtype=np.float64) / float(sum(weights))
+    cum = np.cumsum(w / float(w.sum()))
+    counts = [0] * len(weights)
+    for _ in range(draws):
+        counts[min(int(np.searchsorted(cum, rng.random(), side='right')), len(weights) - 1)] += 1
+    return counts
+
+
+def phase_raw_mix(torch, raw_url, work_dir, raw_runs):
+    """``raw_mix``: ``raw``'s trainer fed by a 7:3 mixture (:func:`mix_factory`)
+    of the raw store and a second raw store of 256 rows (image indices
+    1024-1279), eager and graphed. Checks: every staged row is a row of one
+    of the two; each mixture's per-source rows are 64 x the source counts of
+    a host replay of its draws (:func:`mix_replay`), exactly; the path
+    line's stall report has a two-source ``mixture`` section. A ``mixture``
+    line per run and a ``raw_mix_vs`` line beside ``raw``'s numbers of this
+    call. Returns the launches."""
+    b_url = 'file://' + os.path.join(work_dir, 'raw_b')
+    t0 = time.perf_counter()
+    build_store(b_url, first=ROWS, rows=MIX_B_ROWS)
+    emit({'phase': 'store', 'store': 'raw_b', 'rows': MIX_B_ROWS,
+          'bytes': _dir_bytes(b_url[len('file://'):]), 'build_s': time.perf_counter() - t0})
+    b_keys = raw_row_keys(ROWS, MIX_B_ROWS)
+    allowed = raw_row_keys(0, ROWS) | b_keys
+    mixtures, staged = [], []
+
+    def rows_check(keys):
+        check_keys('raw_mix', keys, allowed)
+        staged.append(keys)
+
+    total, runs = run_path_both_ways(
+        torch, 'raw_mix', raw_url,
+        lambda images, labels: check_keys('raw_mix', _row_keys(images, labels), allowed),
+        reader_factory=mix_factory(b_url, mixtures), rows_check=rows_check)
+    for kind, mixed, keys in zip(('eager', 'graphed'), mixtures, staged):
+        diag = mixed.diagnostics
+        rows = [diag['mixture_source_{}_rows'.format(i)] for i in range(2)]
+        draws = sum(rows) // ROWS_PER_ROW_GROUP
+        replayed = [ROWS_PER_ROW_GROUP * n for n in mix_replay(draws)]
+        stall = runs[kind][3].extra['stall']
+        line = {'phase': 'mixture', 'path': 'raw_mix', 'step': kind,
+                'weights': diag['mixture_weights'], 'draws': draws, 'source_rows': rows,
+                'replayed_rows': replayed, 'staged_rows': len(keys),
+                'staged_from_b': sum(key in b_keys for key in keys),
+                'exhausted': [diag['mixture_source_{}_exhausted'.format(i)] for i in range(2)],
+                'stall_mixture': stall['mixture']}
+        emit(line)
+        if (rows != replayed or sum(rows) % ROWS_PER_ROW_GROUP or any(line['exhausted'])
+                or sorted(stall['mixture']) != [0, 1]):
+            raise AssertionError('raw_mix ({}): the mixture is not its seeded replay: '
+                                 '{}'.format(kind, line))
+    emit({'phase': 'raw_mix_vs', 'raw_mix': path_numbers(runs), 'raw': path_numbers(raw_runs)})
+    check_no_leftovers()
+    return total
+
+
+def tail_writer(url, out_path, rows=None):
+    """The growing store of ``raw_tail`` and ``tail_checks``, written by a
+    host process (``python -c 'import chip_smoke; chip_smoke.tail_writer(...)'``,
+    no torch): the raw store's ``rows`` (``ROWS``) rows (:func:`raw_row`) into a fresh store
+    through ``DatasetWriter`` (64 rows a row group, uncompressed),
+    ``publish()`` after every 128 rows, the last with ``final=True``. Its
+    numbers go to ``out_path`` as JSON."""
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
+
+    rows = ROWS if rows is None else rows
+    t0 = time.perf_counter()
+    snapshots = []
+    with DatasetWriter(url, raw_schema(), rows_per_row_group=ROWS_PER_ROW_GROUP,
+                       compression='none') as writer:
+        for i in range(rows):
+            writer.write(raw_row(i))
+            if (i + 1) % TAIL_PUBLISH_ROWS == 0 or i + 1 == rows:
+                snapshots.append(writer.publish(final=i + 1 == rows))
+    seconds = time.perf_counter() - t0
+    with open(out_path, 'w') as f:
+        json.dump({'rows': rows, 'seconds': seconds, 'rows_per_s': rows / seconds,
+                   'snapshots': snapshots, 'imported_torch': 'torch' in sys.modules}, f)
+
+
+def spawn_tail_writer(url, out_dir):
+    """:func:`tail_writer` in a host process started as the elastic hosts
+    are; its log and numbers go to ``out_dir``."""
+    code = 'import chip_smoke; chip_smoke.tail_writer({!r}, {!r}, rows={})'.format(
+        url, os.path.join(out_dir, 'writer.json'), ROWS)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
+    with open(os.path.join(out_dir, 'writer.log'), 'ab') as log:
+        return subprocess.Popen([sys.executable, '-c', code], stdout=log, stderr=log, env=env,
+                                cwd=ROOT)
+
+
+def reap_tail_writer(proc, out_dir):
+    """Wait for the writer (killed if it is not done in 120 s); its numbers
+    and its exit code."""
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    try:
+        with open(os.path.join(out_dir, 'writer.json')) as f:
+            numbers = json.load(f)
+    except (OSError, ValueError):
+        numbers = None
+    if rc != 0 or numbers is None or numbers['imported_torch'] or numbers['snapshots'] != list(
+            range(ROWS // TAIL_PUBLISH_ROWS)):
+        with open(os.path.join(out_dir, 'writer.log')) as f:
+            log = f.read()[-3000:]
+        raise AssertionError('the tail writer exited {} with {}: {}'.format(rc, numbers, log))
+    return numbers, rc
+
+
+def tail_factory(tails):
+    """``raw_tail``'s reader: ``TailFollowingReader(url, poll_interval=0.05,
+    idle_timeout=120, output='columnar', **reader_kwargs)``, appended to
+    ``tails``; it owns its epochs (one inner reader per snapshot delta), so
+    the path's ``num_epochs`` is dropped. It counts the seconds from each
+    drained delta to the next one opened: its polling (``polling_s``)."""
+    from petastorm_tpu_torch.sequence import TailFollowingReader
+
+    class TimedTail(TailFollowingReader):
+        polling_s = 0.0
+
+        def _open_next_delta(self, poll):
+            t0 = time.perf_counter()
+            try:
+                return super(TimedTail, self)._open_next_delta(poll)
+            finally:
+                self.polling_s += time.perf_counter() - t0
+
+    def factory(url, num_epochs=None, **kwargs):
+        tail = TimedTail(url, poll_interval=TAIL_POLL_S, idle_timeout=TAIL_IDLE_TIMEOUT_S,
+                         output='columnar', **kwargs)
+        tails.append(tail)
+        return tail
+    return factory
+
+
+def phase_raw_tail(torch, work_dir):
+    """``raw_tail``: ``raw``'s trainer reading a store that a writer process
+    (:func:`tail_writer`) grows and publishes meanwhile, through
+    :func:`tail_factory`'s ``TailFollowingReader``; a fresh store and writer
+    for each step kind, the writer started just before the trainer. Checks:
+    no row key staged twice, every staged row one the writer wrote,
+    ``dataset_grew`` equal to the snapshots adopted, at least 832 rows
+    (the 13 steps') delivered, the writer exited 0 having imported no torch,
+    and nothing left (:func:`check_no_leftovers`). A ``tail`` line per run
+    (snapshots adopted, the writer's rows/s, the tail's polling seconds).
+    Returns the launches."""
+    written = raw_row_keys(0, ROWS)
+    total = collections.Counter()
+    for graphed in (False, True):
+        kind = 'graphed' if graphed else 'eager'
+        out_dir = tempfile.mkdtemp(prefix='tail_{}_'.format(kind), dir=work_dir)
+        url = 'file://' + os.path.join(out_dir, 'store')
+        tails, staged = [], []
+        proc = spawn_tail_writer(url, out_dir)
+        try:
+            launches, _, _, batches, _, losses = run_path(
+                torch, 'raw_tail', url,
+                lambda images, labels: check_keys('raw_tail', _row_keys(images, labels), written),
+                graphed=graphed, reader_factory=tail_factory(tails), rows_check=staged.extend)
+        finally:
+            writer, rc = reap_tail_writer(proc, out_dir)
+        total.update(launches)
+        graphed_run = (losses, batches)
+        tail = tails[0]
+        diag = tail.diagnostics
+        adopted = diag['tail_snapshot'] + 1
+        line = {'phase': 'tail', 'path': 'raw_tail', 'step': kind,
+                'snapshots_adopted': adopted, 'dataset_grew': diag['dataset_grew'],
+                'tail_rows_delivered': diag['tail_rows_delivered'],
+                'tail_pieces_delivered': diag['tail_pieces_delivered'],
+                'rows_staged': len(staged), 'distinct_rows_staged': len(set(staged)),
+                'writer': writer, 'writer_rc': rc, 'tail_polling_s': tail.polling_s}
+        emit(line)
+        check_keys('raw_tail', staged, written)
+        if (len(set(staged)) != len(staged) or diag['dataset_grew'] != adopted
+                or diag['tail_rows_delivered'] < (WARMUP_STEPS + STEPS) * BATCH):
+            raise AssertionError('raw_tail ({}): the tail checks failed: {}'.format(kind, line))
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check_graphed_losses(torch, 'raw_tail', *graphed_run)
+    check_no_leftovers()
+    return total
+
+
+def _token_sources(stack, url, **kwargs):
+    """The token store split into two sources: shards 0 and 1 of 2 (8 row
+    groups each), on the dummy pool in file order."""
+    from petastorm_tpu_torch import make_reader
+
+    return [stack.enter_context(make_reader(url, cur_shard=i, shard_count=2,
+                                            reader_pool_type='dummy', shuffle_row_groups=False,
+                                            **kwargs))
+            for i in range(2)]
+
+
+def _source_of(row_id):
+    return (row_id // TOKENS_ROWS_PER_GROUP) % 2
+
+
+def phase_mixture_checks(url, token_rows):
+    """``mixture_checks`` (host): the ``collate_checks`` token store split
+    into two sources (:func:`_token_sources`) with ``token_field='tokens'``.
+    Checks: ``renormalize`` (7:3) delivers every row of both once; ``stop``
+    ends at the first dry source, which delivered all its rows; a live
+    ``set_weights([0, 1])`` after 300 rows at ``[1, 0]`` takes every later
+    row from source 1; ``MixtureSchedule({0: [7, 3], 1: [5, 5]})`` sets
+    ``(0.5, 0.5)`` at ``reset()`` (not a weight update), and the rows per
+    source before and after it are a host replay of the draws; the token
+    counts are the sums of the rows' lengths; the same seed gives the same
+    interleaving twice."""
+    from petastorm_tpu_torch.sequence import MixtureReader, MixtureSchedule
+
+    t0 = time.perf_counter()
+    lengths = [len(r) for r in token_rows]
+    out = {}
+
+    def renormalize():
+        with contextlib.ExitStack() as stack:
+            mixed = MixtureReader(_token_sources(stack, url, num_epochs=1),
+                                  weights=list(MIX_WEIGHTS), seed=SEED, token_field='tokens')
+            ids = [int(row.id) for row in mixed]
+            return ids, mixed.diagnostics
+
+    ids, diag = renormalize()
+    tokens = [sum(lengths[i] for i in ids if _source_of(i) == s) for s in range(2)]
+    out['renormalize'] = {
+        'rows': len(ids), 'every_row_once': sorted(ids) == list(range(TOKENS_ROWS)),
+        'source_rows': [diag['mixture_source_{}_rows'.format(s)] for s in range(2)],
+        'source_tokens': [diag['mixture_source_{}_tokens'.format(s)] for s in range(2)],
+        'tokens_of_rows': tokens, 'same_seed_same_order': renormalize()[0] == ids}
+    with contextlib.ExitStack() as stack:
+        mixed = MixtureReader(_token_sources(stack, url, num_epochs=1), weights=list(MIX_WEIGHTS),
+                              seed=SEED, on_exhausted='stop')
+        stop_ids = [int(row.id) for row in mixed]
+        diag = mixed.diagnostics
+    dry = [diag['mixture_source_{}_exhausted'.format(s)] for s in range(2)]
+    stop_rows = [diag['mixture_source_{}_rows'.format(s)] for s in range(2)]
+    out['stop'] = {'rows': len(stop_ids), 'exhausted': dry, 'source_rows': stop_rows,
+                   'distinct': len(set(stop_ids)) == len(stop_ids)}
+    with contextlib.ExitStack() as stack:
+        mixed = MixtureReader(_token_sources(stack, url, num_epochs=None), weights=[1, 0],
+                              seed=SEED)
+        before = [_source_of(int(next(mixed).id)) for _ in range(300)]
+        mixed.set_weights([0, 1])
+        after = [_source_of(int(next(mixed).id)) for _ in range(300)]
+        out['set_weights'] = {'before': collections.Counter(before),
+                              'after': collections.Counter(after),
+                              'weight_updates': mixed.diagnostics['mixture_weight_updates']}
+    schedule = MixtureSchedule({0: list(MIX_WEIGHTS), 1: [5, 5]})
+    rng = np.random.default_rng(SEED)
+    replay = [mix_replay(MIX_CHECK_DRAWS, MIX_WEIGHTS, rng), mix_replay(MIX_CHECK_DRAWS, (5, 5),
+                                                                        rng)]
+    with contextlib.ExitStack() as stack:
+        mixed = MixtureReader(_token_sources(stack, url, num_epochs=None), seed=SEED,
+                              schedule=schedule)
+        steps = []
+        for epoch in range(2):
+            if epoch:
+                mixed.reset()
+            weights = mixed.weights
+            counts = collections.Counter(_source_of(int(next(mixed).id))
+                                         for _ in range(MIX_CHECK_DRAWS))
+            steps.append({'weights': weights, 'source_rows': [counts[0], counts[1]],
+                          'replayed': replay[epoch]})
+        out['schedule'] = {'epochs': steps, 'epoch': mixed.epoch,
+                           'weight_updates': mixed.diagnostics['mixture_weight_updates']}
+    out['seconds'] = time.perf_counter() - t0
+    emit({'phase': 'mixture_checks', 'rows': TOKENS_ROWS, 'weights': MIX_WEIGHTS, **out})
+    r, st, sw, sc = out['renormalize'], out['stop'], out['set_weights'], out['schedule']
+    half = TOKENS_ROWS // 2
+    ok = (r['every_row_once'] and r['rows'] == TOKENS_ROWS and r['source_rows'] == [half, half]
+          and r['source_tokens'] == r['tokens_of_rows'] and r['same_seed_same_order']
+          and sum(st['exhausted']) == 1 and st['distinct'] and st['rows'] < TOKENS_ROWS
+          and st['source_rows'][st['exhausted'].index(1)] == half
+          and sw['before'] == {0: 300} and sw['after'] == {1: 300} and sw['weight_updates'] == 1
+          and [e['weights'] for e in sc['epochs']] == [(0.7, 0.3), (0.5, 0.5)]
+          and all(e['source_rows'] == e['replayed'] for e in sc['epochs'])
+          and sc['epoch'] == 1 and sc['weight_updates'] == 0)
+    if not ok:
+        raise AssertionError('mixture_checks failed: {}'.format(out))
+
+
+def _labels_of(tail):
+    return [int(label) for block in tail for label in np.atleast_1d(block.label)]
+
+
+def phase_tail_checks(work_dir):
+    """``tail_checks`` (host), on the label column of a raw store that a
+    writer process (:func:`tail_writer`) grows: the tail (thread pool,
+    shuffled) drains to the final snapshot with every row once, adopting
+    all 8 snapshots; on the finished store, a ``state_dict()`` taken inside
+    the second delta and a resume from it deliver the rest once; a torn
+    ``snap-000008.json`` is skipped; a store whose only snapshot is not
+    final raises at ``idle_timeout`` after its rows."""
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.errors import PetastormTpuError
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
+    from petastorm_tpu_torch.sequence import TailFollowingReader, list_snapshots
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+
+    expected = collections.Counter(i % NUM_CLASSES for i in range(ROWS))
+    out_dir = tempfile.mkdtemp(prefix='tail_checks_', dir=work_dir)
+    url = 'file://' + os.path.join(out_dir, 'store')
+    kwargs = {'poll_interval': TAIL_POLL_S, 'idle_timeout': TAIL_IDLE_TIMEOUT_S,
+              'output': 'columnar', 'schema_fields': ['label']}
+    out = {}
+    t0 = time.perf_counter()
+    proc = spawn_tail_writer(url, out_dir)
+    try:
+        with TailFollowingReader(url, shuffle_row_groups=True, seed=SEED, **kwargs) as tail:
+            labels = _labels_of(tail)
+            diag = tail.diagnostics
+    finally:
+        writer, rc = reap_tail_writer(proc, out_dir)
+    out['concurrent'] = {'rows': len(labels), 'every_row_once': collections.Counter(labels)
+                         == expected, 'dataset_grew': diag['dataset_grew'],
+                         'tail_snapshot': diag['tail_snapshot'],
+                         'tail_rows_delivered': diag['tail_rows_delivered'],
+                         'tail_pieces_delivered': diag['tail_pieces_delivered'],
+                         'seconds': time.perf_counter() - t0, 'writer': writer}
+    serial = dict(kwargs, reader_pool_type='dummy', shuffle_row_groups=False)
+    first_tail = TailFollowingReader(url, **serial)
+    try:
+        first = [int(label) for _ in range(3) for label in next(first_tail).label]
+        state = first_tail.state_dict()
+    finally:
+        first_tail.stop()
+        first_tail.join()
+    with TailFollowingReader(url, resume_state=state, **serial) as resumed:
+        rest = _labels_of(resumed)
+    out['resume'] = {'first': len(first), 'rest': len(rest), 'inside_a_delta':
+                     state['current_delta'] is not None and len(state['delivered']) == 2,
+                     'every_row_once': collections.Counter(first + rest) == expected}
+    snap_dir = os.path.join(out_dir, 'store', '_snapshots')
+    with open(os.path.join(snap_dir, 'snap-000008.json'), 'w') as f:
+        f.write('{"snapshot": 8, "final": true, "pie')
+    with TailFollowingReader(url, **serial) as tail:
+        torn_rows = len(_labels_of(tail))
+    out['torn'] = {'listed': [sid for sid, _ in list_snapshots(url)], 'rows': torn_rows}
+    idle_url = 'file://' + os.path.join(out_dir, 'idle')
+    labels_schema = Unischema('Labels', [UnischemaField('label', np.int64, (),
+                                                        ScalarCodec(np.int64), False)])
+    with DatasetWriter(idle_url, labels_schema, rows_per_row_group=ROWS_PER_ROW_GROUP) as w:
+        for i in range(TAIL_PUBLISH_ROWS):
+            w.write({'label': np.int64(i)})
+        w.publish()
+    idle = {'rows': 0, 'raised': None}
+    tail = TailFollowingReader(idle_url, poll_interval=TAIL_POLL_S, idle_timeout=0.5,
+                               output='columnar')
+    t1 = time.perf_counter()
+    try:
+        for block in tail:
+            idle['rows'] += len(block.label)
+    except PetastormTpuError as e:
+        idle['raised'] = 'idle_timeout' in str(e)
+    finally:
+        tail.stop()
+        tail.join()
+    idle['seconds'] = time.perf_counter() - t1
+    out['idle_timeout'] = idle
+    emit({'phase': 'tail_checks', 'rows': ROWS, 'publish_every': TAIL_PUBLISH_ROWS,
+          'writer_rc': rc, 'seconds': time.perf_counter() - t0, **out})
+    c, r, t = out['concurrent'], out['resume'], out['torn']
+    n_snaps = ROWS // TAIL_PUBLISH_ROWS
+    if not (c['every_row_once'] and c['dataset_grew'] == n_snaps
+            and c['tail_snapshot'] == n_snaps - 1 and c['tail_rows_delivered'] == ROWS
+            and c['tail_pieces_delivered'] == ROWS // ROWS_PER_ROW_GROUP
+            and r['inside_a_delta'] and r['every_row_once']
+            and t['listed'] == list(range(n_snaps)) and t['rows'] == ROWS
+            and idle['raised'] and idle['rows'] == TAIL_PUBLISH_ROWS and idle['seconds'] >= 0.5):
+        raise AssertionError('tail_checks failed: {}'.format(out))
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def mnist_test_table(mnist_url):
+    """The MNIST test split as a ``pyarrow.Table``: ``digit`` int64 and
+    ``image`` list<float32> of 784 (the example's normalized pixels)."""
+    import pyarrow as pa
+
+    from petastorm_tpu_torch import make_reader
+
+    with make_reader(mnist_url + '/test', output='columnar', num_epochs=1,
+                     reader_pool_type='dummy', shuffle_row_groups=False) as reader:
+        blocks = list(reader)
+    digits = np.concatenate([b.digit for b in blocks]).astype(np.int64)
+    images = np.concatenate([b.image for b in blocks]).reshape(len(digits), 28 * 28)
+    pixels = ((images.astype(np.float32) / 255.0 - 0.1307) / 0.3081).astype(np.float32)
+    offsets = np.arange(0, pixels.size + 1, 28 * 28, dtype=np.int32)
+    return pa.table({'digit': pa.array(digits, pa.int64()),
+                     'image': pa.ListArray.from_arrays(pa.array(offsets),
+                                                       pa.array(pixels.ravel()))})
+
+
+def _converter_keys(digits, images):
+    return collections.Counter((int(d), zlib.crc32(np.ascontiguousarray(i, np.float32).tobytes()))
+                               for d, i in zip(digits, images))
+
+
+def phase_converter_checks(torch, mnist_url, work_dir, probe):
+    """``converter_checks``: the MNIST test split (:func:`mnist_test_table`)
+    through ``make_converter`` into a cache under the work directory (4 MiB
+    row groups); a second call returns the same cache URL;
+    ``make_torch_loader(batch_size=32, num_epochs=1, device='cuda')`` drives
+    ``MnistCNN`` eager steps over the epoch on the card (finite losses, every
+    batch on the card); ``make_torch_dataloader`` over two shards yields
+    every row once; ``delete()`` removes the cache directory. Skipped, with
+    a declared line, on a host without pandas, which ``make_converter``
+    imports for every frame that is not a Spark one."""
+    if probe['modules'].get('pandas') is None:
+        emit({'phase': 'converter_checks', 'skipped': True,
+              'why': 'the probe found no pandas on this host; make_converter imports it',
+              'probe_modules': probe['modules']})
+        return None
+    from petastorm_tpu_torch.examples.mnist.torch_example import new_mnist_state
+    from petastorm_tpu_torch.models.train import make_train_step
+    from petastorm_tpu_torch.spark import make_converter
+
+    t0 = time.perf_counter()
+    table = mnist_test_table(mnist_url)
+    parent = 'file://' + os.path.join(work_dir, 'converter')
+    kwargs = {'parent_cache_dir_url': parent,
+              'parquet_row_group_size_bytes': CONVERTER_ROW_GROUP_BYTES}
+    conv = make_converter(table, **kwargs)
+    convert_s = time.perf_counter() - t0
+    again = make_converter(table, **kwargs).cache_dir_url
+    state, step = new_mnist_state(MNIST_SEED, MNIST_LR), make_train_step()
+    losses, devices = [], set()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with conv.make_torch_loader(batch_size=MNIST_BATCH, num_epochs=1, device='cuda') as loader:
+        for batch in loader:
+            devices.add(batch['image'].device.type)
+            state, metrics = step(state, batch['image'].view(-1, 28, 28), batch['digit'])
+            losses.append(metrics['loss'])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    losses = [float(x) for x in losses]
+    expected = _converter_keys(table.column('digit').to_numpy(),
+                               np.stack(table.column('image').to_numpy(zero_copy_only=False)))
+    seen = collections.Counter()
+    for shard in range(2):
+        with conv.make_torch_dataloader(batch_size=100, num_epochs=1, cur_shard=shard,
+                                        shard_count=2) as loader:
+            for batch in loader:
+                seen.update(_converter_keys(batch['digit'].numpy(), batch['image'].numpy()))
+    cache_path = conv.cache_dir_url[len('file://'):]
+    existed = os.path.isdir(cache_path)
+    cache_bytes = _dir_bytes(cache_path)
+    conv.delete()
+    line = {'phase': 'converter_checks', 'rows': len(conv), 'convert_s': convert_s,
+            'cache_bytes': cache_bytes, 'same_cache_url': again == conv.cache_dir_url,
+            'steps': len(losses), 'first_loss': losses[0] if losses else None,
+            'last_loss': losses[-1] if losses else None, 'batch_devices': sorted(devices),
+            'train_s': train_s, 'shards_every_row_once': seen == expected,
+            'deleted': existed and not os.path.exists(cache_path)}
+    emit(line)
+    if not (line['same_cache_url'] and len(losses) == MNIST_TEST_ROWS // MNIST_BATCH
+            and all(math.isfinite(x) for x in losses) and devices == {'cuda'}
+            and line['shards_every_row_once'] and line['deleted']):
+        raise AssertionError('converter_checks failed: {}'.format(line))
+    return None
+
+
 def _dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
@@ -5758,6 +6373,11 @@ def main():
         # a join
         total.update(phase_raw_elastic(torch, urls['raw'], work_dir, raw))
         total.update(phase_raw_mesh(torch, urls['raw']))
+        # the raw trainer fed by the reader compositions: a 7:3 mixture of
+        # the raw store and a second raw store, and a store a writer process
+        # grows while the trainer follows it
+        total.update(phase_raw_mix(torch, urls['raw'], work_dir, raw))
+        total.update(phase_raw_tail(torch, work_dir))
         routes = probe['routes']
         cache_kwargs = {'cache_type': 'local-disk',
                         'cache_location': os.path.join(work_dir, 'disk_cache'),
@@ -5862,6 +6482,7 @@ def main():
               'png': path_numbers(png_runs),
               'png_select': path_numbers(filtered_runs['png_select'])})
         phase_etl_checks(urls['png_fixed'], work_dir, ring)
+        phase_tail_checks(work_dir)
         # the plain store through make_batch_reader: rebatched to BATCH rows
         # on the reader side, the PNG bytes decoded by a batched transform
         readers = []
@@ -5881,7 +6502,7 @@ def main():
         total.update(phase_telemetry_checks(torch, urls['raw'], urls['png_fixed'],
                                             dict(process, zero_copy=True)))
         total.update(phase_autotune_checks(torch, urls['raw'], ring))
-        phase_collate_checks(torch, work_dir)
+        phase_mixture_checks(*phase_collate_checks(torch, work_dir))
         seq_url = 'file://' + os.path.join(work_dir, 'seq')
         t0 = time.perf_counter()
         seq_features = build_seq_store(seq_url)
@@ -5913,7 +6534,8 @@ def main():
                 ('mnist_resume', phase_mnist_resume, (mnist_url, work_dir)),
                 ('imagenet_example', phase_imagenet_example, (urls['png'],)),
                 ('hello_checks', phase_hello_checks, (work_dir,)),
-                ('augment_checks', phase_augment_checks, ())):
+                ('augment_checks', phase_augment_checks, ()),
+                ('converter_checks', phase_converter_checks, (mnist_url, work_dir, probe))):
             t0 = time.perf_counter()
             launches = phase(torch, *args)
             example_s[name] = time.perf_counter() - t0

@@ -15,7 +15,8 @@ Hive partitioning: ``partition_by=['field', ...]`` routes rows to
 left out of the files; the pieces carry the typed values of their path
 (:attr:`RowGroupPiece.partition_keys`), which the workers turn back into
 columns. ``append=True`` grows an existing store: new part names, and the
-counts written on close merged with the stored ones.
+counts written on close merged with the stored ones; ``DatasetWriter.publish``
+stamps a snapshot of the rows written so far for tail followers.
 
 :func:`load_row_groups` lists the pieces from the stored counts (also the
 original petastorm library's), else from a ``_metadata`` summary file, else
@@ -31,6 +32,7 @@ wraps nothing).
 from __future__ import annotations
 
 import json
+import os
 import posixpath
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -101,12 +103,15 @@ class DatasetWriter(object):
     in the paths only. ``append=True`` grows an existing store: part names
     skip the files its ``_common_metadata`` lists, and
     :attr:`row_groups_per_file` merges them with the files written here.
+    :meth:`publish` makes the rows written so far visible to a
+    :class:`~petastorm_tpu_torch.sequence.TailFollowingReader`.
     One writer at a time: two appenders would race the metadata rewrite.
     """
 
     def __init__(self, dataset_url, schema, row_group_size_mb=None, rows_per_row_group=None,
                  rows_per_file=None, partition_by=None, compression='snappy', append=False):
         resolver = FilesystemResolver(dataset_url)
+        self._dataset_url = dataset_url
         self._fs = resolver.filesystem()
         self._root = resolver.get_dataset_path()
         self._schema = schema
@@ -185,6 +190,30 @@ class DatasetWriter(object):
         # percent-quoted as hive does, so a '/' in a value stays in one component
         return '/'.join('{}={}'.format(name, quote(str(encoded_row[name]), safe=''))
                         for name in self._partition_by)
+
+    def publish(self, final=False):
+        """Make every row written so far visible to readers and stamp a
+        snapshot marker (the tail-following contract,
+        :mod:`petastorm_tpu_torch.sequence.tail`).
+
+        Flushes and closes every open part file (a Parquet footer exists
+        only on a closed file), rewrites ``_common_metadata`` with the merged
+        row-group counts, then publishes ``_snapshots/snap-NNNNNN.json``
+        through :func:`~petastorm_tpu_torch.sequence.tail.publish_snapshot`.
+        The writer stays usable: the next :meth:`write` opens a fresh part
+        file under a name the store does not own yet, so a published file is
+        never written again.
+
+        :param final: marks the snapshot terminal, so followers stop polling
+        :returns: the published snapshot id (int)
+        """
+        if self._closed:
+            raise PetastormTpuError('Writer is closed')
+        for writer in self._writers.values():
+            writer.close()
+        _write_dataset_metadata(self._dataset_url, self._schema, self.row_groups_per_file)
+        from petastorm_tpu_torch.sequence.tail import publish_snapshot
+        return publish_snapshot(self._dataset_url, final=final)
 
     def close(self):
         if self._closed:
@@ -309,8 +338,14 @@ def _write_dataset_metadata(dataset_url, schema, row_groups_per_file):
         UNISCHEMA_KEY: json.dumps(schema.to_json()).encode('utf-8'),
         ROW_GROUPS_PER_FILE_KEY: json.dumps(row_groups_per_file).encode('utf-8'),
     }
-    with fs.open_output_stream(posixpath.join(root, _COMMON_METADATA)) as sink:
+    # written aside and renamed into place: a tail follower opening a delta
+    # while the writer publishes the next one never reads a torn footer
+    # (a rename is atomic on a local filesystem)
+    path = posixpath.join(root, _COMMON_METADATA)
+    tmp = '{}.tmp.{}'.format(path, os.getpid())
+    with fs.open_output_stream(tmp) as sink:
         pq.write_metadata(schema.as_arrow_schema().with_metadata(metadata), sink)
+    fs.move(tmp, path)
 
 
 def _read_common_schema(fs, root):

@@ -22,10 +22,10 @@ using the stage timers the telemetry layer accumulates:
 
 The result attributes ~100% of the measured wait to *named* stages (the
 acceptance bar is >=90%), so "is it IO, decode, shuffle starvation, or device
-staging?" has a mechanical answer. The report is the JAX package's, key for
-key, less what belongs to a feature the port lacks (the mixture reader's
-per-source counts): one
-diagnostics dict of a port reader gives the same report in either package.
+staging?" has a mechanical answer. A mixture's per-source counts
+(``mixture_source_*``, :class:`~petastorm_tpu_torch.sequence.MixtureReader`)
+ride along as the ``mixture`` section. The report is the JAX package's, key
+for key: one diagnostics dict gives the same report in either package.
 """
 
 from __future__ import annotations
@@ -112,6 +112,17 @@ def stall_report(diagnostics):
     if last_dump:
         import time as _time
         watchdog['last_dump_age_s'] = round(max(_time.time() - float(last_dump), 0.0), 1)
+    # a mixture's per-source counts: a starved source skews the sampled
+    # distribution long before it stalls the pipeline
+    mixture = {}
+    i = 0
+    while 'mixture_source_{}_rows'.format(i) in diagnostics:
+        mixture[i] = {
+            'rows': int(diagnostics['mixture_source_{}_rows'.format(i)] or 0),
+            'tokens': int(diagnostics.get('mixture_source_{}_tokens'.format(i), 0) or 0),
+            'exhausted': bool(diagnostics.get('mixture_source_{}_exhausted'.format(i), 0)),
+        }
+        i += 1
     return {
         'reader_wait_s': round(wait, 4),
         'reader_wait_fraction': diagnostics.get('reader_wait_fraction'),
@@ -123,6 +134,7 @@ def stall_report(diagnostics):
         'hint': _HINTS.get(bottleneck),
         'worker_busy_s': {k: round(v, 4) for k, v in busy.items()},
         'recovery': recovery,
+        'mixture': mixture,
         'watchdog': watchdog,
     }
 
@@ -168,6 +180,14 @@ def format_stall_report(report):
                          recovery.get('worker_restarts', 0),
                          recovery.get('items_requeued', 0),
                          recovery.get('items_quarantined', 0)))
+    mixture = report.get('mixture') or {}
+    if mixture:
+        lines.append('  mixture sources:')
+        total_rows = sum(src['rows'] for src in mixture.values()) or 1
+        for i, src in sorted(mixture.items()):
+            lines.append('    source {:<3d} {:>10d} rows ({:5.1f}%)  {:>12d} tokens{}'.format(
+                i, src['rows'], src['rows'] / total_rows * 100.0, src['tokens'],
+                '  [exhausted]' if src['exhausted'] else ''))
     watchdog = report.get('watchdog') or {}
     if watchdog.get('stalls'):
         age = watchdog.get('last_dump_age_s')

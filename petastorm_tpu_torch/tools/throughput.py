@@ -22,7 +22,9 @@ from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.native import read_routes
 from petastorm_tpu_torch.parallel import DataSharding
 from petastorm_tpu_torch.reader import make_reader
+from petastorm_tpu_torch.sequence.tail import TailFollowingReader
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+from petastorm_tpu_torch.weighted_sampling_reader import WeightedSamplingReader
 
 
 @dataclass
@@ -32,6 +34,20 @@ class BenchmarkResult:
     samples: int
     input_stall_fraction: float = None
     extra: dict = field(default_factory=dict)
+
+
+def pool_counters(reader):
+    """The ``diagnostics`` of the pool a reader reads through. A served
+    reader decodes nothing itself: its ring facade's counters stand for a
+    pool. A reader composition has no pool of its own: a mixture reports the
+    list of its sources' counters, a tail follower those of its open delta
+    epoch's reader, or None between deltas."""
+    if isinstance(reader, WeightedSamplingReader):
+        return [pool_counters(source) for source in reader._readers]
+    if isinstance(reader, TailFollowingReader):
+        return pool_counters(reader._inner) if reader._inner is not None else None
+    pool = getattr(reader, '_pool', None) or reader._facade
+    return pool.diagnostics
 
 
 def _sync(device):
@@ -53,11 +69,15 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
     whole run (the change in :data:`~petastorm_tpu_torch.native.read_routes`;
     counts of other readers running at the same time land there too; a
     process pool adds its workers' counts as they arrive). ``extra['pool']``
-    holds the pool's ``diagnostics`` at the end of the run: for a process
-    pool its transport, restarts, quarantined items, publishes per channel
-    and live zero-copy borrows. ``reader_factory`` opens the reader:
-    :func:`make_reader` (with ``output='columnar'`` unless ``reader_kwargs``
-    say otherwise or hold an ``ngram``) or ``make_batch_reader``.
+    holds the pool's ``diagnostics`` at the end of the run
+    (:func:`pool_counters`): for a process pool its transport, restarts,
+    quarantined items, publishes per channel and live zero-copy borrows.
+    ``reader_factory(dataset_url, num_epochs=None, **reader_kwargs)`` opens
+    the reader: :func:`make_reader` (with ``output='columnar'`` unless
+    ``reader_kwargs`` say otherwise or hold an ``ngram``),
+    ``make_batch_reader``, or a factory of a reader composition (a
+    ``MixtureReader`` over sources it opens, a ``TailFollowingReader``, which
+    owns its epochs and is built without ``num_epochs``).
     ``telemetry`` is the reader's level (``None``: the process's).
     ``extra['stall']`` is the
     :func:`~petastorm_tpu_torch.observability.stall_report` of the loader's
@@ -108,15 +128,12 @@ def pipeline_duty_cycle(dataset_url, step_fn, batch_to_args, batch_size=64, step
         duration = time.perf_counter() - t0
         routes = read_routes.snapshot()
         diagnostics = loader.diagnostics
-        # a served reader decodes nothing itself: no cache, and its ring
-        # facade's counters stand for a pool
         cache = getattr(reader, 'cache', None)
-        pool = getattr(reader, '_pool', None) or reader._facade
         extra = {'steps': steps, 'cache': cache.stats() if cache is not None else None,
                  'read_routes': {k: v - routes_before.get(k, 0) for k, v in routes.items()},
                  # the pool's own counters (the reader's diagnostics add the
                  # whole metrics registry)
-                 'pool': pool.diagnostics, 'diagnostics': diagnostics,
+                 'pool': pool_counters(reader), 'diagnostics': diagnostics,
                  'stall': obs.stall_report(diagnostics) if obs.counters_on() else None}
         if events:
             extra['step_ms'] = [s.elapsed_time(e) for s, e in events]

@@ -269,17 +269,6 @@ def _victim(run_dir, url, die):
                             text=True)
 
 
-def _jax_postmortem(run_dir):
-    """The JAX package's post-mortem, its windowed stall reports less the
-    part of a feature the port lacks: the mixture reader's counts (none)."""
-    report = jax_blackbox.postmortem_report(run_dir)
-    for proc in report['processes']:
-        window = proc.get('window_stall_report')
-        if window is not None:
-            assert window.pop('mixture') == {}
-    return report
-
-
 def test_a_process_killed_mid_read_is_reported(tmp_path, store):
     runs = {'killed': 'time.sleep(60)', 'crashed': 'os.kill(os.getpid(), signal.SIGTERM)',
             'exited': 'pass'}
@@ -295,7 +284,7 @@ def test_a_process_killed_mid_read_is_reported(tmp_path, store):
         report = blackbox.postmortem_report(str(tmp_path / name))
         (proc,) = report['processes']
         assert proc['status'] == name and proc['label'] == 'consumer'
-        assert report == _jax_postmortem(str(tmp_path / name))
+        assert report == jax_blackbox.postmortem_report(str(tmp_path / name))
         if name == 'killed':
             assert proc['signal'] == 'SIGKILL' and proc['activity'] == 'worker.doom'
             assert 'was killed' in report['probable_cause']

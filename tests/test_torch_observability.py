@@ -182,24 +182,26 @@ STALL_DIAGNOSTICS = [
     # a cold chunk cache: the mirror fetches nest in the read stage
     {'reader_wait_s': 1.5, 'stage_pool_wait_s': 1.2, 'stage_read_s': 0.9,
      'stage_chunk_fetch_s': 0.7, 'stage_decode_s': 0.1},
+    # a two-source mixture, one source dry: its counts ride along
+    {'reader_wait_s': 0.4, 'stage_pool_wait_s': 0.3, 'stage_read_s': 0.2,
+     'mixture_source_0_rows': 70, 'mixture_source_0_tokens': 700,
+     'mixture_source_0_exhausted': 0, 'mixture_source_1_rows': 30,
+     'mixture_source_1_tokens': 0, 'mixture_source_1_exhausted': 1},
 ]
-
-
-def jax_stall_report(report):
-    """The JAX package's report, less the part of a feature the port lacks:
-    the mixture reader's per-source counts (empty without one)."""
-    report = dict(report)
-    assert report.pop('mixture') == {}
-    return report
 
 
 @pytest.mark.parametrize('diag', STALL_DIAGNOSTICS)
 def test_stall_report_matches_jax(diag):
     report = obs.stall_report(diag)
-    assert report == jax_stall_report(jax_obs.stall_report(diag))
+    assert report == jax_obs.stall_report(diag)
     assert obs.decode_collate_share(diag) == jax_obs.decode_collate_share(diag)
     assert obs.format_stall_report(report).splitlines()[0] == \
         jax_obs.format_stall_report(report).splitlines()[0]
+    mixture_lines = [line for line in obs.format_stall_report(report).splitlines()
+                     if 'mixture sources' in line or line.startswith('    source ')]
+    assert mixture_lines == [line for line in jax_obs.format_stall_report(report).splitlines()
+                             if 'mixture sources' in line or line.startswith('    source ')]
+    assert len(mixture_lines) == (3 if report['mixture'] else 0)
     if diag.get('reader_wait_s'):
         assert report['coverage'] == 1.0 and report['bottleneck'] is not None
 
@@ -349,7 +351,7 @@ def test_history_windows_and_regressions_match_jax(tmp_path):
     assert history.detect_regression(None, windows[0]) is None
     for w in windows:
         assert history.windowed_stall_report(w) == \
-            jax_stall_report(jax_history.windowed_stall_report(w))
+            jax_history.windowed_stall_report(w)
     # a recorder over the scripted diagnostics: windows, save, and a load by
     # either package
     feed = iter([s['diag'] for s in snaps])
@@ -424,8 +426,8 @@ def test_diagnostics_key_sets_match_jax(store, pool):
     assert diag['stage_pool_wait_s'] > 0 and diag['reader_wait_s'] > 0
     report = obs.stall_report(diag)
     assert report['coverage'] == 1.0
-    assert report == jax_stall_report(jax_obs.stall_report(diag))
-    assert set(report) == set(jax_stall_report(jax_obs.stall_report(jax_diag)))
+    assert report == jax_obs.stall_report(diag)
+    assert set(report) == set(jax_obs.stall_report(jax_diag))
 
 
 def test_telemetry_off_records_nothing(store):

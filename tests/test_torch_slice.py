@@ -253,12 +253,18 @@ def test_port_imports_nothing_of_jax():
         '          "examples.hello_world.external_dataset.pytorch_hello_world",',
         # the remote stores'
         '          "pafs_util", "fs", "hdfs", "hdfs.namenode", "chunkstore",',
-        '          "chunkstore.store", "chunkstore.reader", "chunkstore.prefetch"):',
+        '          "chunkstore.store", "chunkstore.reader", "chunkstore.prefetch",',
+        # the reader compositions and framework adapters
+        '          "weighted_sampling_reader", "sequence.mixture", "sequence.tail",',
+        '          "spark", "spark.dataset_converter", "spark_utils", "tf_utils"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
         'assert native._lib is None and not native._load_failed',
         'assert native.image_codec._lib is None',
+        # the adapters import their frameworks at first use
+        'loaded = {m.split(".")[0] for m in sys.modules}',
+        'assert not loaded & {"tensorflow", "pandas", "pyspark"}, loaded',
 
         'print(len([m for m in sys.modules if m.startswith("petastorm_tpu_torch")]))',
     ])
