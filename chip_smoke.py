@@ -175,7 +175,24 @@ Phases, each printed as one JSON line:
      publish rides the ``/dev/shm`` blob channel.
 
    Each fails on another transport than shm, a restart, a quarantined item or
-   a ``/dev/shm/pstpu_*`` entry of this process left behind. Two more read
+   a ``/dev/shm/pstpu_*`` entry of this process left behind. Then
+   ``raw_chaos``: ``raw_process``'s reader (8 workers, one epoch, the
+   protocol monitor armed, ``on_error='retry'``) under a ``FaultPlan`` that
+   SIGKILLs, SIGSEGVs and fails once the workers of three row groups among
+   the first ten the seed ventilates (:func:`phase_raw_chaos`): every fault
+   fires inside the 13 steps, the rest of the epoch is read on the host
+   after them, each of the 1024 rows is delivered once, 2 restarts, at least
+   3 requeues, nothing quarantined, the monitor's drain counts 16 with none
+   in flight, and the segfaulted worker's flight file and ``diagnose
+   --postmortem`` name ``SIGSEGV`` in ``worker.item`` (``chaos`` and
+   ``raw_chaos_vs`` lines); then two host phases: ``monitor_checks`` (the
+   model checker's CLI on four scopes, their state counts the JAX
+   checker's, beside a serve daemon whose two tenants go through a detach
+   and an eviction and an elastic pod through a SIGKILL and a join, all
+   with their monitors armed) and ``diagnose_checks`` (a one-shot
+   ``diagnose`` of the raw store, ``--pod`` over two reader processes'
+   exports naming the slowed one, and the autotune replay of a ``--watch
+   --json`` history). Two more read
    a filtered store through the thread pool:
 
    - ``png_fixed_pred``: the fixed-shape PNG store with
@@ -458,8 +475,8 @@ Phases, each printed as one JSON line:
 21. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
-   launches over all paths (``png_part``, ``raw_mix`` and ``raw_tail``
-   included), both steps, where a
+   launches over all paths (``png_part``, ``raw_mix``, ``raw_tail`` and
+   ``raw_chaos`` included), both steps, where a
    graph replay counts the launches it captured, and the spawned ranks' of
    ``mesh_checks`` and ``entry_checks``, and ``imagenet_example``'s and the
    remote paths'; the sequence, MoE, pipeline and MNIST paths normalize
@@ -1683,6 +1700,7 @@ def phase_pool_checks(raw_url, fixed_url, probe, work_dir):
     seconds and each pool's start time. Returns the ring size the process
     paths use."""
     import pyarrow.fs as pafs
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
 
     from petastorm_tpu_torch.cache import NullCache
     from petastorm_tpu_torch.errors import EmptyResultError
@@ -1699,6 +1717,7 @@ def phase_pool_checks(raw_url, fixed_url, probe, work_dir):
           'dev_shm': probe['pool']['dev_shm']})
     checks = {'ring': _ring_round_trip()}
     pool_kwargs = {'ring_bytes': ring, 'transport': 'shm'}
+    process = ProcessPoolOptions(**pool_kwargs)
     runs, references = {}, {}
     for store, url, epochs, warm in (('raw', raw_url, POOL_EPOCHS, POOL_WARM_EPOCHS),
                                      ('png_fixed', fixed_url, 2, 1)):
@@ -1716,8 +1735,8 @@ def phase_pool_checks(raw_url, fixed_url, probe, work_dir):
                 if not _blocks_equal(block, reference.get(tuple(block['label']), {})):
                     mismatched.append(int(block['label'][0]))
 
-            run = _read_blocks(url, epochs, warm, compare, reader_pool_type='process',
-                               zero_copy=mode == 'zero_copy', pool_kwargs=pool_kwargs)
+            run = _read_blocks(url, epochs, warm, compare, reader_pool_type=process,
+                               zero_copy=mode == 'zero_copy')
             _check_pool_run('{} {}'.format(store, mode), run, blocks, mismatched)
             runs['{}_process_{}'.format(store, mode)] = run
 
@@ -1919,7 +1938,7 @@ def check_read_routes(path, counts):
         ok = (fused > 0 and c('fused_columns_total') == 3 * fused
               and not (fallback or arrow or pagescan or reasons or
                        c('fused_inplace_batches_total')))
-    elif path == 'raw_process':
+    elif path in ('raw_process', 'raw_chaos'):
         ok = (fused > 0 and c('fused_inplace_batches_total') == fused
               and c('fused_columns_total') == 2 * fused
               and not (fallback or arrow or pagescan or reasons))
@@ -1981,6 +2000,7 @@ STALL_STAGES = {
     'png_fixed_remote': ({'worker.fused_decode'},
                          {'worker.decode', 'worker.read_io', 'worker.chunk_fetch'}),
     'raw_process': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
+    'raw_chaos': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
     'png_fixed_pred': ({'worker.fused_predicate'}, {'worker.decode', 'worker.read_io'}),
     'png_cached': (set(), {'worker.decode', 'worker.read_io', 'worker.fused_decode'}),
     # the daemon's workers decode: their timers are not in the trainer's
@@ -2659,15 +2679,15 @@ ELASTIC_HOSTS = ('h1', 'h2')
 ELASTIC_KILL, ELASTIC_JOIN = 'h1', 'h3'
 
 
-def spawn_elastic_host(url, coord, host, out_dir):
+def spawn_elastic_host(url, coord, host, out_dir, epochs=ELASTIC_HOST_EPOCHS):
     """One pod host: ``python -m petastorm_tpu_torch.elastic._hostproc``
-    reading the store's labels (no torch, no device); its log and events go
-    to ``out_dir``."""
+    reading ``epochs`` epochs of the store's labels (no torch, no device);
+    its log and events go to ``out_dir``."""
     cmd = [sys.executable, '-m', 'petastorm_tpu_torch.elastic._hostproc', '--url', url,
            '--coord', coord, '--host', host, '--out', os.path.join(out_dir, host + '.jsonl'),
            '--field', 'label', '--seed', str(SEED), '--lease-s', str(ELASTIC_LEASE_S),
            '--sleep-per-row', str(ELASTIC_SLEEP_PER_ROW),
-           '--num-epochs', str(ELASTIC_HOST_EPOCHS),
+           '--num-epochs', str(epochs),
            '--ready-file', os.path.join(out_dir, host + '.ready')]
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get('PYTHONPATH', ''))
     with open(os.path.join(out_dir, host + '.log'), 'ab') as log:
@@ -3541,16 +3561,17 @@ def phase_autotune_checks(torch, raw_url, ring):
     every resize, no restart and no ``/dev/shm`` entry left. A decision is
     evidence, not a pass condition. Returns the launches."""
     from petastorm_tpu_torch import AutotuneConfig, make_reader
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
     from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
 
     items = len(load_row_groups(raw_url))
     keys = collections.Counter(range(ROWS))
     total = collections.Counter()
     runs = {}
-    for name, pool_kwargs in (('raw_process', {'reader_pool_type': 'process', 'zero_copy': True,
-                                               'pool_kwargs': {'ring_bytes': ring,
-                                                               'transport': 'shm'}}),
-                              ('raw', {'reader_pool_type': 'thread'})):
+    process = ProcessPoolOptions(ring_bytes=ring, transport='shm')
+    for name, pool_name, pool_kwargs in (
+            ('raw_process', 'process', {'reader_pool_type': process, 'zero_copy': True}),
+            ('raw', 'thread', {'reader_pool_type': 'thread'})):
         readers = []
 
         def factory(url, **kwargs):
@@ -3570,7 +3591,7 @@ def phase_autotune_checks(torch, raw_url, ring):
                       'wait_fraction': d['window']['reader_wait_fraction'],
                       'reason': d['reason']} for d in reader.autotuner.decision_records()]
         pool = result.extra['pool']
-        runs[name] = {'pool': pool_kwargs['reader_pool_type'],
+        runs[name] = {'pool': pool_name,
                       'start_workers': AUTOTUNE_START_WORKERS, 'max_workers': config.max_workers,
                       'decisions': decisions, 'workers_over_time_s': reader.workers,
                       'final_workers': pool['workers_count'],
@@ -3754,6 +3775,7 @@ def flight_child(url, ring, run_dir):
     import torch
 
     from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
 
     readers, seen = [], {}
 
@@ -3768,8 +3790,8 @@ def flight_child(url, ring, run_dir):
             seen['worker_pids'] = sorted(p.pid for p in readers[0]._pool._processes
                                          if p is not None)
 
-    kwargs = {'reader_pool_type': 'process', 'zero_copy': True,
-              'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm'}}
+    kwargs = {'reader_pool_type': ProcessPoolOptions(ring_bytes=ring, transport='shm'),
+              'zero_copy': True}
     run_path(torch, 'raw_process', url, check_batch, reader_kwargs=kwargs, steps=FLIGHT_STEPS,
              tag='flight_checks', reader_factory=factory, on_step=on_step)
     print(json.dumps({'flight_child': seen}), flush=True)
@@ -3828,6 +3850,503 @@ def phase_flight_checks(raw_url, ring):
             or consumer['last_stall_report'] is None
             or any(not procs[p]['label'].startswith('worker') for p in seen['worker_pids'])):
         raise AssertionError('post-mortem of the flight files: {}'.format(out))
+
+
+#: ``raw_chaos``: ``raw_process``'s reader (zero-copy on the shm rings) for
+#: one epoch under the chaos matrix of the fault-tolerance tests and
+#: ``bench_scaling.py --chaos --protocol-monitor``: a pool of 8 workers, the
+#: protocol monitor armed, ``on_error='retry'``, and a plan that SIGKILLs the
+#: worker of one row group, SIGSEGVs the worker of another and fails a third
+#: once
+CHAOS_WORKERS = 8
+#: the positions, in the seed's first-epoch ventilation order, of the row
+#: groups killed, segfaulted and failed once: all among the first
+#: ``CHAOS_WORKERS + 2`` items, which the ventilator dispatches at the start,
+#: so every fault fires inside the 3 + 10 steps
+CHAOS_POSITIONS = (('kill', 1), ('segv', 4), ('error', 7))
+
+
+def chaos_fault_items(url):
+    """``{'kill': a, 'segv': b, 'error': c}``: piece indices at
+    :data:`CHAOS_POSITIONS` of the seed's first-epoch ventilation order
+    (``np.random.default_rng(SEED).permutation`` of the row groups, as the
+    ventilator draws it), checked against the order a dummy-pool reader of
+    the same seed delivers, and that order."""
+    from petastorm_tpu_torch import make_reader
+
+    groups = ROWS // ROWS_PER_ROW_GROUP
+    order = [int(i) for i in np.random.default_rng(SEED).permutation(groups)]
+    by_labels = raw_row_groups()
+    with make_reader(url, output='columnar', reader_pool_type='dummy', seed=SEED,
+                     shuffle_row_groups=True, num_epochs=1, schema_fields=['label']) as reader:
+        seen = [by_labels[tuple(b.label.tolist())].start // ROWS_PER_ROW_GROUP for b in reader]
+    if seen != order:
+        raise AssertionError('raw_chaos: the dummy reader delivers {}, the seed\'s order is '
+                             '{}'.format(seen, order))
+    return {kind: order[pos] for kind, pos in CHAOS_POSITIONS}, order
+
+
+class ChaosRows(object):
+    """The reader ``raw_chaos``'s loader iterates: records the rows of every
+    block it yields (a raw row group, known by its label column) and, when
+    the loader stops it, reads the rest of the epoch on the host before
+    stopping the reader, recording those rows and the pool's counters and
+    the monitor's snapshot at the drain; every other attribute is the
+    reader's."""
+
+    def __init__(self, reader):
+        self._reader = reader
+        self._groups = raw_row_groups()
+        self.delivered = collections.Counter()
+        self.drained = collections.Counter()
+        self.pool_at_drain = None
+        self.monitor_at_drain = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        block = next(self._reader)
+        self.delivered.update(self._groups[tuple(block.label.tolist())])
+        return block
+
+    def stop(self):
+        if self.pool_at_drain is None:
+            for block in self._reader:
+                self.drained.update(self._groups[tuple(block.label.tolist())])
+            self.pool_at_drain = dict(self._reader._pool.diagnostics)
+            self.monitor_at_drain = self._reader._pool.protocol_monitor.snapshot
+        self._reader.stop()
+
+    def __getattr__(self, name):
+        return getattr(self._reader, name)
+
+
+def _postmortem_segv(report):
+    """The worker processes of a post-mortem that died of SIGSEGV, as
+    ``(label, activity, file)``."""
+    return [(p['label'], p['activity'], os.path.basename(p['path']))
+            for p in report['processes']
+            if p['label'].startswith('worker') and p['signal'] == 'SIGSEGV']
+
+
+def phase_raw_chaos(torch, url, work_dir, process_runs):
+    """``raw_chaos``: ``raw_process`` under injected faults. For each step
+    kind, eager then graphed, a fresh one-epoch reader
+    (``make_reader(output='columnar', reader_pool_type='process',
+    zero_copy=True, shuffle_row_groups=True, seed=7, num_epochs=1,
+    protocol_monitor=True, on_error='retry')``, 8 workers on shm rings
+    sized for them), a fresh fault state directory and a fresh
+    ``FaultPlan(kill_items=(a,), segv_items=(b,), error_items=(c,),
+    error_times=1)`` (:func:`chaos_fault_items`), and a flight run
+    directory of its own, trains ResNet-50 for 3 + 10 steps.
+    Checks: every fault fired inside the 13 steps (its one-shot file exists
+    at the last step); after the steps the rest of the epoch is read on the
+    host (:class:`ChaosRows`) and each of the 1024 rows was delivered
+    exactly once (the rows the loader read and the rows drained), the 832
+    staged rows are distinct rows of the store; ``worker_restarts == 2``,
+    ``items_requeued >= 3``, the error item failed once (its second shot's
+    file absent), nothing quarantined, every publish in place on the shm
+    transport; the monitor at the drain saw 16 items ventilated and
+    completed, none in flight, and checked events (a ``ProtocolViolation``
+    would have failed the run); the segfaulted worker's flight file
+    (``.torch.bin``) names ``SIGSEGV`` and the ``worker.item`` stage, and
+    ``diagnose --postmortem`` over the run directory reports the same.
+    A ``chaos`` line per step kind and a ``raw_chaos_vs`` line beside
+    ``raw_process``'s numbers of this call. Returns the launches."""
+    from petastorm_tpu_torch import faults, make_reader
+    from petastorm_tpu_torch.observability import blackbox
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
+
+    items, order = chaos_fault_items(url)
+    ring, needed = ring_bytes_for(_dev_shm()['free_bytes'], CHAOS_WORKERS, raw_payload_bytes(),
+                                  ROWS_PER_ROW_GROUP)
+    keys = store_row_keys()
+    groups = ROWS // ROWS_PER_ROW_GROUP
+    total = collections.Counter()
+    results = {}
+    runs = {}
+    for graphed in (False, True):
+        kind = 'graphed' if graphed else 'eager'
+        state_dir = tempfile.mkdtemp(prefix='chaos_{}_'.format(kind), dir=work_dir)
+        flight_dir = os.path.join(BUILD_DIR, 'flight', 'chaos_' + kind)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+        readers = []
+        fired_at_last_step = {}
+        shots = {'kill': 'kill_{}'.format(items['kill']), 'segv': 'segv_{}'.format(items['segv']),
+                 'error': 'err_{}_0'.format(items['error'])}
+
+        def factory(url, **kwargs):
+            kwargs.update(num_epochs=1, output='columnar')
+            reader = ChaosRows(make_reader(url, **kwargs))
+            readers.append(reader)
+            return reader
+
+        def on_step():
+            steps = fired_at_last_step.setdefault('steps', 0) + 1
+            fired_at_last_step['steps'] = steps
+            if steps == WARMUP_STEPS + STEPS:
+                fired_at_last_step.update({k: os.path.exists(os.path.join(state_dir, v))
+                                           for k, v in shots.items()})
+
+        staged = []
+        # the run's flight files, the workers' included, in a directory of
+        # their own: the post-mortem below reads this run alone
+        blackbox.disable()
+        faults.install(faults.FaultPlan(kill_items=(items['kill'],),
+                                        segv_items=(items['segv'],),
+                                        error_items=(items['error'],), error_times=1,
+                                        state_dir=state_dir))
+        try:
+            with _env(PSTPU_FLIGHT_DIR=flight_dir):
+                launches, _, _, batches, result, losses = run_path(
+                    torch, 'raw_chaos', url, check_batch, graphed=graphed, on_step=on_step,
+                    reader_factory=factory, rows_check=staged.extend, reader_kwargs={
+                        'reader_pool_type': ProcessPoolOptions(
+                            ring_bytes=ring, transport='shm', results_timeout_s=120),
+                        'workers_count': CHAOS_WORKERS, 'zero_copy': True,
+                        'protocol_monitor': True, 'on_error': 'retry'})
+        finally:
+            faults.uninstall()
+            blackbox.disable()
+        total.update(launches)
+        runs[kind] = (batches, losses)
+        results[kind] = result
+        (reader,) = readers
+        rows = reader.delivered + reader.drained
+        staged_keys = collections.Counter(staged)
+        pool, monitor = reader.pool_at_drain, reader.monitor_at_drain
+        second_shot = os.path.exists(os.path.join(state_dir, 'err_{}_1'.format(items['error'])))
+        report = blackbox.postmortem_report(flight_dir)
+        segv = _postmortem_segv(report)
+        cli = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.observability.diagnose',
+                              '--postmortem', flight_dir, '--json'], cwd=ROOT, timeout=120,
+                             capture_output=True, text=True,
+                             env=dict(os.environ, PSTPU_FLIGHT='0'))
+        cli_segv = _postmortem_segv(json.loads(cli.stdout)) if cli.returncode == 0 else None
+        line = {'phase': 'chaos', 'path': 'raw_chaos', 'step': kind,
+                'workers': CHAOS_WORKERS, 'ring_bytes': ring, 'ring_bytes_needed': needed,
+                'fault_items': items, 'ventilation_order': order,
+                'fired_by_last_step': fired_at_last_step, 'error_second_shot': second_shot,
+                'examples_per_sec': result.samples_per_second,
+                'median_step_ms': result.extra['median_step_ms'],
+                'step_ms': result.extra['step_ms'],
+                'input_stall_fraction': result.input_stall_fraction,
+                'bottleneck': (result.extra['stall'] or {}).get('bottleneck'),
+                'rows_read_by_loader': sum(reader.delivered.values()),
+                'rows_drained': sum(reader.drained.values()),
+                'rows_staged': sum(staged_keys.values()),
+                'worker_restarts': pool['worker_restarts'],
+                'items_requeued': pool['items_requeued'],
+                'items_quarantined': pool['items_quarantined'],
+                'publishes': {k: pool.get(k) for k in ('publish_inplace', 'publish_ring',
+                                                       'publish_blob', 'publish_zmq')},
+                'monitor_at_drain': monitor, 'postmortem_segv': segv,
+                'postmortem_cause': report['probable_cause'],
+                'diagnose_postmortem_rc': cli.returncode, 'diagnose_postmortem_segv': cli_segv}
+        emit(line)
+        fired = all(fired_at_last_step.get(k) for k in shots)
+        exactly_once = rows == collections.Counter(range(ROWS))
+        staged_ok = (sum(staged_keys.values()) == (WARMUP_STEPS + STEPS) * BATCH
+                     and max(staged_keys.values()) == 1 and not set(staged_keys) - set(keys))
+        pool_ok = (pool['worker_restarts'] == 2 and pool['items_requeued'] >= 3
+                   and not pool['items_quarantined'] and not second_shot
+                   and pool.get('transport') == 'shm' and pool.get('zero_copy')
+                   and pool.get('publish_inplace') == groups
+                   and not any(line['publishes'][k] for k in ('publish_ring', 'publish_blob',
+                                                              'publish_zmq')))
+        monitor_ok = (monitor['ventilated'] == monitor['completed'] == groups
+                      and monitor['in_flight'] == [] and monitor['events_checked'] > 0)
+        flight_ok = (len(segv) == 1 and segv[0][1] == 'worker.item'
+                     and segv[0][2].endswith('.torch.bin') and cli_segv == segv)
+        if not (fired and exactly_once and staged_ok and pool_ok and monitor_ok and flight_ok):
+            raise AssertionError('raw_chaos ({}): fired {}, rows once {}, staged {}, pool {}, '
+                                 'monitor {}, flight {}: {}'.format(
+                                     kind, fired, exactly_once, staged_ok, pool_ok, monitor_ok,
+                                     flight_ok, line))
+        shutil.rmtree(state_dir, ignore_errors=True)
+    check_graphed_losses(torch, 'raw_chaos', runs['graphed'][1], runs['graphed'][0])
+    check_no_leftovers()
+
+    def numbers(result):
+        return {'examples_per_sec': result.samples_per_second,
+                'median_step_ms': result.extra['median_step_ms'],
+                'input_stall_fraction': result.input_stall_fraction,
+                'bottleneck': (result.extra['stall'] or {}).get('bottleneck')}
+
+    emit({'phase': 'raw_chaos_vs',
+          'raw_process': {k: numbers(v[3]) for k, v in process_runs.items()},
+          'raw_chaos': {k: numbers(v) for k, v in results.items()}})
+    return total
+
+
+#: ``monitor_checks``' model-checker runs: the CLI's arguments and the
+#: canonical states each explores (the JAX checker's counts of the same
+#: scopes); the pool's default scope (1.3 M states) stays in the CPU tests
+MODELCHECK_RUNS = {
+    'tiny': (['--workers', '2', '--items', '2', '--crashes', '1'], 1756),
+    'error_scope': (['--workers', '2', '--items', '2', '--crashes', '1', '--retries', '1',
+                     '--errors', '2', '--policy', 'skip'], 6619),
+    'serve_default': (['--serve'], 943900),
+    'elastic_default': (['--elastic'], 172641),
+}
+#: ``monitor_checks``' elastic pod: epochs each host reads before it exits
+MONITOR_POD_EPOCHS = 3
+
+
+def _start_modelchecks():
+    """The model-checker CLI on each of :data:`MODELCHECK_RUNS`, all started
+    at once (each is one CPU-bound process)."""
+    cmd = [sys.executable, '-m', 'petastorm_tpu_torch.analysis.protocol.modelcheck', '--json',
+           '--budget-s', '600']
+    return {name: (subprocess.Popen(cmd + args, cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True), time.perf_counter())
+            for name, (args, _) in MODELCHECK_RUNS.items()}
+
+
+def _finish_modelchecks(procs):
+    out = {}
+    for name, (proc, t0) in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError('modelcheck {} exited {}: {}'.format(name, proc.returncode,
+                                                                      stderr[-2000:]))
+        doc = json.loads(stdout)
+        out[name] = {'states': doc['states'], 'transitions': doc['transitions'],
+                     'exhausted': doc['exhausted'], 'violation': doc['violation'],
+                     'seconds': seconds}
+        if doc['states'] != MODELCHECK_RUNS[name][1] or not doc['exhausted'] or doc['violation']:
+            raise AssertionError('modelcheck {}: {}'.format(name, out[name]))
+    return out
+
+
+def _monitored_serve(raw_url, work_dir):
+    """Two tenants of an in-process serve daemon, the daemon's monitor and
+    both consumers' armed by ``PSTPU_SERVE_MONITOR=1``, on ``serve_checks``'
+    64 KiB ring over 30 epochs of the raw store's labels: one reads every
+    batch and detaches, the other never reads, is evicted, and detaches."""
+    from petastorm_tpu_torch.errors import ConsumerEvictedError
+    from petastorm_tpu_torch.serve import ReaderService
+
+    svc = ReaderService(os.path.join(work_dir, 'svc_monitor'), workers_count=2,
+                        ring_bytes=SERVE_CHECK_RING, evict_block_s=SERVE_CHECK_EVICT_S,
+                        idle_timeout_s=None)
+    if svc.monitor is None:
+        raise AssertionError('monitor_checks: PSTPU_SERVE_MONITOR=1 armed no daemon monitor')
+    svc.start()
+    kwargs = {'output': 'columnar', 'shuffle_row_groups': False,
+              'num_epochs': SERVE_CHECK_EPOCHS, 'schema_fields': ['label']}
+    from petastorm_tpu_torch import make_reader
+    try:
+        with make_reader(raw_url, serve=svc.service_dir, **kwargs) as fast, \
+                make_reader(raw_url, serve=svc.service_dir, **kwargs) as slow:
+            blocks = sum(1 for _ in fast)
+            try:
+                for _ in slow:
+                    pass
+                evicted = False
+            except ConsumerEvictedError:
+                evicted = True
+            consumers = {'fast': fast._facade.monitor.events_checked,
+                         'slow': slow._facade.monitor.events_checked}
+        stats = svc.stats()
+    finally:
+        svc.shutdown()
+    out = {'blocks': blocks, 'evicted': evicted, 'evictions': stats['evictions'],
+           'daemon_events_checked': svc.monitor.events_checked,
+           'consumer_events_checked': consumers}
+    if (not evicted or stats['evictions'] != 1 or blocks != SERVE_CHECK_EPOCHS * ROWS // ROWS_PER_ROW_GROUP
+            or not svc.monitor.events_checked or not consumers['fast']):
+        raise AssertionError('monitor_checks: serve: {}'.format(out))
+    return out
+
+
+def _monitored_pod(url, work_dir):
+    """An elastic pod of host processes, each inheriting
+    ``PSTPU_ELASTIC_MONITOR=1`` (``raw_elastic``'s host script): ``h1`` and ``h2`` read
+    :data:`MONITOR_POD_EPOCHS` epochs; ``h1`` is SIGKILLed 4 commits in and
+    ``h3`` joins. Every survivor exits 0 (a violation would end it non-zero)
+    with its monitor's events in its ``done`` line, and the scoreboard is
+    exactly once."""
+    from petastorm_tpu_torch.faults import HostChurnPlan, drive_host_churn
+
+    pod_dir = tempfile.mkdtemp(prefix='monitor_pod_', dir=work_dir)
+    coord = os.path.join(pod_dir, 'coord')
+    procs, churn = {}, {}
+    try:
+        for host in ELASTIC_HOSTS:
+            procs[host] = spawn_elastic_host(url, coord, host, pod_dir,
+                                             epochs=MONITOR_POD_EPOCHS)
+
+        def spawn_joiner():
+            churn['wall'] = time.time()
+            churn['epoch'], churn['inflight'], churn['done'] = _kill_epoch_inflight(
+                coord, ELASTIC_KILL)
+            return spawn_elastic_host(url, coord, ELASTIC_JOIN, pod_dir,
+                                      epochs=MONITOR_POD_EPOCHS)
+
+        timeline = drive_host_churn(coord, procs, HostChurnPlan(
+            kill_host=ELASTIC_KILL, join_host=ELASTIC_JOIN, kill_after_commits=ELASTIC_KILL_AFTER),
+            spawn_joiner=spawn_joiner, timeout_s=120)
+        rcs = {host: proc.wait(timeout=180) for host, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    done = {}
+    for host in rcs:
+        with open(os.path.join(pod_dir, host + '.jsonl')) as f:
+            for rec in map(json.loads, f):
+                if rec['event'] == 'done':
+                    done[host] = rec.get('monitor')
+    pod = check_elastic_pod('monitor_checks', coord, ROWS // ROWS_PER_ROW_GROUP, churn)
+    out = {'return_codes': rcs, 'killed': timeline['killed'], 'joined': timeline['joined'],
+           'monitors': done, 'commits': pod['commits'], 'closed_epochs': pod['closed_epochs']}
+    expected_rcs = {h: (-signal.SIGKILL if h == ELASTIC_KILL else 0) for h in rcs}
+    survivors = [h for h in rcs if h != ELASTIC_KILL]
+    if (rcs != expected_rcs or any(not (done.get(h) or {}).get('events_checked')
+                                   for h in survivors)):
+        raise AssertionError('monitor_checks: pod: {} {}'.format(
+            out, {h: _host_log(pod_dir, h) for h in rcs}))
+    shutil.rmtree(pod_dir, ignore_errors=True)
+    return out
+
+
+def phase_monitor_checks(raw_url, work_dir):
+    """``monitor_checks`` (host only): the port's model checker through its
+    CLI on the small scopes and the serve and elastic default scopes (their
+    canonical state counts the JAX checker's, each exhausted clean), running
+    while a serve daemon and an elastic pod run under their monitors
+    (:func:`_monitored_serve`, :func:`_monitored_pod`)."""
+    t0 = time.perf_counter()
+    checks = _start_modelchecks()
+    try:
+        with _env(PSTPU_SERVE_MONITOR='1'):
+            serve = _monitored_serve(raw_url, work_dir)
+        with _env(PSTPU_ELASTIC_MONITOR='1'):
+            pod = _monitored_pod(raw_url, work_dir)
+        model = _finish_modelchecks(checks)
+    finally:
+        for proc, _ in checks.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    emit({'phase': 'monitor_checks', 'modelcheck': model, 'serve': serve, 'pod': pod,
+          'seconds': time.perf_counter() - t0})
+    check_no_leftovers()
+
+
+#: ``diagnose_checks``: the pod's reader processes, each reading the raw
+#: store's labels for this many epochs, sleeping this long a block: the slow
+#: one's sleep is three times the card host's read of a block (about 30 ms),
+#: so its rows/s fall under the pod report's straggler ratio (0.7 of the
+#: median) whatever the host's read time
+POD_READER_EPOCHS = 4
+POD_FAST_SLEEP_S = 0.005
+POD_SLOW_SLEEP_S = 0.1
+#: ``diagnose --watch``: its interval and ticks
+WATCH_INTERVAL_S = 0.5
+WATCH_TICKS = 4
+
+
+def pod_reader(url, path, host, sleep_s):
+    """One reader process of ``diagnose_checks``' pod (``python -c 'import
+    chip_smoke; chip_smoke.pod_reader(...)'``, no torch): reads the raw
+    store's labels on the dummy pool, sleeping ``sleep_s`` a block, while a
+    ``JsonlExporter`` stamped ``host`` writes its rows and wait seconds to
+    ``path`` every 0.1 s."""
+    from petastorm_tpu_torch import make_reader, observability as obs
+
+    counts = {'rows_emitted': 0, 'reader_wait_s': 0.0}
+    with make_reader(url, output='columnar', reader_pool_type='dummy', schema_fields=['label'],
+                     num_epochs=POD_READER_EPOCHS) as reader:
+        with obs.JsonlExporter(path, interval_s=0.1, host_key=host,
+                               snapshot_fn=lambda: {'counters': dict(counts)}):
+            it = iter(reader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    block = next(it)
+                except StopIteration:
+                    break
+                counts['reader_wait_s'] += time.perf_counter() - t0
+                counts['rows_emitted'] += len(block.label)
+                time.sleep(sleep_s)
+
+
+def phase_diagnose_checks(raw_url, work_dir):
+    """``diagnose_checks`` (the loaders stage on the card): a one-shot
+    ``diagnose`` of the raw store (its stall report and seconds); ``diagnose
+    --pod`` over the exports of two reader processes (:func:`pod_reader`),
+    one slowed, which the report names as the straggler; ``diagnose --watch
+    --json`` over the raw store as a subprocess, and ``python -m
+    petastorm_tpu_torch.autotune.cli`` replaying its lines."""
+    from petastorm_tpu_torch.observability import diagnose
+
+    out = {'phase': 'diagnose_checks'}
+    t0 = time.perf_counter()
+    report, diag = diagnose.diagnose(raw_url, batch_size=BATCH, batches=20, pool_type='thread',
+                                     workers_count=max(1, os.cpu_count() or 1),
+                                     telemetry='counters')
+    out['one_shot'] = {'seconds': time.perf_counter() - t0, 'stall_report': report,
+                       'rows_emitted': diag.get('rows_emitted')}
+    if diag.get('rows_emitted', 0) < 20 * BATCH or 'bottleneck' not in report:
+        raise AssertionError('diagnose_checks: one-shot: {}'.format(out['one_shot']))
+
+    pod_dir = os.path.join(work_dir, 'pod_exports')
+    os.makedirs(pod_dir)
+    env = dict(os.environ, PSTPU_FLIGHT='0')
+    procs = {host: subprocess.Popen(
+        [sys.executable, '-c', 'import chip_smoke; chip_smoke.pod_reader({!r}, {!r}, {!r}, {!r})'
+         .format(raw_url, os.path.join(pod_dir, host + '.jsonl'), host, sleep_s)],
+        cwd=ROOT, env=env) for host, sleep_s in (('fast', POD_FAST_SLEEP_S), ('slow', POD_SLOW_SLEEP_S))}
+    try:
+        rcs = {host: proc.wait(timeout=300) for host, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    cli = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.observability.diagnose',
+                          '--pod', pod_dir, '--json'], cwd=ROOT, env=env, timeout=120,
+                         capture_output=True, text=True)
+    pod = json.loads(cli.stdout)['pod'] if cli.returncode == 0 else None
+    out['pod'] = {'return_codes': rcs, 'cli_rc': cli.returncode, 'report': pod}
+    if (rcs != {'fast': 0, 'slow': 0} or pod is None or pod['straggler'] is None
+            or pod['straggler']['host'] != 'slow'):
+        raise AssertionError('diagnose_checks: pod: {} {}'.format(out['pod'], cli.stderr[-2000:]))
+
+    t0 = time.perf_counter()
+    watch = subprocess.run(
+        [sys.executable, '-m', 'petastorm_tpu_torch.observability.diagnose', raw_url,
+         '--watch', str(WATCH_INTERVAL_S), '--ticks', str(WATCH_TICKS), '--json',
+         '--batch-size', str(BATCH), '-p', 'thread', '-w', str(max(1, os.cpu_count() or 1)),
+         '--telemetry', 'counters'], cwd=ROOT, env=env, timeout=300, capture_output=True,
+        text=True)
+    watch_s = time.perf_counter() - t0
+    ticks = [json.loads(line) for line in watch.stdout.splitlines() if line.startswith('{')]
+    history = os.path.join(work_dir, 'watch.jsonl')
+    with open(history, 'w') as f:
+        f.writelines(json.dumps(tick) + '\n' for tick in ticks)
+    replay = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.autotune.cli', history,
+                             '--workers', str(max(1, os.cpu_count() or 1)),
+                             '--interval-s', str(WATCH_INTERVAL_S), '--json'],
+                            cwd=ROOT, env=env, timeout=120, capture_output=True, text=True)
+    proposal = json.loads(replay.stdout) if replay.returncode == 0 else None
+    out['watch'] = {'rc': watch.returncode, 'seconds': watch_s, 'ticks': len(ticks),
+                    'windows': [{k: t['window'].get(k) for k in (
+                        'window_s', 'rows_per_s', 'reader_wait_fraction', 'bottleneck')}
+                        for t in ticks]}
+    out['autotune_replay'] = {'rc': replay.returncode, 'result': proposal}
+    emit(out)
+    if (watch.returncode != 0 or len(ticks) != WATCH_TICKS or proposal is None
+            or proposal['windows'] != WATCH_TICKS - 1 or 'workers_count' not in
+            proposal['proposal']):
+        raise AssertionError('diagnose_checks: watch/replay: {} {} {}'.format(
+            out, watch.stderr[-2000:], replay.stderr[-2000:]))
+    shutil.rmtree(pod_dir, ignore_errors=True)
 
 
 #: the sequence paths: ``examples/sequence``'s telemetry store
@@ -4407,6 +4926,7 @@ def phase_ngram_checks(url, ring):
     decode and assembly included; the process pool's windows equal the
     thread pool's, every field, and are every window of the store."""
     from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
 
     with make_reader(url, output='columnar', reader_pool_type='dummy', shuffle_row_groups=False,
                      num_epochs=1) as reader:
@@ -4417,8 +4937,9 @@ def phase_ngram_checks(url, ring):
     one_core_s = time.perf_counter() - t0
     workers = max(1, os.cpu_count() or 1)
     thread, thread_s = _all_windows(url, reader_pool_type='thread', workers_count=workers)
-    process, process_s = _all_windows(url, reader_pool_type='process', workers_count=workers,
-                                      pool_kwargs={'ring_bytes': ring, 'transport': 'shm'})
+    process, process_s = _all_windows(
+        url, reader_pool_type=ProcessPoolOptions(ring_bytes=ring, transport='shm'),
+        workers_count=workers)
     check_no_leftovers()
     expected = SEQ_ROWS - (SEQ_WINDOW - 1) * (SEQ_ROWS // SEQ_ROWS_PER_ROW_GROUP)
     equal = (sorted(thread) == sorted(process)
@@ -5163,6 +5684,7 @@ def _check_remote_process(raw_url, work_dir, ring):
     to the epoch's chunks: each row group's two demanded once, and each
     process that opened the file its footer once."""
     from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
     from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
 
     workers = max(1, os.cpu_count() or 1)
@@ -5170,9 +5692,9 @@ def _check_remote_process(raw_url, work_dir, ring):
     blocks = {}
     for pool in ('thread', 'process'):
         root = os.path.join(work_dir, 'chunk_cache_{}'.format(pool))
-        kwargs = ({'reader_pool_type': 'process', 'zero_copy': True,
-                   'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm',
-                                   'results_timeout_s': 120}}
+        kwargs = ({'reader_pool_type': ProcessPoolOptions(ring_bytes=ring, transport='shm',
+                                                          results_timeout_s=120),
+                   'zero_copy': True}
                   if pool == 'process' else {})
         with make_reader(remote_url(raw_url), output='columnar', shuffle_row_groups=False,
                          workers_count=workers, chunk_cache=root,
@@ -5564,6 +6086,7 @@ def _check_append(day_url, meta_root, cells, ring):
     with ``zero_copy=True`` decodes every row group in place, ``day``
     framed as a raw column, and delivers the rows of the thread pool and
     the rows written."""
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
     from petastorm_tpu_torch.etl.dataset_metadata import (ROW_GROUPS_PER_FILE_KEY,
                                                            read_metadata_dict)
     from petastorm_tpu_torch.test_util.stores import data_files
@@ -5587,9 +6110,8 @@ def _check_append(day_url, meta_root, cells, ring):
                              '{}'.format(len(counts), len(files), days))
     written = collections.Counter(written)
     t0 = time.perf_counter()
-    process, diag = read_keys(day_url, reader_pool_type='process', zero_copy=True,
-                              pool_kwargs={'ring_bytes': ring, 'transport': 'shm',
-                                           'results_timeout_s': 60})
+    process, diag = read_keys(day_url, reader_pool_type=ProcessPoolOptions(
+        ring_bytes=ring, transport='shm', results_timeout_s=60), zero_copy=True)
     out['process_s'] = time.perf_counter() - t0
     t0 = time.perf_counter()
     thread, _ = read_keys(day_url)
@@ -6334,6 +6856,7 @@ def main():
     import petastorm_tpu_torch  # noqa: F401 - fails here when run outside a checkout
 
     from petastorm_tpu_torch.native import build as native_build
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
 
     builds = {'reader': NativeBuild(native_build.build), 'image': NativeBuild(native_build.build_img),
               'ring': NativeBuild(native_build.build_ring)}
@@ -6433,15 +6956,21 @@ def main():
         phase_remote_checks(torch, urls['raw'], urls['png_fixed'], work_dir, ring, serve_ring)
         check_no_leftovers()
         # the process pool: one spawned worker per core, shm rings
-        process = {'reader_pool_type': 'process',
-                   'pool_kwargs': {'ring_bytes': ring, 'transport': 'shm'}}
+        process = {'reader_pool_type': ProcessPoolOptions(ring_bytes=ring, transport='shm')}
+        process_runs = {}
         for name, url, check, kwargs, named in (
                 ('raw_process', urls['raw'], check_batch, dict(process, zero_copy=True), None),
                 ('png_process', urls['png'], png_check, dict(process, **image_kwargs),
                  routes['png'])):
-            total.update(run_path_both_ways(torch, name, url, check, reader_kwargs=kwargs,
-                                            routes=named)[0])
+            path_launches, process_runs[name] = run_path_both_ways(
+                torch, name, url, check, reader_kwargs=kwargs, routes=named)
+            total.update(path_launches)
             check_no_leftovers()
+        # raw_process under a killed, a segfaulted and an erroring worker,
+        # with the protocol monitor armed; then the verifier and the CLIs
+        total.update(phase_raw_chaos(torch, urls['raw'], work_dir, process_runs['raw_process']))
+        phase_monitor_checks(urls['raw'], work_dir)
+        phase_diagnose_checks(urls['raw'], work_dir)
         # row filtering: a predicate on the fixed-shape PNG store, and a
         # row-group selector with shuffle-row-drop partitions on the PNG store
         from petastorm_tpu_torch.predicates import in_set

@@ -10,9 +10,10 @@ filesystem directory: no coordinator process, no network channel. The
 directory's layout, file names and records are the JAX package's, so hosts
 of both packages can form one pod.
 
-The JAX package also checks the protocol against an executable spec and
-watches it at run time (the elastic monitor); that waits for the port of the
-protocol monitor, and asking for it raises.
+The protocol is stated as an executable spec
+(:mod:`petastorm_tpu_torch.analysis.protocol.elastic_spec`) and watched at
+run time by the opt-in elastic monitor (``ElasticConfig(monitor=...)``,
+``PSTPU_ELASTIC_MONITOR``).
 """
 
 from __future__ import annotations
@@ -58,10 +59,13 @@ class ElasticConfig(object):
         still delivering them; commits stay exclusive)
     :param poll_s: the membership and scoreboard scan period (default
         ``lease_s / 4``)
-    :param monitor: the JAX package's runtime elastic monitor, not ported:
-        ``None`` (then ``PSTPU_ELASTIC_MONITOR`` or
-        ``PSTPU_PROTOCOL_MONITOR`` decides) or a false value; a monitor, or
-        either variable set to a true value, raises NotImplementedError
+    :param monitor: the runtime elastic conformance monitor
+        (:class:`~petastorm_tpu_torch.analysis.protocol.monitor.ElasticMonitor`):
+        an instance is used as is, truthy builds a fresh one, ``None`` lets
+        ``PSTPU_ELASTIC_MONITOR`` (or the umbrella ``PSTPU_PROTOCOL_MONITOR``)
+        decide, false disables it. It checks this host's generations, claims,
+        commits and adoptions against the elastic spec and raises
+        :class:`~petastorm_tpu_torch.errors.ProtocolViolation`
     :param retry: a :class:`~petastorm_tpu_torch.retry.RetryPolicy` for all
         lease and scoreboard I/O (default: a bounded short-backoff policy),
         so slow shared-filesystem metadata operations retry instead of
@@ -93,26 +97,11 @@ class ElasticConfig(object):
                 .format(self.coord_dir, self.host_id, self.lease_s, self.poll_s))
 
 
-def _refuse_monitor(explicit):
-    """The JAX package resolves the elastic monitor here, from ``explicit``
-    or, when that is None, from ``PSTPU_ELASTIC_MONITOR`` (with
-    ``PSTPU_PROTOCOL_MONITOR`` as the umbrella opt-in). The monitor is not
-    ported: a request for one raises rather than being ignored."""
-    if explicit is None:
-        env = os.environ.get('PSTPU_ELASTIC_MONITOR',
-                             os.environ.get('PSTPU_PROTOCOL_MONITOR', ''))
-        explicit = env not in ('', '0')
-    if explicit:
-        raise NotImplementedError(
-            'the elastic protocol monitor is not yet ported to petastorm_tpu_torch '
-            '(ROADMAP.md, "protocol monitor"): pass ElasticConfig(monitor=None) and leave '
-            'PSTPU_ELASTIC_MONITOR and PSTPU_PROTOCOL_MONITOR unset or 0')
-
-
 def resolve_elastic(value, dataset_path=None):
     """``make_reader``'s ``elastic=`` argument as a fully resolved
     :class:`ElasticConfig`: the coordination directory derived when not
-    given, the host identity filled in, a monitor request refused."""
+    given, the host identity filled in, the monitor resolved (from the
+    environment when ``monitor`` is None)."""
     if value is True:
         cfg = ElasticConfig()
     elif isinstance(value, ElasticConfig):
@@ -127,9 +116,10 @@ def resolve_elastic(value, dataset_path=None):
                              'explicitly')
         coord_dir = os.path.join(dataset_path, '_elastic')
     host_id = cfg.host_id if cfg.host_id is not None else default_host_id()
-    _refuse_monitor(cfg.monitor)
+    from petastorm_tpu_torch.analysis.protocol.monitor import elastic_monitor_from_env
+    monitor = elastic_monitor_from_env(cfg.monitor, name='elastic:{}'.format(host_id))
     return ElasticConfig(coord_dir=coord_dir, host_id=str(host_id), lease_s=cfg.lease_s,
-                         poll_s=cfg.poll_s, monitor=None, retry=cfg.retry)
+                         poll_s=cfg.poll_s, monitor=monitor, retry=cfg.retry)
 
 
 __all__ = ['DEFAULT_LEASE_RETRY', 'ElasticConfig', 'MembershipRegistry', 'ShardMap',

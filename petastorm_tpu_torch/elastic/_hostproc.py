@@ -15,7 +15,9 @@ imports no torch and touches no device.
 for the churn test to kill/join deterministically. SIGTERM ends the host
 gracefully: it stops reading after the current row, writes its ``done`` and
 ``exit`` lines and leaves the pod (its lease is removed), so a churn test can
-stop a host that runs more epochs than it needs.
+stop a host that runs more epochs than it needs. With the elastic monitor
+armed (``PSTPU_ELASTIC_MONITOR=1``) the ``done`` line also carries its
+snapshot.
 """
 
 from __future__ import annotations
@@ -84,10 +86,18 @@ def main(argv=None):
             if stop.is_set():
                 break
         status = reader.elastic_coordinator.status()
-        emit({'event': 'done', 'host': args.host, 'rows': len(values),
-              'values': [int(v) for v in values],
-              'generation': status['generation'],
-              'members': list(status['members'])})
+        done = {'event': 'done', 'host': args.host, 'rows': len(values),
+                'values': [int(v) for v in values],
+                'generation': status['generation'],
+                'members': list(status['members'])}
+        monitor = reader.elastic_coordinator.monitor
+        if monitor is not None:
+            # the host's elastic monitor (PSTPU_ELASTIC_MONITOR): a violation
+            # would have ended the host with an error before this line
+            snap = monitor.snapshot
+            done['monitor'] = dict({k: v for k, v in snap.items() if k != 'claims'},
+                                   claims_open=len(snap['claims']))
+        emit(done)
     finally:
         reader.stop()
         reader.join()

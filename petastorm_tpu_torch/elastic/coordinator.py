@@ -32,9 +32,10 @@ new map at once: ownership is the pure function
 In-flight row groups stay pinned to the claiming host while its lease lives,
 and are adopted by their new owner only after it expires.
 
-The JAX coordinator also reports each event to the runtime elastic monitor,
-which is not ported (:func:`~petastorm_tpu_torch.elastic.resolve_elastic`
-refuses it).
+Each event (a join, a lease expiry, a new generation, a claim, a won
+commit) is also reported to the opt-in runtime elastic monitor
+(``ElasticConfig(monitor=...)``, ``PSTPU_ELASTIC_MONITOR``), which checks it
+against the elastic spec (``analysis/protocol/elastic_spec.py``).
 """
 
 from __future__ import annotations
@@ -83,6 +84,7 @@ class ElasticCoordinator(object):
         self.host_id = config.host_id
         self.coord_dir = config.coord_dir
         self.poll_s = config.poll_s
+        self.monitor = config.monitor
         self._retry = config.retry_policy()
         self.registry = MembershipRegistry(self.coord_dir, self.host_id,
                                            lease_s=config.lease_s,
@@ -113,6 +115,8 @@ class ElasticCoordinator(object):
         self._retry.call(os.makedirs, os.path.dirname(self._commit_log),
                          exist_ok=True)
         self.registry.join()
+        if self.monitor is not None:
+            self.monitor.on_join(self.host_id)
         self._started = True
         self.poll(epoch=None, force=True)
 
@@ -213,9 +217,15 @@ class ElasticCoordinator(object):
             if host not in self._counted_expired:
                 self._counted_expired.add(host)
                 obs.count('elastic_lease_expirations')
+                if self.monitor is not None:
+                    self.monitor.on_lease_expire(host)
         for host in alive:
             if host in self._counted_expired:
                 self._counted_expired.discard(host)   # rejoined
+        if self.monitor is not None:
+            for host in alive:
+                if host not in self._last_alive and host != self.host_id:
+                    self.monitor.on_join(host)
         self._last_alive = alive
 
         current, members = self._read_current_generation()
@@ -230,6 +240,8 @@ class ElasticCoordinator(object):
             obs.count('reshard_generations')
             obs.gauge_set('elastic_generation', current)
             obs.gauge_set('elastic_member_count', len(members))
+            if self.monitor is not None:
+                self.monitor.on_reshard(current, members)
 
         if epoch is not None:
             self._refresh_epoch(epoch, alive)
@@ -350,6 +362,8 @@ class ElasticCoordinator(object):
             inflight = sorted(state['inflight'])
         if handed_off:
             obs.count('rowgroups_handed_off')
+        if self.monitor is not None:
+            self.monitor.on_claim(self.host_id, (epoch, item))
         self._write_inflight(epoch, inflight)
 
     def _write_inflight(self, epoch, items):
@@ -407,6 +421,8 @@ class ElasticCoordinator(object):
         won = outcome == 'won'
         if won:
             obs.count('elastic_commits')
+            if self.monitor is not None:
+                self.monitor.on_deliver(self.host_id, (epoch, item))
             self._append_commit(epoch, item)
         if inflight is not None:
             self._write_inflight(epoch, inflight)

@@ -38,6 +38,15 @@ class WorkerPoolDepletedError(PetastormTpuError):
     respawning it kept failing."""
 
 
+class ProtocolViolation(PetastormTpuError):
+    """An observed worker-pool, serve or elastic event sequence the protocol
+    spec rejects (``petastorm_tpu_torch/analysis/protocol/``): a reused
+    dispatch id, a message for a never-issued id, a live/stale
+    misclassification, a second completion for one item, or diverged
+    accounting at epoch drain. Raised by the opt-in runtime conformance
+    monitor (``docs/protocol.md``)."""
+
+
 class ServeError(PetastormTpuError):
     """Base class for errors of the shared reader service (``serve/``)."""
 

@@ -24,8 +24,9 @@ events back over the results channel. Instrument with::
     obs.gauge_set('shuffle_occupancy', size)
 
 ``stage`` and ``span`` must be closed on all paths: use them as context
-managers. Not ported: the JAX package's pod aggregation (``podagg``) and
-its diagnose CLI.
+managers. The pod view merges hosts' JSONL exports (:func:`pod_report`,
+``observability/podagg.py``), and ``python -m
+petastorm_tpu_torch.observability.diagnose`` is the one-shot and live CLI.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ from petastorm_tpu_torch.observability.blackbox import (FlightRecorder,  # noqa:
                                                         format_postmortem, load_flight,
                                                         postmortem_report)
 from petastorm_tpu_torch.observability.critical_path import (critical_path,  # noqa: F401
+                                                             critical_path_summary,
+                                                             format_critical_path,
+                                                             format_slowest_batches,
+                                                             format_span_tree,
                                                              slowest_batches, span_tree,
                                                              stage_breakdown, traces_in)
 from petastorm_tpu_torch.observability.exporters import (JsonlExporter,  # noqa: F401
@@ -51,6 +56,9 @@ from petastorm_tpu_torch.observability.history import (HistoryRecorder,  # noqa:
 from petastorm_tpu_torch.observability.metrics import (counters_on,  # noqa: F401
                                                        flatten_snapshot, get_registry,
                                                        merge_snapshots, spans_on)
+from petastorm_tpu_torch.observability.podagg import (format_pod_report,  # noqa: F401
+                                                      load_host_series, load_pod,
+                                                      pod_report)
 from petastorm_tpu_torch.observability.report import (decode_collate_share,  # noqa: F401
                                                       format_stall_report, stall_report)
 from petastorm_tpu_torch.observability.trace import (TraceContext, chrome_trace,  # noqa: F401
@@ -231,16 +239,17 @@ def absorb_trace_events(events):
 
 
 __all__ = [
-    'FlightRecorder', 'HistoryRecorder', 'JsonlExporter', 'TelemetryConfig',
-    'TraceContext', 'absorb_trace_events', 'chrome_trace',
-    'configure', 'count', 'counters_on', 'critical_path',
-    'current_config', 'current_trace', 'decode_collate_share', 'detect_regression',
-    'drain_trace_events', 'export_chrome_trace', 'flatten_snapshot',
-    'format_postmortem', 'format_stall_report', 'gauge_set', 'get_registry',
-    'get_ring', 'history_windows', 'host_identity', 'instant', 'load_flight',
-    'load_history', 'merge_snapshots', 'mint_trace', 'observe', 'postmortem_report',
-    'resolve_telemetry', 'root_of', 'slowest_batches', 'snapshot', 'span',
-    'span_tree', 'spans_on', 'stage', 'stage_breakdown', 'stall_report',
+    'FlightRecorder', 'HistoryRecorder', 'JsonlExporter', 'TelemetryConfig', 'TraceContext',
+    'absorb_trace_events', 'chrome_trace', 'configure', 'count', 'counters_on',
+    'critical_path', 'critical_path_summary', 'current_config', 'current_trace',
+    'decode_collate_share', 'detect_regression', 'drain_trace_events',
+    'export_chrome_trace', 'flatten_snapshot', 'format_critical_path', 'format_pod_report',
+    'format_postmortem', 'format_slowest_batches', 'format_span_tree',
+    'format_stall_report', 'gauge_set', 'get_registry', 'get_ring', 'history_windows',
+    'host_identity', 'instant', 'load_flight', 'load_history', 'load_host_series',
+    'load_pod', 'merge_snapshots', 'mint_trace', 'observe', 'pod_report',
+    'postmortem_report', 'resolve_telemetry', 'root_of', 'slowest_batches', 'snapshot',
+    'span', 'span_tree', 'spans_on', 'stage', 'stage_breakdown', 'stall_report',
     'to_prometheus_text', 'trace_root', 'traces_in', 'use_trace', 'window_delta',
     'windowed_stall_report', 'write_prometheus',
 ]

@@ -202,3 +202,61 @@ def slowest_batches(events=None, top=5):
                      'critical_path': critical_path(tree)})
     rows.sort(key=lambda r: r['makespan_us'], reverse=True)
     return rows[:top]
+
+
+def critical_path_summary(events=None, top=3):
+    """A ``critical_path`` JSON block: traced-batch count
+    plus the ``top`` slowest batches with their stage breakdowns."""
+    if events is None:
+        events = _trace.get_ring().snapshot()
+    grouped = traces_in(events)
+    return {'traced_batches': len(grouped),
+            'slowest': slowest_batches(events, top=top)}
+
+
+def format_span_tree(tree, max_depth=None):
+    """Indented text rendering of one batch's span tree."""
+    lines = ['trace {}  makespan {:.3f} ms'.format(tree.get('trace', tree['span']),
+                                                   tree['dur'] / 1000.0)]
+
+    def walk(node, depth):
+        if max_depth is not None and depth > max_depth:
+            return
+        lines.append('{}{:<24s} {:>10.3f} ms  self {:>8.3f} ms  [pid {} {}]'.format(
+            '  ' * depth, node['name'], node['dur'] / 1000.0,
+            node['self_us'] / 1000.0, node['pid'], node['cat']))
+        for child in node['children']:
+            walk(child, depth + 1)
+
+    for child in tree['children']:
+        walk(child, 1)
+    return '\n'.join(lines)
+
+
+def format_critical_path(path):
+    """One-line rendering: ``ventilate 0.1ms -> read_io 12.4ms -> ...`` with
+    the dominant stage called out."""
+    if not path:
+        return 'critical path: (no spans)'
+    chain = ' -> '.join('{} {:.3f}ms'.format(s['name'], s['dur_us'] / 1000.0)
+                        for s in path)
+    worst = max(path, key=lambda s: s['dur_us'])
+    return ('critical path: {}\n  dominant stage: {} ({:.3f} ms on the path, '
+            'pid {})'.format(chain, worst['name'], worst['dur_us'] / 1000.0,
+                             worst['pid']))
+
+
+def format_slowest_batches(rows):
+    """Tabular rendering of :func:`slowest_batches` (``diagnose --batch slowest``)."""
+    if not rows:
+        return 'no traced batches in the ring (is telemetry at spans level?)'
+    lines = ['{:<22s} {:>12s} {:>6s} {:>5s}  {}'.format(
+        'trace', 'makespan_ms', 'spans', 'procs', 'dominant stage')]
+    for r in rows:
+        worst = (max(r['critical_path'], key=lambda s: s['dur_us'])
+                 if r['critical_path'] else None)
+        dom = ('{} ({:.3f} ms)'.format(worst['name'], worst['dur_us'] / 1000.0)
+               if worst else '-')
+        lines.append('{:<22s} {:>12.3f} {:>6d} {:>5d}  {}'.format(
+            r['trace'], r['makespan_us'] / 1000.0, r['spans'], r['processes'], dom))
+    return '\n'.join(lines)

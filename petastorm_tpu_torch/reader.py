@@ -17,9 +17,17 @@ Parquet store as raw columns, its schema inferred when the store has none.
 For a given seed the item order is the JAX package's, and so is the read
 position a reader checkpoints (:meth:`Reader.state_dict`, ``resume_state=``):
 a plain dict of ints, lists and a numpy bit-generator state, which either
-package resumes. The arguments of the JAX factories that are not ported yet
-raise :class:`NotImplementedError` naming their ROADMAP item when given a
-non-default value.
+package resumes. Both factories take the JAX factories' arguments, in their
+order and with their defaults; ``reader_pool_type`` may also be a
+:class:`~petastorm_tpu_torch.workers.ProcessPoolOptions`, the process pool
+with further arguments (``transport``, ``ring_bytes``, ...).
+
+``protocol_monitor=`` (or ``PSTPU_PROTOCOL_MONITOR=1``) attaches the runtime
+conformance monitor of the supervision protocol
+(:mod:`petastorm_tpu_torch.analysis.protocol.monitor`) to the pool: an event
+sequence the spec rejects raises
+:class:`~petastorm_tpu_torch.errors.ProtocolViolation` on the iterating
+thread.
 
 Telemetry (``telemetry=``, the process's level, ``'counters'`` by default)
 and the autotuner (``autotune=``) are the JAX package's: the level is applied
@@ -72,32 +80,11 @@ from petastorm_tpu_torch.row_worker import (NgramBlockResultsQueueReader, RowGro
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.serializers import NumpyBlockSerializer
 from petastorm_tpu_torch.workers import (ConcurrentVentilator, DummyPool, ErrorPolicy,
-                                         ProcessPool, ThreadPool)
+                                         ProcessPool, ProcessPoolOptions, ThreadPool)
 
 # extra row groups ventilated beyond the worker count: bounds decoded-data
 # memory while keeping workers busy
 _VENTILATE_EXTRA_ROWGROUPS = 2
-
-#: arguments of the JAX reader factories not ported yet:
-#: name -> (JAX default, ROADMAP item that ports it); make_batch_reader has
-#: every one
-_NOT_YET_PORTED = {
-    'protocol_monitor': (None, 'protocol monitor'),
-}
-
-
-def _refuse_not_yet_ported(factory, not_yet_ported):
-    """Raise for an argument of the JAX ``factory`` that is not ported yet
-    and was given a non-default value, and for one the JAX factory lacks."""
-    for name, value in not_yet_ported.items():
-        if name not in _NOT_YET_PORTED:
-            raise TypeError('{}() got an unexpected keyword argument {!r}'.format(factory, name))
-        default, item = _NOT_YET_PORTED[name]
-        if value != default:
-            raise NotImplementedError(
-                '{}({}=...) is not yet ported to petastorm_tpu_torch '
-                '(ROADMAP.md, "{}")'.format(factory, name, item))
-
 
 def _columnar_results_reader_factory(output, batch_size, drop_last, rows_factory):
     """The results reader of the output mode: rows, one block per row group,
@@ -117,26 +104,30 @@ def _columnar_results_reader_factory(output, batch_size, drop_last, rows_factory
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, serializer=None,
-               on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None):
-    """The pool of ``reader_pool_type``. Every worker publishes column
-    blocks, so the process pool's serializer defaults to the raw-buffer
+               on_error='raise', max_item_retries=None, protocol_monitor=None,
+               zero_copy=False):
+    """The pool of ``reader_pool_type`` (``'thread'``, ``'process'``,
+    ``'dummy'`` or a :class:`ProcessPoolOptions`, the process pool with
+    further arguments). Every worker publishes column blocks, so the process
+    pool's serializer defaults to the raw-buffer
     :class:`NumpyBlockSerializer`; blocks arrive as writable numpy views over
     the IPC message. ``zero_copy`` (process pool, shm transport) delivers
     them as lifetime-tracked views straight into the ring slot; the thread
     and dummy pools hand over in-process arrays already, so for them it is a
-    no-op. ``on_error``/``max_item_retries`` behave alike on every pool.
-    ``pool_kwargs`` are further :class:`ProcessPool` arguments."""
-    policy = ErrorPolicy.resolve(on_error, max_item_retries)
-    if pool_kwargs and reader_pool_type != 'process':
-        raise ValueError("pool_kwargs apply to reader_pool_type='process' only")
+    no-op. ``on_error``/``max_item_retries`` and ``protocol_monitor`` behave
+    alike on every pool."""
+    policy = {'on_error': ErrorPolicy.resolve(on_error, max_item_retries),
+              'protocol_monitor': protocol_monitor}
     if reader_pool_type == 'thread':
-        return ThreadPool(workers_count, results_queue_size, on_error=policy)
-    if reader_pool_type == 'process':
+        return ThreadPool(workers_count, results_queue_size, **policy)
+    if reader_pool_type == 'process' or isinstance(reader_pool_type, ProcessPoolOptions):
+        options = (reader_pool_type.kwargs if isinstance(reader_pool_type, ProcessPoolOptions)
+                   else {})
         return ProcessPool(workers_count, results_queue_size,
                            serializer=serializer or NumpyBlockSerializer(),
-                           on_error=policy, zero_copy=zero_copy, **(pool_kwargs or {}))
+                           zero_copy=zero_copy, **dict(options, **policy))
     if reader_pool_type == 'dummy':
-        return DummyPool(on_error=policy)
+        return DummyPool(**policy)
     raise ValueError('Unknown reader_pool_type {!r} (expected thread/process/dummy)'.format(
         reader_pool_type))
 
@@ -202,16 +193,21 @@ def make_reader(dataset_url,
                 resume_state=None,
                 storage_retry_policy=None, chunk_cache=None, chunk_cache_size_limit=None,
                 telemetry=None, autotune=None,
-                on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                piece_filter=None, serve=None, serve_weight=1, elastic=None, **not_yet_ported):
+                on_error='raise', max_item_retries=None, protocol_monitor=None,
+                serve=None, serve_weight=1, zero_copy=False, elastic=None,
+                piece_filter=None):
     """Reader for datasets written by :func:`materialize_dataset`.
 
     :param schema_fields: field names / regex patterns / UnischemaFields to
         read (``None`` = all)
     :param reader_pool_type: ``'thread'``, ``'process'`` (spawned worker
         processes, results over shared-memory rings; see
-        :class:`~petastorm_tpu_torch.workers.ProcessPool`) or ``'dummy'``
-        (the consumer thread)
+        :class:`~petastorm_tpu_torch.workers.ProcessPool`), ``'dummy'``
+        (the consumer thread), or a
+        :class:`~petastorm_tpu_torch.workers.ProcessPoolOptions`: the
+        process pool with further arguments (``transport``, ``ring_bytes``,
+        ``results_timeout_s``, ``blob_threshold_bytes``, ...; the JAX
+        factory always takes the pool's defaults)
     :param seed: seeds the per-epoch row-group shuffle; ``None`` = nondeterministic
     :param shuffle_row_drop_partitions: split each row group into this many
         contiguous row slices, each its own work item (more items shuffled
@@ -302,11 +298,14 @@ def make_reader(dataset_url,
         holding a block applies backpressure. With no transform and no cache
         the workers then decode fused row groups straight into the slot. A
         no-op for the thread and dummy pools.
-    :param pool_kwargs: further arguments of the process pool
-        (:class:`~petastorm_tpu_torch.workers.ProcessPool`: ``transport``,
-        ``ring_bytes``, ``results_timeout_s``, ``blob_threshold_bytes``,
-        ...); the JAX ``make_reader`` has no such argument and always takes
-        the pool's defaults
+    :param protocol_monitor: opt-in runtime conformance checking of the
+        worker-pool supervision protocol (``docs/protocol.md``): truthy
+        attaches a fresh monitor to the pool, a
+        :class:`~petastorm_tpu_torch.analysis.protocol.monitor.ProtocolMonitor`
+        instance is used as is, None honours the ``PSTPU_PROTOCOL_MONITOR``
+        environment variable. An event sequence the protocol spec rejects
+        raises :class:`~petastorm_tpu_torch.errors.ProtocolViolation` on the
+        iterating thread
     :param piece_filter: ``callable(RowGroupPiece) -> bool`` applied to the
         piece list straight after it is listed, before the selector, the
         predicate and the shard: it scopes the reader to a subset of row
@@ -338,7 +337,6 @@ def make_reader(dataset_url,
         ``resume_state`` (the pod's commit scoreboard is the read position)
         or ``serve``
     """
-    _refuse_not_yet_ported('make_reader', not_yet_ported)
     _refuse_served_elastic(serve, elastic)
     remote = {'storage_retry_policy': storage_retry_policy, 'chunk_cache': chunk_cache,
               'chunk_cache_size_limit': chunk_cache_size_limit}
@@ -381,8 +379,8 @@ def make_reader(dataset_url,
     # the pool is built, not started, before any IO: a bad policy or pool
     # type fails first
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
-                      max_item_retries=max_item_retries, zero_copy=zero_copy,
-                      pool_kwargs=pool_kwargs)
+                      max_item_retries=max_item_retries, protocol_monitor=protocol_monitor,
+                      zero_copy=zero_copy)
     try:
         schema = dataset_metadata.get_schema(dataset_url, retry_policy=storage_retry_policy)
     except dataset_metadata.PetastormMetadataError:
@@ -415,9 +413,9 @@ def make_batch_reader(dataset_url,
                       resume_state=None,
                       storage_retry_policy=None, chunk_cache=None, chunk_cache_size_limit=None,
                       telemetry=None, autotune=None,
-                      on_error='raise', max_item_retries=None, zero_copy=False, pool_kwargs=None,
-                      piece_filter=None, serve=None, serve_weight=1, elastic=None,
-                      **not_yet_ported):
+                      on_error='raise', max_item_retries=None, protocol_monitor=None,
+                      serve=None, serve_weight=1, zero_copy=False, elastic=None,
+                      piece_filter=None):
     """Columnar reader for ANY Parquet store: one namedtuple of numpy column
     arrays per row group, or per ``batch_size`` rows with ``batch_size``
     (the last batch of a pass shorter unless ``drop_last``). The columns are
@@ -426,11 +424,10 @@ def make_batch_reader(dataset_url,
     The schema is the stored Unischema when the store has one, else it is
     inferred from the Arrow schema (:func:`~petastorm_tpu_torch.etl.
     dataset_metadata.infer_or_load_unischema`). The other arguments are
-    :func:`make_reader`'s, ``serve``, ``serve_weight``, ``elastic`` and the
-    remote-store ones (``storage_retry_policy``, ``chunk_cache``,
-    ``chunk_cache_size_limit``) included; ``TransformSpec.func`` gets the
-    column dict."""
-    _refuse_not_yet_ported('make_batch_reader', not_yet_ported)
+    :func:`make_reader`'s, ``protocol_monitor``, ``serve``, ``serve_weight``,
+    ``elastic`` and the remote-store ones (``storage_retry_policy``,
+    ``chunk_cache``, ``chunk_cache_size_limit``) included;
+    ``TransformSpec.func`` gets the column dict."""
     _refuse_served_elastic(serve, elastic)
     remote = {'storage_retry_policy': storage_retry_policy, 'chunk_cache': chunk_cache,
               'chunk_cache_size_limit': chunk_cache_size_limit}
@@ -450,8 +447,8 @@ def make_batch_reader(dataset_url,
                             **remote)
     results_reader = _columnar_results_reader_factory('columnar', batch_size, drop_last, None)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, on_error=on_error,
-                      max_item_retries=max_item_retries, zero_copy=zero_copy,
-                      pool_kwargs=pool_kwargs)
+                      max_item_retries=max_item_retries, protocol_monitor=protocol_monitor,
+                      zero_copy=zero_copy)
     schema = dataset_metadata.infer_or_load_unischema(dataset_url,
                                                       retry_policy=storage_retry_policy)
     cache = _make_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate)
@@ -484,6 +481,9 @@ def _make_served(dataset_url, batch_reader, schema_fields, seed, shuffle_row_gro
     if piece_filter is not None:
         raise ValueError('piece_filter is not supported with serve=: the shared daemon owns '
                          'one static stream plan')
+    if isinstance(reader_pool_type, ProcessPoolOptions):
+        raise ValueError('ProcessPoolOptions is not supported with serve=: the daemon sizes '
+                         "its own pool; pass reader_pool_type='process'")
     if resume_state is not None:
         raise ValueError('resume_state is not supported with serve=: the read position '
                          'belongs to the shared stream')

@@ -40,8 +40,7 @@ from petastorm_tpu_torch.errors import (ConsumerEvictedError, EmptyResultError,
 from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
 from petastorm_tpu_torch.observability import blackbox
 from petastorm_tpu_torch.serializers import NumpyBlockSerializer
-from petastorm_tpu_torch.serve.service import (LOCK_FILE, endpoint_path, read_endpoint,
-                                               refuse_monitor)
+from petastorm_tpu_torch.serve.service import LOCK_FILE, endpoint_path, read_endpoint
 from petastorm_tpu_torch.workers.protocol import (SERVE_BLOB, SERVE_COLS, SERVE_DATA,
                                                   SERVE_DONE, SERVE_END, SERVE_ERROR,
                                                   ring_unpack)
@@ -201,7 +200,7 @@ class _ServedPoolFacade(object):
     ``last_result_seq``, ``done_callback``) over a broadcast-ring consumer
     slot."""
 
-    def __init__(self, ring, token, daemon_pid, tenant_id, trace_ns=None):
+    def __init__(self, ring, token, daemon_pid, tenant_id, monitor=None, trace_ns=None):
         self._ring = ring
         self._token = token
         self._daemon_pid = daemon_pid
@@ -210,6 +209,9 @@ class _ServedPoolFacade(object):
         # derives from the seq in the ring header, so the client's spans join
         # the daemon's tree with no extra bytes on the wire
         self._trace_ns = trace_ns
+        #: the consumer side's serve monitor (each batch delivered once, the
+        #: end seen once), or None
+        self.monitor = monitor
         self._serializer = NumpyBlockSerializer()
         self._stopped = False
         self._ended = False
@@ -223,6 +225,8 @@ class _ServedPoolFacade(object):
 
     def _note_result(self, seq, kind):
         """Bookkeeping shared by every frame kind that carries a batch."""
+        if self.monitor is not None:
+            self.monitor.on_deliver(seq)
         self.frames[kind] += 1
         self.last_result_seq = seq
         if self._trace_ns is not None and seq is not None and obs.spans_on():
@@ -296,6 +300,8 @@ class _ServedPoolFacade(object):
                 if self.done_callback is not None and seq is not None:
                     self.done_callback(seq)
             elif kind == SERVE_END:
+                if self.monitor is not None:
+                    self.monitor.on_consumer_end()
                 self._ended = True
                 raise EmptyResultError()
             elif kind == SERVE_ERROR:
@@ -330,7 +336,7 @@ class ServedReader(object):
     ``autotune`` (the daemon owns the fleet); the factories refuse them.
     """
 
-    def __init__(self, conn, reply, results_queue_reader_factory, service_dir):
+    def __init__(self, conn, reply, results_queue_reader_factory, service_dir, monitor=None):
         self._conn = conn
         self._service_dir = service_dir
         self.tenant_id = reply['tenant_id']
@@ -344,7 +350,8 @@ class ServedReader(object):
         from petastorm_tpu_torch.native.shm_ring import BcastRing
         self._ring = BcastRing.attach(reply['ring_name'])
         self._facade = _ServedPoolFacade(self._ring, reply['token'], reply['daemon_pid'],
-                                         self.tenant_id, trace_ns=reply.get('trace_ns'))
+                                         self.tenant_id, monitor=monitor,
+                                         trace_ns=reply.get('trace_ns'))
         self._results_queue_reader = results_queue_reader_factory(self.transformed_schema)
         self.last_row_consumed = False
         self._stopped = False
@@ -470,9 +477,11 @@ def make_served_reader(spec, serve, results_queue_reader_factory, weight=1, spaw
                        monitor=None):
     """Attach ``spec`` to the service of ``serve`` ('auto' or a service
     directory), spawning the daemon when none runs. Returns a
-    :class:`ServedReader`. ``monitor`` (the protocol monitor) is not ported
-    yet and raises when asked for."""
-    refuse_monitor(monitor)
+    :class:`ServedReader`. ``monitor``: the consumer side's serve protocol
+    monitor (a ``ServeMonitor``, truthy for a fresh one, None to honour
+    ``PSTPU_SERVE_MONITOR``/``PSTPU_PROTOCOL_MONITOR``)."""
+    from petastorm_tpu_torch.analysis.protocol.monitor import serve_monitor_from_env
+    monitor = serve_monitor_from_env(monitor, 'serve-consumer')
     service_dir = default_service_dir() if serve in (True, 'auto') else str(serve)
     conn = connect_service(service_dir, spawn_args=spawn_args)
     conn.send({'op': 'attach', 'spec': spec, 'weight': weight})
@@ -483,7 +492,8 @@ def make_served_reader(spec, serve, results_queue_reader_factory, weight=1, spaw
         except OSError:
             pass
         raise ServeError('serve attach failed: {}'.format(reply.get('error')))
-    return ServedReader(conn, reply, results_queue_reader_factory, service_dir)
+    return ServedReader(conn, reply, results_queue_reader_factory, service_dir,
+                        monitor=monitor)
 
 
 __all__ = ['ServedReader', 'connect_service', 'default_service_dir', 'make_served_reader']

@@ -27,9 +27,13 @@ broadcast rings (:class:`~petastorm_tpu_torch.native.shm_ring.BcastRing`):
   ``serve/client.py``.
 
 Every admit, evict and detach runs inside a span carrying the tenant id, so
-a long-lived daemon's decisions can be read back from its trace ring. Not
-ported yet: the protocol monitor (``monitor=``, ``PSTPU_SERVE_MONITOR``),
-which raises :class:`NotImplementedError` when asked for.
+a long-lived daemon's decisions can be read back from its trace ring. The
+opt-in protocol monitor (``monitor=``, ``PSTPU_SERVE_MONITOR`` or the
+umbrella ``PSTPU_PROTOCOL_MONITOR``) checks the daemon's side of the serve
+fan-out protocol (``analysis/protocol/serve_spec.py``): each attach, detach,
+eviction, publish and stream end, raising
+:class:`~petastorm_tpu_torch.errors.ProtocolViolation` on a sequence the
+spec rejects.
 """
 
 from __future__ import annotations
@@ -78,18 +82,6 @@ DEFAULT_BLOB_GC_GRACE_S = 1.0
 
 ENDPOINT_FILE = 'endpoint.json'
 LOCK_FILE = 'daemon.lock'
-
-
-def refuse_monitor(monitor):
-    """Raise for a requested protocol monitor (``monitor`` truthy, or unset
-    with ``PSTPU_SERVE_MONITOR``/``PSTPU_PROTOCOL_MONITOR`` set): not ported
-    yet. None and an unset environment give no monitor."""
-    if monitor is None:
-        env = os.environ.get('PSTPU_SERVE_MONITOR', os.environ.get('PSTPU_PROTOCOL_MONITOR', ''))
-        monitor = env not in ('', '0')
-    if monitor:
-        raise NotImplementedError('the serve protocol monitor is not yet ported to '
-                                  'petastorm_tpu_torch (ROADMAP.md, "protocol monitor")')
 
 
 def canonical_stream_id(spec):
@@ -176,7 +168,9 @@ class ReaderService(object):
                  blob_budget_bytes=DEFAULT_BLOB_BUDGET_BYTES,
                  blob_gc_grace_s=DEFAULT_BLOB_GC_GRACE_S,
                  monitor=None, telemetry=None):
-        refuse_monitor(monitor)
+        from petastorm_tpu_torch.analysis.protocol.monitor import serve_monitor_from_env
+        #: the daemon side's serve monitor, or None
+        self.monitor = serve_monitor_from_env(monitor, 'serve-daemon')
         self.service_dir = os.path.abspath(service_dir)
         # applied at start(): 'spans' makes served batches traceable end to
         # end (the client fetches the daemon's half with the 'trace' op)
@@ -448,6 +442,8 @@ class ReaderService(object):
                         seed=stream.plan.seed)
                 else:
                     self._retune_stream_weight(stream)
+            if self.monitor is not None:
+                self.monitor.on_attach(tenant_id, stream_id)
         obs.count('serve_tenants_attached_total')
         logger.info('serve: tenant %s attached to stream %s (%s, weight %d, shared=%s)',
                     tenant_id, stream_id, spec.get('dataset_url'), weight, not fresh)
@@ -499,6 +495,8 @@ class ReaderService(object):
                     self._finish_stream_if_abandoned(stream)
             if not self._tenants:
                 self._idle_since = time.monotonic()
+            if self.monitor is not None:
+                self.monitor.on_detach(tenant_id)
         obs.count('serve_tenants_detached_total')
         logger.info('serve: tenant %s detached from stream %s', tenant_id, tenant.stream_id)
         return True
@@ -594,6 +592,8 @@ class ReaderService(object):
             return
         stream.finished = True
         self._publish(stream, SERVE_END, None, None)
+        if self.monitor is not None:
+            self.monitor.on_end(stream_id)
         logger.info('serve: stream %s finished all epochs', stream_id)
 
     def _broadcast_error(self, stream, exc):
@@ -656,6 +656,8 @@ class ReaderService(object):
                 stream.blocked_since = None
                 if kind in (SERVE_DATA, SERVE_BLOB, SERVE_COLS):
                     self._account_publish(stream, parts, blob=blob)
+                    if self.monitor is not None:
+                        self.monitor.on_publish(stream.stream_id, seq)
                 return
             if self._shutdown.is_set():
                 return  # teardown: one best-effort attempt, never a block
@@ -740,6 +742,8 @@ class ReaderService(object):
                     stream.ring.evict(tenant.token)
                 tenant.evicted = True
             self._evictions += 1
+            if self.monitor is not None:
+                self.monitor.on_evict(tenant.tenant_id)
         obs.count('serve_evictions_total')
         logger.error(
             'serve: EVICTED tenant %s from stream %s (lag %d bytes blocked the others for '

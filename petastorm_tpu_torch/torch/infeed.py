@@ -2,7 +2,8 @@
 
 Twin of ``petastorm_tpu/jax/infeed.py``. ``prefetch_to_device`` keeps
 ``size`` batches in flight: each batch is copied into pinned host memory and
-sent with ``.to(device, non_blocking=True)`` on a side CUDA stream, and an
+sent with ``.to(device, non_blocking=True)`` on a side CUDA stream (one
+that a graph capture on the consumer's thread never uses), and an
 event recorded after its copies makes the consumer's stream wait for exactly
 that batch. So the copy of batch N+1 overlaps compute on batch N, and the
 consumer never reads a batch before it has landed.
@@ -181,6 +182,20 @@ def _tensors(batch):
         yield batch
 
 
+def _side_stream(device):
+    """The stream the infeed stages on, taken from the high-priority pool.
+
+    PyTorch hands out each priority's pool of streams round robin (32 per
+    device), and ``torch.cuda.graph`` captures on a default-priority stream
+    taken from it once. So a default-priority stream taken here is, every
+    32nd time, that capture stream: a batch staged on it while the consumer
+    captures a graph joins the capture (its copies and its event become
+    nodes of the graph), and the consumer's wait for that event then fails
+    with CUDA's "invalid argument". A high-priority stream is never that
+    stream."""
+    return torch.cuda.Stream(device, priority=-1)
+
+
 def prefetch_to_device(iterator, device=None, size=2, background=True):
     """Yield batches from ``iterator`` staged onto ``device`` (``None`` =
     CUDA, or a :class:`~petastorm_tpu_torch.parallel.DataSharding`), keeping
@@ -195,7 +210,7 @@ def prefetch_to_device(iterator, device=None, size=2, background=True):
     device = _target_device(target)
     if size < 1:
         raise ValueError('size must be >= 1')
-    side = torch.cuda.Stream(device) if device.type == 'cuda' else None
+    side = _side_stream(device) if device.type == 'cuda' else None
 
     def stage(batch):
         # the loader's last_trace, read on the thread that just pulled the

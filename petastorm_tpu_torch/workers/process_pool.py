@@ -61,8 +61,18 @@ departed worker's dispatch pipe are found by the dispatch watermarks
 (:meth:`ProcessPool._sweep_stranded_items`) and requeued, so every item is
 still delivered once.
 
-Not ported yet: the protocol monitor (ROADMAP.md), fault injection and the
-chunk fabric.
+Supervision under test: an installed :class:`~petastorm_tpu_torch.faults.
+FaultPlan` rides the setup args into every spawned worker, which marks
+itself as one (kills and segfaults are honoured there) and calls
+``faults.on_item`` before each item, inside its ``item`` stage. The opt-in
+protocol monitor (``protocol_monitor=``, ``PSTPU_PROTOCOL_MONITOR``) sees
+every dispatch, requeue (after an error, a death, or a sweep of a departed
+worker's pipe), claim, data/done/error message with the live/stale decision
+the pool took on it, completion, and the drain; its events are emitted under
+``_state_lock`` where they must order with the accounting they describe
+(the only nesting is ``_state_lock`` -> monitor lock).
+
+Not ported yet: the chunk fabric.
 
 Scripts that create a pool at module level must guard that code with
 ``if __name__ == '__main__':``: spawned children re-import ``__main__``.
@@ -84,7 +94,7 @@ import uuid
 
 import zmq
 
-from petastorm_tpu_torch import observability as obs
+from petastorm_tpu_torch import faults, observability as obs
 from petastorm_tpu_torch.errors import (EmptyResultError, PoisonItemError,
                                         TimeoutWaitingForResultError, WorkerPoolDepletedError)
 from petastorm_tpu_torch.native.lifetime import RingBorrowLedger
@@ -206,6 +216,21 @@ def _shm_free_bytes():
     return st.f_bavail * st.f_frsize
 
 
+class ProcessPoolOptions(object):
+    """A ``reader_pool_type`` value: the process pool, built with these
+    further :class:`ProcessPool` arguments (``transport``, ``ring_bytes``,
+    ``results_timeout_s``, ``blob_threshold_bytes``, ``heartbeat_interval_s``,
+    ...). The reader factories set ``on_error``, ``protocol_monitor``,
+    ``zero_copy`` and the serializer themselves."""
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+    def __repr__(self):
+        return 'ProcessPoolOptions({})'.format(
+            ', '.join('{}={!r}'.format(k, v) for k, v in sorted(self.kwargs.items())))
+
+
 class ProcessPool(object):
     """
     :param results_timeout_s: raise :class:`TimeoutWaitingForResultError`
@@ -223,13 +248,18 @@ class ProcessPool(object):
     :param heartbeat_interval_s: worker liveness beacon period
     :param zero_copy: shm transport only: deliver data messages as
         lifetime-tracked views into the ring slot instead of a copy each
+    :param protocol_monitor: opt-in runtime conformance checking of the
+        supervision protocol: truthy attaches a fresh
+        :class:`~petastorm_tpu_torch.analysis.protocol.monitor.ProtocolMonitor`,
+        an instance is used as is, None honours ``PSTPU_PROTOCOL_MONITOR``
     """
 
     def __init__(self, workers_count, results_queue_size=_DEFAULT_RESULTS_HWM, serializer=None,
                  results_timeout_s=None, transport=None, ring_bytes=DEFAULT_RING_BYTES,
                  blob_threshold_bytes=DEFAULT_BLOB_THRESHOLD, on_error='raise',
                  max_item_retries=None, supervision=True,
-                 heartbeat_interval_s=_DEFAULT_HEARTBEAT_S, zero_copy=False):
+                 heartbeat_interval_s=_DEFAULT_HEARTBEAT_S, zero_copy=False,
+                 protocol_monitor=None):
         from petastorm_tpu_torch.native.shm_ring import IdleWait
         from petastorm_tpu_torch.serializers import PickleSerializer
 
@@ -304,6 +334,12 @@ class ProcessPool(object):
         self.last_result_trace = None
         #: callable(seq) fired when a delivered item completes
         self.done_callback = None
+        #: the opt-in protocol conformance monitor (docs/protocol.md), or None
+        self.protocol_monitor = None
+        if protocol_monitor or (protocol_monitor is None and
+                                os.environ.get('PSTPU_PROTOCOL_MONITOR', '') not in ('', '0')):
+            from petastorm_tpu_torch.analysis.protocol.monitor import monitor_from_env
+            self.protocol_monitor = monitor_from_env(protocol_monitor, 'process-pool')
 
     @property
     def transport(self):
@@ -504,6 +540,11 @@ class ProcessPool(object):
                 except OSError:
                     self._blob_dir = None
 
+        # an installed fault plan rides the setup args into the spawned
+        # workers, as the telemetry config does
+        if isinstance(worker_setup_args, dict) and 'fault_plan' not in worker_setup_args \
+                and faults.get_plan() is not None:
+            worker_setup_args = dict(worker_setup_args, fault_plan=faults.get_plan())
         setup_blob = pickle.dumps((worker_class, worker_setup_args, self._serializer),
                                   protocol=pickle.HIGHEST_PROTOCOL)
         self._spawn_info = (setup_blob, vent_addr, result_addr, control_addr)
@@ -622,6 +663,8 @@ class ProcessPool(object):
                 d = self._dispatch_ids.next()
                 self._inflight[d] = {'seq': seq, 'args': args, 'kwargs': kwargs, 'attempts': 0,
                                      'published': False, 'claimed': False, 'trace': ctx}
+                if self.protocol_monitor is not None:
+                    self.protocol_monitor.on_dispatch(d, seq)
             self._ventilator_send.send_pyobj((d, args, kwargs, ctx))
 
     def _requeue(self, d, rec):
@@ -639,6 +682,8 @@ class ProcessPool(object):
                 rec['claimed'] = False
                 self._inflight[nd] = rec
                 self._items_requeued += 1
+                if self.protocol_monitor is not None:
+                    self.protocol_monitor.on_requeue(d, nd)
             # a retry keeps the item's trace context: one item, one tree
             self._ventilator_send.send_pyobj((nd, rec['args'], rec['kwargs'], rec['trace']))
         obs.count('items_requeued')
@@ -652,6 +697,8 @@ class ProcessPool(object):
             if d is not None and self._inflight.pop(d, None) is None:
                 return  # stale duplicate
             self._completed_items += 1
+            if self.protocol_monitor is not None and d is not None:
+                self.protocol_monitor.on_complete(d, delivered)
         seq = rec['seq'] if rec is not None else None
         if self._ventilator is not None:
             self._ventilator.processed_item(seq)
@@ -678,7 +725,14 @@ class ProcessPool(object):
                     msg is None or time.monotonic() - self._last_supervise > 0.2):
                 self._supervise(idle=msg is None)
             if msg is None:
-                if self._all_done() or (self._stopped and not self._processes):
+                if self._all_done():
+                    if self.protocol_monitor is not None:
+                        with self._state_lock:
+                            ventilated, completed = (self._ventilated_items,
+                                                     self._completed_items)
+                        self.protocol_monitor.on_drained(ventilated, completed)
+                    raise EmptyResultError()
+                if self._stopped and not self._processes:
                     # (a thread still waiting here after join() gets no more)
                     raise EmptyResultError()
                 if self._supervision and self._all_slots_shed():
@@ -693,6 +747,8 @@ class ProcessPool(object):
             if kind == MSG_DATA or kind == MSG_BLOB:
                 with self._state_lock:
                     rec = self._inflight.get(d) if d is not None else None
+                if self.protocol_monitor is not None and d is not None:
+                    self.protocol_monitor.on_message('data', d, live=rec is not None)
                 if d is not None and rec is None:
                     # stale duplicate of a requeued attempt
                     if kind == MSG_BLOB:
@@ -725,6 +781,8 @@ class ProcessPool(object):
                 self._clear_claim(d)
                 with self._state_lock:
                     rec = self._inflight.get(d) if d is not None else None
+                if self.protocol_monitor is not None and d is not None:
+                    self.protocol_monitor.on_message('done', d, live=rec is not None)
                 if d is not None and rec is None:
                     continue  # stale duplicate
                 self._complete(d, rec, delivered=True)
@@ -754,37 +812,39 @@ class ProcessPool(object):
         worker_id, pid = err.get('worker_id'), err.get('pid')
         with self._state_lock:
             rec = self._inflight.get(d) if d is not None else None
+        if self.protocol_monitor is not None and d is not None:
+            self.protocol_monitor.on_message('error', d, live=rec is not None)
         if d is not None and rec is None:
             return None  # stale report of an earlier attempt
         attempts = (rec['attempts'] if rec is not None else 0) + 1
+        seq = rec['seq'] if rec is not None else None
         if rec is not None and rec['published'] and self._policy.on_error != 'raise':
             # its payload reached the consumer already (the channel is FIFO):
             # a re-run would deliver it twice, so it completes as delivered
-            logger.warning('Worker %s failed on item %s AFTER its payload was delivered; '
+            logger.warning('Worker %s failed on item seq=%s AFTER its payload was delivered; '
                            'completing the item rather than re-running it: %s',
-                           worker_id, rec['kwargs'], exc)
+                           worker_id, seq, exc)
             self._complete(d, rec, delivered=True)
             return None
         if rec is not None and self._policy.should_retry_error(attempts):
-            logger.warning('Worker %s failed on item %s (attempt %d/%d); requeueing: %s',
-                           worker_id, rec['kwargs'], attempts, self._policy.max_item_retries + 1,
-                           exc)
+            logger.warning('Worker %s failed on item seq=%s (attempt %d/%d); requeueing: %s',
+                           worker_id, seq, attempts, self._policy.max_item_retries + 1, exc)
             self._requeue(d, rec)
             return None
         if rec is not None and self._policy.quarantines():
             self._quarantine(d, rec, kind='error', error=exc, tb=tb, worker_id=worker_id)
             return None
         self._complete(d, rec, delivered=False)
-        return attach_remote_context(exc, tb, worker_id=worker_id, seq=d, pid=pid)
+        return attach_remote_context(exc, tb, worker_id=worker_id, seq=seq, pid=pid)
 
     def _quarantine(self, d, rec, kind, error=None, tb=None, worker_id=None):
-        record = quarantine_record(d, rec['attempts'] + 1, kind, error=error, tb=tb,
+        record = quarantine_record(rec['seq'], rec['attempts'] + 1, kind, error=error, tb=tb,
                                    worker_id=worker_id,
                                    item={'args': rec['args'], 'kwargs': rec['kwargs']})
         with self._state_lock:
             self._quarantined.append(record)
         obs.count('items_quarantined')
-        logger.error('Quarantining item %s after %d failed attempts (%s): %s', rec['kwargs'],
+        logger.error('Quarantining item seq=%s after %d failed attempts (%s): %s', rec['seq'],
                      record['attempts'], kind, record['error'])
         self._complete(d, rec, delivered=False)
 
@@ -809,6 +869,10 @@ class ProcessPool(object):
             logger.debug('dropping malformed heartbeat: %s', e)
             return
         self._heartbeats_received += 1
+        if self.protocol_monitor is not None and hb.get('busy') is not None:
+            # a claim beacon: its dispatch id must have been issued (a stale
+            # claim is legal: the requeue may have happened already)
+            self.protocol_monitor.on_message('claim', hb.get('busy'))
         state = self._worker_state.setdefault(worker_id, {})
         state['pid'] = hb.get('pid')
         state['busy'] = busy = hb.get('busy')
@@ -1239,6 +1303,14 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
     # level and span ring match the consumer's before any stage runs
     if isinstance(worker_setup_args, dict) and worker_setup_args.get('telemetry') is not None:
         obs.configure(worker_setup_args['telemetry'])
+    # fault injection rides the same route (pool plumbing, popped like the
+    # flight dir); kills and segfaults are honoured only here, in a process
+    # whose death the supervisor absorbs
+    faults.mark_in_spawned_worker()
+    plan = (worker_setup_args.pop('fault_plan', None)
+            if isinstance(worker_setup_args, dict) else None)
+    if plan is not None:
+        faults.install(plan)
     # this worker's flight recorder, in the consumer's run directory (the key
     # is pool plumbing, not the worker's setup args)
     flight_dir = (worker_setup_args.pop('flight_dir', None)
@@ -1487,6 +1559,7 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
                     # set for the whole item; the item's trace context (minted
                     # in the consumer) parents the worker's stages
                     with obs.stage('item', cat='worker', dispatch=dispatch):
+                        faults.on_item(kwargs)
                         with obs.use_trace(trace_ctx):
                             worker.process(*args, **kwargs)
                 except Exception:  # noqa: BLE001 - forwarded to the consumer process

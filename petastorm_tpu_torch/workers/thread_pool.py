@@ -10,8 +10,13 @@ completed as delivered, never re-run (that would deliver its rows twice).
 Threads cannot die the way processes can, so there is no heartbeat or
 respawn here. The autotuner's worker knob is :meth:`ThreadPool.add_worker_slot`
 / :meth:`ThreadPool.retire_worker_slot`: a retire rides the task queue as a
-sentinel, so the thread finishes its item first. The protocol monitor is
-not ported yet.
+sentinel, so the thread finishes its item first.
+
+Supervision under test: ``faults.on_item`` runs before every item (an
+injected kill or segfault degrades to an error in a thread), and the opt-in
+protocol monitor (``protocol_monitor=``, ``PSTPU_PROTOCOL_MONITOR``) sees
+every dispatch, requeue, consumed message (each carries its dispatch id) and
+completion, and the drain.
 
 Telemetry: :meth:`ThreadPool.get_results` is the ``pool_wait`` stage the
 stall report splits the loader's wait against; the item's trace context
@@ -29,11 +34,12 @@ or quarantined item completes undelivered, so a checkpoint re-reads it).
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import sys
 import threading
 
-from petastorm_tpu_torch import observability as obs
+from petastorm_tpu_torch import faults, observability as obs
 from petastorm_tpu_torch.errors import EmptyResultError
 from petastorm_tpu_torch.observability import blackbox
 from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
@@ -54,7 +60,7 @@ _RETIRE = object()
 
 class ThreadPool(object):
     def __init__(self, workers_count, results_queue_size=50, on_error='raise',
-                 max_item_retries=None):
+                 max_item_retries=None, protocol_monitor=None):
         self._workers_count = workers_count
         self._next_worker_id = workers_count  # ids of slots grown at run time
         self._worker_class = self._worker_setup_args = None
@@ -78,6 +84,12 @@ class ThreadPool(object):
         #: virtual-root trace context of the item whose payload get_results
         #: returned last (None below the spans level)
         self.last_result_trace = None
+        #: the opt-in protocol conformance monitor (docs/protocol.md), or None
+        self.protocol_monitor = None
+        if protocol_monitor or (protocol_monitor is None and
+                                os.environ.get('PSTPU_PROTOCOL_MONITOR', '') not in ('', '0')):
+            from petastorm_tpu_torch.analysis.protocol.monitor import monitor_from_env
+            self.protocol_monitor = monitor_from_env(protocol_monitor, 'thread-pool')
 
     @property
     def workers_count(self):
@@ -141,6 +153,9 @@ class ThreadPool(object):
         with self._counter_lock:
             self._ventilated_items += 1
             d = self._dispatch_ids.next()
+            if self.protocol_monitor is not None:
+                # under the lock: concurrent ventilates report ids in order
+                self.protocol_monitor.on_dispatch(d, seq)
         self._task_queue.put((d, seq, args, kwargs, 0, ctx))
 
     def get_results(self):
@@ -160,24 +175,39 @@ class ThreadPool(object):
     def _get_results(self):
         while True:
             try:
-                kind, seq, payload, ctx = self._results_queue.get(timeout=0.05)
+                kind, seq, payload, d, ctx = self._results_queue.get(timeout=0.05)
             except queue.Empty:
-                if self._stop_event.is_set() or self._all_done():
+                if self._stop_event.is_set():
+                    raise EmptyResultError()
+                if self._all_done():
+                    if self.protocol_monitor is not None:
+                        with self._counter_lock:
+                            ventilated, completed = (self._ventilated_items,
+                                                     self._completed_items)
+                        self.protocol_monitor.on_drained(ventilated, completed)
                     raise EmptyResultError()
                 continue
             if kind == MSG_DATA:
+                if self.protocol_monitor is not None:
+                    self.protocol_monitor.on_message('data', d, live=True)
                 self.last_result_seq = seq
                 self.last_result_trace = obs.root_of(ctx)
                 return payload
             if kind == MSG_DONE:
+                if self.protocol_monitor is not None:
+                    self.protocol_monitor.on_message('done', d, live=True)
                 # the payload is the delivered flag
                 with self._counter_lock:
                     self._completed_items += 1
+                    if self.protocol_monitor is not None:
+                        self.protocol_monitor.on_complete(d, delivered=bool(payload))
                 if self._ventilator is not None:
                     self._ventilator.processed_item(seq)
                 if payload and seq is not None and self.done_callback is not None:
                     self.done_callback(seq)
             else:
+                if self.protocol_monitor is not None:
+                    self.protocol_monitor.on_message('error', d, live=True)
                 raise payload
 
     def _all_done(self):
@@ -207,6 +237,14 @@ class ThreadPool(object):
                     pass
                 thread.join(timeout=0.05)
         self._threads = []
+        # a put already under way when stop() was set can land after a
+        # thread's last drain: drop what the exited workers left, so no
+        # payload (nor the borrow it holds) outlives the pool
+        try:
+            while True:
+                self._results_queue.get(block=False)
+        except queue.Empty:
+            pass
 
     @property
     def quarantined_items(self):
@@ -236,7 +274,7 @@ class ThreadPool(object):
 
     def _publish(self, data):
         self._tls.published = True
-        self._put((MSG_DATA, self._tls.seq, data, self._tls.trace))
+        self._put((MSG_DATA, self._tls.seq, data, self._tls.dispatch, self._tls.trace))
 
     def _put(self, record):
         """Bounded put that gives up when the pool stops, so a worker never
@@ -256,36 +294,38 @@ class ThreadPool(object):
         if getattr(self._tls, 'published', False) and self._policy.on_error != 'raise':
             # its rows are in the results queue: a re-run would deliver them
             # twice, so the item completes as delivered
-            logger.warning('Worker %d failed on item %s AFTER publishing; completing the item '
-                           'rather than re-running it: %s', worker.worker_id, kwargs, exc)
-            self._put((MSG_DONE, seq, True, None))
+            logger.warning('Worker %d failed on item seq=%s AFTER publishing; completing the '
+                           'item rather than re-running it: %s', worker.worker_id, seq, exc)
+            self._put((MSG_DONE, seq, True, d, None))
             return
         if self._policy.should_retry_error(attempts):
-            logger.warning('Worker %d failed on item %s (attempt %d/%d); requeueing: %s',
-                           worker.worker_id, kwargs, attempts,
+            logger.warning('Worker %d failed on item seq=%s (attempt %d/%d); requeueing: %s',
+                           worker.worker_id, seq, attempts,
                            self._policy.max_item_retries + 1, exc)
             with self._counter_lock:
                 self._items_requeued += 1
                 nd = self._dispatch_ids.next()
+                if self.protocol_monitor is not None:
+                    self.protocol_monitor.on_requeue(d, nd)
             obs.count('items_requeued')
             # a retry keeps the item's trace context: one item, one tree
             self._task_queue.put((nd, seq, args, kwargs, attempts, ctx))
             return
         if self._policy.quarantines():
-            record = quarantine_record(d, attempts, 'error', error=exc,
+            record = quarantine_record(seq, attempts, 'error', error=exc,
                                        tb=format_exception_tb(exc), worker_id=worker.worker_id,
                                        item={'args': args, 'kwargs': kwargs})
             with self._counter_lock:
                 self._quarantined.append(record)
             obs.count('items_quarantined')
-            logger.error('Quarantining item %s after %d failed attempts: %s', kwargs, attempts,
+            logger.error('Quarantining item seq=%s after %d failed attempts: %s', seq, attempts,
                          record['error'])
             # completes undelivered: a checkpoint re-reads it
-            self._put((MSG_DONE, seq, False, None))
+            self._put((MSG_DONE, seq, False, d, None))
             return
-        attach_remote_context(exc, format_exception_tb(exc), worker_id=worker.worker_id, seq=d)
-        self._put((MSG_ERROR, None, exc, None))
-        self._put((MSG_DONE, seq, False, None))
+        attach_remote_context(exc, format_exception_tb(exc), worker_id=worker.worker_id, seq=seq)
+        self._put((MSG_ERROR, None, exc, d, None))
+        self._put((MSG_DONE, seq, False, d, None))
 
     def _worker_loop(self, worker):
         try:
@@ -298,10 +338,12 @@ class ThreadPool(object):
                     return  # a retired slot (worker.shutdown in finally)
                 d, seq, args, kwargs, attempts, ctx = task
                 self._tls.seq = seq
+                self._tls.dispatch = d
                 self._tls.published = False
                 self._tls.trace = ctx
                 try:
                     try:
+                        faults.on_item(kwargs)
                         # the worker's stages open under the item's context
                         with obs.use_trace(ctx):
                             worker.process(*args, **kwargs)
@@ -311,7 +353,7 @@ class ThreadPool(object):
                         self._handle_item_failure(worker, d, seq, args, kwargs, attempts + 1,
                                                   ctx)
                     else:
-                        self._put((MSG_DONE, seq, True, None))
+                        self._put((MSG_DONE, seq, True, d, None))
                 except _Stopping:
                     return
         finally:

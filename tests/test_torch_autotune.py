@@ -22,6 +22,7 @@ from petastorm_tpu_torch.etl import materialize_dataset
 from petastorm_tpu_torch.torch import TorchDataLoader
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers.ventilator import ConcurrentVentilator
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 ROWS = 100
 ROWS_PER_GROUP = 10
@@ -243,9 +244,8 @@ def test_thread_pool_resized_mid_epoch_matches_jax(store):
 
 
 def test_process_pool_resized_mid_epoch_matches_jax(store):
-    with make_reader(store, reader_pool_type='process', workers_count=1, output='columnar',
-                     num_epochs=2, shuffle_row_groups=False,
-                     pool_kwargs={'results_timeout_s': 60}) as reader:
+    with make_reader(store, reader_pool_type=ProcessPoolOptions(results_timeout_s=60), workers_count=1,
+                     output='columnar', num_epochs=2, shuffle_row_groups=False) as reader:
         pool = reader._pool
         it = iter(reader)
         blocks = [next(it)]
@@ -267,9 +267,8 @@ def test_process_pool_resized_mid_epoch_matches_jax(store):
 def test_process_pool_requeues_items_stranded_by_a_retire(store):
     """A retired worker leaves the items in its dispatch pipe unclaimed: the
     dispatch watermarks requeue them while the other workers stay busy."""
-    with make_reader(store, reader_pool_type='process', workers_count=3, output='columnar',
-                     num_epochs=3, shuffle_row_groups=False,
-                     pool_kwargs={'results_timeout_s': 60}) as reader:
+    with make_reader(store, reader_pool_type=ProcessPoolOptions(results_timeout_s=60), workers_count=3,
+                     output='columnar', num_epochs=3, shuffle_row_groups=False) as reader:
         pool = reader._pool
         it = iter(reader)
         blocks = [next(it)]
@@ -299,9 +298,8 @@ def test_process_pool_resized_from_another_thread_stays_exact(store):
 
     def read(resize):
         native.read_routes.reset()
-        with make_reader(store, reader_pool_type='process', workers_count=1,
-                         output='columnar', num_epochs=3, shuffle_row_groups=False,
-                         pool_kwargs={'results_timeout_s': 60}) as reader:
+        with make_reader(store, reader_pool_type=ProcessPoolOptions(results_timeout_s=60), workers_count=1,
+                         output='columnar', num_epochs=3, shuffle_row_groups=False) as reader:
             pool, done, spawned = reader._pool, threading.Event(), []
             spawn = pool._spawn_worker
 

@@ -7,6 +7,7 @@ the predicate and row-drop routes, stores written by either package, and two
 train steps of ``chip_smoke.py``'s ``plain_batch`` slice at small width."""
 
 import datetime
+import inspect
 import pickle
 import threading
 import time
@@ -50,6 +51,7 @@ from petastorm_tpu_torch.models.train import create_train_state, make_train_step
 from petastorm_tpu_torch.ops import normalize_images
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -187,9 +189,9 @@ def test_plain_blocks_through_pools_as_multisets(plain_store, pool):
     fields = ['id', 'label', 'name', 'blob', 'pixels', 'price']
     expected = _blocks(jax_make_batch_reader, plain_store, reader_pool_type='dummy', seed=5,
                        schema_fields=fields)
-    kwargs = {'pool_kwargs': {'results_timeout_s': 60}} if pool == 'process' else {}
-    actual = _blocks(make_batch_reader, plain_store, reader_pool_type=pool, workers_count=2,
-                     seed=5, schema_fields=fields, **kwargs)
+    pool_type = ProcessPoolOptions(results_timeout_s=60) if pool == 'process' else pool
+    actual = _blocks(make_batch_reader, plain_store, reader_pool_type=pool_type,
+                     workers_count=2, seed=5, schema_fields=fields)
     _assert_blocks_equal(sorted(actual, key=lambda b: b.id[0]),
                          sorted(expected, key=lambda b: b.id[0]))
 
@@ -250,8 +252,15 @@ def test_rebatching_arguments_are_checked(written_stores):
         make_reader(url, batch_size=8)
     with pytest.raises(TypeError, match='unexpected keyword'):
         make_batch_reader(url, ngram=object())
-    with pytest.raises(NotImplementedError, match='protocol monitor'):
-        make_batch_reader(url, protocol_monitor=True)
+    # the protocol monitor is ported: it attaches to the pool, and the
+    # factory's signature is the JAX one
+    with make_batch_reader(url, reader_pool_type='thread', workers_count=2,
+                           protocol_monitor=True) as reader:
+        monitor = reader._pool.protocol_monitor
+        assert sum(len(b.id) for b in reader) == 75
+    snap = monitor.snapshot
+    assert snap['ventilated'] == snap['completed'] > 0 and snap['in_flight'] == []
+    assert inspect.signature(make_batch_reader) == inspect.signature(jax_make_batch_reader)
 
 
 def test_make_reader_refuses_a_plain_store(plain_store):

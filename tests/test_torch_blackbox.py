@@ -312,3 +312,86 @@ def test_progress_reads_create_no_metric(flight_dir, store):
         assert obs.get_registry().snapshot()['counters'] == {}
     finally:
         obs.configure(saved)
+
+
+# ---------------------------------------------------------------------------
+# chaos: injected worker deaths and a hang, reconstructed post mortem
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fault_state(tmp_path):
+    state = tmp_path / 'faults'
+    state.mkdir()
+    yield str(state)
+    from petastorm_tpu_torch import faults
+    faults.uninstall()
+
+
+def _chaos_ids(url, **kwargs):
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
+    with make_reader(url, schema_fields=['id'],
+                     reader_pool_type=ProcessPoolOptions(results_timeout_s=60),
+                     workers_count=2, output='columnar', seed=0, **kwargs) as reader:
+        ids = [int(x) for batch in reader for x in batch.id]
+        return ids, reader.diagnostics
+
+
+def test_chaos_sigkill_and_sigsegv_reconstructed_postmortem(synthetic_dataset, fault_state,
+                                                           flight_dir, monkeypatch):
+    """One worker SIGKILLed, another SIGSEGVed mid-epoch: the epoch still
+    completes exactly once, and the post-mortem of the run directory (this
+    package's and the JAX package's analyzer alike) names each worker's
+    signal, the stage it died in and the probable cause; the diagnose CLI's
+    ``--postmortem`` prints the same. The consumer snapshots every 0.1 s, so
+    its last window's stall report rebuilds from the file."""
+    from petastorm_tpu_torch import faults
+    monkeypatch.setenv('PSTPU_FLIGHT_INTERVAL', '0.1')
+    faults.install(faults.FaultPlan(kill_items=(3,), segv_items=(6,), state_dir=fault_state))
+    ids, diag = _chaos_ids(synthetic_dataset.url)
+    assert sorted(ids) == list(range(100)), 'exactly-once delivery held'
+    assert diag['worker_restarts'] == 2
+    report = blackbox.postmortem_report(flight_dir)
+    dead = {p['signal']: p for p in report['processes']
+            if p['status'] in ('crashed', 'killed') and p['label'].startswith('worker')}
+    assert set(dead) == {'SIGSEGV', 'SIGKILL'}, \
+        [(p['label'], p['status'], p['signal']) for p in report['processes']]
+    assert dead['SIGSEGV']['activity'] == 'worker.item'
+    assert dead['SIGKILL']['activity'] == 'worker.item'
+    assert dead['SIGSEGV']['crash_stacks'], 'the faulthandler sidecar has the stacks'
+    consumer = [p for p in report['processes'] if p['label'] == 'consumer']
+    assert consumer, [p['label'] for p in report['processes']]
+    deaths = [e for e in consumer[0]['events']
+              if isinstance(e, dict) and e.get('event') == 'worker_death']
+    assert len(deaths) >= 2
+    assert consumer[0]['window_stall_report'] is not None
+    assert 'died on SIGSEGV mid `worker.item`' in report['probable_cause']
+    theirs = jax_blackbox.postmortem_report(flight_dir)
+    assert theirs['probable_cause'] == report['probable_cause']
+    assert sorted((p['label'], str(p['signal'])) for p in theirs['processes']) == \
+        sorted((p['label'], str(p['signal'])) for p in report['processes'])
+    text = blackbox.format_postmortem(report)
+    assert 'probable cause' in text and 'SIGSEGV' in text
+    out = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.observability.diagnose',
+                          '--postmortem', flight_dir], capture_output=True, text=True,
+                         timeout=60, env=dict(os.environ, PSTPU_FLIGHT='0'))
+    assert out.returncode == 0 and 'SIGSEGV' in out.stdout and 'worker.item' in out.stdout
+
+
+def test_chaos_hang_watchdog_dump_lands_in_flight_file(synthetic_dataset, fault_state,
+                                                      flight_dir, monkeypatch):
+    """A worker wedges mid-item: its watchdog dumps all-thread stacks into
+    its flight file while it hangs, naming the fault stage."""
+    from petastorm_tpu_torch import faults
+    monkeypatch.setenv('PSTPU_FLIGHT_STALL_S', '0.3')
+    faults.install(faults.FaultPlan(hang_items=(4,), hang_s=2.0, state_dir=fault_state))
+    ids, _diag = _chaos_ids(synthetic_dataset.url)
+    assert sorted(ids) == list(range(100))
+    report = blackbox.postmortem_report(flight_dir)
+    wedged = [p for p in report['processes']
+              if p['watchdog_dumps']
+              and (p['last_watchdog'] or {}).get('activity') == 'fault.fault_hang']
+    assert wedged, [(p['label'], p['watchdog_dumps'],
+                     (p['last_watchdog'] or {}).get('activity')) for p in report['processes']]
+    dump = wedged[0]['last_watchdog']
+    assert dump['age_s'] >= 0.3
+    assert 'on_item' in '\n'.join(dump['threads'].values()), 'the stack names the hang'

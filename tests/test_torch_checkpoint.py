@@ -23,6 +23,7 @@ from petastorm_tpu.predicates import in_lambda as jax_in_lambda
 from petastorm_tpu_torch import make_batch_reader, make_reader, merge_resume_states
 from petastorm_tpu_torch.predicates import in_lambda
 from petastorm_tpu_torch.torch import TorchDataLoader
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -448,17 +449,16 @@ def test_loader_columnar_resume_through_process_pool_blob_transport(tmp_path):
         for i in range(150):
             writer.write({'id': np.int64(i),
                           'big': rng.integers(0, 255, (128, 64, 3), dtype=np.uint8)})
-    reader = make_reader(url, output='columnar', reader_pool_type='process', workers_count=1,
-                         seed=13, pool_kwargs={'results_timeout_s': 60})
+    reader = make_reader(url, output='columnar', reader_pool_type=ProcessPoolOptions(results_timeout_s=60),
+                         workers_count=1, seed=13)
     loader = TorchDataLoader(reader, 16, shuffling_queue_capacity=64, seed=13)
     it = iter(loader)
     seen = [int(i) for _ in range(3) for i in next(it)['id']]
     state = pickle.loads(pickle.dumps(loader.state_dict()))
     reader.stop()
     reader.join()
-    resumed_reader = make_reader(url, output='columnar', reader_pool_type='process',
-                                 workers_count=1, seed=13, resume_state=state['reader'],
-                                 pool_kwargs={'results_timeout_s': 60})
+    resumed_reader = make_reader(url, output='columnar', reader_pool_type=ProcessPoolOptions(results_timeout_s=60),
+                                 workers_count=1, seed=13, resume_state=state['reader'])
     with TorchDataLoader(resumed_reader, 16, shuffling_queue_capacity=64, seed=13,
                          drop_last=False, resume_state=state) as resumed:
         rest = [int(i) for b in resumed for i in b['id']]

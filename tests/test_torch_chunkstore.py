@@ -51,6 +51,7 @@ from petastorm_tpu_torch.etl import materialize_dataset
 from petastorm_tpu_torch.native import is_available
 from petastorm_tpu_torch.retry import wrap_retrying
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS, ROWS_PER_GROUP, SIZE = 24, 8, 16
@@ -474,9 +475,9 @@ def test_chunk_plans_equal_jax(stores, tmp_path):
 def test_process_pool_mirrors_through_the_shared_root(stores, tmp_path):
     url = 'mock-remote://' + stores['raw']
     root = str(tmp_path / 'chunks')
-    with make_reader(url, reader_pool_type='process', workers_count=2, output='columnar',
-                     shuffle_row_groups=False, chunk_cache=root, zero_copy=True,
-                     pool_kwargs={'results_timeout_s': 60}) as reader:
+    with make_reader(url, reader_pool_type=ProcessPoolOptions(results_timeout_s=60), workers_count=2,
+                     output='columnar', shuffle_row_groups=False, chunk_cache=root,
+                     zero_copy=True) as reader:
         rows = sorted((int(label), np.asarray(image).tobytes())
                       for b in reader for label, image in zip(b.label, b.image))
         inplace = reader.diagnostics['fused_inplace_batches_total']

@@ -37,6 +37,7 @@ from petastorm_tpu_torch.elastic import (ElasticConfig, MembershipRegistry, Shar
                                          global_order, resolve_elastic, shardmap)
 from petastorm_tpu_torch.elastic.coordinator import ElasticCoordinator, ElasticVentilator
 from petastorm_tpu_torch.faults import HostChurnPlan, count_committed, drive_host_churn
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -458,18 +459,37 @@ def test_generation_advances_monotonically_on_churn(tmp_path):
 
 
 def test_monitor_is_refused_until_ported(tmp_path, monkeypatch):
+    """The elastic monitor is ported: it resolves as the JAX package's does
+    (explicit, or from either variable) and the coordinator feeds it."""
+    from petastorm_tpu_torch.analysis.protocol.monitor import ElasticMonitor
     monkeypatch.delenv('PSTPU_ELASTIC_MONITOR', raising=False)
     monkeypatch.delenv('PSTPU_PROTOCOL_MONITOR', raising=False)
-    with pytest.raises(NotImplementedError, match='protocol monitor'):
-        resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0', monitor=True))
+    cfg = resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0', monitor=True))
+    assert isinstance(cfg.monitor, ElasticMonitor)
+    mine = ElasticMonitor(name='mine')
+    assert resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0',
+                                         monitor=mine)).monitor is mine
     assert resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0')).monitor is None
     for name in ('PSTPU_ELASTIC_MONITOR', 'PSTPU_PROTOCOL_MONITOR'):
         monkeypatch.setenv(name, '1')
-        with pytest.raises(NotImplementedError, match='protocol monitor'):
-            resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0'))
+        assert isinstance(resolve_elastic(ElasticConfig(coord_dir=str(tmp_path),
+                                                        host_id='h0')).monitor, ElasticMonitor)
         monkeypatch.setenv(name, '0')
-        resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0'))
+        assert resolve_elastic(ElasticConfig(coord_dir=str(tmp_path), host_id='h0')).monitor \
+            is None
         monkeypatch.delenv(name)
+    coord = ElasticCoordinator(cfg, num_items=4, seed=0)
+    coord.start()
+    try:
+        coord.begin_epoch(0)
+        for item in coord.claimable_items(0):
+            coord.note_ventilated(0, item)
+            assert coord.commit(0, item)
+    finally:
+        coord.close()
+    snap = cfg.monitor.snapshot
+    assert snap['generation'] >= 1 and snap['delivered'] == 4
+    assert snap['events_checked'] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -507,10 +527,10 @@ POOLS = [('make_reader', 'dummy'), ('make_reader', 'thread'), ('make_reader', 'p
 def test_single_host_elastic_reader_covers_dataset(synthetic_dataset, tmp_path, factory, pool):
     coord = str(tmp_path / 'coord')
     cfg = ElasticConfig(coord_dir=coord, host_id='h0')
-    kwargs = {'pool_kwargs': {'results_timeout_s': 60}} if pool == 'process' else {}
+    pool_type = ProcessPoolOptions(results_timeout_s=60) if pool == 'process' else pool
     make = make_reader if factory == 'make_reader' else make_batch_reader
-    with make(synthetic_dataset.url, schema_fields=['id'], reader_pool_type=pool, seed=7,
-              workers_count=2, elastic=cfg, **kwargs) as reader:
+    with make(synthetic_dataset.url, schema_fields=['id'], reader_pool_type=pool_type, seed=7,
+              workers_count=2, elastic=cfg) as reader:
         if factory == 'make_reader':
             ids = [int(row.id) for row in reader]
         else:

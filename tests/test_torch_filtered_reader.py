@@ -47,6 +47,7 @@ from petastorm_tpu_torch.native.lifetime import registry
 from petastorm_tpu_torch.row_worker import select_row_drop_indices
 from petastorm_tpu_torch.torch import TorchDataLoader
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 import cv2  # noqa: F401,E402  (both packages encode PNG cells through it)
 
@@ -422,9 +423,10 @@ def test_loader_batches_equal_jax(image_stores, name):
 
 
 def _multiset(url, pool_type, epochs, **kwargs):
-    pool_kwargs = {'pool_kwargs': TIMEOUT} if pool_type == 'process' else {}
+    if pool_type == 'process':
+        pool_type = ProcessPoolOptions(**TIMEOUT)
     with make_reader(url, reader_pool_type=pool_type, workers_count=2, seed=3,
-                     num_epochs=epochs, output='columnar', **pool_kwargs, **kwargs) as reader:
+                     num_epochs=epochs, output='columnar', **kwargs) as reader:
         rows = collections.Counter()
         for block in reader:
             for n, lab, img in zip(block.noun_id, block.label, block.image):
@@ -473,8 +475,8 @@ def test_process_pool_counts_the_workers_filtered_reads(image_stores):
 def test_unpicklable_predicate_fails_loudly_on_the_process_pool(image_stores):
     pred = predicates.in_lambda(['label'], lambda v: v['label'] > 3)
     with pytest.raises(pickle.PicklingError, match='process pool'):
-        make_reader(image_stores['torch'], reader_pool_type='process', workers_count=1,
-                    predicate=pred, pool_kwargs=TIMEOUT)
+        make_reader(image_stores['torch'], reader_pool_type=ProcessPoolOptions(**TIMEOUT),
+                    workers_count=1, predicate=pred)
     # threads share the object: the lambda is fine there
     with make_reader(image_stores['torch'], reader_pool_type='thread', workers_count=2,
                      predicate=pred) as reader:

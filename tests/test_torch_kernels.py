@@ -273,3 +273,54 @@ def test_mirror_backed_batch_staged_and_normalized_equals_plain(cuda, tmp_path):
     warm = cache_diagnostics(config)
     assert warm['chunk_cache_misses'] == cold['chunk_cache_misses']
     assert warm['chunk_cache_hits'] > cold['chunk_cache_hits']
+
+
+@pytest.mark.gpu
+def test_infeed_stages_beside_a_graph_capture(cuda):
+    # PyTorch hands out each priority's pool of streams round robin, 32 per
+    # device. With the pool placed so that its next default-priority stream
+    # is the one torch.cuda.graph captures on, a batch the prefetch thread
+    # stages while this thread captures must stay out of the graph, and land
+    # whole once the capture ends
+    import threading
+
+    from petastorm_tpu_torch.torch import prefetch_to_device
+
+    capture = torch.cuda.graph(torch.cuda.CUDAGraph()).capture_stream
+    for _ in range(32):
+        if torch.cuda.Stream(cuda).cuda_stream == capture.cuda_stream:
+            break
+    else:
+        pytest.fail('the capture stream is not one of the pool\'s default-priority streams')
+    for _ in range(31):
+        torch.cuda.Stream(cuda)
+    batches = [{'image': np.random.default_rng(seed).integers(0, 256, (64, 160, 160, 3),
+                                                               dtype=np.uint8)}
+               for seed in range(3)]
+    in_capture, staged = threading.Event(), threading.Event()
+
+    def source():
+        yield batches[0]
+        in_capture.wait(30)
+        yield batches[1]  # staged while this thread captures
+        staged.set()
+        yield batches[2]
+
+    it = prefetch_to_device(source(), cuda, size=2)
+    try:
+        got = [next(it)]
+        x = torch.ones(1024, device=cuda)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+            y = x * 2
+            in_capture.set()
+            assert staged.wait(30)
+        graph.replay()
+        got.extend(it)
+    finally:
+        it.close()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 2))
+    assert len(got) == len(batches)
+    for batch, expected in zip(got, batches):
+        np.testing.assert_array_equal(batch['image'].cpu().numpy(), expected['image'])

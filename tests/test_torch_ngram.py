@@ -31,6 +31,7 @@ from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.parallel import DataSharding
 from petastorm_tpu_torch.row_worker import select_row_drop_indices
 from petastorm_tpu_torch.torch import TorchDataLoader, stack_ngram_time_axis, stage_batch
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 PACKAGES = {'jax': (JaxNGram, jax_make_reader, JaxDataLoader, jax_stack_ngram_time_axis),
             'torch': (NGram, make_reader, TorchDataLoader, stack_ngram_time_axis)}
@@ -178,10 +179,8 @@ def test_reader_windows_equal_jax(synthetic_dataset, pool, output):
     the same order on the dummy pool; 8 windows per 10-row row group."""
     kwargs = {'reader_pool_type': pool, 'workers_count': 2, 'seed': 123,
               'shuffle_row_groups': True}
-    if pool == 'process':
-        kwargs['pool_kwargs'] = {'results_timeout_s': 60}
-    ours = _read('torch', synthetic_dataset.url, output, ngram=_ngram('torch'), **kwargs)
-    kwargs.pop('pool_kwargs', None)
+    ours = _read('torch', synthetic_dataset.url, output, ngram=_ngram('torch'),
+                 **dict(kwargs, reader_pool_type=ProcessPoolOptions(results_timeout_s=60) if pool == 'process' else pool))
     theirs = _read('jax', synthetic_dataset.url, output, ngram=_ngram('jax'), **kwargs)
     assert len(ours) == 80
     if pool == 'dummy':
@@ -199,9 +198,9 @@ def test_process_pool_windows_equal_thread_pool(synthetic_dataset):
                    ngram=_ngram('torch', **ngram_kwargs), reader_pool_type='thread',
                    workers_count=2, seed=5)
     process = _read('torch', synthetic_dataset.url, 'columnar',
-                    ngram=_ngram('torch', **ngram_kwargs), reader_pool_type='process',
-                    workers_count=2, seed=5, zero_copy=True,
-                    pool_kwargs={'results_timeout_s': 60})
+                    ngram=_ngram('torch', **ngram_kwargs),
+                    reader_pool_type=ProcessPoolOptions(results_timeout_s=60), workers_count=2, seed=5,
+                    zero_copy=True)
     assert len(thread) == 80 and sorted(process) == sorted(thread)
 
 

@@ -30,6 +30,7 @@ from petastorm_tpu_torch.observability import history
 from petastorm_tpu_torch.observability.metrics import MetricsRegistry
 from petastorm_tpu_torch.observability.trace import TraceRing
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -465,8 +466,8 @@ def test_counters_stay_at_block_granularity(store, monkeypatch):
 
 
 def test_process_pool_ships_worker_telemetry(store):
-    with make_reader(store, reader_pool_type='process', workers_count=2, output='columnar',
-                     telemetry='spans', pool_kwargs={'results_timeout_s': 60}) as reader:
+    with make_reader(store, reader_pool_type=ProcessPoolOptions(results_timeout_s=60), workers_count=2,
+                     output='columnar', telemetry='spans') as reader:
         loader = TorchDataLoader(reader, batch_size=20, drop_last=False)
         assert sum(len(b['id']) for b in loader) == ROWS
         diag = loader.diagnostics

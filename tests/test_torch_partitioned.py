@@ -34,6 +34,7 @@ from petastorm_tpu.test_util.dataset_utils import create_scalar_dataset
 from petastorm_tpu_torch import codecs, make_batch_reader, make_reader, predicates, unischema
 from petastorm_tpu_torch.etl import dataset_metadata as dm
 from petastorm_tpu_torch.reader import Reader
+from petastorm_tpu_torch.workers import ProcessPoolOptions
 
 PACKAGES = {
     'jax': (jax_codecs, jax_unischema, jax_dm, jax_make_reader, jax_predicates),
@@ -210,8 +211,9 @@ def test_pieces_pickle_with_their_keys(stores):
 @pytest.mark.parametrize('writer', sorted(PACKAGES))
 def test_rows_equal_jax_on_every_pool(stores, writer, pool):
     url = stores[writer, 'kind_day']
-    kwargs = {'workers_count': 2, 'pool_kwargs': TIMEOUT} if pool == 'process' else {}
-    ours = _read_rows('torch', url, reader_pool_type=pool, **kwargs)
+    kwargs = ({'workers_count': 2, 'reader_pool_type': ProcessPoolOptions(**TIMEOUT)}
+              if pool == 'process' else {'reader_pool_type': pool})
+    ours = _read_rows('torch', url, **kwargs)
     assert ours == _read_rows('jax', url, reader_pool_type='dummy')
     assert len(ours) == ROWS
 
@@ -343,8 +345,8 @@ def test_inplace_fused_publish_with_partition_columns(tmp_path):
     column is decoded by the fused call into the ring slot and the
     partition columns (a str, an int64) framed after it in the same slot."""
     url = _pagescan_store('torch', tmp_path / 'ours')
-    with make_reader(url, reader_pool_type='process', workers_count=2, output='columnar',
-                     shuffle_row_groups=False, zero_copy=True, pool_kwargs=TIMEOUT) as reader:
+    with make_reader(url, reader_pool_type=ProcessPoolOptions(**TIMEOUT), workers_count=2,
+                     output='columnar', shuffle_row_groups=False, zero_copy=True) as reader:
         blocks = [b._asdict() for b in reader]
         inplace = reader.diagnostics['fused_inplace_batches_total']
     assert inplace == len(blocks) == 12

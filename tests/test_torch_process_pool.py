@@ -17,6 +17,7 @@ fails in seconds."""
 
 import collections
 import gc
+import inspect
 import os
 import subprocess
 import sys
@@ -54,7 +55,8 @@ from petastorm_tpu_torch.serializers import NumpyBlockSerializer
 from petastorm_tpu_torch.test_util import stub_workers
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device, stage_batch
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
-from petastorm_tpu_torch.workers import DummyPool, ProcessPool, ThreadPool
+from petastorm_tpu_torch.workers import (DummyPool, ProcessPool, ProcessPoolOptions, ThreadPool,
+                                         WorkerBase)
 from petastorm_tpu_torch.workers import process_pool as pp
 
 
@@ -158,9 +160,9 @@ def _assert_same_blocks(actual, expected):
             np.testing.assert_array_equal(a, e)
 
 
-def _port_blocks(url, pool, **kwargs):
+def _port_blocks(url, pool, options=None, **kwargs):
     if pool == 'process':
-        kwargs['pool_kwargs'] = dict(TIMEOUT, **kwargs.get('pool_kwargs', {}))
+        pool = ProcessPoolOptions(**dict(TIMEOUT, **(options or {})))
     with make_reader(url, output='columnar', reader_pool_type=pool, workers_count=2,
                      shuffle_row_groups=False, **kwargs) as reader:
         blocks = _by_row_group(b._asdict() for b in reader)
@@ -180,7 +182,7 @@ def _jax_blocks(url, **kwargs):
 def test_process_pool_blocks_equal_jax_and_thread_pools(stores, store, transport):
     url = stores[store]
     expected, _ = _port_blocks(url, 'thread')
-    actual, diag = _port_blocks(url, 'process', pool_kwargs={'transport': transport})
+    actual, diag = _port_blocks(url, 'process', options={'transport': transport})
     assert diag['transport'] == transport and diag['worker_restarts'] == 0
     _assert_same_blocks(actual, expected)
     _assert_same_blocks(actual, _jax_blocks(url))
@@ -245,9 +247,9 @@ def test_zero_copy_blocks_are_exact_and_their_borrows_return(stores):
     gc.collect()
     base = registry().counters()['lifetime_live_borrows']
     expected, _ = _port_blocks(stores['raw'], 'thread')
-    with make_reader(stores['raw'], output='columnar', reader_pool_type='process',
-                     workers_count=2, shuffle_row_groups=False, zero_copy=True,
-                     pool_kwargs=TIMEOUT) as reader:
+    with make_reader(stores['raw'], output='columnar',
+                     reader_pool_type=ProcessPoolOptions(**TIMEOUT),
+                     workers_count=2, shuffle_row_groups=False, zero_copy=True) as reader:
         blocks = [b._asdict() for b in reader]
         assert reader.diagnostics['zero_copy'] is True
         assert registry().counters()['lifetime_live_borrows'] - base == 2 * len(blocks)
@@ -267,9 +269,10 @@ def test_a_torch_tensor_keeps_its_bytes_while_later_blocks_arrive(stores, zero_c
     gc.collect()
     base = registry().counters()['lifetime_live_borrows']
     ring = 3 * (ROWS_PER_RG * (SIZE * SIZE * 3 + 8) + 2048)  # three messages
-    with make_reader(stores['raw'], output='columnar', reader_pool_type='process',
+    with make_reader(stores['raw'], output='columnar',
+                     reader_pool_type=ProcessPoolOptions(ring_bytes=ring, **TIMEOUT),
                      workers_count=1, shuffle_row_groups=False, num_epochs=None,
-                     zero_copy=zero_copy, pool_kwargs=dict(TIMEOUT, ring_bytes=ring)) as reader:
+                     zero_copy=zero_copy) as reader:
         it = iter(reader)
         first = next(it)
         held = stage_batch({'image': first.image[3:7]}, 'cpu')['image']
@@ -302,9 +305,10 @@ def test_small_rings_sized_by_the_smoke_rule_do_not_wedge_a_shuffling_loader(sto
     ring = chip_smoke.ring_bytes_needed(workers, payload, ROWS_PER_RG, capacity, batch)
     assert ring < 8 * payload
     epochs = 6
-    with make_reader(stores['raw'], output='columnar', reader_pool_type='process',
-                     workers_count=workers, num_epochs=epochs, seed=3, zero_copy=True,
-                     pool_kwargs=dict(TIMEOUT, ring_bytes=ring)) as reader:
+    with make_reader(stores['raw'], output='columnar',
+                     reader_pool_type=ProcessPoolOptions(ring_bytes=ring, **TIMEOUT),
+                     workers_count=workers, num_epochs=epochs, seed=3,
+                     zero_copy=True) as reader:
         loader = TorchDataLoader(reader, batch, shuffling_queue_capacity=capacity, seed=3)
         labels = []
         for staged in prefetch_to_device(loader, 'cpu', size=2):
@@ -330,8 +334,8 @@ def test_worker_route_counts_reach_the_consumer(stores):
     blob threshold rides the blob channel."""
     spec = TransformSpec(image_resize={'image': (SIZE, SIZE)})
     counts = {}
-    for pool, extra in (('thread', {}), ('process', {'pool_kwargs': {'blob_threshold_bytes':
-                                                                       1024}})):
+    for pool, extra in (('thread', {}), ('process', {'options': {'blob_threshold_bytes':
+                                                                   1024}})):
         image_routes.reset()
         read_routes.reset()
         blocks, diag = _port_blocks(stores['png'], pool, transform_spec=spec, **extra)
@@ -521,8 +525,8 @@ def test_retry_accounting_is_exact(pool_factory):
 
 # -- the on_error policy through make_reader, alike on every pool -------------------------
 
-def _pool_kwargs(pool_type):
-    return {'pool_kwargs': TIMEOUT} if pool_type == 'process' else {}
+def _pool_type(pool_type):
+    return ProcessPoolOptions(**TIMEOUT) if pool_type == 'process' else pool_type
 
 
 def _labels(reader):
@@ -532,9 +536,9 @@ def _labels(reader):
 @pytest.mark.parametrize('pool_type', ['thread', 'dummy', 'process'])
 def test_poison_skip_completes_the_epoch(stores, pool_type):
     spec = TransformSpec(stub_workers.FailOnLabel(32), batched=True)
-    with make_reader(stores['raw'], output='columnar', reader_pool_type=pool_type,
+    with make_reader(stores['raw'], output='columnar', reader_pool_type=_pool_type(pool_type),
                      workers_count=2, seed=0, transform_spec=spec, on_error='skip',
-                     max_item_retries=1, **_pool_kwargs(pool_type)) as reader:
+                     max_item_retries=1) as reader:
         labels = _labels(reader)
         assert sorted(labels) == [i for i in range(ROWS) if not 32 <= i < 48]
         record, = reader.quarantined_items
@@ -548,9 +552,8 @@ def test_poison_skip_completes_the_epoch(stores, pool_type):
 @pytest.mark.parametrize('pool_type', ['thread', 'dummy', 'process'])
 def test_poison_raise_surfaces_the_worker_traceback(stores, pool_type):
     spec = TransformSpec(stub_workers.FailOnLabel(32), batched=True)
-    with make_reader(stores['raw'], output='columnar', reader_pool_type=pool_type,
-                     workers_count=2, seed=0, transform_spec=spec, on_error='raise',
-                     **_pool_kwargs(pool_type)) as reader:
+    with make_reader(stores['raw'], output='columnar', reader_pool_type=_pool_type(pool_type),
+                     workers_count=2, seed=0, transform_spec=spec, on_error='raise') as reader:
         with pytest.raises(ValueError, match='injected failure') as info:
             _labels(reader)
     assert 'injected failure on label 32' in info.value.worker_traceback
@@ -561,19 +564,26 @@ def test_poison_raise_surfaces_the_worker_traceback(stores, pool_type):
 def test_transient_error_retry_recovers_the_full_epoch(stores, tmp_path, pool_type):
     spec = TransformSpec(stub_workers.FailOnLabel(16, times=1, state_dir=str(tmp_path)),
                          batched=True)
-    with make_reader(stores['raw'], output='columnar', reader_pool_type=pool_type,
+    with make_reader(stores['raw'], output='columnar', reader_pool_type=_pool_type(pool_type),
                      workers_count=2, seed=0, transform_spec=spec, on_error='retry',
-                     max_item_retries=2, **_pool_kwargs(pool_type)) as reader:
+                     max_item_retries=2) as reader:
         assert sorted(_labels(reader)) == list(range(ROWS))
         diag = reader.diagnostics
         assert diag['items_requeued'] == 1 and diag['items_quarantined'] == 0
 
 
 def test_make_reader_takes_the_pool_arguments(stores):
-    with make_reader(stores['raw'], output='columnar', reader_pool_type='process',
-                     workers_count=2, zero_copy=True, on_error='skip', max_item_retries=2,
-                     pool_kwargs=TIMEOUT) as reader:
+    from petastorm_tpu_torch.analysis.protocol.monitor import ProtocolMonitor
+    monitor = ProtocolMonitor(name='test')
+    with make_reader(stores['raw'], output='columnar',
+                     reader_pool_type=ProcessPoolOptions(**TIMEOUT), workers_count=2,
+                     zero_copy=True, on_error='skip', max_item_retries=2,
+                     protocol_monitor=monitor) as reader:
+        assert reader._pool.protocol_monitor is monitor
         assert sorted(_labels(reader)) == list(range(ROWS))
+    snap = monitor.snapshot
+    assert snap['ventilated'] == snap['completed'] == ROWS // ROWS_PER_RG
+    assert snap['in_flight'] == [] and snap['events_checked'] > 0
     for pool_type in ('thread', 'dummy'):  # zero_copy: a no-op in process
         with make_reader(stores['raw'], output='columnar', reader_pool_type=pool_type,
                          zero_copy=True) as reader:
@@ -582,10 +592,10 @@ def test_make_reader_takes_the_pool_arguments(stores):
         make_reader('file:///nonexistent', on_error='explode')
     with pytest.raises(ValueError, match='max_item_retries'):
         make_reader('file:///nonexistent', max_item_retries=-1)
-    with pytest.raises(ValueError, match="reader_pool_type='process' only"):
+    # the JAX factory's signature: pool options ride reader_pool_type
+    with pytest.raises(TypeError, match='pool_kwargs'):
         make_reader(stores['raw'], pool_kwargs=TIMEOUT)
-    with pytest.raises(NotImplementedError, match='protocol monitor'):
-        make_reader(stores['raw'], protocol_monitor=True)
+    assert inspect.signature(make_reader) == inspect.signature(jax_make_reader)
     with pytest.raises(RuntimeError, match='not started'):
         ProcessPool(1).add_worker_slot()
 
@@ -596,6 +606,33 @@ def test_a_joined_pool_returns_nothing_more():
     pool.ventilate(1)
     pool.stop()
     pool.join()
+    with pytest.raises(EmptyResultError):
+        pool.get_results()
+
+
+class _BurstWorker(WorkerBase):
+    """Publishes three payloads per item."""
+
+    def process(self, item):
+        for i in range(3):
+            self.publish(item * 10 + i)
+
+
+def test_a_joined_thread_pool_keeps_no_result():
+    """A worker blocked putting into a full results queue when the pool
+    stops can land that put after join's last drain; join drops it, so no
+    payload (nor a borrow it holds) outlives the pool."""
+    pool = ThreadPool(1, results_queue_size=1)
+    pool.start(_BurstWorker)
+    pool.ventilate(1)
+    deadline = time.monotonic() + 10
+    while pool._results_queue.qsize() < 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    time.sleep(0.1)  # the worker waits to put its second payload
+    pool.stop()
+    pool.join()
+    assert pool._results_queue.qsize() == 0
     with pytest.raises(EmptyResultError):
         pool.get_results()
 
@@ -696,8 +733,9 @@ def test_two_train_steps_over_the_process_pool_match_the_jax_slice(slice_store):
     tstep = make_train_step(preprocess_fn=lambda x, generator: normalize_images(
         x, MEAN, STD, out_dtype=torch.float32))
     actual = []
-    with make_reader(slice_store, output='columnar', reader_pool_type='process',
-                     workers_count=1, seed=7, zero_copy=True, pool_kwargs=TIMEOUT) as reader:
+    with make_reader(slice_store, output='columnar',
+                     reader_pool_type=ProcessPoolOptions(**TIMEOUT), workers_count=1, seed=7,
+                     zero_copy=True) as reader:
         batches = iter(prefetch_to_device(
             TorchDataLoader(reader, batch, shuffling_queue_capacity=32, seed=7), 'cpu', size=2))
         for _ in range(2):

@@ -236,8 +236,15 @@ def test_unported_arguments_and_codecs_raise(jax_store, tmp_path):
     from petastorm_tpu_torch.ngram import NGram
     with pytest.raises(PetastormTpuError, match='matched no fields'):
         make_reader(jax_store, ngram=NGram({0: ['no_such_field']}, 1, 'no_such_field'))
-    with pytest.raises(NotImplementedError, match='protocol monitor'):
-        make_reader(jax_store, protocol_monitor=True)
+    # the protocol monitor is ported: it attaches to the pool, and the
+    # factory's signature is the JAX one
+    with make_reader(jax_store, reader_pool_type='dummy', protocol_monitor=True) as reader:
+        assert reader._pool.protocol_monitor is not None
+        assert len(list(reader)) == 100
+        assert reader._pool.protocol_monitor.snapshot['in_flight'] == []
+    import inspect
+    from petastorm_tpu import make_reader as jax_make_reader
+    assert inspect.signature(make_reader) == inspect.signature(jax_make_reader)
     # remote stores are ported: a local file:// store ignores chunk_cache,
     # as the JAX reader does (no chunk_cache_* counters, no cache directory)
     with make_reader(jax_store, reader_pool_type='dummy',

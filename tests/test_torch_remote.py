@@ -744,10 +744,15 @@ def test_storage_fault_plan_gives_the_rows_of_file(package, raw_store, tmp_path)
 
 
 def test_fault_plan_kinds_not_ported_are_refused():
-    for kwargs in ({'kill_items': (1,)}, {'error_items': (2,)}, {'segv_items': (3,)},
-                   {'hang_items': (4,)}):
-        with pytest.raises(NotImplementedError, match='"sanitizer and fault lanes"'):
-            torch_faults.FaultPlan(state_dir='/tmp', **kwargs)
+    # every item kind is ported: the plan is the JAX package's, and a one-shot
+    # kind without a state_dir is refused as there
+    for kwargs in ({'kill_items': (1,)}, {'error_items': (2,), 'error_times': 1},
+                   {'segv_items': (3,)}, {'hang_items': (4,)}):
+        with pytest.raises(ValueError, match='state_dir'):
+            torch_faults.FaultPlan(**kwargs)
+        ours = torch_faults.FaultPlan(state_dir='/tmp', **kwargs)
+        assert repr(ours) == repr(jax_faults.FaultPlan(state_dir='/tmp', **kwargs))
+        assert vars(pickle.loads(pickle.dumps(ours))) == vars(ours)
     plan = torch_faults.FaultPlan(storage_fail_first=2)
     assert repr(plan) == repr(jax_faults.FaultPlan(storage_fail_first=2))
     assert pickle.loads(pickle.dumps(plan)).storage_fail_first == 2

@@ -637,6 +637,16 @@ def test_torch_data_loader_consumes_a_served_reader(tmp_path, synthetic_dataset)
     assert ids == sorted(int(r['id']) for r in synthetic_dataset.data)
 
 
+class _FakeConn(object):
+    """A control connection whose attach succeeds without a daemon."""
+
+    def send(self, msg):
+        self.msg = msg
+
+    def recv(self):
+        return {'ok': True}
+
+
 def test_unsupported_combinations_are_refused(tmp_path, synthetic_dataset, monkeypatch):
     url, svc_dir = synthetic_dataset.url, str(tmp_path / 'never')
     with pytest.raises(ValueError, match='resume_state'):
@@ -671,14 +681,23 @@ def test_unsupported_combinations_are_refused(tmp_path, synthetic_dataset, monke
     assert remote.chunk_cache_config == ChunkCacheConfig('/tmp/chunks',
                                                          size_limit_bytes=1 << 20)
     assert remote.worker_args['chunk_cache'] == remote.chunk_cache_config
-    with pytest.raises(NotImplementedError, match='"protocol monitor"'):
-        ReaderService(svc_dir, monitor=True)
-    monkeypatch.setenv('PSTPU_SERVE_MONITOR', '1')
-    with pytest.raises(NotImplementedError, match='"protocol monitor"'):
-        make_reader(url, serve=svc_dir)
-    with pytest.raises(NotImplementedError, match='"protocol monitor"'):
-        ReaderService(svc_dir)
-    assert not os.path.exists(svc_dir)   # nothing refused got as far as a daemon
+    # the serve monitor is ported: the daemon side resolves it as the JAX
+    # package's does, explicitly or from either variable, and the consumer
+    # side is handed to the served reader's facade
+    from petastorm_tpu_torch.analysis.protocol.monitor import ServeMonitor
+    assert isinstance(ReaderService(svc_dir, monitor=True).monitor, ServeMonitor)
+    assert ReaderService(svc_dir).monitor is None
+    for name in ('PSTPU_SERVE_MONITOR', 'PSTPU_PROTOCOL_MONITOR'):
+        monkeypatch.setenv(name, '1')
+        assert isinstance(ReaderService(svc_dir).monitor, ServeMonitor)
+        monkeypatch.delenv(name)
+    handed = []
+    monkeypatch.setattr(serve_client, 'connect_service', lambda *a, **k: _FakeConn())
+    monkeypatch.setattr(serve_client, 'ServedReader',
+                        lambda *args, **kwargs: handed.append(kwargs['monitor']))
+    serve_client.make_served_reader({}, svc_dir, None, monitor=True)
+    assert isinstance(handed[0], ServeMonitor)
+    assert not os.path.exists(svc_dir)   # no daemon was started
 
 
 def test_auto_service_dir_is_not_the_jax_packages(monkeypatch):

@@ -256,7 +256,12 @@ def test_port_imports_nothing_of_jax():
         '          "chunkstore.store", "chunkstore.reader", "chunkstore.prefetch",',
         # the reader compositions and framework adapters
         '          "weighted_sampling_reader", "sequence.mixture", "sequence.tail",',
-        '          "spark", "spark.dataset_converter", "spark_utils", "tf_utils"):',
+        '          "spark", "spark.dataset_converter", "spark_utils", "tf_utils",',
+        # supervision under test: the protocol verifier and the CLIs
+        '          "analysis", "analysis.protocol", "analysis.protocol.spec",',
+        '          "analysis.protocol.modelcheck", "analysis.protocol.monitor",',
+        '          "analysis.protocol.serve_spec", "analysis.protocol.elastic_spec",',
+        '          "observability.diagnose", "observability.podagg", "autotune.cli"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
