@@ -287,6 +287,30 @@ Phases, each printed as one JSON line:
      not retried; the fixed-shape PNG store through the serve daemon with
      ``chunk_cache``, the tenant's blocks equal to a private reader's and
      the stream's cache in the daemon's stats; each check's seconds;
+   - ``raw_fabric``: ``raw``'s trainer as host ``h0`` of a pod whose other
+     host ``h1`` is a peer process (``petastorm_tpu_torch.fabric.
+     _peerproc``, no torch) that warmed its own mirror of the mock-remote
+     raw store and serves it; for each step kind the trainer starts and
+     installs a fabric node of its own (``FabricConfig(coord, 'h0-<kind>',
+     ...)``) over an empty chunk cache: every chunk the run populates
+     (demand misses and prefetched chunks) a verified copy from ``h1``'s
+     mirror, no fallback, no ``retry.fetch_range`` call (no chunk read from
+     the object store) and no Arrow decode in the trainer's process; a
+     ``fabric_vs_remote`` line beside ``raw_remote``'s cold epoch and warm
+     runs of this call (examples/s, median step ms, stall, peer copies per
+     second and bytes, the pod's object-store chunk reads per distinct
+     chunk: 1.0 with the fabric, 2.0 for two hosts without it);
+   - ``fabric_checks``: the drill of ``docs/fabric.md`` on the raw store
+     (peer A, a peer process, stalls every payload and is SIGKILLed once a
+     request reached it; peer B, a node of this process, resets one payload
+     and truncates one; host C reads an epoch through the thread pool with
+     a ``FabricMonitor``: the rows the store's, C's mirrors byte-equal to
+     B's, peer hits plus fallbacks equal to C's populations and both above
+     0, A no hit and at least one failure); the same epoch through the
+     process pool with a node installed, whose spawned workers' stats files
+     show the peer copies; ``modelcheck --fabric`` at its default scope
+     (435631 states, clean) and with ``--mutate no_fallback`` (exit 1);
+     ``diagnose --fabric`` on the drill's pod directory, its table printed;
 9. ``plain_resume``, once with each step: the ``plain_batch`` reader and
    loader on the dummy pool with the loader's ``to_device`` (no prefetch
    queue), so the run is deterministic: 13 steps uninterrupted; then 5 from
@@ -469,14 +493,23 @@ Phases, each printed as one JSON line:
    driving ``MnistCNN`` eager steps over the epoch on the card (finite
    losses), ``make_torch_dataloader`` over two shards (every row once), and
    ``delete()``; on a host without pandas a declared ``skipped`` line;
+19b. ``sanitize_checks``: the port's reader, image decoder and ring built
+   with ``PSTPU_SANITIZE=address,undefined`` (three g++ at once, into
+   ``.san.so`` files) and ``petastorm_tpu_torch/test_util/native_corpus.py``
+   replayed through them in a subprocess with ``libasan``/``libubsan``
+   preloaded (the fuzz corpus, the corrupt-chunk regressions with the map of
+   bools, the compressed frames, the page statistics, PNG cells and resizes,
+   the ring and lifetime cycles): the build and replay seconds and the items
+   replayed; a finding fails the run; a host whose g++ ships no sanitizer
+   runtime prints one ``skipped`` line;
 20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
 21. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
-   launches over all paths (``png_part``, ``raw_mix``, ``raw_tail`` and
-   ``raw_chaos`` included), both steps, where a
+   launches over all paths (``png_part``, ``raw_mix``, ``raw_tail``,
+   ``raw_chaos`` and ``raw_fabric`` included), both steps, where a
    graph replay counts the launches it captured, and the spawned ranks' of
    ``mesh_checks`` and ``entry_checks``, and ``imagenet_example``'s and the
    remote paths'; the sequence, MoE, pipeline and MNIST paths normalize
@@ -498,6 +531,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import hashlib
 import json
 import math
 import os
@@ -1884,8 +1918,9 @@ def check_read_routes(path, counts):
     ``png_cached`` no read at all, nor ``png_served`` (the daemon reads);
     ``raw_elastic``, ``raw_mix`` and ``raw_tail`` as ``raw`` (a mixture's
     sources and a tail's delta readers are raw stores read by the row
-    worker); ``raw_remote`` no route counted (the chunk
-    reader counts none: :func:`phase_remote_path` checks its stages);
+    worker); ``raw_remote`` and ``raw_fabric`` no route counted (the chunk
+    reader counts none: :func:`phase_remote_path` and
+    :func:`phase_raw_fabric` check their stages);
     ``png_fixed`` and ``png_fixed_remote`` fused only; ``png_process``
     as ``png``; ``raw_process`` fused only, every fused batch decoded in
     place into a ring slot, two columns each; ``png_fixed_pred`` every row
@@ -1919,8 +1954,8 @@ def check_read_routes(path, counts):
         n = reasons.get('image-hints', 0)
         ok = (n > 0 and reasons == {'image-hints': n, 'codec': n} and fallback == 2 * n
               and arrow == 2 * n and not (fused or pagescan))
-    elif path in ('png_cached', 'png_served', 'raw_remote'):
-        # raw_remote: the chunk reader serves the page scan over its mirrors
+    elif path in ('png_cached', 'png_served', 'raw_remote', 'raw_fabric'):
+        # raw_remote, raw_fabric: the chunk reader serves the page scan over its mirrors
         # and counts no read route; its stage timers and chunk_cache_*
         # counters show the route (phase_remote_path)
         ok = not any(counts.values())
@@ -1997,6 +2032,9 @@ STALL_STAGES = {
     # a warm chunk cache: the page scan over the mirrors inside the read
     # stage, the fused call from the mirrors; no chunk is fetched
     'raw_remote': ({'worker.read_io'}, {'worker.fused_decode', 'worker.chunk_fetch'}),
+    # a cold chunk cache filled by a pod peer: the page scan over the
+    # mirrors, the fetches inside the read; no stage is sure to be named
+    'raw_fabric': (set(), {'worker.fused_decode'}),
     'png_fixed_remote': ({'worker.fused_decode'},
                          {'worker.decode', 'worker.read_io', 'worker.chunk_fetch'}),
     'raw_process': ({'worker.fused_decode'}, {'worker.decode', 'worker.read_io'}),
@@ -5612,7 +5650,9 @@ def phase_remote_path(torch, name, url, local_runs, work_dir):
     the page scan, and no ``arrow_decode`` stage runs. The fixed-shape PNG
     store is decoded by the fused call from the mirrors: one ``fused_decode``
     stage per row group read, two columns each. A ``remote_vs_local`` line
-    gives both paths' numbers per step kind. Returns the launches."""
+    gives both paths' numbers per step kind. Returns the launches, and the
+    ``remote_cold`` line and the two runs (``raw_fabric`` stands beside
+    them)."""
     local_name = name[:-len('_remote')]
     fused = local_name == 'png_fixed'
     root = os.path.join(work_dir, 'chunk_cache_' + local_name)
@@ -5662,7 +5702,7 @@ def phase_remote_path(torch, name, url, local_runs, work_dir):
           'order': [local_name, name], 'runs': compare,
           'cold_rows_per_s': cold['rows_per_s'],
           'chunk_cache_run': _chunk_deltas(before, after)})
-    return total
+    return total, {'cold': cold, 'runs': runs}
 
 
 def _prefetch_outstanding(prefetcher):
@@ -5918,6 +5958,469 @@ def phase_remote_checks(torch, raw_url, fixed_url, work_dir, ring, serve_ring):
         seconds[name] = time.perf_counter() - t0
     emit({'phase': 'remote_checks', 'checks': checks, 'seconds': seconds,
           'total_s': sum(seconds.values())})
+
+
+# -- the chunk fabric: a pod peer's mirror in front of the object store ----------------
+
+#: the pod's lease for the peer processes and the trainer's node
+FABRIC_LEASE_S = 2.0
+#: the drill's fetching host: tight budgets, so the stalled peer costs little
+FABRIC_DRILL = {'lease_s': FABRIC_LEASE_S, 'deadline_s': 1.5, 'io_timeout_s': 0.5,
+                'connect_timeout_s': 0.5, 'failure_threshold': 3, 'breaker_reset_s': 5.0}
+#: how long the drill's peer A stalls every payload: past the drill's
+#: deadline, so the fetch falls back, and long enough to be SIGKILLed mid-send
+FABRIC_STALL_S = 30.0
+#: canonical states of ``modelcheck --fabric``'s default scope (the JAX checker's)
+FABRIC_DEFAULT_STATES = 435631
+
+
+def spawn_fabric_peer(url, coord, host, cache_root, out_dir, stall_s=0.0, marker=None):
+    """A pod peer process (``python -m petastorm_tpu_torch.fabric._peerproc``,
+    no torch): it warms its own mirror of the mock-remote store at ``url``
+    into ``cache_root``, joins the pod under ``coord`` and serves, until it
+    is terminated (it leaves the pod) or killed. Its ready file is
+    ``<out_dir>/<host>.ready``, its log ``<out_dir>/<host>.log``."""
+    cmd = [sys.executable, '-m', 'petastorm_tpu_torch.fabric._peerproc', '--url', url,
+           '--coord', coord, '--host', host, '--cache-root', cache_root,
+           '--lease-s', str(FABRIC_LEASE_S),
+           '--ready-file', os.path.join(out_dir, host + '.ready')]
+    if stall_s:
+        cmd += ['--stall-s', str(stall_s), '--request-marker', marker]
+    with open(os.path.join(out_dir, host + '.log'), 'w') as log:
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=ROOT, PSTPU_FLIGHT='0'))
+
+
+def wait_fabric_peer(proc, out_dir, host, timeout_s=300):
+    """Seconds until the peer is warmed, joined and serving."""
+    t0 = time.perf_counter()
+    ready = os.path.join(out_dir, host + '.ready')
+    while not os.path.exists(ready):
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout_s:
+            with open(os.path.join(out_dir, host + '.log')) as f:
+                raise AssertionError('fabric peer {} did not start (exit {}): {}'.format(
+                    host, proc.returncode, f.read()[-3000:]))
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def stop_fabric_peer(proc):
+    """SIGTERM (the peer leaves the pod), SIGKILL after 30 s; its exit code."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    return proc.returncode
+
+
+class ObjectStoreReads(object):
+    """Counts this process's chunk reads from the object store: every call
+    of ``retry.fetch_range``, through which the chunk reader fetches a
+    range it mirrors (the fabric's fallback included). Installed around a
+    run and removed after; counting only, the reads are the same."""
+
+    def __init__(self):
+        from petastorm_tpu_torch import retry
+
+        self._retry = retry
+        self._real = retry.fetch_range
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def _counted(self, *args, **kwargs):
+        with self._lock:
+            self.count += 1
+        return self._real(*args, **kwargs)
+
+    def __enter__(self):
+        self._retry.fetch_range = self._counted
+        return self
+
+    def __exit__(self, *exc):
+        self._retry.fetch_range = self._real
+        return False
+
+
+def fabric_stats(coord, host, pid=None):
+    """A port fabric client's per-peer stats file (hits, failures,
+    fallbacks, bytes, latency per peer, and the breakers)."""
+    from petastorm_tpu_torch.fabric.client import stats_file_name
+
+    with open(os.path.join(coord, 'fabric', 'stats', stats_file_name(host, pid))) as f:
+        return json.load(f)
+
+
+def _peer_sums(stats):
+    peers = stats['peers'].values()
+    return {k: sum(p.get(k, 0) for p in peers)
+            for k in ('hits', 'failures', 'fallbacks', 'bytes', 'latency_sum', 'latency_n')}
+
+
+def phase_raw_fabric(torch, url, work_dir, remote):
+    """``raw_fabric``: the ``raw`` path's trainer as host ``h0`` of a pod whose
+    other host (``h1``, a peer process) has warmed its own mirror of the
+    mock-remote raw store and serves it. For each step kind the trainer
+    starts a fabric node of its own over an empty chunk-cache root
+    (``fabric.start_node(FabricConfig(coord, 'h0-<kind>', cache))``),
+    installs it and trains through :func:`run_path_both_ways`: every chunk
+    the run populates (demand misses and prefetched chunks) must be a peer
+    copy from ``h1``, with no fallback, no chunk read from the object store
+    by the trainer's process (:class:`ObjectStoreReads`) and no Arrow
+    decode. A ``fabric_vs_remote`` line stands beside ``raw_remote``'s cold
+    and warm numbers of the same call (``remote``: its ``cold`` line and its
+    ``runs``): examples/s, median step ms and stall per step kind, the peer
+    copies per second of run time and their bytes, and the object-store
+    chunk reads across the pod over the distinct chunks (with the fabric:
+    the peer's warm-up reads; without it, as ``raw_remote``'s cold epoch
+    shows, each host reads every chunk). Returns the launches."""
+    from petastorm_tpu_torch import fabric, make_reader
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig
+
+    pod_dir = tempfile.mkdtemp(prefix='fabric_', dir=work_dir)
+    coord = os.path.join(pod_dir, 'coord')
+    peer_root = os.path.join(pod_dir, 'cache_h1')
+    distinct = mirrored_chunks(url, False)
+    runs_info = []
+    proc = spawn_fabric_peer(remote_url(url), coord, 'h1', peer_root, pod_dir)
+    node = None
+
+    def factory(dataset_url, **kwargs):
+        nonlocal node
+        if node is not None:
+            node.stop()
+            runs_info[-1]['seconds'] = time.perf_counter() - runs_info[-1]['t0']
+        kind = ('eager', 'graphed')[len(runs_info)]
+        root = os.path.join(pod_dir, 'cache_h0_' + kind)
+        node = fabric.start_node(fabric.FabricConfig(
+            coord, 'h0-' + kind, ChunkCacheConfig(root), lease_s=FABRIC_LEASE_S))
+        fabric.install(node)
+        runs_info.append({'kind': kind, 'root': root, 'host': 'h0-' + kind,
+                          't0': time.perf_counter(), 'reads_before': reads.count})
+        return make_reader(dataset_url, output='columnar', chunk_cache=root, **kwargs)
+
+    try:
+        peer_s = wait_fabric_peer(proc, pod_dir, 'h1')
+        peer_counters = chunk_counters(peer_root)
+        with ObjectStoreReads() as reads:
+            total, runs = run_path_both_ways(
+                torch, 'raw_fabric', remote_url(url), check_batch,
+                reader_kwargs={'storage_retry_policy': remote_policy()}, reader_factory=factory)
+            node.stop()
+            runs_info[-1]['seconds'] = time.perf_counter() - runs_info[-1]['t0']
+            runs_info[-1]['reads_after'] = reads.count
+            runs_info[0]['reads_after'] = runs_info[1]['reads_before']
+    finally:
+        fabric.uninstall()
+        if node is not None:
+            node.stop()
+        peer_exit = stop_fabric_peer(proc)
+    peer_populated = (peer_counters['chunk_cache_misses']
+                      + peer_counters['chunk_cache_prefetch_chunks'])
+    compare = {}
+    for info in runs_info:
+        kind = info['kind']
+        result = runs[kind][3]
+        remote_result = remote['runs'][kind][3]
+        counters = chunk_counters(info['root'])
+        populated = counters['chunk_cache_misses'] + counters['chunk_cache_prefetch_chunks']
+        stats = fabric_stats(coord, info['host'])
+        sums = _peer_sums(stats)
+        trainer_reads = info['reads_after'] - info['reads_before']
+        stage_count = {k[len('stage_'):-len('_count')]: v
+                       for k, v in result.extra['diagnostics'].items()
+                       if k.startswith('stage_') and k.endswith('_count')}
+        compare[kind] = {
+            'examples_per_sec': [remote_result.samples_per_second, result.samples_per_second],
+            'median_step_ms': [remote_result.extra['median_step_ms'],
+                               result.extra['median_step_ms']],
+            'input_stall_fraction': [remote_result.input_stall_fraction,
+                                     result.input_stall_fraction],
+            'chunks_populated': populated, 'peer_hits': sums['hits'],
+            'peer_hits_by_peer': {h: s['hits'] for h, s in stats['peers'].items()},
+            'fallbacks': sums['fallbacks'], 'failures': sums['failures'],
+            'bytes_copied': sums['bytes'], 'run_s': info['seconds'],
+            'peer_copies_per_s': sums['hits'] / info['seconds'],
+            'peer_copy_ms_mean': (1e3 * sums['latency_sum'] / sums['latency_n']
+                                  if sums['latency_n'] else None),
+            'trainer_object_store_reads': trainer_reads,
+            'pod_object_store_reads_per_chunk': (peer_populated + trainer_reads) / distinct,
+            'arrow_decode': stage_count.get('arrow_decode', 0),
+            'breakers': stats['breakers']}
+        line = compare[kind]
+        if not (populated == line['peer_hits'] == line['peer_hits_by_peer'].get('h1', 0)
+                and populated > 0 and line['fallbacks'] == 0 and trainer_reads == 0
+                and line['arrow_decode'] == 0):
+            raise AssertionError('raw_fabric ({}): not every chunk a peer copy: {}'.format(
+                kind, line))
+    cold = remote['cold']
+    emit({'phase': 'fabric_vs_remote', 'path': 'raw_fabric', 'remote': 'raw_remote',
+          'order': ['raw_remote', 'raw_fabric'], 'runs': compare,
+          'peer': {'host': 'h1', 'ready_s': peer_s, 'chunks_populated': peer_populated,
+                   'exit': peer_exit},
+          'distinct_chunks': distinct,
+          'raw_remote_cold': {'rows_per_s': cold['rows_per_s'], 'seconds': cold['seconds'],
+                              'chunks_fetched': cold['chunks_fetched']},
+          # each host without the fabric reads every chunk from the object
+          # store, as raw_remote's cold epoch did: two hosts read it twice
+          'pod_object_store_reads_per_chunk_without_fabric': 2 * cold['chunks_fetched'] / distinct,
+          'note': 'mock-remote: the object store is local files behind the retry wrapper and '
+                  'the peer is on this host (loopback), so a copy measures the fabric\'s '
+                  'protocol and mirroring, not a network'})
+    if peer_exit != 0 or peer_populated != distinct:
+        raise AssertionError('raw_fabric: peer exit {}, {} of {} chunks mirrored'.format(
+            peer_exit, peer_populated, distinct))
+    return total
+
+
+def _drill_epoch(url, root, **kwargs):
+    """One epoch of the mock-remote store into ``root``: its row keys."""
+    from petastorm_tpu_torch import make_reader
+
+    keys = collections.Counter()
+    with make_reader(remote_url(url), output='columnar', shuffle_row_groups=False, num_epochs=1,
+                     workers_count=max(1, os.cpu_count() or 1), chunk_cache=root,
+                     storage_retry_policy=remote_policy(), **kwargs) as reader:
+        for block in reader:
+            keys.update(_block_keys(block))
+    return keys
+
+
+def _mirror_bytes(root):
+    """The mirrors under ``root``: digest -> sha256 of the bytes."""
+    out = {}
+    for rel in mirror_files(root):
+        with open(os.path.join(root, rel), 'rb') as f:
+            out[os.path.basename(rel)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _check_fabric_drill(url, pod_dir, coord):
+    """The drill of ``docs/fabric.md`` on the raw store: peer A (a peer
+    process) stalls every payload and is SIGKILLed once a request reached
+    it; peer B (a node in this process over a warmed mirror) resets one
+    payload and truncates one; host C reads an epoch through the thread
+    pool with a ``FabricMonitor``. The rows are the store's, C's mirrors
+    byte-equal to B's, peer hits plus fallbacks equal C's populations and
+    both are above 0, and A gave no hit and at least one failure."""
+    from petastorm_tpu_torch import fabric, faults
+    from petastorm_tpu_torch.analysis.protocol.monitor import FabricMonitor
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig
+
+    marker = os.path.join(pod_dir, 'pA.request')
+    proc_a = spawn_fabric_peer(remote_url(url), coord, 'pA', os.path.join(pod_dir, 'cache_pA'),
+                               pod_dir, stall_s=FABRIC_STALL_S, marker=marker)
+    cache_b = ChunkCacheConfig(os.path.join(pod_dir, 'cache_pB'))
+    root_c = os.path.join(pod_dir, 'cache_pC')
+    killed = {}
+    node_b = node_c = None
+    drill = FabricMonitor('drill')
+
+    def killer():
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            if os.path.exists(marker):
+                os.kill(proc_a.pid, signal.SIGKILL)  # A is stalling inside a send
+                killed['at_s'] = time.perf_counter() - t0
+                return
+            time.sleep(0.02)
+
+    try:
+        _drill_epoch(url, cache_b.root)
+        node_b = fabric.start_node(fabric.FabricConfig(coord, 'pB', cache_b,
+                                                       lease_s=FABRIC_LEASE_S))
+        wait_fabric_peer(proc_a, pod_dir, 'pA')
+        faults.install_net(faults.NetFaultPlan(reset_payloads=1, truncate_payloads=1))
+        t0 = time.perf_counter()
+        kill_thread = threading.Thread(target=killer, daemon=True)
+        kill_thread.start()
+        node_c = fabric.start_node(fabric.FabricConfig(
+            coord, 'pC', ChunkCacheConfig(root_c), **FABRIC_DRILL), monitor=drill)
+        fabric.install(node_c)
+        keys = _drill_epoch(url, root_c)
+        seconds = time.perf_counter() - t0
+        kill_thread.join(timeout=120)
+    finally:
+        fabric.uninstall()
+        faults.uninstall_net()
+        for node in (node_c, node_b):
+            if node is not None:
+                node.stop()
+        proc_a.kill()
+        proc_a.wait(timeout=30)
+    counters = chunk_counters(root_c)
+    populated = counters['chunk_cache_misses'] + counters['chunk_cache_prefetch_chunks']
+    stats = fabric_stats(coord, 'pC')
+    sums = _peer_sums(stats)
+    mirrors_c, mirrors_b = _mirror_bytes(root_c), _mirror_bytes(cache_b.root)
+    out = {'rows': sum(keys.values()), 'seconds': seconds, 'killed_at_s': killed.get('at_s'),
+           'a_exit': proc_a.returncode, 'chunks_populated': populated,
+           'peer_hits': sums['hits'], 'fallbacks': sums['fallbacks'],
+           'failures': sums['failures'],
+           'by_peer': stats['peers'], 'breakers': stats['breakers'],
+           'mirrors': len(mirrors_c),
+           'mirrors_equal_b': all(mirrors_b.get(d) == h for d, h in mirrors_c.items()),
+           'monitor': drill.snapshot}
+    a = stats['peers'].get('pA', {})
+    if (keys != store_row_keys() or not killed or proc_a.returncode != -signal.SIGKILL
+            or not out['mirrors_equal_b'] or populated != len(mirrors_c)
+            or sums['hits'] + sums['fallbacks'] != populated
+            or not (sums['hits'] > 0 and sums['fallbacks'] > 0)
+            or a.get('hits', 0) != 0 or a.get('failures', 0) < 1
+            or drill.snapshot['populated'] != populated):
+        raise AssertionError('fabric drill: {}'.format(out))
+    return out
+
+
+def _check_fabric_process_pool(url, pod_dir, coord):
+    """The drill's epoch through the process pool (one spawned worker per
+    core, copy mode) with a node of its own installed (``pD``, fetch only):
+    the fetch-only config reaches the workers, whose stats files show peer
+    copies from ``pB``'s mirror (A is dead); every population a peer copy,
+    the rows the store's."""
+    from petastorm_tpu_torch import fabric
+    from petastorm_tpu_torch.chunkstore import ChunkCacheConfig
+    from petastorm_tpu_torch.fabric.client import stats_file_name
+    from petastorm_tpu_torch.workers import ProcessPoolOptions
+
+    root = os.path.join(pod_dir, 'cache_pD')
+    cache_b = ChunkCacheConfig(os.path.join(pod_dir, 'cache_pB'))
+    t0 = time.perf_counter()
+    with fabric.start_node(fabric.FabricConfig(coord, 'pB', cache_b, lease_s=FABRIC_LEASE_S)), \
+            fabric.start_node(fabric.FabricConfig(coord, 'pD', ChunkCacheConfig(root),
+                                                  serve=False)) as node:
+        fabric.install(node)
+        try:
+            keys = _drill_epoch(url, root, reader_pool_type=ProcessPoolOptions(
+                results_timeout_s=120))
+        finally:
+            fabric.uninstall()
+    seconds = time.perf_counter() - t0
+    stats_dir = os.path.join(coord, 'fabric', 'stats')
+    own = stats_file_name('pD')
+    workers = {}
+    for name in sorted(os.listdir(stats_dir)):
+        if name.startswith('pD-pid') and name.endswith('.torch.json') and name != own:
+            with open(os.path.join(stats_dir, name)) as f:
+                workers[name] = _peer_sums(json.load(f))
+    consumer = _peer_sums(fabric_stats(coord, 'pD'))
+    counters = chunk_counters(root)
+    populated = counters['chunk_cache_misses'] + counters['chunk_cache_prefetch_chunks']
+    hits = sum(w['hits'] for w in workers.values()) + consumer['hits']
+    fallbacks = sum(w['fallbacks'] for w in workers.values()) + consumer['fallbacks']
+    out = {'rows': sum(keys.values()), 'seconds': seconds, 'worker_stats_files': len(workers),
+           'worker_peer_hits': sum(w['hits'] for w in workers.values()),
+           'consumer_peer_hits': consumer['hits'], 'fallbacks': fallbacks,
+           'chunks_populated': populated}
+    if (keys != store_row_keys() or not out['worker_peer_hits'] or fallbacks
+            or hits != populated):
+        raise AssertionError('fabric process pool: {}'.format(out))
+    return out
+
+
+def phase_fabric_checks(raw_url, work_dir):
+    """``fabric_checks``: (a) the drill (:func:`_check_fabric_drill`), (b)
+    its epoch through the process pool (:func:`_check_fabric_process_pool`),
+    (c) ``python -m petastorm_tpu_torch.analysis.protocol.modelcheck
+    --fabric`` at its default scope (the JAX checker's state count, clean)
+    and with ``--mutate no_fallback`` (exit 1), started before (a), (d)
+    ``python -m petastorm_tpu_torch.observability.diagnose --fabric`` on the
+    drill's pod directory: its per-peer table, and its ``--json`` rows equal
+    to ``fabric_peer_table``'s. Host only; each check's seconds."""
+    from petastorm_tpu_torch.observability import diagnose
+
+    pod_dir = tempfile.mkdtemp(prefix='fabric_drill_', dir=work_dir)
+    coord = os.path.join(pod_dir, 'coord')
+    cmd = [sys.executable, '-m', 'petastorm_tpu_torch.analysis.protocol.modelcheck', '--fabric']
+    checks = {name: (subprocess.Popen(cmd + args, cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True), time.perf_counter())
+              for name, args in (('default', ['--json', '--budget-s', '600']),
+                                 ('no_fallback', ['--mutate', 'no_fallback']))}
+    out = {'phase': 'fabric_checks', 'seconds': {}}
+    t0 = time.perf_counter()
+    out['drill'] = _check_fabric_drill(raw_url, pod_dir, coord)
+    out['seconds']['drill'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['process_pool'] = _check_fabric_process_pool(raw_url, pod_dir, coord)
+    out['seconds']['process_pool'] = time.perf_counter() - t0
+    model = {}
+    for name, (proc, started) in checks.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        model[name] = {'exit': proc.returncode, 'seconds': time.perf_counter() - started}
+        if name == 'default':
+            doc = json.loads(stdout) if proc.returncode == 0 else {}
+            model[name].update({k: doc.get(k) for k in ('states', 'transitions',
+                                                        'terminal_states', 'depth',
+                                                        'exhausted', 'violation')})
+            model[name]['check_s'] = doc.get('elapsed_s')
+        else:
+            model[name]['counterexample'] = 'fetch_termination' in stdout
+    out['modelcheck'] = model
+    if (model['default']['exit'] != 0 or model['default']['states'] != FABRIC_DEFAULT_STATES
+            or not model['default']['exhausted'] or model['default']['violation']
+            or model['no_fallback']['exit'] != 1 or not model['no_fallback']['counterexample']):
+        raise AssertionError('fabric modelcheck: {}'.format(model))
+    t0 = time.perf_counter()
+    diag_cmd = [sys.executable, '-m', 'petastorm_tpu_torch.observability.diagnose', '--fabric',
+                coord]
+    text = subprocess.run(diag_cmd, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    as_json = subprocess.run(diag_cmd + ['--json'], cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
+    out['seconds']['diagnose'] = time.perf_counter() - t0
+    out['diagnose'] = {'exit': text.returncode, 'table': text.stdout.splitlines()}
+    table = json.loads(as_json.stdout)['fabric_peers'] if as_json.returncode == 0 else None
+    if (text.returncode != 0 or table != json.loads(json.dumps(diagnose.fabric_peer_table(coord)))
+            or not text.stdout.startswith('fabric peers') or table['pA']['failures'] < 1
+            or table['pB']['hits'] < 1):
+        raise AssertionError('diagnose --fabric: {} {}'.format(out['diagnose'], table))
+    emit(out)
+
+
+# -- the sanitizer lane ---------------------------------------------------------------
+
+SANITIZE = 'address,undefined'
+
+
+def phase_sanitize_checks():
+    """``sanitize_checks``: the port's reader, image decoder and ring built
+    with ``PSTPU_SANITIZE=address,undefined`` (three g++ at once, into
+    ``.san.so`` files beside the release libraries) and the port's corpus
+    (``petastorm_tpu_torch/test_util/native_corpus.py``: the fuzz corpus,
+    the corrupt-chunk regressions with the map of bools, the compressed
+    frames, the page statistics, PNG cells and resizes, the ring and
+    lifetime cycles) replayed through them in a subprocess with the
+    runtimes preloaded: its build and replay seconds and the items
+    replayed. A finding aborts the subprocess and fails the run. On a host
+    whose g++ ships no sanitizer runtime, one ``skipped`` line says so."""
+    from petastorm_tpu_torch.native.build import sanitizer_preload
+
+    preload = sanitizer_preload()
+    if preload is None:
+        emit({'phase': 'sanitize_checks', 'skipped': True,
+              'why': 'g++ on this host ships no libasan/libubsan runtime '
+                     '(g++ -print-file-name)'})
+        return
+    env = dict(os.environ, PSTPU_SANITIZE=SANITIZE, LD_PRELOAD=preload, PYTHONPATH=ROOT,
+               PSTPU_FLIGHT='0', ASAN_OPTIONS='detect_leaks=0:abort_on_error=1',
+               UBSAN_OPTIONS='halt_on_error=1:print_stacktrace=1')
+    code = ('import json\nfrom petastorm_tpu_torch.test_util import native_corpus\n'
+            'print(json.dumps(native_corpus.replay_all()))\n')
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    findings = [m for m in ('AddressSanitizer', 'runtime error:') if m in proc.stderr]
+    if proc.returncode != 0 or findings:
+        raise AssertionError('sanitized replay exited {} ({}): {}'.format(
+            proc.returncode, findings, proc.stderr[-4000:]))
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit({'phase': 'sanitize_checks', 'sanitize': SANITIZE, 'preload': preload,
+          'build_s': report['build_s'], 'replay_s': report['replay_s'],
+          'items': report['items'], 'items_total': sum(report['items'].values()),
+          'libraries': {k: os.path.basename(v) for k, v in report['libraries'].items()},
+          'seconds': seconds})
 
 
 # -- the store layer: partitioned, appended and legacy stores ---------------------
@@ -6950,10 +7453,18 @@ def main():
         total.update(fixed_total)
         # the same two stores as mock-remote stores through the chunk cache,
         # beside the local paths of this call
+        remote = {}
         for name, url, runs in (('raw_remote', urls['raw'], raw),
                                 ('png_fixed_remote', urls['png_fixed'], fixed_runs)):
-            total.update(phase_remote_path(torch, name, url, runs, work_dir))
+            path_launches, remote[name] = phase_remote_path(torch, name, url, runs, work_dir)
+            total.update(path_launches)
         phase_remote_checks(torch, urls['raw'], urls['png_fixed'], work_dir, ring, serve_ring)
+        check_no_leftovers()
+        # the raw store's chunks copied from a pod peer's mirror, beside
+        # raw_remote; then the drill, the process pool, the checker and the
+        # CLI of the fabric
+        total.update(phase_raw_fabric(torch, urls['raw'], work_dir, remote['raw_remote']))
+        phase_fabric_checks(urls['raw'], work_dir)
         check_no_leftovers()
         # the process pool: one spawned worker per core, shm rings
         process = {'reader_pool_type': ProcessPoolOptions(ring_bytes=ring, transport='shm')}
@@ -7071,6 +7582,7 @@ def main():
             total.update(launches or {})
         emit({'phase': 'example_phases', 'seconds': example_s,
               'total_s': sum(example_s.values())})
+        phase_sanitize_checks()
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     # the raw path's first staged batch (eager run)

@@ -6,13 +6,15 @@ Twin of ``petastorm_tpu/analysis/protocol/``:
 * :mod:`spec` — the supervision protocol (dispatch-id ownership, claim
   heartbeats, two-stage death handling, stale dropping, quiet-window sweep)
   as an explicit-state transition system with its five invariants stated as
-  predicates; :mod:`serve_spec` and :mod:`elastic_spec` do the same for the
-  serve fan-out and elastic resharding.
+  predicates; :mod:`serve_spec`, :mod:`elastic_spec` and :mod:`fabric_spec`
+  do the same for the serve fan-out, elastic resharding and the chunk
+  fabric.
 * :mod:`modelcheck` — BFS over all interleavings for small configurations
   with canonical state hashing and counterexample minimization
   (``python -m petastorm_tpu_torch.analysis.protocol.modelcheck``).
-* :mod:`monitor` — the opt-in runtime hook the pools, the serve daemon and
-  the elastic coordinator feed their observed events through; any sequence
+* :mod:`monitor` — the opt-in runtime hook the pools, the serve daemon, the
+  elastic coordinator and the fabric client feed their observed events
+  through; any sequence
   the spec rejects raises
   :class:`~petastorm_tpu_torch.errors.ProtocolViolation`.
 """

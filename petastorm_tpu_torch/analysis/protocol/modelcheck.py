@@ -6,15 +6,16 @@ and counterexample trace minimization. BFS order makes the first trace to any
 violation minimal in length; :func:`minimize_trace` then greedily drops events
 that are not needed to reproduce it.
 
-Twin of ``petastorm_tpu/analysis/protocol/modelcheck.py``; the fabric
-scope (``--fabric``) waits for the port of the chunk fabric (ROADMAP.md,
-"fabric") and raises :class:`NotImplementedError`.
+Twin of ``petastorm_tpu/analysis/protocol/modelcheck.py``. ``--serve``,
+``--elastic`` and ``--fabric`` check the serve fan-out, elastic resharding
+and chunk-fabric specs at their default scopes instead.
 
 CLI::
 
     python -m petastorm_tpu_torch.analysis.protocol.modelcheck   # default scope
     python -m petastorm_tpu_torch.analysis.protocol.modelcheck --workers 3 --items 4 --crashes 2
     python -m petastorm_tpu_torch.analysis.protocol.modelcheck --mutate requeue_same_id
+    python -m petastorm_tpu_torch.analysis.protocol.modelcheck --fabric --mutate no_fallback
 
 Exit codes: 0 = exhausted, all invariants hold; 1 = violation found (the
 minimized trace is printed); 2 = usage error; 3 = budget exhausted before the
@@ -273,8 +274,9 @@ def main(argv=None):
                         help='check the chunk-fabric transfer protocol '
                              '(peer-first fetch, circuit breakers, verified '
                              'population, guaranteed fallback; '
-                             'docs/fabric.md); not ported yet: raises '
-                             'NotImplementedError (ROADMAP.md, "fabric")')
+                             'docs/fabric.md) instead of the supervision '
+                             'protocol; --mutate then takes a fabric '
+                             'mutation')
     parser.add_argument('--workers', type=int, default=DEFAULT_SCOPE['workers'])
     parser.add_argument('--items', type=int, default=DEFAULT_SCOPE['items'])
     parser.add_argument('--crashes', type=int, default=DEFAULT_SCOPE['crashes'])
@@ -286,9 +288,10 @@ def main(argv=None):
                         help='do not model the payload message as a separate '
                              'step (smaller space, weaker delivery invariant)')
     from petastorm_tpu_torch.analysis.protocol import elastic_spec as EL
+    from petastorm_tpu_torch.analysis.protocol import fabric_spec as FB
     from petastorm_tpu_torch.analysis.protocol import serve_spec as SV
     parser.add_argument('--mutate',
-                        choices=S.MUTATIONS + SV.MUTATIONS + EL.MUTATIONS,
+                        choices=S.MUTATIONS + SV.MUTATIONS + EL.MUTATIONS + FB.MUTATIONS,
                         default=None,
                         help='seed one protocol defect; the checker must then '
                              'produce a counterexample')
@@ -311,9 +314,7 @@ def main(argv=None):
             cfg = EL.ElasticSpecConfig(mutation=args.mutate,
                                        **EL.DEFAULT_ELASTIC_SCOPE)
         elif args.fabric:
-            raise NotImplementedError(
-                'the fabric protocol spec is not yet ported to petastorm_tpu_torch '
-                '(ROADMAP.md, "fabric")')
+            cfg = FB.FabricSpecConfig(mutation=args.mutate, **FB.DEFAULT_FABRIC_SCOPE)
         else:
             cfg = S.SpecConfig(workers=args.workers, items=args.items,
                                crashes=args.crashes, retries=args.retries,
@@ -325,11 +326,11 @@ def main(argv=None):
         print('error: {}'.format(e), file=sys.stderr)
         return 2
 
-    if args.serve or args.elastic:
-        module = SV if args.serve else EL
+    if args.serve or args.elastic or args.fabric:
+        module = SV if args.serve else (EL if args.elastic else FB)
         result = module.check(cfg, budget_s=args.budget_s,
                               max_states=args.max_states)
-        plane = 'serve' if args.serve else 'elastic'
+        plane = 'serve' if args.serve else ('elastic' if args.elastic else 'fabric')
         if args.json:
             print(json.dumps(result.to_dict(), indent=2))
         else:

@@ -9,8 +9,10 @@ scopes, the monitor checks that the *implementation* actually walks the
 spec's transition relation on every real run (ThreadSanitizer-style: the
 checking rides the workload you already run). Twin of
 ``petastorm_tpu/analysis/protocol/monitor.py``: the same events, rules and
-messages. :class:`FabricMonitor` is here for the chunk fabric, which is not
-ported yet (ROADMAP.md, "fabric"), so nothing feeds it.
+messages. :class:`FabricMonitor` is fed by the chunk fabric's client
+(``fabric/client.py``: every admitted request, verified population,
+invalidation and outcome), armed per node (``FabricNode(monitor=...)``) or by
+``PSTPU_FABRIC_MONITOR=1`` (:func:`fabric_monitor_from_env`).
 
 Opt in per pool (``ProcessPool(..., protocol_monitor=True)``), per reader
 (``make_reader(..., protocol_monitor=True)``), or process-wide via

@@ -95,9 +95,9 @@ class ChunkCachedParquetFile(object):
 
     # -- remote IO -----------------------------------------------------------
 
-    def _fetch_range(self, offset, length):
+    def _fetch_range(self, offset, length, deadline_s=None):
         from petastorm_tpu_torch.retry import fetch_range
-        return fetch_range(self._fs, self.path, offset, length)
+        return fetch_range(self._fs, self.path, offset, length, deadline_s=deadline_s)
 
     def _chunk_key(self, offset, length):
         return '{}|{}+{}'.format(self._file_id, offset, length)
@@ -109,8 +109,7 @@ class ChunkCachedParquetFile(object):
             n = min(n, self._file_size)
             off = self._file_size - n
             key = self._chunk_key(off, n)
-            path, _, _ = self._store.ensure(
-                key, n, lambda: self._fetch_range(off, n))
+            path, _, _ = self._store.ensure(key, n, self._range_fetcher(off, n))
             with open(path, 'rb') as f:
                 return f.read()
         try:
@@ -200,7 +199,12 @@ class ChunkCachedParquetFile(object):
         return plan
 
     def _range_fetcher(self, offset, length):
-        return lambda: self._fetch_range(offset, length)
+        def fetch(deadline_s=None):
+            return self._fetch_range(offset, length, deadline_s=deadline_s)
+        # the fabric client hands what remains of its transfer budget to the
+        # object-store fallback through this capability flag
+        fetch.supports_deadline = True
+        return fetch
 
     # -- reading -------------------------------------------------------------
 

@@ -38,13 +38,14 @@ Invariants:
   the 64 most recently used mappings alive across batches. The evictor
   releases a chunk's pool entry before judging it pinned, so only batches
   pin.
-
-Not ported: the chunk fabric's hook (the JAX package's ``PEER_SOURCE`` and
-``pin_for_send``), which waits for ``fabric/``.
+* **The chunk fabric** (``fabric/``): with :data:`PEER_SOURCE` installed a
+  miss asks a pod peer's mirror first, and :meth:`ChunkStore.pin_for_send`
+  keeps a mirror from eviction while it is streamed to a peer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -82,6 +83,15 @@ _BUMP_INTERVAL_S = 1.0
 #: recently-used mappings kept alive by the store itself so repeat reads skip
 #: the open+mmap round trip; bounded, and released on demand by the evictor
 _STRONG_POOL_SIZE = 64
+
+#: the chunk fabric's hook (``petastorm_tpu_torch.fabric``): when installed,
+#: every miss hands ``(key, length, fetch_fn)`` to the fabric client, which
+#: tries a pod peer's mirror first and falls back to ``fetch_fn`` (the
+#: object-store read) itself; :meth:`ChunkStore.ensure` then writes whichever
+#: bytes came back through the same atomic temp-and-rename path, so a mirror
+#: filled by a peer is indistinguishable from a fetched one. None (the
+#: default) costs one global load per miss, never per hit.
+PEER_SOURCE = None
 
 
 class ChunkCacheConfig(object):
@@ -177,6 +187,9 @@ class ChunkStore(object):
         # re-stat under the mutex and account a hit. Entries are refcounted
         # away, so the map stays bounded by in-flight fetches, not history.
         self._fetch_locks = {}
+        # digest -> lifetime Slot of an in-flight fabric send of a chunk that
+        # has no live mapping (pin_for_send); the evictor asks it first
+        self._send_pins = {}
         self._stats_dir = os.path.join(root, 'stats')
         os.makedirs(self._stats_dir, exist_ok=True)
         self._stats_path = os.path.join(self._stats_dir,
@@ -350,7 +363,23 @@ class ChunkStore(object):
         # the prefetcher's own thread (they must not skew that subtraction)
         with obs.stage('chunk_prefetch' if for_prefetch else 'chunk_fetch',
                        cat='chunkstore', bytes=length):
-            data = fetch_fn()
+            peer_source = PEER_SOURCE
+            data = fetch_fn() if peer_source is None else peer_source(key, length, fetch_fn)
+        if data is None:
+            # the fabric client's single-flight follower: another caller of
+            # the same client populated the mirror, so this is a hit (one
+            # population per host)
+            try:
+                st = os.stat(path)
+            except OSError:
+                st = None
+            if st is None or st.st_size != length:
+                raise IOError('peer source reported chunk {!r} populated, but no mirror of '
+                              '{} bytes exists'.format(key, length))
+            if not for_prefetch:
+                self._count({'hits': 1})
+                obs.instant('chunk_hit', cat='chunkstore', bytes=length)
+            return path, st.st_mtime_ns, False
         if len(data) != length:
             raise IOError('chunk fetch for {!r} returned {} bytes, expected {}'.format(
                 key, len(data), length))
@@ -384,6 +413,42 @@ class ChunkStore(object):
             return os.stat(path).st_size == length
         except OSError:
             return False
+
+    # -- fabric serving ------------------------------------------------------
+
+    @contextlib.contextmanager
+    def pin_for_send(self, key):
+        """Pin ``key``'s mirror against eviction while a fabric send streams
+        it, yielding its path (None when this host does not mirror it).
+
+        The pin is a borrow on the chunk's lifetime slot: the mapping's slot
+        when a mapping is live, else a ``fabric-send`` slot of its own. So
+        :meth:`_try_evict_entry` refuses (a counted skip) instead of
+        unlinking the file mid-stream and truncating the peer's transfer."""
+        digest = self.digest(key)
+        path = self._entry_path(digest)
+        with self._lock:
+            slot = None
+            entry = self._mmaps.get(digest)
+            if entry is not None:
+                try:
+                    slot = entry[2].retain()
+                except RuntimeError:
+                    slot = None  # released between the lookup and the retain
+            if slot is None:
+                pin = self._send_pins.get(digest)
+                if pin is None or pin.released:
+                    pin = lifetime_registry().open_slot(label='fabric-send')
+                    self._send_pins[digest] = pin
+                slot = pin.retain()
+        try:
+            yield path if os.path.exists(path) else None
+        finally:
+            with self._lock:
+                slot.drop()
+                if self._send_pins.get(digest) is slot and not slot.live:
+                    del self._send_pins[digest]
+                    slot.seal()  # no borrow left: releases at once
 
     # -- mapping -------------------------------------------------------------
 
@@ -444,6 +509,11 @@ class ChunkStore(object):
         the process-wide ``lifetime_blocked_reclaims``."""
         with self._lock:
             self._strong.pop(digest, None)
+            pin = self._send_pins.get(digest)
+            if pin is not None:
+                if not pin.try_reclaim():
+                    return False  # a fabric send is streaming this mirror
+                del self._send_pins[digest]
             entry = self._mmaps.get(digest)
             if entry is not None:
                 if not entry[2].try_reclaim():

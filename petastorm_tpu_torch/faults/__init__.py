@@ -15,6 +15,11 @@ recovers in production.
   attempt; a plan with ``storage_fail_first > 0`` makes the first N retried
   storage operations of each process raise a transient
   ``OSError(ECONNRESET)``.
+* **network hooks** (the chunk fabric, ``docs/fabric.md``): a
+  :class:`NetFaultPlan` installed with :func:`install_net` refuses the
+  fabric client's first connects (:func:`on_net_connect`) and resets,
+  truncates, corrupts or stalls the fabric server's first payload sends
+  (:func:`net_payload_action`).
 * **host churn**: :class:`HostChurnPlan`, :func:`count_committed` and
   :func:`drive_host_churn` kill and join hosts of a pod of
   :mod:`petastorm_tpu_torch.elastic._hostproc` subprocesses
@@ -250,6 +255,117 @@ def _storage_fault_point():
 
 
 # ---------------------------------------------------------------------------
+# network faults for the chunk-transfer fabric (docs/fabric.md)
+# ---------------------------------------------------------------------------
+
+class NetFaultPlan(object):
+    """Seeded network faults for the peer-to-peer chunk fabric.
+
+    Each budget arms the first N occurrences of its hook point (connect
+    attempts for ``refuse_connects``, payload sends for the rest), so a chaos
+    run replays the same failure schedule. With a ``state_dir`` the shots
+    coordinate across processes through the sentinel files of the item
+    faults; without one they count per process.
+
+    :param refuse_connects: first N fabric connect attempts raise
+        ``ConnectionRefusedError`` (the peer's port is gone).
+    :param reset_payloads: first N payload sends abort mid-transfer with a
+        TCP reset after half the body: the receiver sees a torn frame.
+    :param truncate_payloads: first N payload sends deliver half the body and
+        close cleanly: a truncation the content hash must catch.
+    :param corrupt_payloads: first N payload sends flip bytes in the body:
+        length-preserving corruption only the hash can catch.
+    :param stall_payloads: first N payload sends sleep ``stall_s`` before the
+        body: the slow peer the client's deadline must bound.
+    :param stall_s: how long each ``stall_payloads`` shot sleeps.
+    :param state_dir: directory for cross-process one-shot coordination.
+    """
+
+    def __init__(self, refuse_connects=0, reset_payloads=0, truncate_payloads=0,
+                 corrupt_payloads=0, stall_payloads=0, stall_s=5.0, state_dir=None):
+        self.refuse_connects = int(refuse_connects)
+        self.reset_payloads = int(reset_payloads)
+        self.truncate_payloads = int(truncate_payloads)
+        self.corrupt_payloads = int(corrupt_payloads)
+        self.stall_payloads = int(stall_payloads)
+        self.stall_s = float(stall_s)
+        self.state_dir = state_dir
+        self._fired = {}
+
+    def __repr__(self):
+        return ('NetFaultPlan(refuse_connects={}, reset_payloads={}, '
+                'truncate_payloads={}, corrupt_payloads={}, stall_payloads={}, '
+                'stall_s={})'.format(self.refuse_connects, self.reset_payloads,
+                                     self.truncate_payloads, self.corrupt_payloads,
+                                     self.stall_payloads, self.stall_s))
+
+
+_NET_PLAN = None
+_net_lock = threading.Lock()
+
+
+def install_net(plan):
+    """Install a :class:`NetFaultPlan` process-wide (``None`` disarms)."""
+    global _NET_PLAN
+    _NET_PLAN = plan
+    return plan
+
+
+def uninstall_net():
+    install_net(None)
+
+
+def get_net_plan():
+    return _NET_PLAN
+
+
+def _claim_counted(plan, kind, budget):
+    """True for the first ``budget`` calls with this ``kind``: across
+    processes when the plan has a ``state_dir``, per process otherwise (the
+    server's handler threads claim under a lock)."""
+    if budget <= 0:
+        return False
+    if plan.state_dir:
+        return any(_claim_one_shot(plan.state_dir, 'net_{}_{}'.format(kind, shot))
+                   for shot in range(budget))
+    with _net_lock:
+        fired = plan._fired.get(kind, 0)
+        if fired >= budget:
+            return False
+        plan._fired[kind] = fired + 1
+        return True
+
+
+def on_net_connect():
+    """Connect-time hook: the fabric client calls it right before
+    ``socket.connect``. No-op without an installed net plan."""
+    plan = _NET_PLAN
+    if plan is None:
+        return
+    if _claim_counted(plan, 'refuse', plan.refuse_connects):
+        raise ConnectionRefusedError('injected connection refusal (fabric net fault)')
+
+
+def net_payload_action():
+    """Payload-send hook: the fabric server asks it once per payload and
+    honours the answer, ``('reset'|'truncate'|'corrupt'|'stall',
+    stall_s_or_None)`` or None. At most one action fires per call; a stall
+    wins over the destructive actions, so a stalled transfer can be the one
+    a chaos driver SIGKILLs mid-flight."""
+    plan = _NET_PLAN
+    if plan is None:
+        return None
+    if _claim_counted(plan, 'stall', plan.stall_payloads):
+        return ('stall', plan.stall_s)
+    for kind, budget in (('reset', plan.reset_payloads),
+                         ('truncate', plan.truncate_payloads),
+                         ('corrupt', plan.corrupt_payloads)):
+        if _claim_counted(plan, kind, budget):
+            return (kind, None)
+    return None
+
+
+# ---------------------------------------------------------------------------
 # elastic-pod host churn (docs/parallelism.md, "Elastic pod sharding")
 # ---------------------------------------------------------------------------
 
@@ -327,6 +443,7 @@ def drive_host_churn(coord_dir, procs, plan, spawn_joiner=None, timeout_s=60.0, 
     return timeline
 
 
-__all__ = ['FaultInjectedError', 'FaultPlan', 'HostChurnPlan', 'count_committed',
-           'drive_host_churn', 'get_plan', 'install', 'mark_in_spawned_worker', 'on_item',
-           'storage_faults_fired', 'uninstall']
+__all__ = ['FaultInjectedError', 'FaultPlan', 'HostChurnPlan', 'NetFaultPlan',
+           'count_committed', 'drive_host_churn', 'get_net_plan', 'get_plan', 'install',
+           'install_net', 'mark_in_spawned_worker', 'net_payload_action', 'on_item',
+           'on_net_connect', 'storage_faults_fired', 'uninstall', 'uninstall_net']

@@ -24,6 +24,18 @@ All go to ``.torch_build/native/`` at the root of the checkout, never into
 the package, with a stamp beside each library and an ``flock`` so that
 concurrent processes (test workers) build it once.
 
+**The sanitizer lane** (the JAX package's ``PSTPU_SANITIZE``):
+``PSTPU_SANITIZE=address,undefined`` turns every target into an ASan/UBSan
+build (``-fsanitize=... -fno-omit-frame-pointer -g -O1``) written to its own
+``*.san.so`` beside the release library, with its own stamp and lock, so
+the two flavours coexist and switching back costs no rebuild. An unknown
+token is an error. An instrumented library loads only into a process with
+the sanitizer runtimes preloaded (``LD_PRELOAD="$(g++
+-print-file-name=libasan.so) $(g++ -print-file-name=libubsan.so)"``):
+``tests/test_torch_sanitized_native.py`` and ``chip_smoke.py`` replay
+``petastorm_tpu_torch/test_util/native_corpus.py`` through all three in
+such a subprocess.
+
 Run ``python -m petastorm_tpu_torch.native.build`` to build them ahead of use.
 """
 
@@ -51,6 +63,70 @@ RING_OUTPUT = os.path.join(BUILD_DIR, 'libpstpu_torch_ring.so')
 _LIBRARIES = {'PSTPU_HAVE_JPEG': '-ljpeg', 'PSTPU_HAVE_PNG': '-lpng16',
               'PSTPU_HAVE_DEFLATE': '-ldeflate'}
 _BASE_FLAGS = ['g++', '-O3', '-march=native', '-std=c++17', '-shared', '-fPIC']
+
+#: the sanitizers PSTPU_SANITIZE accepts (comma-separated, gcc's spellings)
+_SANITIZERS = ('address', 'undefined', 'leak', 'thread')
+
+
+def sanitize_tokens():
+    """The validated sanitizers of ``PSTPU_SANITIZE`` (empty: a release
+    build). An unknown token raises: a typo must not give an uninstrumented
+    library its caller believes sanitized."""
+    raw = os.environ.get('PSTPU_SANITIZE', '').strip()
+    if not raw:
+        return ()
+    tokens = tuple(t.strip() for t in raw.split(',') if t.strip())
+    unknown = [t for t in tokens if t not in _SANITIZERS]
+    if unknown:
+        raise RuntimeError('PSTPU_SANITIZE: unknown sanitizer(s) {} (supported: {})'.format(
+            unknown, ', '.join(_SANITIZERS)))
+    return tokens
+
+
+def _sanitized_output(base):
+    """A sanitized build's library: ``lib*.san.so`` beside the release
+    ``lib*.so`` (its own stamp and lock)."""
+    if not sanitize_tokens():
+        return base
+    return base[:-len('.so')] + '.san.so'
+
+
+def _sanitize_flags():
+    """The compiler flags of a sanitized build: ``-O1`` keeps the checks
+    honest without optimising the faulting code away, frame pointers and
+    debug information make the reports readable. Empty for a release build,
+    whose command line (and so its stamp) stays as it was."""
+    tokens = sanitize_tokens()
+    if not tokens:
+        return []
+    return ['-fsanitize={}'.format(','.join(tokens)), '-fno-omit-frame-pointer', '-g', '-O1']
+
+
+def sanitizer_preload(tokens=('address', 'undefined')):
+    """The ``LD_PRELOAD`` value that loads the gcc runtimes of ``tokens``
+    (``libasan.so``, ``libubsan.so``, ...), or None when the toolchain ships
+    one of them not (``g++ -print-file-name`` echoes an unknown name back)."""
+    names = {'address': 'libasan.so', 'undefined': 'libubsan.so', 'leak': 'liblsan.so',
+             'thread': 'libtsan.so'}
+    paths = []
+    for token in tokens:
+        try:
+            out = subprocess.run(['g++', '-print-file-name={}'.format(names[token])],
+                                 capture_output=True, text=True, timeout=30)
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+        path = out.stdout.strip()
+        if not (os.path.isabs(path) and os.path.exists(path)):
+            return None
+        paths.append(path)
+    return ' '.join(paths)
+
+
+def _sanitized_stamp(stamp):
+    """Key a stamp by the sanitizer set, so a ``.san.so`` built for another
+    set rebuilds."""
+    tokens = sanitize_tokens()
+    return 'san[{}]:{}'.format(','.join(tokens), stamp) if tokens else stamp
 
 
 def _source_hash(path):
@@ -137,7 +213,8 @@ def arrow_paths():
 
 def _reader_command(tmp_out):
     include, libdirs, arrow_lib, parquet_lib = arrow_paths()
-    cmd = ['g++', '-O2', '-std=c++20', '-shared', '-fPIC', SOURCE, '-I{}'.format(include)]
+    cmd = (['g++', '-O2', '-std=c++20', '-shared', '-fPIC'] + _sanitize_flags()
+           + [SOURCE, '-I{}'.format(include)])
     for d in libdirs:
         cmd += ['-L{}'.format(d), '-Wl,-rpath,{}'.format(d)]
     return cmd + ['-l:{}'.format(arrow_lib), '-l:{}'.format(parquet_lib), '-o', tmp_out]
@@ -145,12 +222,14 @@ def _reader_command(tmp_out):
 
 def build(force=False, quiet=True):
     """Compile the row-group reader unless a fresh build is in place; returns
-    its path. The stamp holds pyarrow's version, Python's, the source hash
-    and the command line (which names the wheel's directory and sonames)."""
+    its path (a ``.san.so`` under ``PSTPU_SANITIZE``). The stamp holds
+    pyarrow's version, Python's, the source hash and the command line (which
+    names the wheel's directory and sonames)."""
     import pyarrow
     stamp = '{}:{}:{}:{}'.format(pyarrow.__version__, sys.version_info[:2],
                                  _source_hash(SOURCE), ' '.join(_reader_command('OUT')))
-    return _build_target(OUTPUT, stamp, _reader_command, 'native reader', force, quiet)
+    return _build_target(_sanitized_output(OUTPUT), _sanitized_stamp(stamp), _reader_command,
+                         'native reader', force, quiet)
 
 
 # -- the batched image decoder ---------------------------------------------------
@@ -175,11 +254,12 @@ def _command(tmp_out, defines):
     libs = [flag for macro, flag in _LIBRARIES.items() if features.get(macro)]
     if not features.get('PSTPU_HAVE_DEFLATE'):
         libs.append('-l:libz.so.1')
-    return _BASE_FLAGS + defines + [IMG_SOURCE] + libs + ['-o', tmp_out]
+    return _BASE_FLAGS + _sanitize_flags() + defines + [IMG_SOURCE] + libs + ['-o', tmp_out]
 
 
 def build_img(force=False, quiet=True, output=IMG_OUTPUT, without=()):
-    """Compile the decoder unless a fresh build is in place; returns its path.
+    """Compile the decoder unless a fresh build is in place; returns its path
+    (a ``.san.so`` beside ``output`` under ``PSTPU_SANITIZE``).
 
     ``without`` names libraries to leave out even where the host has them
     (``'jpeg'``, ``'png'``, ``'deflate'``): a reduced library, as a host
@@ -190,22 +270,24 @@ def build_img(force=False, quiet=True, output=IMG_OUTPUT, without=()):
         raise ValueError('unknown libraries in without={!r}'.format(without))
     stamp = '{}:{}:{}'.format(_source_hash(IMG_SOURCE), _cpu_fingerprint(),
                               ' '.join(_command('OUT', defines)))
-    return _build_target(output, stamp, lambda tmp_out: _command(tmp_out, defines),
-                         'image codec', force, quiet)
+    return _build_target(_sanitized_output(output), _sanitized_stamp(stamp),
+                         lambda tmp_out: _command(tmp_out, defines), 'image codec', force, quiet)
 
 
 # -- the shared-memory ring -------------------------------------------------------
 
 def _ring_command(tmp_out):
-    return ['g++', '-O2', '-std=c++17', '-shared', '-fPIC', RING_SOURCE, '-lrt', '-o', tmp_out]
+    return (['g++', '-O2', '-std=c++17', '-shared', '-fPIC'] + _sanitize_flags()
+            + [RING_SOURCE, '-lrt', '-o', tmp_out])
 
 
 def build_ring(force=False, quiet=True):
     """Compile the process pool's shared-memory ring unless a fresh build is
-    in place; returns its path. The stamp holds the source hash and the
-    command line."""
+    in place; returns its path (a ``.san.so`` under ``PSTPU_SANITIZE``). The
+    stamp holds the source hash and the command line."""
     stamp = '{}:{}'.format(_source_hash(RING_SOURCE), ' '.join(_ring_command('OUT')))
-    return _build_target(RING_OUTPUT, stamp, _ring_command, 'shm ring', force, quiet)
+    return _build_target(_sanitized_output(RING_OUTPUT), _sanitized_stamp(stamp), _ring_command,
+                         'shm ring', force, quiet)
 
 
 if __name__ == '__main__':

@@ -38,8 +38,12 @@ crash cause, the stage each process died in, and the last window's stall
 report, as ``python -m petastorm_tpu_torch.observability.blackbox`` does.
 
 ``--serve DIR`` prints the per-tenant table of the serve daemon under DIR.
-``--fabric DIR`` (the chunk fabric's per-peer table) waits for the port of
-the fabric (ROADMAP.md, "fabric") and raises :class:`NotImplementedError`.
+``--fabric DIR`` renders the peer-to-peer chunk fabric instead: DIR is the
+pod coordination directory, and the per-peer table merges the stats files
+every fabric client flushes under ``DIR/fabric/stats/`` (both packages'
+clients: peer copies, failures, fallbacks to the object store, bytes, the
+least healthy breaker state any observer saw, and mean fetch latency;
+``docs/fabric.md``).
 
 Open traces in https://ui.perfetto.dev (or chrome://tracing). See
 ``docs/observability.md`` for how to read the output.
@@ -179,6 +183,89 @@ def format_serve_tenants(stats):
             'YES' if row['evicted'] else ''))
     lines.append('  evictions total: {}'.format((stats or {}).get('evictions', 0)))
     return '\n'.join(lines)
+
+
+#: breaker-state severity for cross-observer merging: when two processes
+#: disagree about a peer, report the least healthy view
+_BREAKER_RANK = {'closed': 0, 'half-open': 1, 'open': 2}
+
+
+def fabric_peer_table(coord_dir):
+    """``{peer_host: row}`` merged from every fabric client's stats snapshot
+    under ``<coord_dir>/fabric/stats/`` (one JSON file per process, flushed
+    by the fabric clients of either package): peer hits,
+    failures, fallbacks, bytes copied, mean fetch latency, and the worst
+    breaker state any observer reports (docs/fabric.md)."""
+    stats_dir = os.path.join(coord_dir, 'fabric', 'stats')
+    table = {}
+    try:
+        names = sorted(os.listdir(stats_dir))
+    except OSError:
+        return table
+    for name in names:
+        if not name.endswith('.json'):
+            continue
+        try:
+            with open(os.path.join(stats_dir, name), 'r') as f:
+                snap = json.load(f)
+        except (OSError, ValueError):
+            continue  # mid-replace or torn file: skip, the next flush heals it
+        if not isinstance(snap, dict):
+            continue
+        breakers = snap.get('breakers') or {}
+        for peer, stats in (snap.get('peers') or {}).items():
+            row = table.setdefault(peer, {
+                'hits': 0, 'failures': 0, 'fallbacks': 0, 'bytes': 0,
+                'latency_sum': 0.0, 'latency_n': 0, 'breaker': 'closed'})
+            for key in ('hits', 'failures', 'fallbacks', 'bytes'):
+                row[key] += int(stats.get(key, 0))
+            row['latency_sum'] += float(stats.get('latency_sum', 0.0))
+            row['latency_n'] += int(stats.get('latency_n', 0))
+            state = breakers.get(peer, 'closed')
+            if _BREAKER_RANK.get(state, 0) > _BREAKER_RANK.get(row['breaker'], 0):
+                row['breaker'] = state
+    for row in table.values():
+        row['mean_latency_ms'] = (
+            round(1000.0 * row['latency_sum'] / row['latency_n'], 2)
+            if row['latency_n'] else None)
+    return table
+
+
+def format_fabric_peers(table):
+    """Human-readable per-peer fabric table (empty string when no fabric
+    client has flushed stats yet)."""
+    if not table:
+        return ''
+    lines = ['fabric peers (chunk copies served to this pod, fallbacks to '
+             'the object store, breaker state; docs/fabric.md):',
+             '  {:<20} {:>8} {:>9} {:>10} {:>10} {:>10} {:>12}'.format(
+                 'peer', 'hits', 'failures', 'fallbacks', 'MB', 'breaker',
+                 'latency_ms')]
+    for peer in sorted(table):
+        row = table[peer]
+        lines.append('  {:<20} {:>8} {:>9} {:>10} {:>10} {:>10} {:>12}'.format(
+            peer, row['hits'], row['failures'], row['fallbacks'],
+            round(row['bytes'] / 1e6, 1), row['breaker'],
+            '-' if row['mean_latency_ms'] is None else row['mean_latency_ms']))
+    return '\n'.join(lines)
+
+
+def diagnose_fabric(coord_dir, as_json=False, stream=None):
+    """Merge the fabric stats snapshots under ``coord_dir`` and print the
+    per-peer table. Returns 0, or 1 when no fabric stats exist."""
+    stream = stream if stream is not None else sys.stdout
+    table = fabric_peer_table(coord_dir)
+    if as_json:
+        print(json.dumps({'fabric_peers': table,
+                          'host': obs.host_identity()}), file=stream)
+        return 0 if table else 1
+    if not table:
+        print('no fabric stats under {} (no FabricClient has flushed yet — '
+              'is the fabric enabled on this pod?)'.format(
+                  os.path.join(coord_dir, 'fabric', 'stats')), file=stream)
+        return 1
+    print(format_fabric_peers(table), file=stream)
+    return 0
 
 
 def diagnose_serve(service_dir, as_json=False, stream=None):
@@ -382,9 +469,7 @@ def main(argv=None):
     parser.add_argument('--fabric', metavar='DIR', default=None,
                         help='instead of reading a dataset, merge the fabric '
                              'client stats under the pod coordination dir DIR '
-                             'and print the per-peer table (docs/fabric.md); '
-                             'not ported yet: raises NotImplementedError '
-                             '(ROADMAP.md, "fabric")')
+                             'and print the per-peer table (docs/fabric.md)')
     parser.add_argument('--postmortem', metavar='DIR', nargs='?', const='',
                         default=None,
                         help='instead of reading a dataset, merge the crash-'
@@ -441,8 +526,7 @@ def main(argv=None):
             print(blackbox.format_postmortem(report))
         return 0
     if args.fabric is not None:
-        raise NotImplementedError('diagnose --fabric is not yet ported to petastorm_tpu_torch '
-                                  '(ROADMAP.md, "fabric")')
+        return diagnose_fabric(args.fabric, as_json=args.as_json)
     if args.serve is not None:
         return diagnose_serve(args.serve, as_json=args.as_json)
     if args.pod is not None:

@@ -72,7 +72,12 @@ the pool took on it, completion, and the drain; its events are emitted under
 ``_state_lock`` where they must order with the accounting they describe
 (the only nesting is ``_state_lock`` -> monitor lock).
 
-Not ported yet: the chunk fabric.
+The chunk fabric: an installed fabric node (``fabric.install``) ships its
+fetch-only config (:meth:`~petastorm_tpu_torch.fabric.FabricConfig.
+for_worker`) with the setup args, and each spawned worker installs a node
+with no server and no lease, so its chunk misses ask pod peers first. An
+install that fails is logged and the worker reads from the object store:
+the fabric is an optimisation tier.
 
 Scripts that create a pool at module level must guard that code with
 ``if __name__ == '__main__':``: spawned children re-import ``__main__``.
@@ -545,6 +550,14 @@ class ProcessPool(object):
         if isinstance(worker_setup_args, dict) and 'fault_plan' not in worker_setup_args \
                 and faults.get_plan() is not None:
             worker_setup_args = dict(worker_setup_args, fault_plan=faults.get_plan())
+        # an installed chunk fabric ships its fetch-only config the same way:
+        # the workers miss on the same chunk store and ask pod peers first,
+        # as the consumer does
+        if isinstance(worker_setup_args, dict) and 'fabric' not in worker_setup_args:
+            from petastorm_tpu_torch import fabric
+            fabric_config = fabric.shippable_config()
+            if fabric_config is not None:
+                worker_setup_args = dict(worker_setup_args, fabric=fabric_config)
         setup_blob = pickle.dumps((worker_class, worker_setup_args, self._serializer),
                                   protocol=pickle.HIGHEST_PROTOCOL)
         self._spawn_info = (setup_blob, vent_addr, result_addr, control_addr)
@@ -1316,6 +1329,18 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
     flight_dir = (worker_setup_args.pop('flight_dir', None)
                   if isinstance(worker_setup_args, dict) else None)
     blackbox.maybe_enable('worker{}'.format(worker_id), run_dir=flight_dir)
+    # a shipped fabric config installs a fetch-only node (no server, no
+    # lease), so this worker's chunk misses ask pod peers first (pool
+    # plumbing, popped like the flight dir)
+    fabric_config = (worker_setup_args.pop('fabric', None)
+                     if isinstance(worker_setup_args, dict) else None)
+    fabric_node = None
+    if fabric_config is not None:
+        from petastorm_tpu_torch import fabric
+        try:
+            fabric_node = fabric.install_from_config(fabric_config)
+        except Exception as e:  # noqa: BLE001 - the fabric is an optimisation tier only
+            logger.warning('fabric install failed in worker %s: %s', worker_id, e)
     _start_orphan_monitor(main_pid)
 
     context = zmq.Context()
@@ -1585,6 +1610,9 @@ def _worker_bootstrap(worker_id, main_pid, setup_blob, vent_addr, result_addr, c
                 send_heartbeat(None)
     finally:
         worker.shutdown()
+        if fabric_node is not None:
+            # flushes the client's last per-peer counters to its stats file
+            fabric_node.stop()
         if ring is not None:
             ring.close()
         for sock in (vent_recv, result_send, control_recv):

@@ -139,9 +139,38 @@ def test_diagnose_cli_as_a_module(synthetic_dataset):
                           capture_output=True, text=True, timeout=60).returncode == 2
 
 
-def test_diagnose_fabric_waits_for_the_fabric(tmp_path):
-    with pytest.raises(NotImplementedError, match='fabric'):
-        diagnose.main(['--fabric', str(tmp_path)])
+def test_diagnose_fabric_waits_for_the_fabric(tmp_path, capsys):
+    """``--fabric DIR`` merges the per-peer stats files of both packages'
+    clients under ``DIR/fabric/stats/`` (the port's end in ``.torch.json``)
+    as the JAX CLI does, and exits 1 on a directory without any."""
+    from petastorm_tpu.observability import diagnose as jax_diagnose
+
+    assert diagnose.main(['--fabric', str(tmp_path)]) == 1
+    assert 'no fabric stats' in capsys.readouterr().out
+    stats_dir = tmp_path / 'fabric' / 'stats'
+    stats_dir.mkdir(parents=True)
+    (stats_dir / 'hA-pid1.json').write_text(json.dumps({
+        'host': 'hA', 'breakers': {'pX': 'half-open'},
+        'peers': {'pX': {'hits': 4, 'failures': 1, 'fallbacks': 1, 'bytes': 4096,
+                         'latency_sum': 0.2, 'latency_n': 4}}}))
+    (stats_dir / 'hA-pid1.torch.json').write_text(json.dumps({
+        'host': 'hA', 'breakers': {'pX': 'open', 'pY': 'closed'},
+        'peers': {'pX': {'hits': 2, 'failures': 3, 'fallbacks': 3, 'bytes': 2048,
+                         'latency_sum': 0.1, 'latency_n': 2},
+                  '-': {'fallbacks': 5}}}))
+    (stats_dir / 'x.tmp').write_text('{torn')
+    table = diagnose.fabric_peer_table(str(tmp_path))
+    assert table == jax_diagnose.fabric_peer_table(str(tmp_path))
+    assert table['pX']['hits'] == 6 and table['pX']['failures'] == 4
+    assert table['pX']['breaker'] == 'open' and table['pX']['bytes'] == 6144
+    assert table['pX']['mean_latency_ms'] == pytest.approx(50.0)
+    assert table['-']['fallbacks'] == 5 and table['-']['mean_latency_ms'] is None
+    assert diagnose.format_fabric_peers(table) == jax_diagnose.format_fabric_peers(table)
+    assert diagnose.main(['--fabric', str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith('fabric peers') and 'pX' in out and 'open' in out
+    assert diagnose.main(['--fabric', str(tmp_path), '--json']) == 0
+    assert json.loads(capsys.readouterr().out)['fabric_peers']['pX']['hits'] == 6
 
 
 # ---------------------------------------------------------------------------

@@ -54,3 +54,25 @@ def test_shard_map_determinism_rule_covers_the_port(tmp_path):
                       '    return time.time(), [m for m in set(members)]\n')
     codes = [f.code for f in run_analysis([str(tmp_path / 'petastorm_tpu_torch')])]
     assert codes == ['PT1200', 'PT1200']
+
+
+def test_fabric_socket_rule_covers_the_port(tmp_path):
+    """PT1500 (every socket operation of ``fabric/`` timeout-armed and under
+    a transfer deadline) applies to the port's fabric, which lints clean
+    above: a copy of the server whose accept loop lost its timeout, and of
+    the client with a receive outside any deadline, are caught."""
+    target = tmp_path / 'petastorm_tpu_torch' / 'fabric'
+    target.mkdir(parents=True)
+    for name, old, new in (
+            ('server.py', '                sock.settimeout(_ACCEPT_POLL_S)\n', ''),
+            ('client.py', '\n\n__all__', '\n\ndef _peek(sock):\n'
+             '    sock.settimeout(1.0)\n    return sock.recv(4)\n\n\n__all__')):
+        source = os.path.join(PORT_DIR, 'fabric', name)
+        assert run_analysis([source]) == []
+        with open(source) as f:
+            text = f.read()
+        assert old in text
+        (target / name).write_text(text.replace(old, new))
+    findings = run_analysis([str(tmp_path / 'petastorm_tpu_torch')])
+    assert sorted((os.path.basename(f.path), f.code) for f in findings) == [
+        ('client.py', 'PT1500'), ('server.py', 'PT1500')]

@@ -44,7 +44,6 @@ from petastorm_tpu.models.train import create_train_state as jax_create_train_st
 from petastorm_tpu.models.train import make_train_step as jax_make_train_step
 from petastorm_tpu.native import fused as jax_fused
 from petastorm_tpu.ops import normalize_images as jax_normalize_images
-from petastorm_tpu.test_util import native_corpus
 from petastorm_tpu.unischema import Unischema as JaxUnischema
 from petastorm_tpu.unischema import UnischemaField as JaxField
 from petastorm_tpu_torch import TransformSpec, make_reader, native
@@ -54,6 +53,7 @@ from petastorm_tpu_torch.models.convert import flax_to_torch
 from petastorm_tpu_torch.models.train import create_train_state, make_train_step
 from petastorm_tpu_torch.native import build, fused, image_codec, pagescan
 from petastorm_tpu_torch.ops import normalize_images
+from petastorm_tpu_torch.test_util import native_corpus
 from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
 from petastorm_tpu_torch.torch import TorchDataLoader, stage_batch
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -207,7 +207,7 @@ def test_page_scan_rejects_a_corrupt_map_of_bools():
     code = '\n'.join([
         'import ctypes, numpy as np',
         'from petastorm_tpu_torch import native',
-        'from petastorm_tpu.test_util import native_corpus',
+        'from petastorm_tpu_torch.test_util import native_corpus',
         'lib = native._load_library()',
         'page = native_corpus.plain_page(4, stats={!r} + bytes(1))'.format(SPINNING_STATS),
         'chunk = np.frombuffer(page, np.uint8)',

@@ -250,11 +250,14 @@ def test_cli_planes_and_json():
     ours = json.loads(out.stdout)
     ours.pop('elapsed_s')
     assert ours == _result_dict(JM.check(JS.SpecConfig(**TINY)))
-    # the fabric's spec is not ported: the flag says so instead of checking
-    # another plane
-    fabric = _cli('--fabric')
-    assert fabric.returncode != 0 and 'NotImplementedError' in fabric.stderr
-    assert 'fabric' in fabric.stderr
+    # the fabric plane: its default scope exhausts clean, a mutation gives a
+    # counterexample naming the invariant it breaks
+    fabric = _cli('--fabric', '--min-states', '200000')
+    assert fabric.returncode == 0, fabric.stdout + fabric.stderr
+    assert 'fabric scope:' in fabric.stdout and 'exhausted: all invariants hold' in fabric.stdout
+    broken = _cli('--fabric', '--mutate', 'no_fallback')
+    assert broken.returncode == 1 and 'fetch_termination' in broken.stdout
+    assert _cli('--fabric', '--serve').returncode == 2
     assert callable(M.main)
 
 
