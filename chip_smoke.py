@@ -10,7 +10,8 @@ Phases, each printed as one JSON line:
 2. kernel checks: every hand-written kernel of the main path against its plain
    PyTorch version on the card (shapes, types and tolerances below), and the
    times of both and of the one PyTorch call that computes the same function
-   (CUDA events, median of 25 runs);
+   (CUDA events, median of 25 runs), at the main path's shape and at
+   ``raw_crop``'s (64x144x144x3: ``crop_timing``);
 3. stores: a raw uint8 store, an ImageNet-shaped PNG store, a fixed-shape
    PNG store of the raw store's images and, where the host can encode and
    decode JPEG, a JPEG store, written by the port's ``materialize_dataset``
@@ -75,6 +76,14 @@ Phases, each printed as one JSON line:
    replay's within 1e-2 (bf16 convolutions need not be bit-reproducible):
 
    - ``raw``: the raw store, no decode;
+   - ``raw_crop``: ``raw`` with a step that draws more than the flip mask:
+     ``RandomCropFlip(144, 144, then=normalize_images)`` crops each 160 px
+     image at offsets drawn per image from the step's generator, flips it
+     and normalizes it (the Triton kernel) inside the step, the graphed step
+     with the offsets and mask copied into buffers of their own before each
+     replay; the model sees 64x144x144x3 only; the graph check runs the same
+     batches with the same draws; a ``raw_crop_vs`` line beside ``raw``'s
+     numbers;
    - ``raw_elastic``: ``raw``'s trainer as host ``h0`` of an elastic pod
      (``make_reader(elastic=ElasticConfig(host_id='h0', lease_s=1.0,
      poll_s=0.05))``, ``docs/parallelism.md:66-130``, ``bench_pod.py
@@ -502,14 +511,24 @@ Phases, each printed as one JSON line:
    the ring and lifetime cycles): the build and replay seconds and the items
    replayed; a finding fails the run; a host whose g++ ships no sanitizer
    runtime prints one ``skipped`` line;
+19c. ``race_checks`` (host only: no device work): the port's interleaving
+   explorer through ``python -m petastorm_tpu_torch.analysis.schedule.cli``
+   over its five component scenarios (the port's ventilators, shuffling
+   buffer, slot registry and autotuner) at the CLI's defaults (300 random
+   schedules, ``--dfs-budget 100``, ``--max-preemptions 2``) in one
+   process, each clean, with its seconds (the first's with the
+   interpreter's start); the torn counter, the pre-fix ventilator flags and
+   the ABBA deadlock caught in another, and each failure replayed through
+   ``PSTPU_SCHEDULE`` in a process of its own with the same report (a
+   deadlock's object addresses aside);
 20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
 21. model check: the trained model on the card (bf16) against a float32 copy
    of it on the CPU, on four images of the store;
 22. a ``kernels`` line (per kernel: route, source, the TPU kernel it replaces,
-   launches over all paths (``png_part``, ``raw_mix``, ``raw_tail``,
-   ``raw_chaos`` and ``raw_fabric`` included), both steps, where a
+   launches over all paths (``raw_crop``, ``png_part``, ``raw_mix``,
+   ``raw_tail``, ``raw_chaos`` and ``raw_fabric`` included), both steps, where a
    graph replay counts the launches it captured, and the spawned ranks' of
    ``mesh_checks`` and ``entry_checks``, and ``imagenet_example``'s and the
    remote paths'; the sequence, MoE, pipeline and MNIST paths normalize
@@ -535,6 +554,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -551,6 +571,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(ROOT, '.torch_build')
 
 IMAGE_SIZE = 160
+#: raw_crop's step crops each 160 px image to this size before the model
+CROP_SIZE = 144
 NUM_CLASSES = 1000
 BATCH = 64
 ROWS = 1024
@@ -658,9 +680,69 @@ def normalize_bound_ms(shape, in_dtype, out_dtype, torch):
     return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
 
 
+def _normalize_timings(torch, shape, gen):
+    """The Triton normalize, its plain version and ``torch.addcmul`` timed
+    in turns at ``shape`` (uint8 in, bf16 out) on 16 inputs, the library
+    call checked within 1 bf16 ulp of the plain version, and the bound."""
+    from petastorm_tpu_torch.ops.kernels import normalize as nk
+
+    dev = torch.device('cuda')
+    inputs = [torch.from_numpy(gen.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+              for _ in range(16)]  # 64-79 MB of input: more than L2 holds
+    mean = torch.from_numpy(IMAGENET_MEAN).to(dev)
+    inv_std = torch.from_numpy(1.0 / IMAGENET_STD).to(dev)
+
+    def kernel(x):
+        return nk.normalize_triton(x, mean, inv_std)
+
+    def plain(x):
+        return nk.normalize_reference(x, mean, inv_std)
+
+    # the one PyTorch call that computes the function: x * inv_std + shift,
+    # with shift = -mean * inv_std, uint8 in, float32 math, bf16 out
+    shift = -mean * inv_std
+    library_out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+    def library(x):
+        return torch.addcmul(shift, x, inv_std, out=library_out)
+
+    library_err, library_ok = 0.0, True
+    for x in inputs[:4]:
+        ref = plain(x).float()
+        diff = (library(x).float() - ref).abs()
+        library_err = max(library_err, float(diff.max()))
+        library_ok = library_ok and bool((diff <= 2.0 ** -7 * ref.abs() + 1e-6).all())
+    # in turns: plain, kernel, library, library, kernel, plain
+    plain_ms = [cuda_ms(torch, plain, inputs)]
+    kernel_ms = [cuda_ms(torch, kernel, inputs)]
+    library_ms = [cuda_ms(torch, library, inputs), cuda_ms(torch, library, inputs)]
+    kernel_ms.append(cuda_ms(torch, kernel, inputs))
+    plain_ms.append(cuda_ms(torch, plain, inputs))
+    # back to back without holding the device: the rate at which the host
+    # can launch the wrapper, which is what a caller's loop sees
+    host_rate_ms = cuda_ms(torch, kernel, inputs, hold_device=False)
+    bound_ms, bound_by = normalize_bound_ms(shape, torch.uint8, torch.bfloat16, torch)
+    library_check = {'call': 'torch.addcmul(shift_c, x_uint8, inv_std_c, out=out_bf16)',
+                     'max_abs_err': library_err, 'tolerance': '1 bf16 ulp', 'ok': library_ok,
+                     'ms_runs': library_ms}
+    if not library_ok:
+        library_check['why_not_counted'] = ('the call does not compute the function within 1 '
+                                            'bf16 ulp of the plain version on these inputs')
+    del inputs
+    return {'timing_shape': list(shape), 'ms_runs': kernel_ms, 'plain_ms_runs': plain_ms,
+            'library': library_check, 'launch_rate_ms': host_rate_ms,
+            'ms': statistics.median(kernel_ms), 'plain_ms': statistics.median(plain_ms),
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': statistics.median(library_ms) if library_ok else None,
+            # the bytes the bound counts, over the kernel's time
+            'hbm_gb_per_s': bound_ms / statistics.median(kernel_ms) * HBM_BYTES_PER_S / 1e9}
+
+
 def phase_kernels(torch):
     """The Triton normalize against its plain version, then both timed at
-    the main path's shape. Returns the kernels-line entry without launches."""
+    the main path's shape and at ``raw_crop``'s (the batch cropped to
+    ``CROP_SIZE`` inside the step). Returns the kernels-line entry (the main
+    path's shape) without launches."""
     from petastorm_tpu_torch.ops.kernels import normalize as nk
 
     dev = torch.device('cuda')
@@ -668,6 +750,7 @@ def phase_kernels(torch):
     checks = []
     cases = [((BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), torch.uint8, torch.bfloat16),
              ((BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), torch.uint8, torch.float32),
+             ((BATCH, CROP_SIZE, CROP_SIZE, 3), torch.uint8, torch.bfloat16),
              ((2, 17, 224, 3), torch.uint8, torch.bfloat16),
              ((2, 17, 224, 3), torch.uint8, torch.float32),
              ((4, 32, 32, 3), torch.uint8, torch.bfloat16),
@@ -711,62 +794,21 @@ def phase_kernels(torch):
         if shape == (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3) and out_dtype == torch.bfloat16:
             main_err = err
 
-    shape = (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
-    inputs = [torch.from_numpy(gen.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-              for _ in range(16)]  # 79 MB of input: more than L2 holds
-    mean = torch.from_numpy(IMAGENET_MEAN).to(dev)
-    inv_std = torch.from_numpy(1.0 / IMAGENET_STD).to(dev)
-
-    def kernel(x):
-        return nk.normalize_triton(x, mean, inv_std)
-
-    def plain(x):
-        return nk.normalize_reference(x, mean, inv_std)
-
-    # the one PyTorch call that computes the function: x * inv_std + shift,
-    # with shift = -mean * inv_std, uint8 in, float32 math, bf16 out
-    shift = -mean * inv_std
-    library_out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
-
-    def library(x):
-        return torch.addcmul(shift, x, inv_std, out=library_out)
-
-    library_err, library_ok = 0.0, True
-    for x in inputs[:4]:
-        ref = plain(x).float()
-        diff = (library(x).float() - ref).abs()
-        library_err = max(library_err, float(diff.max()))
-        library_ok = library_ok and bool((diff <= 2.0 ** -7 * ref.abs() + 1e-6).all())
-    # in turns: plain, kernel, library, library, kernel, plain
-    plain_ms = [cuda_ms(torch, plain, inputs)]
-    kernel_ms = [cuda_ms(torch, kernel, inputs)]
-    library_ms = [cuda_ms(torch, library, inputs), cuda_ms(torch, library, inputs)]
-    kernel_ms.append(cuda_ms(torch, kernel, inputs))
-    plain_ms.append(cuda_ms(torch, plain, inputs))
-    # back to back without holding the device: the rate at which the host
-    # can launch the wrapper, which is what a caller's loop sees
-    host_rate_ms = cuda_ms(torch, kernel, inputs, hold_device=False)
-    bound_ms, bound_by = normalize_bound_ms(shape, torch.uint8, torch.bfloat16, torch)
-    library_check = {'call': 'torch.addcmul(shift_c, x_uint8, inv_std_c, out=out_bf16)',
-                     'max_abs_err': library_err, 'tolerance': '1 bf16 ulp', 'ok': library_ok,
-                     'ms_runs': library_ms}
-    if not library_ok:
-        library_check['why_not_counted'] = ('the call does not compute the function within 1 '
-                                            'bf16 ulp of the plain version on these inputs')
-    emit({'phase': 'kernel_checks', 'kernel': 'normalize', 'checks': checks,
-          'timing_shape': list(shape), 'ms_runs': kernel_ms, 'plain_ms_runs': plain_ms,
-          'library': library_check, 'launch_rate_ms': host_rate_ms,
-          # the bytes the bound counts, over the kernel's time
-          'hbm_gb_per_s': bound_ms / statistics.median(kernel_ms) * HBM_BYTES_PER_S / 1e9})
-    del inputs
+    main = _normalize_timings(torch, (BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), gen)
+    crop = _normalize_timings(torch, (BATCH, CROP_SIZE, CROP_SIZE, 3), gen)
+    line = {'phase': 'kernel_checks', 'kernel': 'normalize', 'checks': checks}
+    line.update((k, main[k]) for k in ('timing_shape', 'ms_runs', 'plain_ms_runs', 'library',
+                                       'launch_rate_ms', 'hbm_gb_per_s'))
+    # raw_crop's shape: each number as at the main path's shape
+    line['crop_timing'] = crop
+    emit(line)
     return [{'name': 'normalize', 'route': 'triton',
              'source': 'petastorm_tpu_torch/ops/kernels/normalize.py',
              'replaces': 'petastorm_tpu/ops/preprocess.py:43',
              'launches': None, 'max_abs_err': main_err,
-             'ms': statistics.median(kernel_ms),
-             'plain_ms': statistics.median(plain_ms),
-             'bound_ms': bound_ms, 'bound_by': bound_by,
-             'library_ms': statistics.median(library_ms) if library_ok else None}]
+             'ms': main['ms'], 'plain_ms': main['plain_ms'],
+             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+             'library_ms': main['library_ms']}]
 
 
 def _photo(rng, h, w):
@@ -1943,7 +1985,7 @@ def check_read_routes(path, counts):
                if k.startswith('fused_fallback_reason:') and v}
     fused, fallback = c('fused_batches_total'), c('fused_fallback_total')
     pagescan, arrow = c('pagescan_columns_total'), c('arrow_fallback_columns_total')
-    if path in ('raw', 'raw_mesh', 'raw_elastic', 'raw_mix', 'raw_tail'):
+    if path in ('raw', 'raw_crop', 'raw_mesh', 'raw_elastic', 'raw_mix', 'raw_tail'):
         ok = pagescan > 0 and not (fused or fallback or arrow or reasons)
     elif path in ('png', 'jpeg', 'png_process'):
         n = reasons.get('image-hints', 0)
@@ -2015,6 +2057,7 @@ SAME_BATCHES = 4
 STALL_STAGES = {
     'raw': ({'worker.read_io'}, {'worker.fused_decode'}),
     'raw_mesh': ({'worker.read_io'}, {'worker.fused_decode'}),
+    'raw_crop': ({'worker.read_io'}, {'worker.fused_decode'}),
     # the wait at the pod's epoch barrier has no stage of its own: the pool
     # wait is shared out over the timed worker stages, here the read
     'raw_elastic': ({'worker.read_io'}, {'worker.fused_decode'}),
@@ -2066,7 +2109,7 @@ def check_stall(name, stall):
 
 def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_check=None,
              graphed=False, reader_factory=None, telemetry='counters', steps=STEPS, tag=None,
-             on_step=None, mesh=None, rows_check=None):
+             on_step=None, mesh=None, rows_check=None, preprocess_fn=None):
     """One path: a fresh model from the seed, 3 warm-up and ``steps``
     measured steps through ``pipeline_duty_cycle``, with the eager step or
     (``graphed``) the graphed one, at the ``telemetry`` level. The normalize
@@ -2084,7 +2127,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     result and the losses. With a ``mesh``, the example's mesh flow: the
     state sharded onto it, the reader on this rank's shard
     (``reader_shard_for_process``) and the batches staged onto its data
-    sharding."""
+    sharding. ``preprocess_fn`` is the step's preprocess (default:
+    :func:`preprocess`)."""
     from petastorm_tpu_torch import observability as obs
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
@@ -2102,7 +2146,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
         state = shard_train_state(state, mesh)
         kwargs['cur_shard'], kwargs['shard_count'] = reader_shard_for_process(mesh)
         factory['to_device'] = data_sharding(mesh)
-    train_step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
+    train_step = make_train_step(preprocess_fn=preprocess_fn or preprocess, preprocess_seed=SEED,
+                                 graphed=graphed)
     losses = []
     first_batches = []
     seen_labels = []
@@ -2210,13 +2255,14 @@ FIRST_LOSS_TOL = 1e-3
 REPLAY_LOSS_TOL = 1e-2
 
 
-def check_graphed_losses(torch, name, graphed_losses, batches):
+def check_graphed_losses(torch, name, graphed_losses, batches, preprocess_fn=None):
     """A fresh eager state from the seed trains on the graphed run's first
-    staged batches: its losses must be the graphed run's."""
+    staged batches, with the same preprocess (default: :func:`preprocess`)
+    and so the same draws: its losses must be the graphed run's."""
     from petastorm_tpu_torch.models.train import make_train_step
 
     state = new_train_state(torch)
-    step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED)
+    step = make_train_step(preprocess_fn=preprocess_fn or preprocess, preprocess_seed=SEED)
     eager = [float(step(state, images, labels)[1]['loss']) for images, labels in batches]
     diffs = [abs(a - b) for a, b in zip(eager, graphed_losses)]
     emit({'phase': 'graph_check', 'path': name, 'eager_losses': eager,
@@ -2239,8 +2285,152 @@ def run_path_both_ways(torch, name, url, check, **kwargs):
             torch, name, url, check, graphed=graphed, **kwargs)
         total.update(launches)
         runs['graphed' if graphed else 'eager'] = (state, step, batches, result)
-    check_graphed_losses(torch, name, losses, runs['graphed'][2])
+    check_graphed_losses(torch, name, losses, runs['graphed'][2], kwargs.get('preprocess_fn'))
     return total, runs
+
+
+class CropShapes(object):
+    """``normalize_images`` to bf16 that keeps the shape of every batch it
+    normalizes: what the model saw after the step's crop."""
+
+    def __init__(self):
+        self.shapes = set()
+
+    def __call__(self, images):
+        from petastorm_tpu_torch.ops import normalize_images
+
+        self.shapes.add(tuple(images.shape))
+        return normalize_images(images, IMAGENET_MEAN, IMAGENET_STD)
+
+
+def phase_raw_crop(torch, url, raw_runs):
+    """``raw``'s trainer with a step that draws more than the flip mask:
+    ``RandomCropFlip(CROP_SIZE, CROP_SIZE, then=normalize)`` crops each
+    160 px image at offsets drawn per image, flips it and normalizes it (the
+    Triton kernel), all inside the step; the graphed step copies the offsets
+    and the mask into buffers of their own before each replay. Both step
+    kinds, the graph check on the same batches and the same draws, and a
+    ``raw_crop_vs`` line beside ``raw``'s numbers. Returns the launches."""
+    from petastorm_tpu_torch.ops import RandomCropFlip
+
+    shapes = CropShapes()
+    total, runs = run_path_both_ways(
+        torch, 'raw_crop', url, check_batch,
+        preprocess_fn=RandomCropFlip(CROP_SIZE, CROP_SIZE, then=shapes))
+    if shapes.shapes != {(BATCH, CROP_SIZE, CROP_SIZE, 3)}:
+        raise AssertionError('raw_crop: the model saw batches of {}, not {}'.format(
+            sorted(shapes.shapes), (BATCH, CROP_SIZE, CROP_SIZE, 3)))
+    emit({'phase': 'raw_crop_vs', 'crop': [IMAGE_SIZE, CROP_SIZE],
+          'raw_crop': path_numbers(runs), 'raw': path_numbers(raw_runs),
+          'normalize_launches': total['normalize']})
+    return total
+
+
+#: the explorer's budgets in race_checks: the CLI's defaults
+RACE_SCHEDULES = 300
+RACE_DFS_BUDGET = 100
+RACE_MAX_PREEMPTIONS = 2
+#: the seeded defects the explorer must catch, and what it must report
+RACE_DEFECTS = {'torn_counter': 'race on', 'prefix_ventilator_flags': 'race on',
+                'abba_deadlock': 'deadlock:'}
+
+
+def _race_cli(names, options=(), schedule=None):
+    """``python -m petastorm_tpu_torch.analysis.schedule.cli explore`` of the
+    scenarios ``names`` with ``options`` (and ``PSTPU_SCHEDULE=schedule``)
+    in a subprocess. Returns its exit code and its reports, one per
+    scenario in order: ``(name, lines, seconds)``, the seconds from the
+    previous report (the first's from the start, the interpreter's start
+    included)."""
+    env = dict(os.environ, PYTHONUNBUFFERED='1')  # each report as it is printed
+    env.pop('PSTPU_SCHEDULE', None)
+    if schedule is not None:
+        env['PSTPU_SCHEDULE'] = schedule
+    proc = subprocess.Popen([sys.executable, '-m', 'petastorm_tpu_torch.analysis.schedule.cli',
+                             'explore'] + list(names) + list(options), cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    reports, last = [], time.perf_counter()
+    try:
+        for line in proc.stdout:
+            line = line.rstrip('\n')
+            head = line.split(':', 1)[0]
+            if head in names and len(reports) < len(names) \
+                    and (not reports or reports[-1][0] != head):
+                now = time.perf_counter()
+                reports.append([head, [line], now - last])
+                last = now
+            elif reports:
+                reports[-1][1].append(line)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stderr = proc.stderr.read()
+    proc.stderr.close()
+    proc.stdout.close()
+    if [r[0] for r in reports] != list(names):
+        raise AssertionError('race_checks: the CLI reported {} for {} (rc {}):\n{}'.format(
+            [r[0] for r in reports], names, rc, stderr))
+    return rc, [tuple(r) for r in reports]
+
+
+def _race_failure(lines):
+    """A failure report's lines from the first finding to ``schedule:``
+    (object addresses in a deadlock's resources, which differ between
+    processes, written ``0x?``), and its replay schedule."""
+    schedule = lines[-1].split('PSTPU_SCHEDULE=', 1)[1]
+    return [re.sub(r' at 0x[0-9a-f]+', ' at 0x?', line) for line in lines[1:-1]], schedule
+
+
+def phase_race_checks():
+    """Host only (no device work): the port's interleaving explorer, through
+    its CLI, over the five component scenarios at the CLI's defaults in one
+    process (every one clean; the seconds of each, the interpreter's start
+    in the first's); the three seeded defects in another (each caught); and
+    each defect's failure replayed through ``PSTPU_SCHEDULE`` in a process
+    of its own, its report the recorded one."""
+    from petastorm_tpu_torch.analysis.schedule.scenarios import SCENARIOS
+
+    budget = ['--schedules', str(RACE_SCHEDULES), '--dfs-budget', str(RACE_DFS_BUDGET),
+              '--max-preemptions', str(RACE_MAX_PREEMPTIONS)]
+    rc, reports = _race_cli(sorted(SCENARIOS), budget)
+    scenarios = {}
+    for name, lines, seconds in reports:
+        counts = [int(x) for x in re.findall(r'\d+', lines[0].split(': ok', 1)[-1])]
+        scenarios[name] = {'report': lines[0], 'seconds': seconds}
+        if len(lines) != 1 or len(counts) != 3 or counts[1] < RACE_SCHEDULES or counts[2] < 1:
+            raise AssertionError('race_checks: {} is not clean at the CLI defaults:\n{}'.format(
+                name, '\n'.join(lines)))
+        scenarios[name].update(schedules=counts[0], random=counts[1], dfs=counts[2])
+    if rc != 0:
+        raise AssertionError('race_checks: the clean scenarios exited {}'.format(rc))
+    rc, reports = _race_cli(list(RACE_DEFECTS), budget)
+    if rc != 1:
+        raise AssertionError('race_checks: the seeded defects exited {}, not 1'.format(rc))
+    defects = {}
+    for name, lines, seconds in reports:
+        if RACE_DEFECTS[name] not in '\n'.join(lines):
+            raise AssertionError('race_checks: the explorer did not catch {}:\n{}'.format(
+                name, '\n'.join(lines)))
+        report, schedule = _race_failure(lines)
+        replay_rc, replayed = _race_cli([name], schedule=schedule)
+        replay_report, replay_schedule = _race_failure(replayed[0][1])
+        identical = replay_rc == 1 and replay_schedule == schedule and replay_report == report
+        defects[name] = {'caught': lines[0], 'findings': report[:-1], 'schedule': schedule,
+                         'seconds': seconds, 'replay_rc': replay_rc,
+                         'replay_identical': identical, 'replay_s': replayed[0][2]}
+        if not identical:
+            raise AssertionError('race_checks: PSTPU_SCHEDULE={} did not replay {}\'s failure:'
+                                 '\n{}\nagainst\n{}'.format(schedule, name,
+                                                             '\n'.join(replayed[0][1]),
+                                                             '\n'.join(lines)))
+    emit({'phase': 'race_checks', 'device': 'none (host only: the explorer runs on the CPU)',
+          'budget': {'schedules': RACE_SCHEDULES, 'dfs_budget': RACE_DFS_BUDGET,
+                     'max_preemptions': RACE_MAX_PREEMPTIONS},
+          'scenarios': scenarios, 'defects': defects,
+          'seconds': sum(v['seconds'] for v in scenarios.values()) +
+          sum(v['seconds'] + v['replay_s'] for v in defects.values())})
 
 
 #: the serve daemon of ``png_served`` evicts a consumer blocked this long; the
@@ -7395,6 +7585,9 @@ def main():
         check_no_leftovers()
 
         total, raw = run_path_both_ways(torch, 'raw', urls['raw'], check_batch)
+        # the raw trainer cropping 160 -> 144 inside the step, then flip and
+        # normalize: the step's draws beyond the flip mask
+        total.update(phase_raw_crop(torch, urls['raw'], raw))
         # the raw trainer as one host of an elastic pod, through a kill and
         # a join
         total.update(phase_raw_elastic(torch, urls['raw'], work_dir, raw))
@@ -7583,6 +7776,7 @@ def main():
         emit({'phase': 'example_phases', 'seconds': example_s,
               'total_s': sum(example_s.values())})
         phase_sanitize_checks()
+        phase_race_checks()
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     # the raw path's first staged batch (eager run)

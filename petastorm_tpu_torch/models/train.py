@@ -9,8 +9,8 @@ Metrics stay tensors on the device, so a step does not wait for the card.
 
 The JAX step is one compiled XLA program. :func:`make_train_step` gives the
 eager step by default (the one the CPU parity tests hold against JAX) and,
-with ``graphed=True``, the whole step (flip, normalize, forward, loss,
-backward, SGD update) captured in one ``torch.cuda.CUDAGraph`` and replayed
+with ``graphed=True``, the whole step (the preprocess's crop, flip and
+normalize, forward, loss, backward, SGD update) captured in one ``torch.cuda.CUDAGraph`` and replayed
 with a single launch.
 
 Sharding (:func:`shard_train_state`) follows the JAX package's rule: the
@@ -21,8 +21,8 @@ takes its statistics over the data group, the head is column-parallel
 (:mod:`petastorm_tpu_torch.parallel.collectives`), and
 ``DistributedDataParallel`` averages the gradients over the data group. So
 the sharded step computes what one process stepping the global batch
-computes: global batch statistics, global mean loss and metrics, the flip
-mask of the global batch.
+computes: global batch statistics, global mean loss and metrics, the
+preprocess draws (flip mask, crop offsets) of the global batch.
 
 On a ``('data', 'seq')`` mesh the sequence model
 (:mod:`petastorm_tpu_torch.models.transformer`) runs on each rank's time
@@ -140,20 +140,37 @@ def step_flip_mask(preprocess_seed, step, batch, device):
     return flip_mask(batch, generator)
 
 
-def _flip_mask(state, preprocess_fn, preprocess_seed, images):
-    """This rank's rows of the global batch's flip mask: the mask is drawn
-    for ``batch x data size`` rows on every rank, and each takes its data
-    coordinate's, so the sharded step flips what one process stepping the
-    global batch flips. None for a step with no preprocess (the JAX step's
-    plain form draws nothing)."""
+def step_draws(preprocess_fn, preprocess_seed, step, batch, height, width, device):
+    """The draws step ``step`` hands ``preprocess_fn``: its ``draw(batch,
+    height, width, generator)`` from a ``torch.Generator`` on ``device``
+    seeded from ``(preprocess_seed, step)``, as a tuple of ``(batch, ...)``
+    tensors; for a preprocess without ``draw``, ``(step_flip_mask(...),)``."""
+    draw = getattr(preprocess_fn, 'draw', None)
+    if draw is None:
+        return (step_flip_mask(preprocess_seed, step, batch, device),)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(_step_seed(preprocess_seed, step))
+    return tuple(draw(batch, height, width, generator))
+
+
+def _draws(state, preprocess_fn, preprocess_seed, images):
+    """This rank's rows of the global batch's draws (:func:`step_draws`):
+    they are drawn for ``batch x data size`` rows on every rank, and each
+    takes its data coordinate's, so the sharded step flips and crops what
+    one process stepping the global batch does. ``()`` for a step with no
+    preprocess (the JAX step's plain form draws nothing)."""
     if preprocess_fn is None:
-        return None
+        return ()
     batch, sharding = images.shape[0], state.sharding
+    # a flip-only preprocess needs the batch alone (its inputs may be 2-D)
+    height, width = images.shape[1:3] if hasattr(preprocess_fn, 'draw') else (None, None)
     if sharding is None or sharding.size == 1:
-        return step_flip_mask(preprocess_seed, state.step, batch, images.device)
+        return step_draws(preprocess_fn, preprocess_seed, state.step, batch, height, width,
+                          images.device)
     start = sharding.index * batch
-    return step_flip_mask(preprocess_seed, state.step, batch * sharding.size,
-                          images.device)[start:start + batch]
+    return tuple(d[start:start + batch] for d in step_draws(
+        preprocess_fn, preprocess_seed, state.step, batch * sharding.size, height, width,
+        images.device))
 
 
 def _global_means(state, metrics):
@@ -325,7 +342,7 @@ def _sum_sequence_grads(state):
         offset += g.numel()
 
 
-def _forward_backward(state, preprocess_fn, images, labels, mask):
+def _forward_backward(state, preprocess_fn, images, labels, draws):
     """Preprocess, forward, loss and backward, with the gradients written
     into (or, where they exist, added to) ``.grad`` and, on a seq group,
     summed over it. Returns this rank's metrics, the model's objective's
@@ -333,7 +350,7 @@ def _forward_backward(state, preprocess_fn, images, labels, mask):
     model = state.model
     model.train()
     if preprocess_fn is not None:
-        images = preprocess_fn(images, mask)
+        images = preprocess_fn(images, *draws)
     metrics = _objective(state)(model(images), labels)
     metrics['loss'].backward()
     if state.seq_group is not None:
@@ -344,14 +361,18 @@ def _forward_backward(state, preprocess_fn, images, labels, mask):
 def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
     """``(state, images, labels) -> (state, metrics)``.
 
-    ``preprocess_fn(images, flip_mask) -> images`` runs INSIDE the step on
-    the device (normalize/flip of :mod:`petastorm_tpu_torch.ops`), so the
-    host ships compact uint8 batches. ``flip_mask`` is the ``(B,)`` boolean
-    mask of :func:`step_flip_mask` for ``(preprocess_seed, state.step)``,
-    drawn before the step runs: augmentation varies per step, is
-    reproducible, and the same in the eager and the graphed step. With no
-    ``preprocess_fn`` the step is the JAX step's plain form (the sequence
-    model's): forward, loss, backward, SGD, and no mask is drawn.
+    ``preprocess_fn(images, *draws) -> images`` runs INSIDE the step on
+    the device (normalize/flip/crop of :mod:`petastorm_tpu_torch.ops`), so
+    the host ships compact uint8 batches. ``draws`` are the step's random
+    draws (:func:`step_draws`), made before the step runs from a generator
+    seeded from ``(preprocess_seed, state.step)``: augmentation varies per
+    step, is reproducible, and the same in the eager and the graphed step.
+    A preprocess with a ``draw(batch, height, width, generator)`` method
+    (:class:`~petastorm_tpu_torch.ops.augment.RandomCropFlip`) gets what it
+    draws; any other gets the ``(B,)`` boolean flip mask of
+    :func:`step_flip_mask` as its one draw. With no ``preprocess_fn`` the
+    step is the JAX step's plain form (the sequence model's): forward, loss,
+    backward, SGD, and nothing is drawn.
 
     ``graphed=True`` returns a :class:`GraphedTrainStep` (CUDA only): the
     step captured in one CUDA graph after :data:`GRAPH_WARMUP_STEPS` eager
@@ -360,9 +381,9 @@ def make_train_step(preprocess_fn=None, preprocess_seed=0, graphed=False):
         return GraphedTrainStep(preprocess_fn, preprocess_seed)
 
     def train_step(state, images, labels):
-        mask = _flip_mask(state, preprocess_fn, preprocess_seed, images)
+        draws = _draws(state, preprocess_fn, preprocess_seed, images)
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = _forward_backward(state, preprocess_fn, images, labels, mask)
+        metrics = _forward_backward(state, preprocess_fn, images, labels, draws)
         state.optimizer.step()
         state.step += 1
         return state, _global_means(state, metrics)
@@ -374,16 +395,18 @@ class GraphedTrainStep(object):
     """The train step as one CUDA graph replay.
 
     The first :data:`GRAPH_WARMUP_STEPS` calls run the eager step on a side
-    stream. The next call copies its batch and flip mask into static input
-    buffers, captures flip, normalize, forward, loss, backward and the SGD
-    update in one ``torch.cuda.CUDAGraph``, and replays it; every later call
-    copies its batch into the buffers and replays. So every call is one real
-    training step, and a batch may arrive in any tensors (``stage_batch``
-    allocates new ones per batch).
+    stream. The next call copies its batch and draws into static input
+    buffers, captures the preprocess (crop, flip, normalize), forward, loss,
+    backward and the SGD update in one ``torch.cuda.CUDAGraph``, and replays
+    it; every later call copies its batch and draws into the buffers and
+    replays. So every call is one real training step, and a batch may
+    arrive in any tensors (``stage_batch`` allocates new ones per batch).
 
-    - The flip mask is drawn outside the graph (a generator reseed cannot be
-      captured) and copied into a static buffer that the captured flip reads;
-      a step with no preprocess has none.
+    - The draws (flip mask, crop offsets) are made outside the graph (a
+      generator reseed cannot be captured) and each is copied into a static
+      buffer of its own that the captured apply reads as a device tensor; a
+      step with no preprocess has none. The graph is captured for one input
+      shape, and with it one output shape of the crop.
     - SGD creates its momentum buffers at the first step, so capture comes
       after the warm-up.
     - The gradients are set to ``None`` just before capture: the captured
@@ -413,7 +436,7 @@ class GraphedTrainStep(object):
         self._preprocess_seed = preprocess_seed
         self._calls = 0
         self._graph = None
-        self._static = None        # images, labels, mask, metrics
+        self._static = None        # images, labels, draws, metrics
         self._captured_launches = None
         self._side = None
 
@@ -453,17 +476,17 @@ class GraphedTrainStep(object):
     def __call__(self, state, images, labels):
         self._check_inputs(images, labels)
         warmup = self._check_state(state)
-        mask = _flip_mask(state, self._preprocess_fn, self._preprocess_seed, images)
+        draws = _draws(state, self._preprocess_fn, self._preprocess_seed, images)
         if self._graph is None and self._calls < warmup:
-            metrics = self._eager_on_side_stream(state, images, labels, mask)
+            metrics = self._eager_on_side_stream(state, images, labels, draws)
         else:
             if self._graph is None:
-                self._capture(state, images, labels, mask)
-            static_images, static_labels, static_mask, static_metrics = self._static
+                self._capture(state, images, labels, draws)
+            static_images, static_labels, static_draws, static_metrics = self._static
             static_images.copy_(images)
             static_labels.copy_(labels)
-            if mask is not None:
-                static_mask.copy_(mask)
+            for static, draw in zip(static_draws, draws):
+                static.copy_(draw)
             self._graph.replay()
             for module, count in zip(_COUNTED_KERNELS, self._captured_launches):
                 module.launches += count
@@ -472,7 +495,7 @@ class GraphedTrainStep(object):
         state.step += 1
         return state, metrics
 
-    def _eager_on_side_stream(self, state, images, labels, mask):
+    def _eager_on_side_stream(self, state, images, labels, draws):
         """One eager step on the side stream the warm-up runs on."""
         if self._side is None:
             self._side = torch.cuda.Stream(images.device)
@@ -480,24 +503,22 @@ class GraphedTrainStep(object):
         self._side.wait_stream(current)
         with torch.cuda.stream(self._side):
             state.optimizer.zero_grad(set_to_none=True)
-            metrics = _forward_backward(state, self._preprocess_fn, images, labels, mask)
+            metrics = _forward_backward(state, self._preprocess_fn, images, labels, draws)
             state.optimizer.step()
             metrics = _global_means(state, metrics)
         current.wait_stream(self._side)
-        for t in (images, labels, mask):
-            if t is not None:
-                t.record_stream(self._side)
+        for t in (images, labels) + draws:
+            t.record_stream(self._side)
         return metrics
 
-    def _capture(self, state, images, labels, mask):
+    def _capture(self, state, images, labels, draws):
         static_images = torch.empty_like(images)
         static_labels = torch.empty_like(labels)
         static_images.copy_(images)
         static_labels.copy_(labels)
-        static_mask = None
-        if mask is not None:
-            static_mask = torch.empty_like(mask)
-            static_mask.copy_(mask)
+        static_draws = tuple(torch.empty_like(draw) for draw in draws)
+        for static, draw in zip(static_draws, draws):
+            static.copy_(draw)
         state.optimizer.zero_grad(set_to_none=True)
         before = [module.launches for module in _COUNTED_KERNELS]
         graph = torch.cuda.CUDAGraph()
@@ -505,14 +526,14 @@ class GraphedTrainStep(object):
         # copies, allocations on its own stream) while this thread captures
         with torch.cuda.graph(graph, capture_error_mode='thread_local'):
             metrics = _forward_backward(state, self._preprocess_fn, static_images,
-                                        static_labels, static_mask)
+                                        static_labels, static_draws)
             state.optimizer.step()
             metrics = _global_means(state, metrics)
         self._captured_launches = []
         for module, count in zip(_COUNTED_KERNELS, before):
             self._captured_launches.append(module.launches - count)
             module.launches = count
-        self._static = (static_images, static_labels, static_mask, metrics)
+        self._static = (static_images, static_labels, static_draws, metrics)
         self._graph = graph
 
 

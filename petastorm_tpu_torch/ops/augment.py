@@ -81,6 +81,34 @@ def random_crop(images, generator, crop_h, crop_w):
     return crop_with_offsets(images, ys, xs, crop_h, crop_w)
 
 
+class RandomCropFlip(object):
+    """A train-step preprocess that draws more than the flip mask:
+    ``make_train_step(preprocess_fn=RandomCropFlip(crop_h, crop_w, then))``
+    crops each image to ``(crop_h, crop_w)`` at offsets drawn per image,
+    flips it with probability 1/2, then applies ``then`` (e.g.
+    :func:`~petastorm_tpu_torch.ops.normalize_images`), all inside the step.
+
+    :meth:`draw` is what the step calls before it runs, with the step's
+    generator; the step then calls the preprocess with the draws. The flip
+    mask is drawn first, so a crop step flips what a flip-only step with the
+    same seed flips. The apply reads the offsets as device tensors only (one
+    gather, static shapes), so a CUDA graph can capture it."""
+
+    def __init__(self, crop_h, crop_w, then=None):
+        self.crop_h, self.crop_w = int(crop_h), int(crop_w)
+        self.then = then
+
+    def draw(self, batch, height, width, generator):
+        """``(flip_mask, ys, xs)``, each ``(batch,)``, from ``generator``."""
+        mask = flip_mask(batch, generator)
+        ys, xs = crop_offsets(batch, height, width, self.crop_h, self.crop_w, generator)
+        return mask, ys, xs
+
+    def __call__(self, images, mask, ys, xs):
+        images = flip_with_mask(crop_with_offsets(images, ys, xs, self.crop_h, self.crop_w), mask)
+        return images if self.then is None else self.then(images)
+
+
 def _beta(alpha, generator):
     """One ``Beta(alpha, alpha)`` draw as a float32 0-d tensor on the
     generator's device: ``x / (x + y)`` of two ``Gamma(alpha)`` draws (in

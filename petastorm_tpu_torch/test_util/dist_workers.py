@@ -33,7 +33,7 @@ from petastorm_tpu_torch.models import BasicBlock, BottleneckBlock, ResNet
 from petastorm_tpu_torch.models.train import (create_train_state, gather_state, make_eval_step,
                                               make_train_step, shard_train_state)
 from petastorm_tpu_torch.entry import dryrun_preprocess
-from petastorm_tpu_torch.ops import flip_with_mask
+from petastorm_tpu_torch.ops import RandomCropFlip, flip_with_mask
 from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
 from petastorm_tpu_torch.parallel import (data_sharding, make_global_batch, make_mesh,
                                           process_local_batch_size, reader_shard_for_process)
@@ -56,6 +56,20 @@ def build_model(config, weights=None, seed=0):
 
 def flip_only(images, mask):
     return flip_with_mask(images, mask)
+
+
+class RecordingCropFlip(RandomCropFlip):
+    """:class:`~petastorm_tpu_torch.ops.augment.RandomCropFlip` that keeps
+    every draw it is called with (``seen``: one tuple of numpy arrays per
+    step)."""
+
+    def __init__(self, crop_h, crop_w, then=None):
+        super().__init__(crop_h, crop_w, then)
+        self.seen = []
+
+    def __call__(self, images, *draws):
+        self.seen.append(tuple(d.detach().to('cpu', copy=True).numpy() for d in draws))
+        return super().__call__(images, *draws)
 
 
 def digest(images, labels):
@@ -119,8 +133,9 @@ def sharded_steps(rank, world, spec):
 
     ``spec``: ``model`` (:func:`build_model`'s config), ``weights`` or
     ``seed``, ``lr``, ``flip_seed`` (``None``: no preprocess; else the
-    step's preprocess seed, with ``preprocess`` ``'flip'`` or
-    ``'flip_normalize'``), ``record`` (the steps after which the gathered
+    step's preprocess seed, with ``preprocess`` ``'flip'``,
+    ``'flip_normalize'`` or ``'crop_flip'``: a :class:`RecordingCropFlip` to
+    ``crop`` x ``crop``, whose draws are returned as ``draws``), ``record`` (the steps after which the gathered
     state is kept), ``eval`` (an eval step after the last), ``tf32``,
     ``cudnn`` (``False``: PyTorch's own convolutions on a card) and
     either ``images``/``labels`` (a fixed global batch) or ``url``/
@@ -136,7 +151,9 @@ def sharded_steps(rank, world, spec):
                                device=sharding.device, learning_rate=spec.get('lr', 0.1))
     state = shard_train_state(state, mesh)
     preprocess = None
-    if spec.get('flip_seed') is not None:
+    if spec.get('preprocess') == 'crop_flip':
+        preprocess = RecordingCropFlip(spec['crop'], spec['crop'])
+    elif spec.get('flip_seed') is not None:
         preprocess = {'flip': flip_only,
                       'flip_normalize': dryrun_preprocess}[spec.get('preprocess', 'flip')]
     step = make_train_step(preprocess_fn=preprocess, preprocess_seed=spec.get('flip_seed') or 0)
@@ -171,6 +188,7 @@ def sharded_steps(rank, world, spec):
             metrics = make_eval_step()(state, images, labels)
             out['eval'] = {k: v.item() for k, v in metrics.items()}
     out['launches'] = {'normalize': normalize_kernel.launches}
+    out['draws'] = getattr(preprocess, 'seen', None)
     return out
 
 

@@ -20,6 +20,7 @@ STD = np.array([58.395, 57.12, 57.375], np.float32)
 
 SHAPES = [
     (64, 160, 160, 3),  # the main path's batch
+    (64, 144, 144, 3),  # the crop path's batch: 160 cropped to 144 in the step
     (4, 32, 32, 3),
     (2, 17, 224, 3),    # odd rows, a masked tail
     (1, 8, 128, 1),     # single channel
@@ -155,6 +156,52 @@ def test_graphed_step_losses_equal_the_eager_steps(cuda):
         model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
                        dtype=torch.float32)
         step(create_train_state(model, cuda), batches[0][0][:4], batches[0][1][:4])
+
+
+@pytest.mark.gpu
+def test_graphed_crop_step_losses_equal_the_eager_steps(cuda):
+    # the step draws more than the flip mask: RandomCropFlip's crop offsets
+    # and mask are drawn outside the graph and copied into buffers of their
+    # own before each replay. Five steps from one seed on the same batches:
+    # the graphed losses equal the eager ones within chip_smoke.py's
+    # FIRST_LOSS_TOL (1e-3, the first) and REPLAY_LOSS_TOL (1e-2, the rest)
+    from petastorm_tpu_torch.models import BottleneckBlock, ResNet
+    from petastorm_tpu_torch.models.train import (GRAPH_WARMUP_STEPS, create_train_state,
+                                                  make_train_step)
+    from petastorm_tpu_torch.ops import RandomCropFlip
+
+    steps, size, crop = 5, 40, 32
+    gen = np.random.default_rng(3)
+    batches = [(_images((8, size, size, 3), torch.uint8, cuda, seed=10 + s),
+                torch.from_numpy(gen.integers(0, 10, 8)).to(cuda)) for s in range(steps)]
+    preprocess = RandomCropFlip(crop, crop, then=lambda x: normalize_images(
+        x, MEAN, STD, out_dtype=torch.float32))
+
+    def run(graphed):
+        torch.manual_seed(0)
+        model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
+                       dtype=torch.float32)
+        state = create_train_state(model, cuda)
+        step = make_train_step(preprocess_fn=preprocess, preprocess_seed=4, graphed=graphed)
+        before = normalize_kernel.launches
+        losses = [step(state, images, labels)[1]['loss'] for images, labels in batches]
+        torch.cuda.synchronize()
+        assert state.step == steps
+        return [float(x) for x in losses], normalize_kernel.launches - before, step
+
+    eager, eager_launches, _ = run(False)
+    graphed, graphed_launches, step = run(True)
+    assert steps > GRAPH_WARMUP_STEPS + 1
+    assert abs(graphed[0] - eager[0]) <= 1e-3
+    np.testing.assert_allclose(graphed, eager, atol=1e-2, rtol=0)
+    assert len(set(graphed)) == steps
+    assert eager_launches == graphed_launches == steps
+    # captured for one input shape: a batch of another size is refused
+    with pytest.raises(ValueError, match='captured for images'):
+        model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
+                       dtype=torch.float32)
+        step(create_train_state(model, cuda), batches[0][0][:, :crop, :crop].contiguous(),
+             batches[0][1])
 
 
 @pytest.mark.gpu

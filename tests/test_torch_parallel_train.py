@@ -38,7 +38,8 @@ from petastorm_tpu_torch import make_batch_reader, make_reader
 from petastorm_tpu_torch.models.convert import flax_to_torch
 from petastorm_tpu_torch.models.train import (GraphedTrainStep, create_train_state,
                                               gather_state, make_train_step,
-                                              shard_train_state, state_shardings)
+                                              shard_train_state, state_shardings, step_draws)
+from petastorm_tpu_torch.ops import RandomCropFlip
 from petastorm_tpu_torch.parallel import make_mesh
 from petastorm_tpu_torch.parallel.launch import spawn
 from petastorm_tpu_torch.test_util import dist_workers
@@ -51,6 +52,7 @@ NUM_CLASSES = 8
 CONFIG = {'stage_sizes': [1, 1], 'block': 'basic', 'num_classes': NUM_CLASSES, 'num_filters': 8}
 MESHES = [(2, 2), (4, 1), (1, 2)]
 FLIP_SEED = 5
+CROP = 12
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -154,11 +156,13 @@ def runs(setup):
     return out.__getitem__
 
 
-def _unsharded(weights, images, labels, steps, flip_seed=None):
-    """The port's step on the global batch in one process, no mesh."""
+def _unsharded(weights, images, labels, steps, flip_seed=None, preprocess=None):
+    """The port's step on the global batch in one process, no mesh (with
+    ``flip_seed``, ``preprocess`` or the flip)."""
     state = create_train_state(dist_workers.build_model(CONFIG, weights), device='cpu')
-    step = make_train_step(preprocess_fn=None if flip_seed is None else dist_workers.flip_only,
-                           preprocess_seed=flip_seed or 0)
+    if flip_seed is not None and preprocess is None:
+        preprocess = dist_workers.flip_only
+    step = make_train_step(preprocess_fn=preprocess, preprocess_seed=flip_seed or 0)
     x, y = torch.from_numpy(images), torch.from_numpy(labels)
     losses, grad = [], None
     for _ in range(steps):
@@ -223,6 +227,34 @@ def test_flip_mask_slices_equal_the_world_of_one(runs, setup, shape):
     run = ranks[0][0][1]
     np.testing.assert_allclose(run['losses'], losses, atol=ATOL, rtol=ATOL)
     _assert_state_close(run['states'][2], state, ATOL)
+
+
+def test_crop_draw_slices_equal_the_world_of_one(setup):
+    # a data group of 2 over gloo: each rank crops and flips with its rows
+    # of the global batch's draws, so the sharded crop step is the
+    # unsharded one with the same seed
+    _, weights, images, labels = setup
+    spec = {'device': 'cpu', 'model': CONFIG, 'weights': weights, 'images': images,
+            'labels': labels, 'axis_shapes': (2, 1), 'steps': 2, 'record': (2,),
+            'flip_seed': FLIP_SEED, 'preprocess': 'crop_flip', 'crop': CROP}
+    ranks = spawn(dist_workers.several_sharded_runs, 2, ([spec],), threads=1)
+    losses, state, _ = _unsharded(weights, images, labels, steps=2, flip_seed=FLIP_SEED,
+                                  preprocess=RandomCropFlip(CROP, CROP))
+    local = BATCH // 2
+    for rank_runs, _ in ranks:
+        run = rank_runs[0]
+        index, size = run['coord']
+        assert size == 2
+        rows = slice(index * local, (index + 1) * local)
+        assert len(run['draws']) == 2
+        for i, draws in enumerate(run['draws']):
+            whole = step_draws(RandomCropFlip(CROP, CROP), FLIP_SEED, i, BATCH, SIZE, SIZE, 'cpu')
+            assert len(draws) == len(whole) == 3
+            for got, expected in zip(draws, whole):
+                np.testing.assert_array_equal(got, expected.numpy()[rows])
+        np.testing.assert_allclose(run['losses'], losses, atol=ATOL, rtol=ATOL)
+        _assert_state_close(run['states'][2], state, ATOL)
+    assert sorted(r[0][0]['coord'][0] for r in ranks) == [0, 1]
 
 
 @pytest.mark.parametrize('shape', [(2, 2), (1, 2)])

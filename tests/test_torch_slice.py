@@ -261,7 +261,11 @@ def test_port_imports_nothing_of_jax():
         '          "analysis", "analysis.protocol", "analysis.protocol.spec",',
         '          "analysis.protocol.modelcheck", "analysis.protocol.monitor",',
         '          "analysis.protocol.serve_spec", "analysis.protocol.elastic_spec",',
-        '          "observability.diagnose", "observability.podagg", "autotune.cli"):',
+        '          "observability.diagnose", "observability.podagg", "autotune.cli",',
+        # the interleaving explorer
+        '          "analysis.schedule", "analysis.schedule.scheduler",',
+        '          "analysis.schedule.explorer", "analysis.schedule.scenarios",',
+        '          "analysis.schedule.cli"):',
         '    assert "petastorm_tpu_torch." + m in sys.modules, m',
         # importing builds nothing: the libraries are built at first use
         'from petastorm_tpu_torch import native',
