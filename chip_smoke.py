@@ -84,6 +84,15 @@ Phases, each printed as one JSON line:
      replay; the model sees 64x144x144x3 only; the graph check runs the same
      batches with the same draws; a ``raw_crop_vs`` line beside ``raw``'s
      numbers;
+   - then ``throughput_checks`` (no train step): ``python -m
+     petastorm_tpu_torch.tools.throughput`` on the raw store, ``-d python``
+     in a fresh process, ``-d columnar``, ``-d torch`` (staged on the card)
+     and ``-d torch -p process``, each measured for seconds after a
+     warm-up, and a short ``-d python --trace-out`` run whose trace must
+     parse; an in-process ``reader_throughput(read_method='torch')`` whose
+     batches must be on the card; each run's samples/s, MB RSS, CPU%, stall,
+     bottleneck and window, ``torch`` over ``columnar`` and over ``raw``'s
+     graphed examples/s;
    - ``raw_elastic``: ``raw``'s trainer as host ``h0`` of an elastic pod
      (``make_reader(elastic=ElasticConfig(host_id='h0', lease_s=1.0,
      poll_s=0.05))``, ``docs/parallelism.md:66-130``, ``bench_pod.py
@@ -2333,6 +2342,145 @@ RACE_MAX_PREEMPTIONS = 2
 #: the seeded defects the explorer must catch, and what it must report
 RACE_DEFECTS = {'torn_counter': 'race on', 'prefix_ventilator_flags': 'race on',
                 'abba_deadlock': 'deadlock:'}
+
+
+#: rows the throughput tool warms up on and measures on the thread pool:
+#: 64 and 1024 batches of the raw store (its 1024 rows 4 and 64 times
+#: over), so each run measures for 1-3 s at 20,000-70,000 samples/s
+THROUGHPUT_WARMUP_ROWS = 64 * BATCH
+THROUGHPUT_MEASURE_ROWS = 1024 * BATCH
+#: on the process pool: 256 batches of warm-up take each of 8 workers
+#: through its 64 MiB ring about 2.5 times (13 row groups of 4.9 MB a lap),
+#: then 512 measured batches
+THROUGHPUT_PROCESS_WARMUP_ROWS = 256 * BATCH
+THROUGHPUT_PROCESS_MEASURE_ROWS = 512 * BATCH
+#: the ``--trace-out`` run checks the trace, not a rate: a short window
+#: keeps the trace small
+THROUGHPUT_TRACE_ROWS = 16 * BATCH
+#: the result line both packages' tools print
+THROUGHPUT_LINE = re.compile(r'^([\d.]+) samples/sec; ([\d.]+) MB RSS; ([\d.]+)% CPU'
+                             r'(?:; ([\d.]+)% input stall)?$')
+
+
+def _throughput_cli(url, warmup_rows, measure_rows, *options):
+    """``python -m petastorm_tpu_torch.tools.throughput`` on ``url`` with
+    the smoke's batch and a worker per core, as a user runs it. Returns the
+    numbers of its result line, its stall report's bottleneck, its window
+    (rows warmed up on and measured, and the measured seconds the rate
+    implies), its seconds (the interpreter's start included) and its output
+    lines."""
+    device = [] if DEVICE_TYPE == 'cuda' else ['--device', DEVICE_TYPE]
+    argv = [sys.executable, '-m', 'petastorm_tpu_torch.tools.throughput', url,
+            '-m', str(warmup_rows), '-n', str(measure_rows),
+            '-w', str(os.cpu_count() or 1), '--batch-size', str(BATCH)] + device + list(options)
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    match = THROUGHPUT_LINE.match(lines[0]) if lines else None
+    if out.returncode != 0 or match is None:
+        raise AssertionError('throughput_checks: {} exited {}:\n{}\n{}'.format(
+            ' '.join(argv[2:]), out.returncode, out.stdout, out.stderr))
+    bottleneck = [line.split(':', 1)[1].strip() for line in lines
+                  if line.strip().startswith('bottleneck:')]
+    rate = float(match.group(1))
+    return {'samples_per_sec': rate, 'rss_mb': float(match.group(2)),
+            'cpu_percent': float(match.group(3)),
+            'stall': None if match.group(4) is None else float(match.group(4)) / 100,
+            'bottleneck': bottleneck[0] if bottleneck else None,
+            'warmup_rows': warmup_rows, 'measure_rows': measure_rows,
+            'measure_s': measure_rows / rate, 'seconds': seconds}, lines
+
+
+def _staged_devices(throughput, url):
+    """Run ``reader_throughput(read_method='torch')`` on ``url`` in this
+    process with its prefetcher wrapped, and return the devices of every
+    tensor it staged and its result."""
+    import petastorm_tpu_torch.torch as port_torch
+
+    real = port_torch.prefetch_to_device
+    devices = set()
+
+    def recording(iterator, device=None, size=2):
+        batches = real(iterator, device, size=size)
+        try:
+            for batch in batches:
+                devices.update(t.device.type for t in batch.values())
+                yield batch
+        finally:
+            batches.close()
+
+    port_torch.prefetch_to_device = recording  # what reader_throughput imports
+    try:
+        result = throughput.reader_throughput(
+            url, read_method='torch', warmup_cycles=THROUGHPUT_WARMUP_ROWS,
+            measure_cycles=THROUGHPUT_MEASURE_ROWS, workers_count=os.cpu_count() or 1,
+            batch_size=BATCH, device=None if DEVICE_TYPE == 'cuda' else DEVICE_TYPE)
+    finally:
+        port_torch.prefetch_to_device = real
+    return devices, result
+
+
+def phase_throughput_checks(url, raw_runs):
+    """The reader without a train step, through the port's throughput tool
+    (``python -m petastorm_tpu_torch.tools.throughput``) on the raw store:
+    rows (``-d python``, in a fresh process), host batches (``-d
+    columnar``) and batches staged on the card (``-d torch``), on the
+    thread pool, then ``-d torch`` on the process pool, each measured for
+    seconds after a warm-up (``THROUGHPUT_*_ROWS``); a short ``-d python
+    --trace-out`` run whose trace must parse and hold events (its rate, at
+    the ``spans`` level over 16 batches, is not reported); one in-process
+    call checks that the tool stages onto the card. Beside each run's
+    samples/s, MB RSS, CPU%, stall and window: ``torch`` over ``columnar``
+    (what staging costs) and ``torch`` over ``raw``'s graphed examples/s of
+    this call (the reader's headroom over the step). Each subprocess's
+    seconds include its interpreter's start."""
+    from petastorm_tpu_torch.tools import throughput
+
+    t0 = time.perf_counter()
+    runs = {}
+    thread_window = (THROUGHPUT_WARMUP_ROWS, THROUGHPUT_MEASURE_ROWS)
+    runs['python'], _ = _throughput_cli(url, *thread_window, '-d', 'python', '--fresh-process')
+    runs['columnar'], _ = _throughput_cli(url, *thread_window, '-d', 'columnar')
+    runs['torch'], _ = _throughput_cli(url, *thread_window, '-d', 'torch')
+    runs['torch_process'], _ = _throughput_cli(
+        url, THROUGHPUT_PROCESS_WARMUP_ROWS, THROUGHPUT_PROCESS_MEASURE_ROWS,
+        '-d', 'torch', '-p', 'process')
+    trace_path = os.path.join(BUILD_DIR, 'trace_throughput.json')
+    trace_run, lines = _throughput_cli(url, THROUGHPUT_TRACE_ROWS, THROUGHPUT_TRACE_ROWS,
+                                       '-d', 'python', '--trace-out', trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    written = int(lines[-1].split()[1]) if lines[-1].startswith('wrote ') else None
+    if not events or written != len(events):
+        raise AssertionError('throughput_checks: the trace holds {} events, the tool wrote '
+                             '{}'.format(len(events), lines[-1]))
+    for name, run in runs.items():
+        staged = name.startswith('torch')
+        if staged != (run['stall'] is not None) or \
+                (name != 'python') != (run['bottleneck'] is not None):
+            raise AssertionError('throughput_checks: {} reported {}'.format(name, run))
+        if staged and not 0.0 <= run['stall'] <= 1.0:
+            raise AssertionError('throughput_checks: {} stall {}'.format(name, run['stall']))
+    devices, result = _staged_devices(throughput, url)
+    if devices != {DEVICE_TYPE} or result.samples != THROUGHPUT_MEASURE_ROWS:
+        raise AssertionError('throughput_checks: the in-process torch method staged onto {} '
+                             '({} samples)'.format(sorted(devices), result.samples))
+    raw_graphed = raw_runs['graphed'][3].samples_per_second
+    emit({'phase': 'throughput_checks', 'store': 'raw', 'batch': BATCH,
+          'workers': os.cpu_count() or 1, 'runs': runs,
+          'in_process_torch': {'staged_on': sorted(devices),
+                               'samples_per_sec': result.samples_per_second,
+                               'rss_mb': result.memory_rss_mb,
+                               'cpu_percent': result.cpu_percent,
+                               'stall': result.input_stall_fraction,
+                               'measure_s': result.duration_s},
+          'trace_events': len(events), 'trace_run_seconds': trace_run['seconds'],
+          'raw_graphed_examples_per_sec': raw_graphed,
+          'torch_over_columnar': runs['torch']['samples_per_sec'] /
+          runs['columnar']['samples_per_sec'],
+          'torch_over_raw_graphed': runs['torch']['samples_per_sec'] / raw_graphed,
+          'seconds': time.perf_counter() - t0})
 
 
 def _race_cli(names, options=(), schedule=None):
@@ -7588,6 +7736,9 @@ def main():
         # the raw trainer cropping 160 -> 144 inside the step, then flip and
         # normalize: the step's draws beyond the flip mask
         total.update(phase_raw_crop(torch, urls['raw'], raw))
+        # the reader alone, through the throughput tool: rows, host batches
+        # and staged batches beside raw's step
+        phase_throughput_checks(urls['raw'], raw)
         # the raw trainer as one host of an elastic pod, through a kill and
         # a join
         total.update(phase_raw_elastic(torch, urls['raw'], work_dir, raw))

@@ -13,7 +13,10 @@ block.
 
 Telemetry, as the JAX worker: ``read`` (the Arrow read), ``decode`` (the
 columns to numpy) and ``transform`` stages, and
-``worker_rows_decoded_total``.
+``worker_rows_decoded_total``. Its consumer side,
+:class:`~petastorm_tpu_torch.columnar.BatchResultsQueueReader`, lives in
+``columnar.py`` beside the row path's and is importable from here too, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import pyarrow as pa
 
 from petastorm_tpu_torch import observability as obs
+from petastorm_tpu_torch.columnar import BatchResultsQueueReader  # noqa: F401 - the JAX name
 from petastorm_tpu_torch.native import open_parquet
 from petastorm_tpu_torch.predicates import evaluate_predicate_mask
 from petastorm_tpu_torch.row_worker import _MAX_OPEN_FILES, _cache_key, select_row_drop_indices

@@ -77,17 +77,20 @@ def block_num_rows(block):
     return len(next(iter(block.values()))) if block else 0
 
 
-def block_to_rows(block):
-    """Explode a block into per-row dicts (row transforms operate on rows)."""
-    names = list(block)
+def block_to_rows(block, field_order=None):
+    """Explode a block into per-row dicts (row transforms operate on rows),
+    keyed in ``field_order`` (default: the block's)."""
+    names = list(field_order) if field_order is not None else list(block)
     cols = [block[name] for name in names]
     n = len(cols[0]) if cols else 0
     return [dict(zip(names, (c[i] for c in cols))) for i in range(n)]
 
 
-def rows_to_block(rows):
-    """Re-collate row dicts into a block (after a per-row transform)."""
-    return {name: stack_cells([r[name] for r in rows]) for name in rows[0]}
+def rows_to_block(rows, field_order=None):
+    """Re-collate row dicts into a block (after a per-row transform), with
+    columns in ``field_order`` (default: the first row's keys)."""
+    names = list(field_order) if field_order is not None else list(rows[0])
+    return {name: stack_cells([r[name] for r in rows]) for name in names}
 
 
 def take_block(block, indices):

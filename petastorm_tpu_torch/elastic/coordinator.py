@@ -52,6 +52,7 @@ from collections import OrderedDict
 from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.elastic.membership import MembershipRegistry
 from petastorm_tpu_torch.elastic.shardmap import ShardMap
+from petastorm_tpu_torch.workers.ventilator import VentilatorBase
 
 logger = logging.getLogger(__name__)
 
@@ -469,7 +470,7 @@ class ElasticCoordinator(object):
                 'alive': list(self._last_alive)}
 
 
-class ElasticVentilator(object):
+class ElasticVentilator(VentilatorBase):
     """Drop-in for :class:`~petastorm_tpu_torch.workers.ConcurrentVentilator`
     that ventilates only the row groups this host owns under the
     coordinator's live shard map.

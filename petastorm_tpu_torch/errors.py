@@ -28,6 +28,11 @@ class TimeoutWaitingForResultError(PetastormTpuError):
     lists every worker's liveness and the item it holds)."""
 
 
+class WorkerTerminationRequested(PetastormTpuError):
+    """Raised inside a worker's ``process`` by ``publish`` when the pool is
+    stopping, to unwind the worker promptly."""
+
+
 class PoisonItemError(PetastormTpuError):
     """Raised when one item keeps killing worker processes past its retry
     budget under ``on_error='raise'`` or ``'retry'``."""

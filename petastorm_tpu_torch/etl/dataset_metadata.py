@@ -383,7 +383,12 @@ def read_metadata_dict(dataset_url, retry_policy=None):
     return _read_common_metadata(resolver.filesystem(), resolver.get_dataset_path())
 
 
-def _list_parquet_files(fs, root):
+def read_metadata_value(dataset_url, key):
+    """One KV metadata value of ``_common_metadata`` (bytes), or None."""
+    return read_metadata_dict(dataset_url).get(key)
+
+
+def list_parquet_files(fs, root):
     """Data files in path order, skipping ``_``/``.`` prefixed entries."""
     files = []
     for info in fs.get_file_info(pafs.FileSelector(root, recursive=True)):
@@ -496,7 +501,7 @@ def load_row_groups(dataset_url, schema=None, max_footer_read_threads=10,
         if per_file is not None:
             return _stored_pieces(root, per_file, schema)
 
-    files = _list_parquet_files(fs, root)
+    files = list_parquet_files(fs, root)
 
     def footer(path):
         with fs.open_input_file(path) as f:
@@ -549,7 +554,7 @@ def infer_or_load_unischema(dataset_url, retry_policy=None):
     schema = _try_get_schema(fs, root)
     if schema is not None:
         return schema
-    files = _list_parquet_files(fs, root)
+    files = list_parquet_files(fs, root)
     if not files:
         raise PetastormMetadataError('No parquet files found at {}'.format(dataset_url))
     with fs.open_input_file(files[0]) as f:

@@ -140,6 +140,8 @@ def _load_library():
         lib.pstpu_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_longlong]
         lib.pstpu_close.argtypes = [ctypes.c_void_p]
         lib.pstpu_last_error.restype = ctypes.c_char_p
+        lib.pstpu_row_group_num_rows.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.pstpu_row_group_num_rows.restype = ctypes.c_longlong
         lib.pstpu_num_columns.argtypes = [ctypes.c_void_p]
         lib.pstpu_column_name.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
                                           ctypes.c_int]
@@ -175,14 +177,15 @@ class NativeParquetFile(object):
     """C++-backed Parquet file. One instance per worker thread: the library
     serializes concurrent reads of one handle."""
 
-    def __init__(self, path):
+    def __init__(self, path, use_threads=True, buffer_size=0):
         lib = _load_library()
         if lib is None:
             raise RuntimeError('native reader not available')
         self._lib = lib
-        # Arrow C++ decodes on its own threads (1), which overlaps the
-        # workers' GIL-bound Python; plain reads, no coalescing buffer (0)
-        self._handle = lib.pstpu_open(path.encode(), 1, 0)
+        # by default Arrow C++ decodes on its own threads, which overlaps the
+        # workers' GIL-bound Python, and reads plainly, with no coalescing
+        # buffer (buffer_size 0)
+        self._handle = lib.pstpu_open(path.encode(), 1 if use_threads else 0, buffer_size)
         if not self._handle:
             raise IOError('pstpu_open({}): {}'.format(path, _last_error(lib)))
         self.path = path
@@ -203,6 +206,13 @@ class NativeParquetFile(object):
         self._flat_index = {}
         self._mmaps = _MmapPool()
         self._fused_plans = {}      # (rg, columns, hinted columns) -> FusedPlan or None
+
+    def row_group_num_rows(self, i):
+        """Rows of row group ``i``, from the footer the library parsed."""
+        n = self._lib.pstpu_row_group_num_rows(self._handle, i)
+        if n < 0:
+            raise IndexError(_last_error(self._lib))
+        return n
 
     def _ensure_pq_meta(self):
         """The footer parsed by pyarrow ONCE per file (the chunk metadata the

@@ -290,6 +290,11 @@ def build_ring(force=False, quiet=True):
                          'shm ring', force, quiet)
 
 
+def build_shm(force=False, quiet=False):
+    """:func:`build_ring` under the JAX package's name and defaults."""
+    return build_ring(force=force, quiet=quiet)
+
+
 if __name__ == '__main__':
     force = '--force' in sys.argv
     print('built', build(force=force, quiet=False))

@@ -177,7 +177,7 @@ class ColumnPlan(object):
 
     __slots__ = ('name', 'mode', 'codec', 'itemsize', 'has_def', 'strip_npy',
                  'img', 'chunk_off', 'chunk_len', 'out_bound', 'known_size',
-                 'phys_dtype', 'field_dtype', 'out_dtype', 'out_shape')
+                 'phys_dtype', 'field_dtype', 'field_shape', 'out_dtype', 'out_shape')
 
     def __init__(self, name):
         self.name = name
@@ -193,6 +193,7 @@ class ColumnPlan(object):
         self.known_size = True   # False: out_bound is an upper bound (raw cells)
         self.phys_dtype = None
         self.field_dtype = None  # final dtype (None: keep the decoded dtype)
+        self.field_shape = None  # trailing row shape (None: flat or discovered)
         self.out_dtype = None    # dtype the raw out bytes are viewed as
         self.out_shape = None
 

@@ -247,6 +247,13 @@ def decode_images_auto(buffers, threads=None, min_size=None):
     return result
 
 
+def decode_images_block(buffers, threads=None, min_size=None):
+    """:func:`decode_images_auto` held to the one-array layout: the
+    ``[N, H, W(, C)]`` array, or ``None`` when the cells' dims differ."""
+    result = decode_images_auto(buffers, threads=threads, min_size=min_size)
+    return result if isinstance(result, np.ndarray) else None
+
+
 def _resize_native(img, size, symbol_name):
     lib = _load_library()
     if lib is None:

@@ -278,6 +278,14 @@ class ShmRing(object):
             raise _too_big(len(data), self.capacity)
         return rc == 1
 
+    def write(self, data, stop_check=None, poll_s=0.0002):
+        """Blocking :meth:`try_write`; False when ``stop_check()`` said stop."""
+        while not self.try_write(data):
+            if stop_check is not None and stop_check():
+                return False
+            time.sleep(poll_s)
+        return True
+
     def try_write2(self, header, payload):
         """Gather write of header + payload as one message, with no concat."""
         rc = self._lib.pstpu_ring_write2(self._handle, header, len(header), payload,
@@ -312,6 +320,16 @@ class ShmRing(object):
             lens[i] = p.nbytes
             total += p.nbytes
         return ptrs, lens, total, keepalive
+
+    def try_writev(self, parts):
+        """:meth:`writev` without blocking: True = written, False = the ring
+        is full now."""
+        ptrs, lens, total, keepalive = self._gather(parts)
+        rc = self._lib.pstpu_ring_writev(self._handle, ptrs, lens, len(parts))
+        del keepalive
+        if rc < 0:
+            raise _too_big(total, self.capacity)
+        return rc == 1
 
     def writev(self, parts, stop_check=None, poll_s=0.0002):
         """Gather write of N bytes-like/ndarray segments as one message (the
@@ -377,6 +395,11 @@ class ShmRing(object):
         if not self._handle:
             return False
         return self._lib.pstpu_ring_has_unread(self._handle) == 1
+
+    def try_read(self):
+        """One message as bytes, or None when the ring is empty."""
+        mv = self.try_read_view()
+        return None if mv is None else bytes(mv)
 
     def try_read_view(self):
         """One message as a memoryview over a fresh writable buffer (the

@@ -210,6 +210,12 @@ def count(name, n=1):
         _metrics.get_registry().counter(name).inc(n)
 
 
+def add_seconds(name, seconds):
+    """Accumulate a float counter (no-op at level 'off')."""
+    if _metrics.counters_on():
+        _metrics.get_registry().counter(name).add(seconds)
+
+
 def gauge_set(name, value):
     """Set a gauge (no-op at level 'off')."""
     if _metrics.counters_on():
@@ -240,7 +246,7 @@ def absorb_trace_events(events):
 
 __all__ = [
     'FlightRecorder', 'HistoryRecorder', 'JsonlExporter', 'TelemetryConfig', 'TraceContext',
-    'absorb_trace_events', 'chrome_trace', 'configure', 'count', 'counters_on',
+    'absorb_trace_events', 'add_seconds', 'chrome_trace', 'configure', 'count', 'counters_on',
     'critical_path', 'critical_path_summary', 'current_config', 'current_trace',
     'decode_collate_share', 'detect_regression', 'drain_trace_events',
     'export_chrome_trace', 'flatten_snapshot', 'format_critical_path', 'format_pod_report',

@@ -758,6 +758,8 @@ class Reader(object):
             self.last_row_consumed = True
             raise StopIteration
 
+    next = __next__
+
     # -- checkpoint / resume ------------------------------------------------
 
     def _resolve_resume_state(self, state, dataset_url):

@@ -377,6 +377,8 @@ class ServedReader(object):
             self.last_row_consumed = True
             raise StopIteration
 
+    next = __next__
+
     def reset(self):
         raise ServeError('reset() is not supported on a served reader: the stream is shared. '
                          'Re-attach with make_reader(serve=...) for another pass.')

@@ -31,7 +31,31 @@ def make_shuffling_buffer_factory(capacity, min_after_retrieve=None, seed=None, 
     return lambda: RandomShufflingBuffer(capacity, floor, extra_capacity=extra, seed=seed)
 
 
-class NoopShufflingBuffer(object):
+class ShufflingBufferBase(object):
+    """The interface both buffers keep."""
+
+    def add_many(self, items):
+        raise NotImplementedError
+
+    def retrieve(self):
+        raise NotImplementedError
+
+    def can_add(self):
+        raise NotImplementedError
+
+    def can_retrieve(self):
+        raise NotImplementedError
+
+    @property
+    def size(self):
+        raise NotImplementedError
+
+    def finish(self):
+        """No more items will be added; drain everything remaining."""
+        raise NotImplementedError
+
+
+class NoopShufflingBuffer(ShufflingBufferBase):
     """FIFO passthrough."""
 
     def __init__(self):
@@ -42,6 +66,9 @@ class NoopShufflingBuffer(object):
 
     def retrieve(self):
         return self._items.popleft()
+
+    def can_add(self):
+        return True
 
     def can_retrieve(self):
         return len(self._items) > 0
@@ -54,10 +81,11 @@ class NoopShufflingBuffer(object):
         pass
 
 
-class RandomShufflingBuffer(object):
+class RandomShufflingBuffer(ShufflingBufferBase):
     """Random-swap retrieve with a ``min_after_retrieve`` floor that holds
-    until :meth:`finish`. Adds beyond ``capacity`` are accepted up to
-    ``extra_capacity`` more (a caller may add a whole row group)."""
+    until :meth:`finish`. :meth:`can_add` turns False at ``capacity``, but
+    adds beyond it are accepted up to ``extra_capacity`` more (a caller may
+    add a whole row group)."""
 
     def __init__(self, shuffling_buffer_capacity, min_after_retrieve, extra_capacity=1000,
                  seed=None):
@@ -87,6 +115,9 @@ class RandomShufflingBuffer(object):
         idx = int(self._rng.integers(0, len(self._items)))
         self._items[idx], self._items[-1] = self._items[-1], self._items[idx]
         return self._items.pop()
+
+    def can_add(self):
+        return len(self._items) < self._capacity and not self._done_adding
 
     def can_retrieve(self):
         if self._done_adding:

@@ -18,7 +18,7 @@ from petastorm_tpu_torch.etl import dataset_metadata
 def data_files(root):
     """The store's data files as paths relative to ``root``, in path order."""
     return [os.path.relpath(path, root)
-            for path in dataset_metadata._list_parquet_files(pafs.LocalFileSystem(), root)]
+            for path in dataset_metadata.list_parquet_files(pafs.LocalFileSystem(), root)]
 
 
 def write_summary_metadata(root):

@@ -156,7 +156,11 @@ class Unischema(object):
         return Unischema('{}_view'.format(self._name), unique)
 
     def make_namedtuple(self, **kwargs):
-        return self.namedtuple(*[kwargs[f] for f in self._fields])
+        return self.make_namedtuple_from_dict(kwargs)
+
+    def make_namedtuple_from_dict(self, row_dict):
+        """Build a row namedtuple from a dict holding every field."""
+        return self.namedtuple(*[row_dict[f] for f in self._fields])
 
     @property
     def namedtuple(self):
@@ -269,6 +273,17 @@ def decode_row(row_dict, schema):
                 field_name, schema.name))
         decoded[field_name] = None if encoded is None else field.codec.decode(field, encoded)
     return decoded
+
+
+def insert_explicit_nulls(schema, row_dict):
+    """Add ``None`` in place for the nullable fields ``row_dict`` lacks;
+    raise :class:`SchemaError` for a missing field that is not nullable."""
+    for field in schema:
+        if field.name not in row_dict:
+            if not field.nullable:
+                raise SchemaError('Field {} is not nullable but is missing from the row'.format(
+                    field.name))
+            row_dict[field.name] = None
 
 
 def match_unischema_fields(schema, field_regex):

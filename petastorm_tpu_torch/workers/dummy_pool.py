@@ -48,8 +48,11 @@ logger = logging.getLogger(__name__)
 
 
 class DummyPool(object):
-    def __init__(self, on_error='raise', max_item_retries=None, protocol_monitor=None):
-        self.workers_count = 1
+    def __init__(self, workers_count=1, results_queue_size=None, on_error='raise',
+                 max_item_retries=None, protocol_monitor=None):
+        # both sizes are accepted as the other pools' are; the worker runs on
+        # the consumer's thread whatever the count, and the deque is unbounded
+        self.workers_count = workers_count
         # (MSG_DATA, seq, payload, trace context) | (MSG_DONE, seq, None, None)
         self._results = deque()
         # (dispatch id, args, kwargs, failed attempts, trace context); _seq rides kwargs
@@ -277,3 +280,7 @@ class DummyPool(object):
     def telemetry_snapshots(self):
         """The worker's metrics live in this process's registry already."""
         return []
+
+    @property
+    def results_qsize(self):
+        return len(self._results)

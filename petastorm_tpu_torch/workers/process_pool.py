@@ -251,20 +251,20 @@ class ProcessPool(object):
     :param supervision: heartbeats and exitcode polling with respawn and
         requeue; off, a dead worker strands its items until the timeout
     :param heartbeat_interval_s: worker liveness beacon period
-    :param zero_copy: shm transport only: deliver data messages as
-        lifetime-tracked views into the ring slot instead of a copy each
     :param protocol_monitor: opt-in runtime conformance checking of the
         supervision protocol: truthy attaches a fresh
         :class:`~petastorm_tpu_torch.analysis.protocol.monitor.ProtocolMonitor`,
         an instance is used as is, None honours ``PSTPU_PROTOCOL_MONITOR``
+    :param zero_copy: shm transport only: deliver data messages as
+        lifetime-tracked views into the ring slot instead of a copy each
     """
 
     def __init__(self, workers_count, results_queue_size=_DEFAULT_RESULTS_HWM, serializer=None,
                  results_timeout_s=None, transport=None, ring_bytes=DEFAULT_RING_BYTES,
                  blob_threshold_bytes=DEFAULT_BLOB_THRESHOLD, on_error='raise',
                  max_item_retries=None, supervision=True,
-                 heartbeat_interval_s=_DEFAULT_HEARTBEAT_S, zero_copy=False,
-                 protocol_monitor=None):
+                 heartbeat_interval_s=_DEFAULT_HEARTBEAT_S, protocol_monitor=None,
+                 zero_copy=False):
         from petastorm_tpu_torch.native.shm_ring import IdleWait
         from petastorm_tpu_torch.serializers import PickleSerializer
 
@@ -1292,6 +1292,10 @@ class ProcessPool(object):
         out.update(self.publish_counts())
         out.update(lifetime_registry().counters())
         return out
+
+    @property
+    def results_qsize(self):
+        return 0  # unknown: buffered results live in transport buffers
 
 
 # ---------------------------------------------------------------------------

@@ -97,3 +97,9 @@ class DispatchIds(object):
         d = self._next
         self._next += 1
         return d
+
+    @property
+    def issued(self):
+        """How many ids have been allocated so far (counting from ``start``,
+        as the JAX allocator does)."""
+        return self._next

@@ -10,7 +10,14 @@ completed as delivered, never re-run (that would deliver its rows twice).
 Threads cannot die the way processes can, so there is no heartbeat or
 respawn here. The autotuner's worker knob is :meth:`ThreadPool.add_worker_slot`
 / :meth:`ThreadPool.retire_worker_slot`: a retire rides the task queue as a
-sentinel, so the thread finishes its item first.
+sentinel, so the thread finishes its item first. ``profiling_enabled=True``
+profiles the workers with ``cProfile`` and prints the cumulative stats at
+:meth:`ThreadPool.join`, as the JAX pool does. From Python 3.12 cProfile
+rides ``sys.monitoring``: one profiler at a time may be enabled in the
+process and it sees every thread, so the pool enables one at ``start``
+(it also sees the consumer's calls) and disables it at ``join``. Before
+3.12 a profiler hooks only the thread that enables it, so each worker
+thread keeps its own.
 
 Supervision under test: ``faults.on_item`` runs before every item (an
 injected kill or segfault degrades to an error in a thread), and the opt-in
@@ -33,14 +40,16 @@ or quarantined item completes undelivered, so a checkpoint re-reads it).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import pstats
 import queue
 import sys
 import threading
 
 from petastorm_tpu_torch import faults, observability as obs
-from petastorm_tpu_torch.errors import EmptyResultError
+from petastorm_tpu_torch.errors import EmptyResultError, WorkerTerminationRequested
 from petastorm_tpu_torch.observability import blackbox
 from petastorm_tpu_torch.native.lifetime import registry as lifetime_registry
 from petastorm_tpu_torch.workers.protocol import MSG_DATA, MSG_DONE, MSG_ERROR, DispatchIds
@@ -50,18 +59,18 @@ from petastorm_tpu_torch.workers.supervision import (ErrorPolicy, attach_remote_
 logger = logging.getLogger(__name__)
 
 
-class _Stopping(Exception):
-    """Raised inside a worker by ``publish`` when the pool is stopping."""
-
-
 #: task-queue sentinel retiring one worker thread
 _RETIRE = object()
+#: cProfile on sys.monitoring: one profiler per process, seeing every thread
+_PROFILER_SEES_ALL_THREADS = sys.version_info >= (3, 12)
 
 
 class ThreadPool(object):
-    def __init__(self, workers_count, results_queue_size=50, on_error='raise',
-                 max_item_retries=None, protocol_monitor=None):
+    def __init__(self, workers_count, results_queue_size=50, profiling_enabled=False,
+                 on_error='raise', max_item_retries=None, protocol_monitor=None):
         self._workers_count = workers_count
+        self._profiling_enabled = profiling_enabled
+        self._profiles = []  # the pool's profiler, or before 3.12 each worker thread's
         self._next_worker_id = workers_count  # ids of slots grown at run time
         self._worker_class = self._worker_setup_args = None
         self._results_queue = queue.Queue(maxsize=results_queue_size)
@@ -113,6 +122,11 @@ class ThreadPool(object):
             flight.watch('pool_completed', lambda: self._completed_items)
         # kept for slots grown at run time
         self._worker_class, self._worker_setup_args = worker_class, worker_setup_args
+        if self._profiling_enabled and _PROFILER_SEES_ALL_THREADS:
+            import cProfile
+            profiler = cProfile.Profile()
+            profiler.enable()  # raises if another profiler is active in the process
+            self._profiles.append(profiler)
         for worker_id in range(self._workers_count):
             self._start_thread(worker_id)
         if ventilator is not None:
@@ -245,6 +259,13 @@ class ThreadPool(object):
                 self._results_queue.get(block=False)
         except queue.Empty:
             pass
+        if _PROFILER_SEES_ALL_THREADS:
+            for profiler in self._profiles:
+                profiler.disable()
+        # pstats refuses a profiler that saw no call
+        profiles = [profiler for profiler in self._profiles if profiler.getstats()]
+        if profiles:
+            pstats.Stats(*profiles).sort_stats('cumulative').print_stats()
 
     @property
     def quarantined_items(self):
@@ -272,6 +293,10 @@ class ThreadPool(object):
         """The workers' metrics live in this process's registry already."""
         return []
 
+    @property
+    def results_qsize(self):
+        return self._results_queue.qsize()
+
     def _publish(self, data):
         self._tls.published = True
         self._put((MSG_DATA, self._tls.seq, data, self._tls.dispatch, self._tls.trace))
@@ -285,7 +310,7 @@ class ThreadPool(object):
                 return
             except queue.Full:
                 continue
-        raise _Stopping()
+        raise WorkerTerminationRequested()
 
     def _handle_item_failure(self, worker, d, seq, args, kwargs, attempts, ctx):
         """Apply the policy to the item that just raised (``attempts``
@@ -328,6 +353,10 @@ class ThreadPool(object):
         self._put((MSG_DONE, seq, False, d, None))
 
     def _worker_loop(self, worker):
+        profiler = None
+        if self._profiling_enabled and not _PROFILER_SEES_ALL_THREADS:
+            import cProfile
+            profiler = cProfile.Profile()
         try:
             while not self._stop_event.is_set():
                 try:
@@ -343,18 +372,22 @@ class ThreadPool(object):
                 self._tls.trace = ctx
                 try:
                     try:
-                        faults.on_item(kwargs)
-                        # the worker's stages open under the item's context
-                        with obs.use_trace(ctx):
-                            worker.process(*args, **kwargs)
-                    except _Stopping:
+                        # cProfile.Profile enables itself for the block
+                        with profiler or contextlib.nullcontext():
+                            faults.on_item(kwargs)
+                            # the worker's stages open under the item's context
+                            with obs.use_trace(ctx):
+                                worker.process(*args, **kwargs)
+                    except WorkerTerminationRequested:
                         raise
                     except Exception:  # noqa: BLE001 - routed through the error policy
                         self._handle_item_failure(worker, d, seq, args, kwargs, attempts + 1,
                                                   ctx)
                     else:
                         self._put((MSG_DONE, seq, True, d, None))
-                except _Stopping:
+                except WorkerTerminationRequested:
                     return
         finally:
+            if profiler is not None:
+                self._profiles.append(profiler)
             worker.shutdown()

@@ -37,7 +37,23 @@ import numpy as np
 from petastorm_tpu_torch import observability as obs
 
 
-class ConcurrentVentilator(object):
+class VentilatorBase(object):
+    """What a pool calls on the ventilator it was started with."""
+
+    def start(self):
+        raise NotImplementedError
+
+    def processed_item(self):
+        raise NotImplementedError
+
+    def completed(self):
+        raise NotImplementedError
+
+    def stop(self):
+        raise NotImplementedError
+
+
+class ConcurrentVentilator(VentilatorBase):
     """Ventilates ``items_to_ventilate`` (kwargs dicts for ``ventilate_fn``)
     from a background thread.
 
@@ -330,7 +346,7 @@ class _TenantQueue(object):
                 'removed': self.removed}
 
 
-class FairShareVentilator(object):
+class FairShareVentilator(VentilatorBase):
     """Multiplexes many tenants' item streams onto one pool with weighted
     fair-share scheduling: the serve daemon's broker half.
 

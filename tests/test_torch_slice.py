@@ -33,7 +33,8 @@ from petastorm_tpu_torch.models.convert import flax_to_torch
 from petastorm_tpu_torch.models.train import create_train_state, make_train_step
 from petastorm_tpu_torch.ops import normalize_images
 from petastorm_tpu_torch.parallel import make_mesh
-from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
+from petastorm_tpu_torch.tools.throughput import main as throughput_main
+from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle, reader_throughput
 from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
@@ -292,6 +293,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         next(iter(prefetch_to_device(iter([]))))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pipeline_duty_cycle('file:///nonexistent', None, None)
+    # the reader throughput tool's staged method, called and from its CLI
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        reader_throughput('file:///nonexistent', read_method='torch')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        throughput_main(['file:///nonexistent', '-d', 'torch'])
     # the mesh slice's entry points
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_mesh()
