@@ -530,6 +530,18 @@ Phases, each printed as one JSON line:
    the ABBA deadlock caught in another, and each failure replayed through
    ``PSTPU_SCHEDULE`` in a process of its own with the same report (a
    deadlock's object addresses aside);
+19d. ``lint_checks`` (host work, apart from the capture probes): the port's
+   static linter, ``python -m petastorm_tpu_torch.analysis`` over the
+   installed port package with ``--format json`` and ``--format sarif``
+   (exit 0, the open and suppressed findings by code, the SARIF document
+   parsed), and the race CLI's ``lint`` mode (the PT13xx pass, exit 0), the
+   three at once; then PT400 (CUDA-graph capture purity) held against real
+   captures: every function of ``tests/torch_lint_fixtures/PT400/bad`` is
+   flagged by the linter and, captured on the card in a process of its own,
+   shows its symptom (a sync fails the capture; a host clock or RNG value
+   repeats in two replays where two eager calls differ; a reseed fails the
+   capture or does not replay), and every function of ``clean/`` is not
+   flagged and replays equal to its eager call within ``REPLAY_LOSS_TOL``;
 20. profile: three more steps of the raw path under ``torch.profiler``, with
    the eager and with the graphed step, each on its own state: the device's
    busy time per step by kernel and its idle share;
@@ -2579,6 +2591,225 @@ def phase_race_checks():
           'scenarios': scenarios, 'defects': defects,
           'seconds': sum(v['seconds'] for v in scenarios.values()) +
           sum(v['seconds'] + v['replay_s'] for v in defects.values())})
+
+
+#: the port's PT400 fixtures (``ops/fixture.py`` under ``bad/`` and
+#: ``clean/``): each ``<kind>_block(graph, x)`` captures with
+#: ``torch.cuda.graph``, each ``<kind>_step(x)`` through its
+#: ``graph_<kind>_step(x)`` and ``torch.cuda.make_graphed_callables``
+PT400_FIXTURES = os.path.join(ROOT, 'tests', 'torch_lint_fixtures', 'PT400')
+#: the capture probes' input: a float32 tensor of this shape, from SEED
+PROBE_SHAPE = (64, 1024)
+#: a probe's own time limit (each is one interpreter, torch and one capture)
+PROBE_TIMEOUT_S = 300
+#: the time limit of each whole-tree pass of the linter
+LINT_TIMEOUT_S = 600
+
+
+def _probe_fixture(side):
+    import importlib.util
+    path = os.path.join(PT400_FIXTURES, side, 'ops', 'fixture.py')
+    spec = importlib.util.spec_from_file_location('pt400_{}_fixture'.format(side), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _probe_eager(torch, fixture, name, x):
+    """The probe's function called without a capture: a ``<kind>_block``
+    runs its block's body with ``torch.cuda.graph`` swapped for a null
+    context."""
+    fn = getattr(fixture, name)
+    if name.endswith('_step'):
+        out = fn(x)
+    else:
+        graph = torch.cuda.graph
+        torch.cuda.graph = lambda *args, **kwargs: contextlib.nullcontext()
+        try:
+            out = fn(None, x)
+        finally:
+            torch.cuda.graph = graph
+    torch.cuda.synchronize()
+    return out.clone()
+
+
+def _probe_replays(torch, fixture, name, x, count=2):
+    """Capture the probe's function once, then replay it ``count`` times:
+    the output after each replay."""
+    outs = []
+    if name.endswith('_step'):
+        graphed = getattr(fixture, 'graph_' + name)(x)
+        for _ in range(count):
+            outs.append(graphed(x).clone())
+    else:
+        graph = torch.cuda.CUDAGraph()
+        out = getattr(fixture, name)(graph, x)
+        for _ in range(count):
+            graph.replay()
+            torch.cuda.synchronize()
+            outs.append(out.clone())
+    torch.cuda.synchronize()
+    return outs
+
+
+def capture_probe(side, name):
+    """One PT400 fixture function on the card, in a process of its own:
+    two eager calls, and one capture replayed twice (or the capture's
+    error). Prints one JSON line.
+
+    - a ``sync`` probe must fail its capture;
+    - a ``clock`` or ``host_rng`` probe must capture, its two replays equal
+      where its two eager calls differ (the host value froze at capture);
+    - a ``reseed`` probe must fail its capture, or be frozen: its eager
+      calls equal (each reseeds) where its replays differ (no replay
+      reseeds);
+    - a clean probe must capture, its first replay within
+      ``REPLAY_LOSS_TOL`` of its eager call."""
+    import torch
+
+    fixture = _probe_fixture(side)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    x = torch.randn(PROBE_SHAPE, device='cuda', generator=gen)
+    eager = [_probe_eager(torch, fixture, name, x) for _ in range(2)]
+    result = {'probe': name, 'side': side, 'kind': name.rsplit('_', 1)[0] if side == 'bad'
+              else 'clean', 'form': 'make_graphed_callables' if name.endswith('_step')
+              else 'torch.cuda.graph', 'eager_calls_differ': not torch.equal(*eager)}
+    try:
+        replays = _probe_replays(torch, fixture, name, x)
+    except Exception as exc:  # noqa: BLE001 - the symptom under test: reported, then judged
+        message = str(exc).strip()
+        result.update(captured=False, error='{}: {}'.format(
+            type(exc).__name__, message.splitlines()[0][:200] if message else ''))
+    else:
+        result.update(captured=True, replays_equal=torch.equal(*replays),
+                      max_abs_err=float((replays[0] - eager[0]).abs().max()))
+    kind = result['kind']
+    if kind == 'clean':
+        ok = result['captured'] and result['max_abs_err'] <= REPLAY_LOSS_TOL
+    elif kind == 'sync':
+        ok = not result['captured']
+    elif kind in ('clock', 'host_rng'):
+        ok = result['captured'] and result['replays_equal'] and result['eager_calls_differ']
+    else:
+        ok = not result['captured'] or (not result['eager_calls_differ']
+                                        and not result['replays_equal'])
+    result['symptom_shown'] = bool(ok)
+    emit(result)
+
+
+def _start_cli(module, *args):
+    """``python -m <module> args`` from the checkout's root, started."""
+    return subprocess.Popen([sys.executable, '-m', module] + list(args), cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, t0, timeout):
+    """A started process's output, exit code and seconds since ``t0``."""
+    out, err = proc.communicate(timeout=timeout)
+    return out, err, proc.returncode, time.perf_counter() - t0
+
+
+def _flagged_probes(side):
+    """The PT400 fixture's probe functions, each with the codes the port's
+    linter reports inside it."""
+    import ast
+
+    from petastorm_tpu_torch.analysis import run_analysis
+
+    root = os.path.join(PT400_FIXTURES, side)
+    with open(os.path.join(root, 'ops', 'fixture.py')) as f:
+        functions = [n for n in ast.parse(f.read()).body if isinstance(n, ast.FunctionDef)]
+    probes = {fn.name: [] for fn in functions
+              if fn.name.endswith(('_block', '_step')) and not fn.name.startswith('graph_')}
+    for finding in run_analysis([root]):
+        for fn in functions:
+            if fn.lineno <= finding.line <= fn.end_lineno and fn.name in probes:
+                probes[fn.name].append(finding.code)
+    return probes
+
+
+def phase_lint_checks():
+    """The port's static linter. Host work, apart from the capture probes:
+    the CLI over the installed port package (``--format json`` and
+    ``--format sarif``: exit 0, the open and suppressed findings by code,
+    the SARIF document parsed); the race CLI's ``lint`` mode (the PT13xx
+    pass: exit 0); then PT400 held against real captures: each function of
+    the port's PT400 fixtures is flagged (``bad``) or not (``clean``) by the
+    linter, and captured on the card in a process of its own
+    (:func:`capture_probe`; a capture left broken cannot reach later
+    phases), all at once."""
+    import petastorm_tpu_torch
+
+    target = os.path.dirname(os.path.abspath(petastorm_tpu_torch.__file__))
+    procs = {}
+    try:
+        # the three whole-tree passes and the probes run at once
+        t0 = time.perf_counter()
+        for name, module, args in (
+                ('json', 'petastorm_tpu_torch.analysis', ('--format', 'json')),
+                ('sarif', 'petastorm_tpu_torch.analysis', ('--format', 'sarif')),
+                ('race_lint', 'petastorm_tpu_torch.analysis.schedule.cli', ('lint',))):
+            procs[name] = _start_cli(module, *args)
+        flagged = {side: _flagged_probes(side) for side in ('bad', 'clean')}
+        for side, names in flagged.items():
+            wrong = {name: codes for name, codes in names.items()
+                     if codes != (['PT400'] if side == 'bad' else [])}
+            if not names or wrong:
+                raise AssertionError('lint_checks: PT400 on the {} fixture: {}'.format(
+                    side, wrong or 'no probe'))
+        t_probes = time.perf_counter()
+        for side, names in flagged.items():
+            for name in names:
+                procs[(side, name)] = subprocess.Popen(
+                    [sys.executable, '-c', 'import sys, chip_smoke; '
+                     'chip_smoke.capture_probe(sys.argv[1], sys.argv[2])', side, name],
+                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        runs = {name: _finish(procs[name], t0, LINT_TIMEOUT_S)
+                for name in ('json', 'sarif', 'race_lint')}
+        probes = {}
+        for side, names in flagged.items():
+            for name in names:
+                out, err, rc, _ = _finish(procs[(side, name)], t_probes, PROBE_TIMEOUT_S)
+                lines = [line for line in out.splitlines() if line.startswith('{')]
+                if not lines:
+                    raise AssertionError('lint_checks: the {} probe {} printed no result '
+                                         '(rc {}):\n{}'.format(side, name, rc, err[-4000:]))
+                probes[name] = json.loads(lines[-1])
+    finally:
+        for child in procs.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for name, (out, err, rc, _) in runs.items():
+        if rc != 0:
+            raise AssertionError('lint_checks: {} over {} exited {}:\n{}{}'.format(
+                name, target, rc, out[-4000:], err[-4000:]))
+    records = [json.loads(line) for line in runs['json'][0].splitlines()]
+    by_status = collections.defaultdict(collections.Counter)
+    for record in records:
+        by_status[record['status']][record['rule']] += 1
+    try:
+        doc = json.loads(runs['sarif'][0])
+        sarif_results = len(doc['runs'][0]['results'])
+        sarif_parses = doc['version'] == '2.1.0' and sarif_results == len(records)
+    except (ValueError, KeyError, IndexError):
+        sarif_results, sarif_parses = None, False
+    if not sarif_parses:
+        raise AssertionError('lint_checks: the --format sarif output does not parse as the '
+                             'findings\' SARIF document')
+    probes_s = time.perf_counter() - t_probes
+    missed = sorted(name for name, result in probes.items() if not result['symptom_shown'])
+    emit({'phase': 'lint_checks', 'device': 'the capture probes only (the linter is host work)',
+          'target': target, 'json_s': runs['json'][3], 'sarif_s': runs['sarif'][3],
+          'race_lint_s': runs['race_lint'][3],
+          'open': dict(by_status['open']), 'suppressed': {
+              status: dict(counts) for status, counts in by_status.items() if status != 'open'},
+          'sarif_parses': sarif_parses, 'sarif_results': sarif_results,
+          'race_lint': runs['race_lint'][0].strip().splitlines()[-1:],
+          'probes': probes, 'probes_s': probes_s, 'seconds': time.perf_counter() - t0,
+          'card': nvidia_smi_line()})
+    if missed:
+        raise AssertionError('lint_checks: no symptom under a real capture: {}'.format(missed))
 
 
 #: the serve daemon of ``png_served`` evicts a consumer blocked this long; the
@@ -7928,6 +8159,7 @@ def main():
               'total_s': sum(example_s.values())})
         phase_sanitize_checks()
         phase_race_checks()
+        phase_lint_checks()
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     # the raw path's first staged batch (eager run)

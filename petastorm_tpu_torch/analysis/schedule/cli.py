@@ -3,8 +3,8 @@
 ::
 
     python -m petastorm_tpu_torch.analysis.schedule.cli explore [scenario ...] [options]
+    python -m petastorm_tpu_torch.analysis.schedule.cli lint [paths ...] [options]
     python -m petastorm_tpu_torch.analysis.schedule.cli list
-    python -m petastorm_tpu_torch.analysis.schedule.cli lint   # exits 2, see below
 
 ``explore`` runs the deterministic-schedule explorer over the named
 scenarios (default: every real-component scenario).  A failure prints the
@@ -12,18 +12,18 @@ race/deadlock report plus its schedule string; re-running with
 ``PSTPU_SCHEDULE=<string>`` (and exactly one scenario) replays that
 interleaving byte-for-byte.
 
-``lint`` is not the static pass here: the PT13xx whole-program lints are
-the JAX package's linter (``petastorm-tpu-race lint``), which already lints
-this package's tree. The port imports nothing of that package, so this mode
-prints where the static pass lives and exits with the usage code.
+``lint`` is the whole-program static pass: it delegates to the port's
+linter (``python -m petastorm_tpu_torch.analysis --select PT13``) so only
+the concurrency family (PT1300-PT1303) reports, with every lint flag
+(``--format sarif``, ``--changed``, ``--cache``, ...) passed through.
 
 Exit-code contract (the JAX CLI's; scripts and CI may rely on it):
 
-* ``0`` — clean: every explored scenario passed.
-* ``1`` — a finding: a data race, a deadlock, or a scenario invariant
-  failure.
-* ``2`` — usage error: unknown scenario/option, ``PSTPU_SCHEDULE`` with
-  zero or several scenarios, or the ``lint`` mode.
+* ``0`` — clean: every explored scenario passed / no open PT13xx findings.
+* ``1`` — a finding: a data race, a deadlock, a scenario invariant
+  failure, or an open static finding.
+* ``2`` — usage error: unknown scenario/option, or ``PSTPU_SCHEDULE`` with
+  zero or several scenarios.
 * ``3`` — inconclusive: the step budget ran out, a replayed schedule
   diverged from the code, or a thread stalled outside the instrumentation
   — the component is neither proven nor disproven; fix the scenario or
@@ -46,9 +46,8 @@ def build_parser():
     parser = argparse.ArgumentParser(
         prog='python -m petastorm_tpu_torch.analysis.schedule.cli',
         description='Thread-plane race tooling for the port: deterministic '
-                    'interleaving exploration (explore). The whole-program '
-                    'lockset lints PT1300-PT1303 are the JAX package\'s '
-                    '(petastorm-tpu-race lint). See docs/analysis.md.')
+                    'interleaving exploration (explore) and whole-program '
+                    'lockset lints PT1300-PT1303 (lint). See docs/analysis.md.')
     sub = parser.add_subparsers(dest='mode')
 
     explore_p = sub.add_parser(
@@ -72,10 +71,11 @@ def build_parser():
     sub.add_parser('list', help='list the scenario catalog')
 
     lint_p = sub.add_parser(
-        'lint', help='not here: the PT13xx whole-program lints are the JAX '
-                     'package\'s petastorm-tpu-race lint (exits 2)')
+        'lint', help='run the PT13xx whole-program lints '
+                     '(python -m petastorm_tpu_torch.analysis --select PT13 '
+                     'passthrough)')
     lint_p.add_argument('args', nargs=argparse.REMAINDER,
-                        help='ignored')
+                        help='paths and linter options')
     return parser
 
 
@@ -130,17 +130,9 @@ def _cmd_explore(args):
     return worst
 
 
-#: what the ``lint`` mode prints: where the static half of the race story is
-LINT_MESSAGE = ('error: the port has no static pass of its own. The PT13xx '
-                'whole-program lints (PT1300-PT1303) are the JAX package\'s '
-                '"petastorm-tpu-race lint", which lints petastorm_tpu_torch/ '
-                'too: run "python -m petastorm_tpu.analysis.schedule.cli lint '
-                'petastorm_tpu_torch" from a checkout that has both packages.')
-
-
 def _cmd_lint(raw_args):
-    print(LINT_MESSAGE, file=sys.stderr)
-    return EXIT_USAGE
+    from petastorm_tpu_torch.analysis.cli import main as lint_main
+    return lint_main(['--select', 'PT13'] + list(raw_args))
 
 
 def main(argv=None):

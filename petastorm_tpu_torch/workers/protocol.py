@@ -38,6 +38,33 @@ MSG_BLOB = b'B'       #: an item's payload parked in a /dev/shm blob; payload = 
 MSG_METRICS = b'M'    #: cumulative counts, metrics snapshot and span events piggyback
 MSG_HEARTBEAT = b'H'  #: liveness + item-ownership beacon (claim when busy is set)
 
+#: kind byte -> canonical lowercase name, in protocol order. THE exhaustive
+#: declaration: PT800 checks consumer dispatch chains against this set, and
+#: the spec/monitor use the names as their event vocabulary.
+MESSAGE_KINDS = {
+    MSG_STARTED: 'started',
+    MSG_DATA: 'data',
+    MSG_DONE: 'done',
+    MSG_ERROR: 'error',
+    MSG_BLOB: 'blob',
+    MSG_METRICS: 'metrics',
+    MSG_HEARTBEAT: 'heartbeat',
+}
+
+#: every declared kind byte
+ALL_KINDS = tuple(MESSAGE_KINDS)
+
+#: canonical constant name -> kind byte (what PT800/PT801 recognize in source)
+KIND_CONSTANT_NAMES = {
+    'MSG_STARTED': MSG_STARTED,
+    'MSG_DATA': MSG_DATA,
+    'MSG_DONE': MSG_DONE,
+    'MSG_ERROR': MSG_ERROR,
+    'MSG_BLOB': MSG_BLOB,
+    'MSG_METRICS': MSG_METRICS,
+    'MSG_HEARTBEAT': MSG_HEARTBEAT,
+}
+
 # -- serve-plane frame kinds (daemon -> consumers, on the broadcast ring) ---
 
 SERVE_DATA = b'd'    #: one decoded batch payload, in-band (serializer framing)

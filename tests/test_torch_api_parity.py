@@ -64,8 +64,6 @@ from petastorm_tpu_torch.workers.worker_base import WorkerBase
 #: the JAX package's public names the port leaves out by design:
 #: (module, class or function, member or None) -> the reason
 BY_DESIGN = {
-    ('analysis', 'run_analysis', None):
-        'the static linters are not ported: the JAX linter lints the port\'s tree',
     ('spark.dataset_converter', 'DatasetConverter', 'make_jax_loader'):
         'the converter hands out torch loaders (make_torch_loader)',
     ('spark.dataset_converter', 'SparkDatasetConverter', 'make_jax_loader'):

@@ -37,8 +37,7 @@ from petastorm_tpu.analysis.schedule import scheduler as jax_scheduler
 from petastorm_tpu_torch.analysis.schedule import scenarios
 from petastorm_tpu_torch.analysis.schedule import scheduler as port_scheduler
 from petastorm_tpu_torch.analysis.schedule.cli import (EXIT_CLEAN, EXIT_FINDINGS,
-                                                       EXIT_INCONCLUSIVE, EXIT_USAGE,
-                                                       LINT_MESSAGE, main)
+                                                       EXIT_INCONCLUSIVE, EXIT_USAGE, main)
 from petastorm_tpu_torch.analysis.schedule.explorer import explore, replay, run_one
 from petastorm_tpu_torch.analysis.schedule.scenarios import DEFECT_SCENARIOS, SCENARIOS, lookup
 from petastorm_tpu_torch.analysis.schedule.scheduler import (SCHEDULE_ENV, RandomStrategy,
@@ -360,21 +359,28 @@ def test_cli_list_catalogs_everything(capsys):
 
 
 def test_cli_lint_mode_points_at_the_reference_linter(capsys):
-    # the static PT13xx pass is the JAX package's "petastorm-tpu-race lint",
-    # which lints the port's tree (tests/test_torch_lint.py): the port's
-    # lint mode is a usage error that says so, and loads nothing of JAX
-    assert main(['lint', 'petastorm_tpu_torch']) == EXIT_USAGE
-    err = capsys.readouterr().err
-    assert err.strip() == LINT_MESSAGE
-    assert 'petastorm-tpu-race lint' in err and 'PT13' in err
+    # the lint mode is the port's own PT13xx pass (its linter with --select
+    # PT13), held against the JAX race CLI's lint mode on the same inputs:
+    # the port's tree is clean and the PT1300 bad fixture is a finding in
+    # both; a PT600 violation is out of the family; nothing of JAX is loaded
+    from petastorm_tpu.analysis.schedule.cli import main as jax_main
+    port_dir = os.path.join(REPO, 'petastorm_tpu_torch')
+    bad = os.path.join(REPO, 'tests', 'lint_fixtures', 'PT1300', 'bad')
+    outside = os.path.join(REPO, 'tests', 'lint_fixtures', 'PT600', 'bad')
+    for target, expected in ((port_dir, EXIT_CLEAN), (bad, EXIT_FINDINGS),
+                             (outside, EXIT_CLEAN)):
+        assert main(['lint', target]) == expected, target
+        ours = capsys.readouterr().out
+        assert jax_main(['lint', target]) == expected, target
+        assert ours == capsys.readouterr().out
     code = ('import sys\n'
             'from petastorm_tpu_torch.analysis.schedule.cli import main\n'
-            'rc = main(["lint"])\n'
+            'rc = main(["lint", {!r}])\n'
             'loaded = sorted(m for m in sys.modules if m.split(".")[0] in '
             '("jax", "petastorm_tpu"))\n'
             'assert not loaded, loaded\n'
-            'sys.exit(rc)\n')
+            'sys.exit(rc)\n').format(bad)
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
-    assert out.returncode == EXIT_USAGE, out.stderr
-    assert LINT_MESSAGE in out.stderr
+    assert out.returncode == EXIT_FINDINGS, out.stderr
+    assert 'PT1300' in out.stdout and '1 finding' in out.stdout

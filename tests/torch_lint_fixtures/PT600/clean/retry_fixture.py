@@ -1,0 +1,6 @@
+class RetryingHandler(object):
+    def __eq__(self, other):
+        return self.fs == other.fs
+
+    def __hash__(self):
+        return hash(self.fs)

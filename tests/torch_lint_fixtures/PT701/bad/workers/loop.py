@@ -1,0 +1,5 @@
+def worker_loop(q):
+    try:
+        q.get()
+    except BaseException:
+        pass
