@@ -1,0 +1,57 @@
+"""Whole runs of the tiny copy on the CPU (the chip check skipped, the
+eager step for the graphed one): the result line's keys, and ``correct``
+true on sound runs, false with each fault planted underneath and for the
+control, the reference in float8 in the program's place."""
+
+import json
+import time
+
+import pytest
+
+from benchmark import checks, faults, harness
+from benchmark.duty import HostClock
+
+from .fixtures import TINY_CHECKS, tiny  # noqa: F401  (a fixture)
+
+CELLS = ('rn50_petastorm.raw',)
+SEED = 2 ** 31 + 12345
+
+
+def _run(tiny, name, seed=SEED, control=False):
+    import torch
+
+    root, bench = tiny
+    cell = harness.Cell(name, root=root, bench_dir=bench)
+    return harness.run_cell(cell, seed, 1.0, False, torch.device('cpu'), HostClock(), time.time(),
+                            control=control)
+
+
+@pytest.mark.parametrize('name', CELLS)
+def test_a_sound_run_is_correct_and_its_line_has_the_keys(tiny, name, capsys):
+    result, rows = _run(tiny, name, control=True)
+    keys = list(result)
+    assert keys[:5] == ['correct', 'attempted', 'failed', 'metrics', 'device']
+    assert keys[-1] == 'checks'
+    assert set(result['metrics']) == set(harness.Cell(name, *tiny).end_to_end)
+    assert {'setup_s', 'peak_device_mem_gb'} < set(result['metrics'])
+    assert all(set(m) == {'value', 'unit'} for m in result['metrics'].values())
+    assert result['attempted'] >= 1 and result['failed'] == 0
+    assert result['correct'], result['checks']
+    harness.emit(result, rows)
+    out, err = capsys.readouterr()
+    line = json.loads(out.strip().splitlines()[-1])
+    assert list(line)[-1] == 'checks'
+    assert [r.split(' ')[1] for r in err.strip().splitlines()[-len(rows):]] == \
+        [name for name, _, _ in rows]
+    # the control fails one of the cell's numbers
+    control_ok, _ = checks.judge(result['control'], TINY_CHECKS['limits'],
+                                 TINY_CHECKS['not_compared'])
+    assert not control_ok, result['control']
+
+
+@pytest.mark.parametrize('fault', sorted(faults.FAULTS))
+@pytest.mark.parametrize('name', CELLS)
+def test_a_planted_fault_makes_the_run_incorrect(tiny, name, fault):
+    with faults.planted(fault):
+        result, _ = _run(tiny, name)
+    assert not result['correct'], result['checks']
