@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
+from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.models.resnet import BatchNorm
 from petastorm_tpu_torch.ops.augment import flip_mask
@@ -419,6 +420,10 @@ class GraphedTrainStep(object):
     - A replay launches the captured kernels without their Python wrappers,
       so each replay adds to each kernel module's ``launches`` what the
       capture recorded (the capture itself launches nothing).
+    - A call that replays is a ``train_step`` stage (the host's dispatch:
+      draws, static copies, replay, metric copies) with the replay's launch
+      as a nested ``train_step_replay``; the warm-up and capture calls are
+      neither.
     - On a sharded state the graph captures the step's collectives, which
       only NCCL allows: a state sharded over another backend is refused.
       Under ``DistributedDataParallel`` the warm-up is
@@ -476,24 +481,37 @@ class GraphedTrainStep(object):
     def __call__(self, state, images, labels):
         self._check_inputs(images, labels)
         warmup = self._check_state(state)
-        draws = _draws(state, self._preprocess_fn, self._preprocess_seed, images)
-        if self._graph is None and self._calls < warmup:
-            metrics = self._eager_on_side_stream(state, images, labels, draws)
+        if self._graph is not None:
+            # the host's part of a replayed step; the eager and capture
+            # calls of set-up stay out of both stages
+            with obs.stage('train_step', cat='model'):
+                draws = _draws(state, self._preprocess_fn, self._preprocess_seed, images)
+                static_images, static_labels, static_draws, _ = self._static
+                static_images.copy_(images)
+                static_labels.copy_(labels)
+                for static, draw in zip(static_draws, draws):
+                    static.copy_(draw)
+                with obs.stage('train_step_replay', cat='model'):
+                    self._graph.replay()
+                metrics = self._replayed()
         else:
-            if self._graph is None:
-                self._capture(state, images, labels, draws)
-            static_images, static_labels, static_draws, static_metrics = self._static
-            static_images.copy_(images)
-            static_labels.copy_(labels)
-            for static, draw in zip(static_draws, draws):
-                static.copy_(draw)
-            self._graph.replay()
-            for module, count in zip(_COUNTED_KERNELS, self._captured_launches):
-                module.launches += count
-            metrics = {name: value.clone() for name, value in static_metrics.items()}
+            draws = _draws(state, self._preprocess_fn, self._preprocess_seed, images)
+            if self._calls < warmup:
+                metrics = self._eager_on_side_stream(state, images, labels, draws)
+            else:
+                self._capture(state, images, labels, draws)  # fills the static inputs
+                self._graph.replay()
+                metrics = self._replayed()
         self._calls += 1
         state.step += 1
         return state, metrics
+
+    def _replayed(self):
+        """After a replay: the captured launches counted, and copies of the
+        captured metrics, which the next replay overwrites."""
+        for module, count in zip(_COUNTED_KERNELS, self._captured_launches):
+            module.launches += count
+        return {name: value.clone() for name, value in self._static[3].items()}
 
     def _eager_on_side_stream(self, state, images, labels, draws):
         """One eager step on the side stream the warm-up runs on."""

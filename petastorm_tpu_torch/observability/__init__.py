@@ -6,11 +6,20 @@ with ``make_reader(telemetry=...)`` or :func:`configure`:
 * ``'off'``: every instrumentation helper returns after one int compare;
   no counters, no spans, no per-row work anywhere.
 * ``'counters'`` (the default): named counters, gauges and histograms
-  updated at block/batch granularity; the ``diagnostics`` surfaces are views
-  over the registry; stall attribution works; the flight recorder is on
-  (``PSTPU_FLIGHT=0`` switches it off).
+  updated at block/batch granularity; each stage's wall seconds, calls and
+  the thread's CPU seconds (``stage_<name>_s``/``_count``/``_cpu_s``); the
+  ``diagnostics`` surfaces are views over the registry; stall attribution
+  works; the flight recorder is on (``PSTPU_FLIGHT=0`` switches it off).
 * ``'spans'``: also one Chrome-trace event per pipeline stage execution in a
-  bounded ring, exportable with :func:`export_chrome_trace`.
+  bounded ring, exportable with :func:`export_chrome_trace`; with a
+  ``torch.profiler`` trace beside it, as one document on the profiler's
+  clock (:func:`merge_profiler_trace`)::
+
+      obs.configure('spans')
+      with torch.profiler.profile(activities=[CPU, CUDA]) as prof:
+          ...                                   # the steps to look at
+      prof.export_chrome_trace('card.json')
+      obs.export_chrome_trace('merged.json', profiler_trace='card.json')
 
 The level and registries are per process: spawned process-pool workers get
 the config through the pool's setup args and ship their snapshots and span
@@ -62,8 +71,9 @@ from petastorm_tpu_torch.observability.podagg import (format_pod_report,  # noqa
 from petastorm_tpu_torch.observability.report import (decode_collate_share,  # noqa: F401
                                                       format_stall_report, stall_report)
 from petastorm_tpu_torch.observability.trace import (TraceContext, chrome_trace,  # noqa: F401
-                                                     current_trace, export_chrome_trace,
-                                                     get_ring, instant, mint_trace, root_of,
+                                                     clock_anchor, current_trace,
+                                                     export_chrome_trace, get_ring, instant,
+                                                     merge_profiler_trace, mint_trace, root_of,
                                                      span, trace_root, use_trace)
 
 _LEVELS = ('off', 'counters', 'spans')
@@ -134,7 +144,8 @@ def current_config():
 
 class _StageTimer(object):
     """Counter + (at spans level) trace event for one pipeline-stage
-    execution, accumulated into ``stage_<name>_s``/``stage_<name>_count``.
+    execution, accumulated into ``stage_<name>_s``/``stage_<name>_count``,
+    and the thread's CPU seconds in it into ``stage_<name>_cpu_s``.
 
     At spans level the timer takes part in trace-context propagation as
     :class:`~petastorm_tpu_torch.observability.trace._Span` does: it stamps
@@ -142,7 +153,7 @@ class _StageTimer(object):
     :class:`TraceContext` and parents anything nested. :meth:`link` attaches
     the span to a context known only mid-flight (``pool_wait``)."""
 
-    __slots__ = ('name', 'cat', 'args', '_t0', '_wall0', '_spans', '_ctx',
+    __slots__ = ('name', 'cat', 'args', '_t0', '_cpu0', '_wall0', '_spans', '_ctx',
                  '_link', '_sid', '_pushed', '_act', '_act_prev')
 
     def __init__(self, name, cat, args, spans):
@@ -161,7 +172,6 @@ class _StageTimer(object):
         if act is not None:
             self._act_prev = act.enter(self.cat + '.' + self.name)
         if self._spans:
-            self._wall0 = _time.time()
             ctx = _trace.current_trace()
             self._ctx = ctx
             if ctx is not None:
@@ -170,6 +180,11 @@ class _StageTimer(object):
                 self._pushed = True
             else:
                 self._sid = None
+        self._cpu0 = _time.thread_time()
+        if self._spans:
+            # the event's start next to the timer's: a thread that loses the
+            # interpreter lock between the two would shift its event early
+            self._wall0 = _time.time()
         self._t0 = _time.perf_counter()
         return self
 
@@ -181,7 +196,8 @@ class _StageTimer(object):
 
     def __exit__(self, exc_type, exc_value, tb):
         dur = _time.perf_counter() - self._t0
-        _metrics.get_registry().stage_timer(self.name).record(dur)
+        cpu = _time.thread_time() - self._cpu0
+        _metrics.get_registry().stage_timer(self.name).record(dur, cpu)
         if self._act is not None:
             self._act.exit(self._act_prev)
         if self._spans:
@@ -196,7 +212,8 @@ class _StageTimer(object):
 
 def stage(name, cat='pipeline', **args):
     """Time one execution of a named pipeline stage: accumulates the
-    ``stage_<name>_s``/``stage_<name>_count`` counters and, at level
+    ``stage_<name>_s``/``stage_<name>_count``/``stage_<name>_cpu_s`` counters
+    (wall seconds, calls, the thread's CPU seconds) and, at level
     ``'spans'``, records a Chrome-trace event. No-op at ``'off'``. Use as a
     context manager."""
     if not _metrics.counters_on():
@@ -246,14 +263,14 @@ def absorb_trace_events(events):
 
 __all__ = [
     'FlightRecorder', 'HistoryRecorder', 'JsonlExporter', 'TelemetryConfig', 'TraceContext',
-    'absorb_trace_events', 'add_seconds', 'chrome_trace', 'configure', 'count', 'counters_on',
-    'critical_path', 'critical_path_summary', 'current_config', 'current_trace',
+    'absorb_trace_events', 'add_seconds', 'chrome_trace', 'clock_anchor', 'configure', 'count',
+    'counters_on', 'critical_path', 'critical_path_summary', 'current_config', 'current_trace',
     'decode_collate_share', 'detect_regression', 'drain_trace_events',
     'export_chrome_trace', 'flatten_snapshot', 'format_critical_path', 'format_pod_report',
     'format_postmortem', 'format_slowest_batches', 'format_span_tree',
     'format_stall_report', 'gauge_set', 'get_registry', 'get_ring', 'history_windows',
     'host_identity', 'instant', 'load_flight', 'load_history', 'load_host_series',
-    'load_pod', 'merge_snapshots', 'mint_trace', 'observe', 'pod_report',
+    'load_pod', 'merge_profiler_trace', 'merge_snapshots', 'mint_trace', 'observe', 'pod_report',
     'postmortem_report', 'resolve_telemetry', 'root_of', 'slowest_batches', 'snapshot',
     'span', 'span_tree', 'spans_on', 'stage', 'stage_breakdown', 'stall_report',
     'to_prometheus_text', 'trace_root', 'traces_in', 'use_trace', 'window_delta',

@@ -135,20 +135,26 @@ class Histogram(object):
 class Timer(object):
     """Seconds-sum + call-count under ONE lock — the stage() hot path. In
     snapshots a timer flattens into the ``<name>_s`` / ``<name>_count``
-    counter pair, so merge/flatten/Prometheus handling is unchanged."""
+    counter pair, so merge/flatten/Prometheus handling is unchanged. A timer
+    given the thread's CPU seconds too (the port's ``stage``) adds
+    ``<name>_cpu_s``: wall minus CPU is the time the thread was off the CPU
+    (the interpreter lock, a page fault, the scheduler)."""
 
     kind = 'timer'
-    __slots__ = ('_lock', '_sum', '_count')
+    __slots__ = ('_lock', '_sum', '_count', '_cpu')
 
     def __init__(self):
         self._lock = threading.Lock()
         self._sum = 0.0
         self._count = 0
+        self._cpu = None
 
-    def record(self, seconds):
+    def record(self, seconds, cpu_seconds=None):
         with self._lock:
             self._sum += seconds
             self._count += 1
+            if cpu_seconds is not None:
+                self._cpu = (self._cpu or 0.0) + cpu_seconds
 
     @property
     def value(self):
@@ -219,6 +225,8 @@ class MetricsRegistry(object):
                 with m._lock:
                     out['counters'][name + '_s'] = m._sum
                     out['counters'][name + '_count'] = m._count
+                    if m._cpu is not None:
+                        out['counters'][name + '_cpu_s'] = m._cpu
             elif m.kind == 'gauge':
                 out['gauges'][name] = m.value
             else:

@@ -21,6 +21,13 @@ the main process piggybacked on the pool's results channel (drained
 incrementally with :meth:`TraceRing.drain`), keyed by their own ``pid`` so
 Perfetto renders one track per process.
 
+One clock with the card: :func:`merge_profiler_trace` moves the ring's
+events onto a ``torch.profiler`` trace's clock and returns one document
+(``export_chrome_trace(path, profiler_trace=...)`` writes it), so the
+workers, the prefetch thread and the consumer sit under the card's kernels.
+The profiler records ``record_function`` ranges only from the thread that
+started it, so the other threads' spans enter its trace by clock.
+
 Causal tracing: every ventilated work
 item is minted a :class:`TraceContext` — a trace id ``'<ns>:<seq>'`` (the
 ventilator's 8-hex nonce plus the item's ventilation seq) and a parent span
@@ -316,10 +323,91 @@ def chrome_trace(events=None):
     return {'traceEvents': events, 'displayTimeUnit': 'ms'}
 
 
-def export_chrome_trace(path, events=None):
+#: the region :func:`clock_anchor` marks on both clocks
+CLOCK_ANCHOR = 'pstpu.clock_anchor'
+
+
+def clock_anchor():
+    """Mark one short region on both clocks, on this thread: a
+    ``record_function`` range that a running ``torch.profiler`` records, with
+    a ring event of the same name inside it (at any level). Where the
+    profiler's file gives no base time, :func:`merge_profiler_trace` reads
+    the offset between the clocks off these pairs: each bounds it from both
+    sides, and more of them narrow it (the profiler opens the first range of
+    a session slowly, so call this more than once)."""
+    import torch
+
+    with torch.profiler.record_function(CLOCK_ANCHOR):
+        wall0, t0 = time.time(), time.perf_counter()
+        record_span(CLOCK_ANCHOR, 'clock', wall0, time.perf_counter() - t0)
+
+
+def _profiler_offset_us(doc, events):
+    """µs to add to a ring ``ts`` (epoch µs) to put it on the profiler's
+    clock, and what it was read from."""
+    base = doc.get('baseTimeNanoseconds')
+    if base is not None:
+        # the profiler's ts are µs after its base, on the epoch's clock
+        return -base / 1e3, 'baseTimeNanoseconds'
+    theirs = [(float(e['ts']), float(e['ts']) + float(e.get('dur', 0)))
+              for e in doc.get('traceEvents', ())
+              if e.get('name') == CLOCK_ANCHOR and e.get('ph') == 'X']
+    ours = [(e['ts'], e['ts'] + e['dur']) for e in events if e.get('name') == CLOCK_ANCHOR]
+    pairs = min(len(theirs), len(ours))
+    if not pairs:
+        raise ValueError('the profiler trace has no baseTimeNanoseconds, and no {} region '
+                         'was recorded on both clocks (call clock_anchor() while the '
+                         'profiler runs)'.format(CLOCK_ANCHOR))
+    # the newest pairs: a range opens before its ring event and closes after
+    # it, so each pair bounds the offset from below and from above
+    matched = list(zip(theirs[-pairs:], ours[-pairs:]))
+    low = max(p0 - r0 for (p0, _), (r0, _) in matched)
+    high = min(p1 - r1 for (_, p1), (_, r1) in matched)
+    return (low + high) / 2, 'anchor'
+
+
+def merge_profiler_trace(profiler_doc, events=None):
+    """One Chrome-trace document: a ``torch.profiler`` trace (the dict of the
+    file its ``export_chrome_trace`` writes) and the ring's events (default:
+    the ring's current contents) moved onto the profiler's clock, so the
+    program's spans on every thread and process sit beside the card's
+    kernels in Perfetto.
+
+    The profiler stamps ``ts`` in µs after its file's
+    ``baseTimeNanoseconds``, the ring in epoch µs; a file without that base
+    is aligned on :func:`clock_anchor` pairs. The result holds the
+    profiler's keys and events, a ``thread_name`` event for each thread of
+    this process that the ring's events come from, and then copies of the
+    ring's events with their ``ts`` moved (the ring keeps its own), as many
+    as ``programEvents['count']`` says, ``programEvents['offset_us']`` the
+    shift. Raises ValueError where the clocks cannot be aligned."""
+    if events is None:
+        events = _ring.snapshot()
+    offset, clock = _profiler_offset_us(profiler_doc, events)
+    names = {t.ident: t.name for t in threading.enumerate()}
+    pid = os.getpid()
+    threads = sorted({e['tid'] for e in events if e.get('pid') == pid and e.get('tid') in names})
+    meta = [{'name': 'thread_name', 'ph': 'M', 'pid': pid, 'tid': tid,
+             'args': {'name': names[tid]}} for tid in threads]
+    moved = [dict(e, ts=e['ts'] + offset) for e in events]
+    return dict(profiler_doc,
+                traceEvents=list(profiler_doc.get('traceEvents', ())) + meta + moved,
+                programEvents={'count': len(moved), 'offset_us': offset, 'clock': clock})
+
+
+def export_chrome_trace(path, events=None, profiler_trace=None):
     """Write a Perfetto/chrome://tracing-loadable JSON file; returns the
-    number of events written."""
-    doc = chrome_trace(events)
+    number of events written. With ``profiler_trace`` (a ``torch.profiler``
+    Chrome-trace file's path, or its loaded dict), the file is
+    :func:`merge_profiler_trace`'s one document: the ring's events on the
+    profiler's clock, beside the card's kernels."""
+    if profiler_trace is None:
+        doc = chrome_trace(events)
+    else:
+        if not isinstance(profiler_trace, dict):
+            with open(profiler_trace) as f:
+                profiler_trace = json.load(f)
+        doc = merge_profiler_trace(profiler_trace, events)
     with open(path, 'w') as f:
         json.dump(doc, f)
     return len(doc['traceEvents'])

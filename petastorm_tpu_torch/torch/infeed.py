@@ -24,7 +24,15 @@ Telemetry, as the JAX infeed's: each staging is an ``infeed`` stage, which
 times the host's part (the copy into pinned memory and the enqueue of the
 non-blocking copy; it adds no synchronisation). When the iterator is a
 loader, the staging runs under the loader's ``last_trace``, read on the
-thread that pulled the batch, so the span joins that batch's tree.
+thread that pulled the batch, so the span joins that batch's tree. The
+port also splits it, per array, into the stages ``infeed_alloc`` (the pinned
+allocation), ``infeed_copy`` (the host copy: into pinned memory, or on the
+CPU the copy that makes an array writable, where one is needed) and
+``infeed_enqueue`` (the non-blocking copy's enqueue), counts the host bytes
+copied in ``infeed_bytes_total``, and times the background pump's wait on a
+full queue (``prefetch_put_wait``), the consumer's wait on an empty one
+(``prefetch_get_wait``) and the consumer's part of each batch
+(``prefetch_hand_over``: the stream wait and a sharding's broadcast).
 """
 
 from __future__ import annotations
@@ -69,14 +77,21 @@ _TORCH_DTYPES = {
 
 
 def _to_tensor(x, device):
+    """``x`` on ``device``, and the host bytes copied on the way."""
     if x.dtype in _PROMOTIONS:
         x = x.astype(_PROMOTIONS[x.dtype])
     if device.type == 'cpu':
         # torch.from_numpy needs writable memory: read-only views copy
-        return torch.from_numpy(np.require(x, requirements=['C', 'W']))
-    host = torch.empty(x.shape, dtype=_TORCH_DTYPES[x.dtype.newbyteorder('=')], pin_memory=True)
-    host.numpy()[...] = x  # the one host copy: into pinned memory
-    return host.to(device, non_blocking=True)
+        with obs.stage('infeed_copy', cat='infeed'):
+            host = np.require(x, requirements=['C', 'W'])
+        return torch.from_numpy(host), 0 if host is x else host.nbytes
+    with obs.stage('infeed_alloc', cat='infeed'):
+        host = torch.empty(x.shape, dtype=_TORCH_DTYPES[x.dtype.newbyteorder('=')],
+                           pin_memory=True)
+    with obs.stage('infeed_copy', cat='infeed'):
+        host.numpy()[...] = x  # the one host copy: into pinned memory
+    with obs.stage('infeed_enqueue', cat='infeed'):
+        return host.to(device, non_blocking=True), x.nbytes
 
 
 def _target_device(target):
@@ -147,19 +162,27 @@ def _distribute(staged, target):
 
 
 def _stage_local(batch, device, stream=None):
+    copied = 0
+
     def put(x):
+        nonlocal copied
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, np.ndarray) and x.dtype.kind in TORCH_COMPATIBLE_KINDS:
-            return _to_tensor(x, device)
+            tensor, nbytes = _to_tensor(x, device)
+            copied += nbytes
+            return tensor
         return x
 
     # the host's part of staging (async copies): what can stall the pipeline
     with obs.stage('infeed', cat='infeed'):
         if device.type == 'cuda' and stream is not None:
             with torch.cuda.stream(stream):
-                return put(batch)
-        return put(batch)
+                staged = put(batch)
+        else:
+            staged = put(batch)
+    obs.count('infeed_bytes_total', copied)
+    return staged
 
 
 def stage_batch(batch, device=None, stream=None):
@@ -224,14 +247,16 @@ def prefetch_to_device(iterator, device=None, size=2, background=True):
         return staged, event
 
     def hand_over(staged, event):
-        if event is not None:
-            consumer = torch.cuda.current_stream(device)
-            consumer.wait_event(event)
-            for t in _tensors(staged):
-                # allocated on the side stream, used on the consumer's: the
-                # caching allocator must not recycle it before that use ends
-                t.record_stream(consumer)
-        return _distribute(staged, target)
+        with obs.stage('prefetch_hand_over', cat='infeed'):
+            if event is not None:
+                consumer = torch.cuda.current_stream(device)
+                consumer.wait_event(event)
+                for t in _tensors(staged):
+                    # allocated on the side stream, used on the consumer's:
+                    # the caching allocator must not recycle it before that
+                    # use ends
+                    t.record_stream(consumer)
+            return _distribute(staged, target)
 
     if background:
         return _prefetch_background(iterator, stage, hand_over, size)
@@ -267,13 +292,15 @@ def _prefetch_background(iterator, stage, hand_over, size):
     stop = threading.Event()
 
     def put(item):
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue_mod.Full:
-                continue
-        return False
+        # the pump's wait on a full queue: the input's headroom
+        with obs.stage('prefetch_put_wait', cat='infeed'):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
 
     def pump():
         try:
@@ -288,7 +315,8 @@ def _prefetch_background(iterator, stage, hand_over, size):
     thread.start()
     try:
         while True:
-            item = q.get()
+            with obs.stage('prefetch_get_wait', cat='infeed'):
+                item = q.get()
             if isinstance(item, _Final):
                 if item.exc is not None:
                     raise item.exc

@@ -29,8 +29,8 @@ Telemetry, as the JAX loader's: the time spent waiting on the reader
 (``reader_wait_s``), :attr:`TorchDataLoader.diagnostics` with its full key
 set from construction (feed it to
 :func:`~petastorm_tpu_torch.observability.stall_report`), the
-``shuffle.add_block``/``shuffle.emit`` spans and the ``collate`` stage (at
-block granularity, never per row), ``loader_batches_total``,
+``shuffle.add_block``/``shuffle.emit`` and ``collate`` stages (at block
+granularity, never per row; the JAX loader's shuffle events are spans only), ``loader_batches_total``,
 :attr:`TorchDataLoader.last_trace`, the flight recorder's progress source
 and the closing stall record, and the autotuner's shuffle knob
 (:meth:`TorchDataLoader.set_shuffle_capacity`).
@@ -388,16 +388,16 @@ class TorchDataLoader(object):
                     exhausted = True
                 else:
                     # block granularity (a row group), never per row
-                    with obs.span('shuffle.add_block', cat='loader', occupancy=buffer.size):
+                    with obs.stage('shuffle.add_block', cat='loader', occupancy=buffer.size):
                         buffer.add_block(_flatten_ngram_block(item) if self._columnar_ngram
                                          else dict(item._asdict()))
                     obs.gauge_set('shuffle_buffer_occupancy', buffer.size)
 
     @staticmethod
     def _buffer_emit(buffer, count):
-        """One batch out of the shuffling buffer, traced with its occupancy
-        before the emit."""
-        with obs.span('shuffle.emit', cat='loader', occupancy=buffer.size, rows=count):
+        """One batch out of the shuffling buffer, timed, and traced with its
+        occupancy before the emit."""
+        with obs.stage('shuffle.emit', cat='loader', occupancy=buffer.size, rows=count):
             return buffer.emit(count)
 
     def _emit_columnar(self, batch):

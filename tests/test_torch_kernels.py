@@ -205,6 +205,46 @@ def test_graphed_crop_step_losses_equal_the_eager_steps(cuda):
 
 
 @pytest.mark.gpu
+def test_graphed_step_times_its_replayed_calls_alone(cuda):
+    # a replayed call is one train_step stage with its replay's launch as a
+    # nested train_step_replay; the eager warm-up calls and the capture call
+    # are neither, so a window's stage count is its replayed steps
+    from petastorm_tpu_torch import observability as obs
+    from petastorm_tpu_torch.models import BottleneckBlock, ResNet
+    from petastorm_tpu_torch.models.train import (GRAPH_WARMUP_STEPS, create_train_state,
+                                                  make_train_step)
+
+    steps = 6
+    images = _images((8, 32, 32, 3), torch.uint8, cuda)
+    labels = torch.arange(8, device=cuda) % 10
+    model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10, num_filters=8,
+                   dtype=torch.float32)
+    state = create_train_state(model, cuda)
+    step = make_train_step(preprocess_fn=lambda x, mask: normalize_images(
+        x, MEAN, STD, out_dtype=torch.float32), graphed=True)
+    saved = obs.current_config()
+    obs.configure('counters')
+    try:
+        before = obs.snapshot()['counters']
+        for _ in range(steps):
+            step(state, images, labels)
+        torch.cuda.synchronize()
+        after = obs.snapshot()['counters']
+    finally:
+        obs.configure(saved)
+
+    def delta(key):
+        return after.get(key, 0) - before.get(key, 0)
+
+    replayed = steps - GRAPH_WARMUP_STEPS - 1
+    assert delta('stage_train_step_count') == delta('stage_train_step_replay_count') == replayed
+    assert 0 < delta('stage_train_step_replay_s') <= delta('stage_train_step_s')
+    # the thread's CPU seconds are there (a sandboxed host may count them in
+    # 10 ms ticks, so a few short calls may read a tick more than their wall)
+    assert delta('stage_train_step_cpu_s') >= 0 and 'stage_train_step_replay_cpu_s' in after
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize('context', ['plain', 'ring'])
 def test_graphed_sequence_step_equals_the_eager_step(cuda, context, monkeypatch):
     # the sequence transformer's plain step (no preprocess, no mask): five

@@ -13,6 +13,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from petastorm_tpu import make_reader as jax_make_reader
 from petastorm_tpu import observability as jax_obs
@@ -251,6 +252,13 @@ def test_span_multisets_of_one_read_match_jax(store):
     for b, jb in zip(batches, jax_batches):
         np.testing.assert_array_equal(b['id'].numpy(), np.asarray(jb['id']))
     ours = _span_multiset(events)
+    # the CPU infeed's copy stage, under each batch's infeed, and the
+    # hand-over are the port's own (a synchronous prefetch has no queue
+    # waits, the CPU no pinned memory)
+    assert {key[0] for key in ours} & PORT_ONLY_STAGES == {'infeed_copy', 'prefetch_hand_over'}
+    assert {key[3] for key in ours if key[0] == 'infeed_copy'} == {'infeed'}
+    ours = collections.Counter({key: n for key, n in ours.items()
+                                if key[0] not in PORT_ONLY_STAGES})
     assert ours == _span_multiset(jax_events)
     names = {key[0] for key in ours}
     assert {'ventilate', 'pool_wait', 'read', 'decode', 'fused_decode', 'collate',
@@ -300,10 +308,15 @@ def test_chrome_trace_export(store, tmp_path):
 def test_prometheus_text_matches_jax(tmp_path):
     registry = MetricsRegistry()
     _fill(registry)
+    # the port's stages also count their CPU seconds: one more counter
+    registry.stage_timer('collate').record(0.5, 0.125)
     snap = registry.snapshot()
+    assert snap['counters']['stage_collate_cpu_s'] == 0.125
+    assert _port_only_keys(snap['counters']) == {'stage_collate_cpu_s'}
     text = obs.to_prometheus_text(snap)
     assert text == jax_obs.to_prometheus_text(snap)
     assert 'pstpu_lat_bucket{le="+Inf"} 4' in text and '# TYPE pstpu_rows counter' in text
+    assert 'pstpu_stage_collate_cpu_s 0.125' in text
     assert obs.to_prometheus_text(snap, prefix='x_') == jax_obs.to_prometheus_text(
         snap, prefix='x_')
     obs.write_prometheus(str(tmp_path / 'm.prom'), snap)
@@ -312,6 +325,8 @@ def test_prometheus_text_matches_jax(tmp_path):
 
 def test_jsonl_exporter_lines(tmp_path):
     obs.get_registry().counter('rows_total').inc(7)
+    with obs.stage('collate'):
+        pass
     path = tmp_path / 'metrics.jsonl'
     with obs.JsonlExporter(str(path), interval_s=0.05, host_key='h0'):
         time.sleep(0.12)
@@ -319,6 +334,8 @@ def test_jsonl_exporter_lines(tmp_path):
     assert len(lines) >= 2
     for rec in lines:
         assert rec['metrics']['rows_total'] == 7 and rec['host']['host'] == 'h0'
+        assert rec['metrics']['stage_collate_count'] == 1
+        assert _port_only_keys(rec['metrics']) == {'stage_collate_cpu_s'}
         assert set(rec['host']) == set(jax_obs.host_identity('h0'))
     # the JAX package's history loader reads the port's export
     assert [s['diag'] for s in jax_history.load_history(str(path))] == \
@@ -379,6 +396,23 @@ JAX_ONLY_KEYS = {}
 #: size and publishes per channel
 PORT_ONLY_KEYS = {'process': {'transport', 'ring_bytes', 'publish_inplace', 'publish_ring',
                               'publish_blob', 'publish_zmq'}}
+#: stages only the port times: the loader's shuffle (a span only, in the
+#: JAX package), the infeed's per-array split, the prefetch queue's waits and
+#: hand-over, and the graphed step's dispatch
+PORT_ONLY_STAGES = {'shuffle.add_block', 'shuffle.emit', 'infeed_alloc', 'infeed_copy',
+                    'infeed_enqueue', 'prefetch_put_wait', 'prefetch_get_wait',
+                    'prefetch_hand_over', 'train_step', 'train_step_replay'}
+#: counters only the port keeps
+PORT_ONLY_COUNTERS = {'infeed_bytes_total'}
+
+
+def _port_only_keys(keys):
+    """The port's own diagnostics keys among ``keys``: its stages' timers,
+    its counters, and every stage's CPU seconds (``stage_<name>_cpu_s``)."""
+    stages = {'stage_{}_{}'.format(name, part) for name in PORT_ONLY_STAGES
+              for part in ('s', 'count', 'cpu_s')}
+    return {k for k in keys if k in stages or k in PORT_ONLY_COUNTERS
+            or (k.startswith('stage_') and k.endswith('_cpu_s'))}
 
 
 def _reader_keys(keys):
@@ -414,9 +448,17 @@ def test_diagnostics_key_sets_match_jax(store, pool):
     jax_rows, jax_before, jax_diag, jax_reader_keys = _drained_diagnostics(store, 'jax', pool)
     assert rows == jax_rows == ROWS
     port_only, jax_only = PORT_ONLY_KEYS.get(pool, set()), JAX_ONLY_KEYS.get(pool, set())
+    port_only = port_only | _port_only_keys(set(diag) | reader_keys)
     assert port_only <= set(diag) and jax_only <= set(jax_diag)
     assert set(diag) - port_only == set(jax_diag) - jax_only
     assert reader_keys - port_only == jax_reader_keys - jax_only
+    # the port's own: the shuffle's stages, and every stage's CPU seconds
+    assert {'stage_shuffle.add_block_count', 'stage_shuffle.emit_count',
+            'stage_shuffle.emit_cpu_s'} <= set(diag)
+    assert diag['stage_shuffle.emit_count'] == diag['stage_collate_count']
+    for key in diag:
+        if key.startswith('stage_') and key.endswith('_count'):
+            assert key[:-len('count')] + 'cpu_s' in diag, key
     # the loader's keys are there before the first batch
     loader_keys = {'rows_emitted', 'reader_wait_s', 'reader_wait_fraction',
                    'padding_waste_fraction'}
@@ -485,3 +527,122 @@ def test_process_pool_ships_worker_telemetry(store):
     assert any(len({n['pid'] for n in t['children']} | {
         c['pid'] for n in t['children'] for c in n['children']}) >= 2 for t in trees)
     assert obs.stall_report(diag)['coverage'] == 1.0
+
+
+# -- the prefetch thread's budget and the graphed step's dispatch ----------------------
+
+def _prefetched_diagnostics(url, telemetry):
+    """A thread-pool read through a background prefetch onto the CPU: the
+    loader's diagnostics after the last batch, and the batches."""
+    with make_reader(url, reader_pool_type='thread', workers_count=2, seed=1,
+                     output='columnar', telemetry=telemetry) as reader:
+        loader = TorchDataLoader(reader, batch_size=20, drop_last=False)
+        batches = list(prefetch_to_device(loader, 'cpu', size=2, background=True))
+        return loader.diagnostics, batches
+
+
+def test_prefetch_thread_stages_reach_the_loader_diagnostics(store):
+    diag, batches = _prefetched_diagnostics(store, 'counters')
+    assert sum(len(b['id']) for b in batches) == ROWS
+    n = len(batches)
+    arrays = sum(isinstance(v, torch.Tensor) for v in batches[0].values())
+    assert arrays >= 2  # ids and features; the string labels stay numpy
+    expected = {'shuffle.add_block': ROWS // ROWS_PER_GROUP, 'shuffle.emit': n, 'collate': n,
+                'infeed': n, 'infeed_copy': n * arrays,
+                # the end of the stream is put and got too
+                'prefetch_put_wait': n + 1, 'prefetch_get_wait': n + 1,
+                'prefetch_hand_over': n}
+    for name, count in expected.items():
+        assert diag['stage_{}_count'.format(name)] == count, name
+        assert diag['stage_{}_s'.format(name)] >= 0.0
+        assert 0.0 <= diag['stage_{}_cpu_s'.format(name)]
+    # the CPU path has no pinned memory: nothing to allocate or enqueue
+    assert 'stage_infeed_alloc_count' not in diag and 'stage_infeed_enqueue_count' not in diag
+    assert diag['infeed_bytes_total'] >= 0
+    # the infeed's copies nest in it
+    assert diag['stage_infeed_copy_s'] <= diag['stage_infeed_s']
+
+
+def test_telemetry_off_records_nothing_through_the_prefetch_thread(store):
+    diag, batches = _prefetched_diagnostics(store, 'off')
+    assert sum(len(b['id']) for b in batches) == ROWS
+    snap = obs.get_registry().snapshot()
+    assert snap['counters'] == {} and snap['gauges'] == {} and len(obs.get_ring()) == 0
+    assert not {k for k in diag if k.startswith('stage_') or k == 'infeed_bytes_total'}
+
+
+def test_stage_cpu_seconds_tell_a_busy_loop_from_a_sleep():
+    with obs.stage('busy'):
+        deadline = time.perf_counter() + 0.1
+        while time.perf_counter() < deadline:
+            pass
+    with obs.stage('nap'):
+        time.sleep(0.1)
+    counters = obs.snapshot()['counters']
+    busy, busy_cpu = counters['stage_busy_s'], counters['stage_busy_cpu_s']
+    nap, nap_cpu = counters['stage_nap_s'], counters['stage_nap_cpu_s']
+    assert busy >= 0.1 and nap >= 0.1
+    # a host shared with other work may take the spinning thread off its
+    # core for a while, and a sandboxed host may count CPU time in 10 ms
+    # ticks; a sleeping thread spends next to nothing
+    assert 0.5 * busy <= busy_cpu <= busy + 0.011
+    assert nap_cpu <= 0.011
+
+
+def _profiled_block(anchor, tmp_path):
+    """A CPU ``torch.profiler`` trace of one ``record_function`` region with
+    a ring span over the same block on this thread: the profiler's file as a
+    dict and the ring's events."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    obs.configure('spans')
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('warm-up'):  # the session's first range opens slowly
+            pass
+        if anchor:
+            obs.clock_anchor()
+        with record_function('block'):
+            with obs.span('block', cat='test'):
+                time.sleep(0.02)
+    path = str(tmp_path / 'profiler.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f), obs.get_ring().snapshot()
+
+
+@pytest.mark.parametrize('clock', ['baseTimeNanoseconds', 'anchor'])
+def test_ring_spans_merge_onto_the_profiler_clock(clock, tmp_path):
+    doc, events = _profiled_block(clock == 'anchor', tmp_path)
+    if clock == 'anchor':
+        doc.pop('baseTimeNanoseconds', None)
+    ring_ts = [e['ts'] for e in events]
+    merged = obs.merge_profiler_trace(doc)
+    assert merged['programEvents']['clock'] == clock
+    assert merged['programEvents']['count'] == len(events)
+    # the ring and the profiler's document are left as they were
+    assert [e['ts'] for e in obs.get_ring().snapshot()] == ring_ts
+    assert 'programEvents' not in doc
+    moved = merged['traceEvents'][-len(events):]
+    theirs = next(e for e in doc['traceEvents']
+                  if e.get('name') == 'block' and e.get('cat') == 'user_annotation')
+    ours = next(e for e in moved if e['name'] == 'block')
+    # the ring's span opens just inside the range and closes just before it
+    assert abs(ours['ts'] - theirs['ts']) < 1000
+    assert abs((ours['ts'] + ours['dur']) - (theirs['ts'] + theirs['dur'])) < 1000
+    names = {e['tid']: e['args']['name'] for e in merged['traceEvents']
+             if e.get('ph') == 'M' and e.get('name') == 'thread_name' and e['tid'] == ours['tid']}
+    assert names == {ours['tid']: threading.current_thread().name}
+    # the same document, written by the exporter from the profiler's file
+    prof_path, out = str(tmp_path / 'prof.json'), str(tmp_path / 'merged.json')
+    with open(prof_path, 'w') as f:
+        json.dump(doc, f)
+    assert obs.export_chrome_trace(out, profiler_trace=prof_path) == len(merged['traceEvents'])
+    with open(out) as f:
+        assert json.load(f) == merged
+
+
+def test_a_profiler_trace_without_a_clock_is_refused(tmp_path):
+    doc, events = _profiled_block(False, tmp_path)
+    doc.pop('baseTimeNanoseconds', None)
+    with pytest.raises(ValueError, match='clock_anchor'):
+        obs.merge_profiler_trace(doc, events)
