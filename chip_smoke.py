@@ -11,7 +11,11 @@ Phases, each printed as one JSON line:
    PyTorch version on the card (shapes, types and tolerances below), and the
    times of both and of the one PyTorch call that computes the same function
    (CUDA events, median of 25 runs), at the main path's shape and at
-   ``raw_crop``'s (64x144x144x3: ``crop_timing``);
+   ``raw_crop``'s (64x144x144x3: ``crop_timing``); then the batch-norm
+   kernels (``bn_kernel_checks``) at three of ResNet-50's shapes at batch
+   256 in bf16, held against their plain version and timed alone, as a
+   whole forward, beside their plain version, ATen's ``native_batch_norm``
+   and the ATen path the model ran before them;
 3. stores: a raw uint8 store, an ImageNet-shaped PNG store, a fixed-shape
    PNG store of the raw store's images and, where the host can encode and
    decode JPEG, a JPEG store, written by the port's ``materialize_dataset``
@@ -830,6 +834,141 @@ def phase_kernels(torch):
              'ms': main['ms'], 'plain_ms': main['plain_ms'],
              'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
              'library_ms': main['library_ms']}]
+
+
+#: ResNet-50's batch norms at batch 256 and 224 px timed by ``phase_bn_kernels``:
+#: (N, C, H, W, epilogue): bn_init, a stage-1 block's bn3, a stage-4 block's bn3
+BN_TIMING_SHAPES = [((256, 64, 112, 112), 'relu'), ((256, 256, 56, 56), 'residual_relu'),
+                    ((256, 2048, 7, 7), 'residual_relu')]
+
+
+def _bn_inputs(torch, shape, count, gen, dtype):
+    """``count`` channels-last ``(N, C, H, W)`` activations of ``dtype`` with
+    a per-channel offset and spread, made on the card from ``gen``."""
+    dev = torch.device('cuda')
+    c = shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(gen.integers(1 << 31)))
+    shift = torch.from_numpy(gen.normal(0.0, 2.0, c).astype(np.float32)).to(dev)
+    spread = torch.from_numpy(gen.uniform(0.5, 2.0, c).astype(np.float32)).to(dev)
+    out = []
+    for _ in range(count):
+        x = torch.randn(shape, generator=g, device=dev)
+        x = x * spread[None, :, None, None] + shift[None, :, None, None]
+        out.append(x.to(dtype).contiguous(memory_format=torch.channels_last))
+    return out
+
+
+def phase_bn_kernels(torch):
+    """The batch-norm kernels (``ops/kernels/batchnorm.py``) at ResNet-50's
+    shapes in bf16: held against their plain version, then each kernel
+    timed alone, the whole forward, the plain version, ATen's
+    ``native_batch_norm`` (the library call, never called by the port) and
+    the ATen path the model ran before (``native_batch_norm``, the residual
+    add, ``relu``), each beside its bytes bound. Emits one line."""
+    import torch.nn.functional as F
+
+    from petastorm_tpu_torch.ops.kernels import batchnorm as bn
+
+    dev = torch.device('cuda')
+    gen = np.random.default_rng(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows_out = []
+    for shape, epilogue in BN_TIMING_SHAPES:
+        n, c, h, w = shape
+        m = n * h * w
+        size = 2  # bf16
+        relu, has_res = True, epilogue == 'residual_relu'
+        # enough inputs that they do not stay in the 50 MB L2 cache
+        count = max(2, min(16, -(-600_000_000 // (m * c * size))))
+        xs = _bn_inputs(torch, shape, count, gen, torch.bfloat16)
+        res = _bn_inputs(torch, shape, 1, gen, torch.bfloat16)[0] if has_res else None
+        scale = torch.from_numpy(gen.uniform(0.5, 1.5, c).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(gen.normal(0, 0.1, c).astype(np.float32)).to(dev)
+        running = [torch.zeros(c, device=dev), torch.ones(c, device=dev)]
+
+        # -- checked against the plain version --------------------------------
+        ref_running = [t.clone() for t in running]
+        y, save_mean, save_invstd = bn.batch_norm_train(
+            xs[0], scale, bias, *running, relu=relu, residual=res)
+        torch.cuda.synchronize()
+        ref_y, ref_mean, ref_var = bn.batch_norm_train_reference(
+            xs[0], scale, bias, *ref_running, relu=relu, residual=res)
+        ref_invstd = torch.rsqrt(ref_var + 1e-5)
+        # the mean's error relative to the channel's scale, |mean| + std
+        mean_err = float(((save_mean - ref_mean).abs()
+                          / (ref_mean.abs() + ref_var.sqrt())).max())
+        invstd_err = float(((save_invstd - ref_invstd).abs() / ref_invstd).max())
+        y_diff = (y.float() - ref_y.float()).abs()
+        y_ok = bool((y_diff <= 2.0 ** -7 * ref_y.float().abs() + 1e-4).all())
+        run_err = max(float((a - b).abs().max()) for a, b in zip(running, ref_running))
+        check = {'mean_rel_err': mean_err, 'invstd_rel_err': invstd_err,
+                 'y_max_abs_err': float(y_diff.max()), 'y_within_1_ulp': y_ok,
+                 'running_max_abs_err': run_err}
+        del y, ref_y, y_diff
+        if not (mean_err <= 1e-5 and invstd_err <= 1e-5 and y_ok and run_err <= 1e-5):
+            raise AssertionError('batch norm kernels disagree with their plain version at '
+                                 '{}: {}'.format(shape, check))
+
+        # -- timed, through the wrapper's launches ------------------------------
+        _, slabs, rows = bn.stats_grid(m, c, sms)
+        partials = torch.empty((2, slabs, c), dtype=torch.float32, device=dev)
+        per_channel = torch.empty((4, c), dtype=torch.float32, device=dev)
+        out = torch.empty_like(xs[0])
+
+        def stats(x):
+            bn._launch_stats(x, partials, rows)
+
+        def finalize(x):
+            bn._launch_finalize(partials, m, rows, scale, bias, *running, per_channel, 0.9, 1e-5)
+
+        def apply(x):
+            bn._launch_apply(x, per_channel[2:], res, out, relu)
+
+        def forward(x):
+            return bn.batch_norm_train(x, scale, bias, *running, relu=relu, residual=res)
+
+        def plain(x):
+            return bn.batch_norm_train_reference(x, scale, bias, *running, relu=relu,
+                                                 residual=res)
+
+        def library(x):
+            return torch.native_batch_norm(x, scale, bias, None, None, True, 0.0, 1e-5)
+
+        def aten_path(x):
+            y = torch.native_batch_norm(x, scale, bias, None, None, True, 0.0, 1e-5)[0]
+            return F.relu(res + y if has_res else y)
+
+        times = {}
+        # in turns: each timed twice, the second pass in reverse order
+        order = [('stats', stats), ('finalize', finalize), ('apply', apply),
+                 ('forward', forward), ('library', library), ('aten_path', aten_path),
+                 ('plain', plain)]
+        for name, fn in order + order[::-1]:
+            times.setdefault(name, []).append(cuda_ms(torch, fn, xs))
+        x_bytes = m * c * size
+        bounds = {'stats': x_bytes, 'apply': x_bytes * (3 if has_res else 2),
+                  'finalize': 2 * slabs * c * 4 + 12 * c * 4,
+                  'forward': x_bytes * (4 if has_res else 3),
+                  'aten_path': x_bytes * (4 if has_res else 3),
+                  'library': x_bytes * 3}
+        row = {'shape_nchw': list(shape), 'epilogue': epilogue, 'm': m, 'c': c,
+               'slabs': slabs, 'rows_per_slab': rows, 'check': check,
+               'ms_runs': times}
+        for name, runs in times.items():
+            row[name + '_ms'] = statistics.median(runs)
+        for name, nbytes in bounds.items():
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            row[name + '_bound_ms'] = bound_ms
+            row[name + '_share_of_bound'] = bound_ms / row[name + '_ms']
+        rows_out.append(row)
+        del xs, res, partials, out
+        torch.cuda.empty_cache()
+    emit({'phase': 'bn_kernel_checks', 'sms': sms, 'blocks': {
+        'stats': [bn._STATS_BLOCK_M, bn._STATS_BLOCK_C, bn._STATS_WARPS,
+                  bn._STATS_PROGRAMS_PER_SM],
+        'finalize': [bn._FINALIZE_BLOCK_P, bn._FINALIZE_BLOCK_C],
+        'apply': [bn._APPLY_BLOCK_M, bn._APPLY_BLOCK_C, bn._APPLY_WARPS]}, 'rows': rows_out})
 
 
 def _photo(rng, h, w):
@@ -2066,6 +2205,41 @@ def new_train_state(torch):
     return create_train_state(resnet50(num_classes=NUM_CLASSES, dtype=torch.bfloat16))
 
 
+#: batch norms of ResNet-50 (the stem's, three in each of 16 blocks and 4
+#: projections): a training step launches the batch-norm kernels for each
+RESNET50_BATCH_NORMS = 53
+
+
+def reset_launches():
+    """Zero the normalize and batch-norm kernels' launch counters."""
+    from petastorm_tpu_torch.ops.kernels import batchnorm, normalize
+
+    normalize.launches = batchnorm.launches = 0
+
+
+def kernel_launches():
+    """The normalize and batch-norm kernels' launches since
+    :func:`reset_launches` (a graph replay adds the launches it captured)."""
+    from petastorm_tpu_torch.ops.kernels import batchnorm, normalize
+
+    return {'normalize': normalize.launches, 'batchnorm': batchnorm.launches}
+
+
+def check_launches(name, launches, steps):
+    """Every one of ``steps`` ResNet-50 training steps launched the
+    normalize kernel once and, on the card (elsewhere batch norm runs
+    ATen's code), the batch-norm kernels for each batch norm."""
+    from petastorm_tpu_torch.ops.kernels import batchnorm
+
+    per_step = {'normalize': 1,
+                'batchnorm': RESNET50_BATCH_NORMS * batchnorm.KERNELS_PER_CALL
+                if DEVICE_TYPE == 'cuda' else 0}
+    for kernel, count in launches.items():
+        if count < per_step[kernel] * steps:
+            raise AssertionError('{}: kernel {} launched {} times in {} steps'.format(
+                name, kernel, count, steps))
+
+
 #: staged batches of a graphed run that an eager step from the same seed
 #: runs again: the first two are the graphed step's eager warm-up steps, the
 #: third its capture and first replay, the fourth a replay
@@ -2133,8 +2307,8 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
              on_step=None, mesh=None, rows_check=None, preprocess_fn=None):
     """One path: a fresh model from the seed, 3 warm-up and ``steps``
     measured steps through ``pipeline_duty_cycle``, with the eager step or
-    (``graphed``) the graphed one, at the ``telemetry`` level. The normalize
-    launches (a graph replay adds the launches it captured), the image route
+    (``graphed``) the graphed one, at the ``telemetry`` level. The kernel
+    launches (:func:`kernel_launches`), the image route
     counts, the read route counts and the telemetry registry and span ring
     cover this run alone. ``label_check`` is handed every label the steps
     saw, after the run (the labels stay on the card until then: no
@@ -2153,7 +2327,6 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     from petastorm_tpu_torch import observability as obs
     from petastorm_tpu_torch.codecs import image_routes
     from petastorm_tpu_torch.models.train import make_train_step
-    from petastorm_tpu_torch.ops.kernels import normalize as nk
     from petastorm_tpu_torch.tools.throughput import pipeline_duty_cycle
 
     state = new_train_state(torch)
@@ -2198,7 +2371,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     image_routes.reset()
     obs.get_registry().reset()
     obs.get_ring().clear()
-    nk.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     result = pipeline_duty_cycle(
         url, step_fn, lambda b: (b['image'], b['label']), batch_size=BATCH, steps=steps,
@@ -2206,7 +2379,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
         loader_kwargs={'shuffling_queue_capacity': SHUFFLE_CAPACITY, 'seed': SEED},
         telemetry=telemetry, **factory)
     wall_s = time.perf_counter() - t0
-    launches = {'normalize': nk.launches}
+    launches = kernel_launches()
     counts = image_routes.snapshot()
     losses = [float(x) for x in losses]
     stall = result.extra['stall']
@@ -2245,10 +2418,7 @@ def run_path(torch, name, url, check, reader_kwargs=None, routes=None, label_che
     if abs(losses[0] - math.log(NUM_CLASSES)) > 1.0:
         raise AssertionError('{}: first loss {} is far from log({}) = {}'.format(
             name, losses[0], NUM_CLASSES, math.log(NUM_CLASSES)))
-    for kernel, count in launches.items():
-        if count < WARMUP_STEPS + steps:
-            raise AssertionError('{}: kernel {} launched {} times in {} steps'.format(
-                name, kernel, count, WARMUP_STEPS + steps))
+    check_launches(name, launches, WARMUP_STEPS + steps)
     if label_check is not None:
         label_check(torch.cat(seen_labels).cpu().numpy())
     if rows_check is not None:
@@ -3629,6 +3799,7 @@ def phase_mesh_checks(torch, url):
     group on identical batches; every rank's state is held to the single
     process's. Returns the ranks' normalize launches."""
     from petastorm_tpu_torch.entry import dryrun_preprocess
+    from petastorm_tpu_torch.models.resnet import Conv
     from petastorm_tpu_torch.models.train import create_train_state, gather_state, make_train_step
     from petastorm_tpu_torch.parallel.launch import spawn
     from petastorm_tpu_torch.test_util import dist_workers
@@ -3647,6 +3818,13 @@ def phase_mesh_checks(torch, url):
         raise AssertionError('mesh_checks: data coordinates {}'.format([r['coord'] for r in ranks]))
     state = create_train_state(dist_workers.build_model(MESH_MODEL, seed=SEED),
                                device=DEVICE_TYPE)
+    # PyTorch's own convolutions return NCHW; this process's batch norms
+    # run the kernels, which take channels last, as cuDNN returns it (the
+    # ranks' batch norms are synced and take any layout)
+    for module in state.model.modules():
+        if isinstance(module, Conv):
+            module.register_forward_hook(
+                lambda mod, args, out: out.contiguous(memory_format=torch.channels_last))
     step = make_train_step(preprocess_fn=dryrun_preprocess, preprocess_seed=SEED)
     losses, errors, grad_errs = [], {}, []
     cudnn = torch.backends.cudnn.enabled
@@ -3806,13 +3984,12 @@ def phase_plain_resume(torch, url, graphed):
     in another order (the JAX loader's resume does the same); the step trains
     on them in the uninterrupted order, and its loss must be the
     uninterrupted one's within 1e-2 (bf16 convolutions need not be
-    bit-reproducible). Returns the normalize launches and the first loss."""
+    bit-reproducible). Returns the kernel launches and the first loss."""
     import io
     import pickle
 
     from petastorm_tpu_torch import make_batch_reader
     from petastorm_tpu_torch.models.train import make_train_step
-    from petastorm_tpu_torch.ops.kernels import normalize as nk
     from petastorm_tpu_torch.torch import TorchDataLoader
 
     reader_kwargs = {'batch_size': BATCH, 'seed': SEED, 'shuffle_row_groups': True,
@@ -3840,7 +4017,7 @@ def phase_plain_resume(torch, url, graphed):
             losses.append(step(state, images, labels)[1]['loss'])
         return keys, [float(x) for x in losses], same_order
 
-    nk.launches = 0
+    reset_launches()
     with make_batch_reader(url, **reader_kwargs) as reader:
         state = new_train_state(torch)
         step = make_train_step(preprocess_fn=preprocess, preprocess_seed=SEED, graphed=graphed)
@@ -3867,7 +4044,7 @@ def phase_plain_resume(torch, url, graphed):
         loader = TorchDataLoader(reader, BATCH, resume_state=ckpt['loader'], **loader_kwargs)
         keys_b, losses_b, same_order = train(state, step, loader, RESUME_STEPS - RESUME_AT,
                                              order=keys[RESUME_AT:])
-    launches = {'normalize': nk.launches}
+    launches = kernel_launches()
     resumed = losses_a + losses_b
     diffs = [abs(a - b) for a, b in zip(resumed, losses)]
     emit({'phase': 'path', 'path': 'plain_resume', 'step': 'graphed' if graphed else 'eager',
@@ -3883,8 +4060,7 @@ def phase_plain_resume(torch, url, graphed):
         raise AssertionError('plain_resume: losses {}'.format(losses))
     if max(diffs) > REPLAY_LOSS_TOL:
         raise AssertionError('plain_resume: resumed losses {} against {}'.format(resumed, losses))
-    if launches['normalize'] < 2 * RESUME_STEPS:
-        raise AssertionError('plain_resume: normalize launched {} times'.format(launches))
+    check_launches('plain_resume', launches, 2 * RESUME_STEPS)
     return launches, losses[0]
 
 
@@ -5838,29 +6014,26 @@ def phase_imagenet_example(torch, png_url):
     """``imagenet_example``: ``torch_resnet_example.train`` on the PNG store
     for 3 + 10 steps, graphed (ResNet-50 bf16, 1000 classes, batch 64, 160
     px, a ``('data',)`` mesh of a world of one over NCCL): finite losses,
-    the first near log(1000), the normalize kernel launched every step.
-    Returns the launches."""
+    the first near log(1000), the normalize and batch-norm kernels launched
+    every step. Returns the launches."""
     from petastorm_tpu_torch.examples.imagenet import torch_resnet_example
-    from petastorm_tpu_torch.ops.kernels import normalize as nk
 
     steps = WARMUP_STEPS + STEPS
     torch.cuda.synchronize()
-    nk.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     (state, losses), printed = quietly(
         torch_resnet_example.train, png_url, batch_size=BATCH, steps=steps,
         image_size=IMAGE_SIZE, num_classes=NUM_CLASSES, seed=SEED)
     torch.cuda.synchronize()
-    launches = {'normalize': nk.launches}
+    launches = kernel_launches()
     emit({'phase': 'imagenet_example', 'step': 'graphed', 'steps': steps, 'losses': losses,
           'launches': launches, 'wall_s': time.perf_counter() - t0, 'lines_printed': printed})
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError('imagenet_example: losses {}'.format(losses))
     if abs(losses[0] - math.log(NUM_CLASSES)) > 1.0:
         raise AssertionError('imagenet_example: first loss {}'.format(losses[0]))
-    if launches['normalize'] < steps:
-        raise AssertionError('imagenet_example: normalize launched {} times in {} steps'.format(
-            launches['normalize'], steps))
+    check_launches('imagenet_example', launches, steps)
     return launches
 
 
@@ -7934,6 +8107,7 @@ def main():
               'ring': NativeBuild(native_build.build_ring)}
     card = phase_device(torch)
     kernels = phase_kernels(torch)
+    phase_bn_kernels(torch)
     work_dir = tempfile.mkdtemp(prefix='smoke_', dir=BUILD_DIR)
     example_s = {}
     try:

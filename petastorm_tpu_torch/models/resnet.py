@@ -3,6 +3,9 @@
 The public layout is NHWC, as in the JAX package; inside, activations run in
 ``channels_last``. The body computes in ``dtype`` (bf16 by default) while the
 parameters, the batch-norm statistics and the logits head stay float32.
+On the card, batch norm's training forward runs the Triton kernels of
+:mod:`petastorm_tpu_torch.ops.kernels.batchnorm`, with the ReLU and the
+block's residual add that follow it folded into their apply pass.
 Three behaviors of the flax model are reproduced on purpose:
 
 * ``padding='SAME'`` pads asymmetrically where the stride requires it: a 3x3
@@ -28,6 +31,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from petastorm_tpu_torch.ops.kernels import batchnorm as batchnorm_kernel
 from petastorm_tpu_torch.parallel.collectives import all_reduce_sum
 
 
@@ -90,17 +94,33 @@ class BatchNorm(nn.Module):
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
 
-    def forward(self, x):
+    def forward(self, x, relu=False, residual=None):
+        """Normalize ``x``; then add ``residual`` and take the ReLU where
+        asked (a ResNet block's epilogue). Training on a CUDA tensor with
+        local statistics runs the Triton kernels of
+        :mod:`petastorm_tpu_torch.ops.kernels.batchnorm`, the epilogue fused
+        into their apply pass; they raise on a tensor they do not take: not
+        channels-last contiguous (as a convolution without cuDNN returns
+        it), or not bf16, fp16 or float32. The CPU, ``eval()`` and a synced
+        group of more than one rank run the code below."""
         if not self.training:
-            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, self.eps)
-        if self.sync_group is not None and dist.get_world_size(self.sync_group) > 1:
-            return self._synced(x)
-        # batch statistics without torch's running update (which would use
-        # the unbiased variance); save_invstd = 1/sqrt(biased_var + eps)
-        out, batch_mean, invstd = torch.native_batch_norm(
-            x, self.scale, self.bias, None, None, True, 0.0, self.eps)
-        self._update(batch_mean, invstd.float().pow(-2) - self.eps)
-        return out
+            out = F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0,
+                               self.eps)
+        elif self.sync_group is not None and dist.get_world_size(self.sync_group) > 1:
+            out = self._synced(x)
+        elif x.is_cuda:
+            return batchnorm_kernel.batch_norm_train_fused(
+                x, self.scale, self.bias, self.mean, self.var, self.momentum, self.eps,
+                relu=relu, residual=residual)
+        else:
+            # batch statistics without torch's running update (which would
+            # use the unbiased variance); save_invstd = 1/sqrt(biased_var + eps)
+            out, batch_mean, invstd = torch.native_batch_norm(
+                x, self.scale, self.bias, None, None, True, 0.0, self.eps)
+            self._update(batch_mean, invstd.float().pow(-2) - self.eps)
+        if residual is not None:
+            out = residual + out
+        return F.relu(out) if relu else out
 
     def _update(self, batch_mean, batch_var):
         with torch.no_grad():
@@ -142,11 +162,10 @@ class BottleneckBlock(nn.Module):
             self.bn_proj = BatchNorm(4 * filters)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.bn2(self.conv2(y), relu=True)
         residual = x if self.conv_proj is None else self.bn_proj(self.conv_proj(x))
-        return F.relu(residual + y)
+        return self.bn3(self.conv3(y), relu=True, residual=residual)
 
 
 class BasicBlock(nn.Module):
@@ -165,10 +184,9 @@ class BasicBlock(nn.Module):
             self.bn_proj = BatchNorm(filters)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = self.bn1(self.conv1(x), relu=True)
         residual = x if self.conv_proj is None else self.bn_proj(self.conv_proj(x))
-        return F.relu(residual + y)
+        return self.bn2(self.conv2(y), relu=True, residual=residual)
 
 
 class ResNet(nn.Module):
@@ -202,7 +220,7 @@ class ResNet(nn.Module):
     def forward(self, x):
         """``x``: ``(B, H, W, C)``; returns float32 ``(B, num_classes)`` logits."""
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.bn_init(self.conv_init(x), relu=True)
         x = F.max_pool2d(x, 3, 2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x)

@@ -63,12 +63,13 @@ from petastorm_tpu_torch import observability as obs
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.models.resnet import BatchNorm
 from petastorm_tpu_torch.ops.augment import flip_mask
+from petastorm_tpu_torch.ops.kernels import batchnorm as batchnorm_kernel
 from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
 from petastorm_tpu_torch.parallel.collectives import copy_to_group, gather_from_group
 from petastorm_tpu_torch.parallel.mesh import axis_group, data_sharding
 
 #: eager steps the graphed step runs on a side stream before it captures:
-#: the first creates SGD's momentum buffers and compiles the Triton kernel,
+#: the first creates SGD's momentum buffers and compiles the Triton kernels,
 #: the second runs with everything allocated, as every replay will
 GRAPH_WARMUP_STEPS = 2
 
@@ -78,7 +79,7 @@ DDP_GRAPH_WARMUP_STEPS = 11
 
 #: kernel modules whose ``launches`` counters a replay advances: a replay
 #: launches the captured kernels without passing through their wrappers
-_COUNTED_KERNELS = (normalize_kernel,)
+_COUNTED_KERNELS = (normalize_kernel, batchnorm_kernel)
 
 
 class TrainState(object):

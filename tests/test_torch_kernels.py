@@ -11,8 +11,10 @@ Tests that need the card carry the ``gpu`` marker and skip without CUDA.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from petastorm_tpu_torch.ops import normalize_images
+from petastorm_tpu_torch.ops.kernels import batchnorm as batchnorm_kernel
 from petastorm_tpu_torch.ops.kernels import normalize as normalize_kernel
 
 MEAN = np.array([123.675, 116.28, 103.53], np.float32)
@@ -24,6 +26,19 @@ SHAPES = [
     (4, 32, 32, 3),
     (2, 17, 224, 3),    # odd rows, a masked tail
     (1, 8, 128, 1),     # single channel
+]
+
+#: every batch norm of ResNet-50 at 224 px: (C, H = W, epilogue), run at
+#: batch 256 by the card's tests
+RESNET50_BN_SHAPES = [
+    (64, 112, 'relu'),                                                   # bn_init
+    (64, 56, 'relu'), (256, 56, 'residual_relu'), (256, 56, 'none'),     # stage 1
+    (128, 56, 'relu'), (128, 28, 'relu'), (512, 28, 'residual_relu'),    # stage 2
+    (512, 28, 'none'),
+    (256, 28, 'relu'), (256, 14, 'relu'), (1024, 14, 'residual_relu'),   # stage 3
+    (1024, 14, 'none'),
+    (512, 14, 'relu'), (512, 7, 'relu'), (2048, 7, 'residual_relu'),     # stage 4
+    (2048, 7, 'none'),
 ]
 
 
@@ -112,6 +127,198 @@ def test_kernel_wrapper_checks_its_inputs(cuda):
         normalize_kernel.normalize_triton(images, mean[:2], inv_std)
     with pytest.raises(ValueError, match='out_dtype'):
         normalize_kernel.normalize_triton(images, mean, inv_std, torch.float16)
+
+
+def test_resnet50_batch_norm_shapes_are_the_models():
+    # the list the card's tests run is every (C, H, epilogue) the model's
+    # batch norms are called with at 224 px, and there are 53 calls
+    from petastorm_tpu_torch.models import resnet50
+    from petastorm_tpu_torch.models.resnet import BatchNorm
+
+    model = resnet50(num_classes=10, dtype=torch.float32).eval()
+    seen = []
+
+    def hook(module, args, kwargs):
+        x = args[0]
+        epilogue = 'residual_relu' if kwargs.get('residual') is not None else (
+            'relu' if kwargs.get('relu') else 'none')
+        seen.append((x.shape[1], x.shape[2], epilogue))
+
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.register_forward_pre_hook(hook, with_kwargs=True)
+    with torch.no_grad():
+        model(torch.zeros(1, 224, 224, 3))
+    assert len(seen) == 53
+    assert sorted(set(seen)) == sorted(RESNET50_BN_SHAPES)
+
+
+def _bn_case(shape, cuda, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    c = shape[1]
+
+    def channels(low, high):
+        return torch.rand(c, generator=gen, device=cuda) * (high - low) + low
+
+    x = torch.randn(shape, generator=gen, device=cuda) * channels(0.5, 2.0)[None, :, None, None] \
+        + channels(-4.0, 4.0)[None, :, None, None]
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    residual = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    grad = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    return x, residual, grad, channels(0.5, 1.5), channels(-0.1, 0.1)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('c,h,epilogue', RESNET50_BN_SHAPES)
+def test_batchnorm_kernels_match_plain_version(cuda, c, h, epilogue):
+    # ResNet-50's batch norms at batch 256 in bf16: the batch statistics to
+    # 1e-5 of the channel's scale, the output within one bf16 ulp (above a
+    # 1e-4 floor where x * a and b cancel), the running statistics. The
+    # gradients (ATen's backward behind the kernels' forward) are the plain
+    # version's in float32 within bf16 rounding, and no farther from them
+    # than those of the ATen path the model ran before (native_batch_norm,
+    # the residual add, F.relu): that path rounds the batch norm's output to
+    # bf16 before the add, so its ReLU mask differs from the exact one where
+    # the sum is near zero (some 0.1% of the elements)
+    shape = (256, c, h, h)
+    relu, has_residual = epilogue != 'none', epilogue == 'residual_relu'
+    x, residual, grad, scale, bias = _bn_case(shape, cuda, seed=c * 1000 + h)
+    residual = residual if has_residual else None
+    running = [torch.zeros(c, device=cuda), torch.ones(c, device=cuda)]
+    ref_running = [t.clone() for t in running]
+    before = batchnorm_kernel.launches
+    y, save_mean, save_invstd = batchnorm_kernel.batch_norm_train(
+        x, scale, bias, *running, relu=relu, residual=residual)
+    torch.cuda.synchronize()
+    assert batchnorm_kernel.launches == before + batchnorm_kernel.KERNELS_PER_CALL
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    ref_y, ref_mean, ref_var = batchnorm_kernel.batch_norm_train_reference(
+        x, scale, bias, *ref_running, relu=relu, residual=residual)
+    ref_invstd = torch.rsqrt(ref_var + 1e-5)
+    assert float(((save_mean - ref_mean).abs() / (ref_mean.abs() + ref_var.sqrt())).max()) <= 1e-5
+    assert float(((save_invstd - ref_invstd).abs() / ref_invstd).max()) <= 1e-5
+    diff = (y.float() - ref_y.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * ref_y.float().abs() + 1e-4).all()), float(diff.max())
+    del diff, ref_y
+    for got, want in zip(running, ref_running):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+    def grads(path):
+        inputs = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+        res = residual.detach().clone().requires_grad_() if has_residual else None
+        fresh = [torch.zeros(c, device=cuda), torch.ones(c, device=cuda)]
+        if path == 'kernels':
+            out = batchnorm_kernel.batch_norm_train_fused(*inputs, *fresh, relu=relu,
+                                                          residual=res)
+        elif path == 'plain':
+            # float32 from the same bf16 values
+            inputs[0] = x.float().requires_grad_()
+            res = residual.float().requires_grad_() if has_residual else None
+            out = batchnorm_kernel.batch_norm_train_reference(*inputs, *fresh, relu=relu,
+                                                              residual=res)[0]
+        else:
+            out = torch.native_batch_norm(*inputs, None, None, True, 0.0, 1e-5)[0]
+            if has_residual:
+                out = res + out
+            out = F.relu(out) if relu else out
+        out.backward(grad if path != 'plain' else grad.float())
+        return [t.grad for t in inputs] + ([res.grad] if has_residual else [])
+
+    plain = grads('plain')
+    fused, aten = grads('kernels'), grads('aten')
+    for name, got, old, want in zip(('x', 'scale', 'bias', 'residual'), fused, aten, plain):
+        assert _rel(got, want) <= 1e-2, (name, _rel(got, want))
+        assert _rel(got, want) <= _rel(old, want) + 1e-3, (name, _rel(got, want),
+                                                           _rel(old, want))
+
+
+@pytest.mark.gpu
+def test_batchnorm_kernels_check_their_inputs(cuda):
+    x = torch.randn(2, 8, 4, 4, device=cuda).contiguous(memory_format=torch.channels_last)
+    per_channel = [torch.ones(8, device=cuda), torch.zeros(8, device=cuda),
+                   torch.zeros(8, device=cuda), torch.ones(8, device=cuda)]
+    with pytest.raises(ValueError, match='channels-last'):
+        batchnorm_kernel.batch_norm_train(x.contiguous(), *per_channel)
+    with pytest.raises(ValueError, match='float32'):
+        batchnorm_kernel.batch_norm_train(x, per_channel[0].half(), *per_channel[1:])
+    with pytest.raises(ValueError, match='residual'):
+        batchnorm_kernel.batch_norm_train(x, *per_channel, residual=x.half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('epilogue', ['none', 'relu', 'residual_relu'])
+def test_batchnorm_module_trains_through_the_kernels(cuda, epilogue):
+    # the module's training forward on the card is the kernels' forward:
+    # the same output and running statistics on a channels-last input; an
+    # NCHW input (what a convolution run without cuDNN returns) raises, with
+    # no launch, no update and no other path taken
+    from petastorm_tpu_torch.models.resnet import BatchNorm
+
+    relu, has_residual = epilogue != 'none', epilogue == 'residual_relu'
+    x, residual, _, scale, bias = _bn_case((4, 16, 6, 6), cuda, seed=7)
+    residual = residual if has_residual else None
+    module = BatchNorm(16).to(cuda)
+    with torch.no_grad():
+        module.scale.copy_(scale)
+        module.bias.copy_(bias)
+    running = [module.mean.clone(), module.var.clone()]
+    before = batchnorm_kernel.launches
+    out = module(x, relu=relu, residual=residual)
+    assert batchnorm_kernel.launches == before + batchnorm_kernel.KERNELS_PER_CALL
+    want = batchnorm_kernel.batch_norm_train_fused(x, scale, bias, *running, relu=relu,
+                                                   residual=residual)
+    assert torch.equal(out, want)
+    assert torch.equal(module.mean, running[0]) and torch.equal(module.var, running[1])
+    before = batchnorm_kernel.launches
+    with pytest.raises(ValueError, match='channels-last'):
+        module(x.contiguous(), relu=relu, residual=residual)
+    if has_residual:
+        with pytest.raises(ValueError, match='residual'):
+            module(x, relu=relu, residual=residual.contiguous())
+    assert batchnorm_kernel.launches == before
+    assert torch.equal(module.mean, running[0]) and torch.equal(module.var, running[1])
+
+
+@pytest.mark.gpu
+def test_graphed_resnet50_replay_counts_its_kernels(cuda):
+    # the bf16 ResNet-50 the benchmark trains, at a small size: one replay
+    # launches the three batch-norm kernels for each of its 53 batch norms
+    # and the normalize kernel once; the module's training forward on the
+    # card goes through the kernels (no other path runs there)
+    from petastorm_tpu_torch.models import resnet50
+    from petastorm_tpu_torch.models.resnet import BatchNorm
+    from petastorm_tpu_torch.models.train import (GRAPH_WARMUP_STEPS, create_train_state,
+                                                  make_train_step)
+    from petastorm_tpu_torch.ops.augment import flip_with_mask
+
+    torch.manual_seed(0)
+    model = resnet50(num_classes=10)
+    norms = sum(isinstance(m, BatchNorm) for m in model.modules())
+    assert norms == 53
+    state = create_train_state(model, cuda)
+    step = make_train_step(preprocess_fn=lambda x, mask: normalize_images(
+        flip_with_mask(x, mask), MEAN, STD), preprocess_seed=5, graphed=True)
+    images = _images((4, 64, 64, 3), torch.uint8, cuda)
+    labels = torch.arange(4, device=cuda) % 10
+    before = batchnorm_kernel.launches
+    step(state, images, labels)  # eager: the module launches the kernels itself
+    assert batchnorm_kernel.launches - before == norms * batchnorm_kernel.KERNELS_PER_CALL
+    for _ in range(GRAPH_WARMUP_STEPS):
+        step(state, images, labels)  # the last eager step, then capture and replay
+    bn_before, norm_before = batchnorm_kernel.launches, normalize_kernel.launches
+    _, metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    assert batchnorm_kernel.launches - bn_before == norms * batchnorm_kernel.KERNELS_PER_CALL
+    assert normalize_kernel.launches - norm_before == 1
+    assert np.isfinite(float(metrics['loss']))
 
 
 @pytest.mark.gpu
