@@ -64,7 +64,7 @@ def main(argv=None):
             result, _ = harness.run_cell(cell, seed, args.seconds, False, device, clock, t0,
                                          control=True)
         else:
-            with faults.planted(fault):
+            with faults.planted(fault, cell.model_module()):
                 result, _ = harness.run_cell(cell, seed, args.fault_seconds or args.seconds,
                                              False, device, clock, t0)
         numbers = {k: v['value'] for k, v in result['checks'].items()}

@@ -1,15 +1,13 @@
 """Faults planted in the program under test, for the benchmark's own checks
-that ``correct`` comes out false (``benchmark/tests/test_bench_faults.py``,
+that ``correct`` comes out false (``benchmark/tests/test_bench_runs.py``,
 ``benchmark/calibrate.py``). A benchmark run plants none.
 
-Each is a context manager that patches the program in this process:
+Each is a context manager that patches the program in this process. A model
+kind (``benchmark/models/<model>.py``) brings the faults of its own in its
+``FAULTS`` (a step that returns its state unchanged, a loss over half the
+batch, a field of its batches altered); this module adds the one every kind
+can have:
 
-- ``frozen_step``: the optimizer's update does nothing, so a step returns
-  its state unchanged;
-- ``half_batch``: the loss is the mean over the first half of the batch;
-- ``altered_pixel``: one pixel of every batch is changed on the host, just
-  before the infeed stages it;
-- ``altered_label``: one label of every batch is changed there;
 - ``dropped_rows``: the rows of the first row group (ids under 64) are
   staged under other rows' ids, so they are never seen.
 """
@@ -22,34 +20,25 @@ import numpy as np
 
 
 @contextlib.contextmanager
-def _patched(obj, name, value):
+def patched(obj, name, value):
+    """``obj.name`` set to ``value`` while the context lasts (an attribute
+    ``obj`` inherits is inherited again after it)."""
+    own = name in vars(obj)
     saved = getattr(obj, name)
     setattr(obj, name, value)
     try:
         yield
     finally:
-        setattr(obj, name, saved)
+        if own:
+            setattr(obj, name, saved)
+        else:
+            delattr(obj, name)
 
 
-def _frozen_step():
-    import torch
-
-    return _patched(torch.optim.SGD, 'step', lambda self, closure=None: None)
-
-
-def _half_batch():
-    from petastorm_tpu_torch.models import train
-
-    objective = train.classification_objective
-
-    def half(logits, labels):
-        keep = logits.shape[0] // 2
-        return objective(logits[:keep], labels[:keep])
-
-    return _patched(train, 'classification_objective', half)
-
-
-def _altered(field):
+def altered(field, change):
+    """Every batch's ``field`` changed on the host just before the infeed
+    stages it: ``change(values)`` edits a copy of the batch's array in
+    place."""
     from petastorm_tpu_torch.torch import infeed
 
     stage = infeed._stage_local
@@ -57,27 +46,26 @@ def _altered(field):
     def alter(batch, device, stream=None):
         batch = dict(batch)
         values = np.array(batch[field])
-        if field == 'row_id':
-            values[values < 64] += 64
-        else:
-            flat = values.reshape(-1)
-            modulus = 256 if field == 'image' else 1000
-            flat[0] = (int(flat[0]) + (128 if field == 'image' else 1)) % modulus
+        change(values)
         batch[field] = values
         return stage(batch, device, stream=stream)
 
-    return _patched(infeed, '_stage_local', alter)
+    return patched(infeed, '_stage_local', alter)
 
 
-FAULTS = {
-    'frozen_step': _frozen_step,
-    'half_batch': _half_batch,
-    'altered_pixel': lambda: _altered('image'),
-    'altered_label': lambda: _altered('label'),
-    'dropped_rows': lambda: _altered('row_id'),
-}
+def _drop_first_group(row_ids):
+    row_ids[row_ids < 64] += 64
 
 
-def planted(name):
-    """The context manager that plants fault ``name``."""
-    return FAULTS[name]()
+FAULTS = {'dropped_rows': lambda: altered('row_id', _drop_first_group)}
+
+
+def names(kind):
+    """The faults a run of model kind ``kind`` can have."""
+    return sorted(set(FAULTS) | set(kind.FAULTS))
+
+
+def planted(name, kind):
+    """The context manager that plants fault ``name`` in a run of model
+    kind ``kind``."""
+    return dict(FAULTS, **kind.FAULTS)[name]()

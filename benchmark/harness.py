@@ -1,17 +1,20 @@
 """One run of one cell of the benchmark of ``petastorm_tpu_torch``.
 
 Everything that belongs to a cell is found by name: the cell in
-``BENCHMARK.json``; its configuration's file; its traffic in
-``benchmark/traffic/<traffic>.json``; its limits in
-``benchmark/workloads/<cell>.json``; the store kind the traffic names in
-``benchmark/stores/<kind>.py``; each metric's reader in
+``BENCHMARK.json``; its configuration's file; the model kind that
+configuration's ``model`` names in ``benchmark/models/<model>.py``
+(:data:`KIND_NAMES`) and the plain reference that kind names in
+``benchmark/reference/<reference>.py`` (:data:`REFERENCE_NAMES`); its
+traffic in ``benchmark/traffic/<traffic>.json``; its limits in
+``benchmark/workloads/<cell>.json``; the store kind the
+traffic names in ``benchmark/stores/<kind>.py``; each metric's reader in
 ``benchmark/metrics/<metric>.py``.
 
 A run: set-up (the store, built once per checkout; the model's weights made
-on the card from the seed; the reader, loader, infeed and the graphed
-step), three steps whose outputs the reference follows, warm-up steps, the
-measured window (one of its steps drawn from the seed, with the program's
-state copied off the card around it), then the checks against the plain
+on the card from the seed; the reader, loader, infeed and the step), three
+steps whose outputs the reference follows, warm-up steps, the measured
+window (one of its steps drawn from the seed, with the program's state
+copied off the card around it), then the checks against the plain
 reference once the program's state is freed.
 """
 
@@ -19,7 +22,6 @@ from __future__ import annotations
 
 import gc
 import hashlib
-import importlib
 import importlib.util
 import json
 import os
@@ -42,6 +44,45 @@ CHECKED_STEPS = 3
 
 #: bump when a store kind writes different bytes for the same parameters
 STORE_VERSION = 1
+
+#: what a model kind (``benchmark/models/<model>.py``) gives the harness:
+#:
+#: - ``FIELDS``: the batch fields the checks compare, in the order the
+#:   store's ``expected`` gives them;
+#: - ``STEP_MARKER``: a kernel each step launches once, which marks the
+#:   step boundaries in a trace;
+#: - ``REFERENCE``: the name of its plain reference,
+#:   ``benchmark/reference/<REFERENCE>.py`` (:data:`REFERENCE_NAMES`);
+#: - ``CONTROL``: the precision the control computes in (``quant=``);
+#: - ``FAULTS``: ``{name: () -> context manager}``, the faults of its own
+#:   (:mod:`benchmark.faults`);
+#: - ``make_weights(config, seed, device)``: ``{leaf: float32 tensor}``;
+#: - ``train_state(config, device)``: the port's train state, whose
+#:   ``module`` has the leaves as its parameters;
+#: - ``train_step(config, draw_seed, graphed)``: the step,
+#:   ``(state, *inputs) -> (state, metrics)``;
+#: - ``feed(batch)``: the step's inputs from a staged batch;
+#: - ``optimizer_state(state, params)``: ``{key: tensor}``, what the
+#:   optimizer keeps;
+#: - ``gradient(config, before, after)``: ``{leaf: tensor}``, a step's
+#:   gradient from the optimizer's state before it (None: the first step)
+#:   and after it;
+#: - ``data_numbers(staged, expected)``: ``{check: number}``, the staged
+#:   fields against the store's (of no batches: every name, at 0);
+#: - ``step_flops(config)``: the FLOPs of one step.
+KIND_NAMES = ('FIELDS', 'STEP_MARKER', 'REFERENCE', 'CONTROL', 'FAULTS', 'make_weights',
+              'train_state', 'train_step', 'feed', 'optimizer_state', 'gradient', 'data_numbers',
+              'step_flops')
+
+#: what a plain reference (``benchmark/reference/<name>.py``) gives: it
+#: imports nothing of the program, and takes nothing the program made
+#:
+#: - ``train_steps(params0, batches, config, draw_seed, quant=None)``:
+#:   ``{'losses', 'first_grad', 'change', 'grad_max'}`` of the first steps;
+#: - ``window_step(params, opt_state, *fields, config, draw_seed, step,
+#:   quant=None)``: ``{'loss', 'grad', 'change'}`` of one step from the
+#:   program's state.
+REFERENCE_NAMES = ('train_steps', 'window_step')
 
 
 class BenchmarkError(RuntimeError):
@@ -70,6 +111,24 @@ def process_start():
 
 
 # -- finding a cell's files ------------------------------------------------------
+
+#: the modules :func:`load_file` has loaded, by path
+_LOADED = {}
+
+
+def load_file(path):
+    """The module in the file ``path``, loaded once in a process, as an
+    import is: a fault that patches a kind's own class patches the class
+    the run uses."""
+    path = os.path.abspath(path)
+    if path not in _LOADED:
+        spec = importlib.util.spec_from_file_location(
+            'benchmark_file_{}'.format(len(_LOADED)), path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _LOADED[path] = module
+    return _LOADED[path]
+
 
 class Cell(object):
     """A cell as ``BENCHMARK.json`` and its files describe it."""
@@ -100,16 +159,29 @@ class Cell(object):
         self.bench_dir = bench_dir
         self.cache = os.path.join(bench_dir, '.cache')
 
+    def _module(self, folder, name):
+        return load_file(os.path.join(self.bench_dir, folder, name + '.py'))
+
     def store_module(self):
-        return importlib.import_module('benchmark.stores.' + self.traffic['store'])
+        return self._module('stores', self.traffic['store'])
+
+    def _complete(self, folder, name, names):
+        module = self._module(folder, name)
+        missing = [n for n in names if not hasattr(module, n)]
+        if missing:
+            raise BenchmarkError('{}/{}.py lacks {}'.format(folder, name, ', '.join(missing)))
+        return module
+
+    def model_module(self):
+        """The model kind the configuration names (:data:`KIND_NAMES`)."""
+        return self._complete('models', self.config['model'], KIND_NAMES)
+
+    def reference_module(self):
+        """The plain reference the model kind names (:data:`REFERENCE_NAMES`)."""
+        return self._complete('reference', self.model_module().REFERENCE, REFERENCE_NAMES)
 
     def metric_reader(self, metric):
-        path = os.path.join(self.bench_dir, 'metrics', metric + '.py')
-        spec = importlib.util.spec_from_file_location(
-            'benchmark_metric_' + metric.replace('.', '_'), path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return self._module('metrics', metric).read
 
 
 def derive_seed(seed, purpose, words=1):
@@ -149,42 +221,17 @@ def ensure_store(cell):
 
 # -- the program under test ----------------------------------------------------
 
-class Preprocess(object):
-    """The step's on-device preprocess, the port's ImageNet example's: the
-    step's flip, then the uint8 -> bf16 normalize kernel."""
-
-    def __init__(self, config):
-        self.mean, self.std = config['mean'], config['std']
-
-    def __call__(self, images, flip_mask):
-        import torch
-
-        from petastorm_tpu_torch.ops import normalize_images
-        from petastorm_tpu_torch.ops.augment import flip_with_mask
-
-        return normalize_images(flip_with_mask(images, flip_mask), np.float32(self.mean),
-                                np.float32(self.std), out_dtype=torch.bfloat16)
-
-
 class Program(object):
     """The port's training pipeline for a cell: reader -> ``TorchDataLoader``
-    -> ``prefetch_to_device`` -> ``make_train_step(graphed=...)``."""
+    -> ``prefetch_to_device`` -> the model kind's step (graphed on the card)."""
 
     def __init__(self, cell, store_path, seeds, device, workers, weights, phase):
         import torch
 
-        from petastorm_tpu_torch import models
-        from petastorm_tpu_torch.models.train import create_train_state, make_train_step
         from petastorm_tpu_torch.torch import TorchDataLoader, prefetch_to_device
 
-        config = cell.config
-        dtype = getattr(torch, config['compute_dtype'])
-        with torch.device(device):
-            model = getattr(models, config['model'])(num_classes=config['num_classes'],
-                                                     num_filters=config['num_filters'],
-                                                     dtype=dtype)
-        self.state = create_train_state(model, device=device,
-                                        learning_rate=config['learning_rate'])
+        config, self.kind = cell.config, cell.model_module()
+        self.state = self.kind.train_state(config, device)
         named = dict(self.state.module.named_parameters())
         if set(named) != set(weights):
             raise BenchmarkError('the model\'s parameters are not the configuration\'s: {}'.format(
@@ -194,9 +241,7 @@ class Program(object):
                 p.copy_(weights[name])
         self.params = named
         phase('model')
-        self.step_fn = make_train_step(preprocess_fn=Preprocess(config),
-                                       preprocess_seed=seeds.preprocess,
-                                       graphed=device.type == 'cuda')
+        self.step_fn = self.kind.train_step(config, seeds.preprocess, device.type == 'cuda')
         self.reader = cell.store_module().open_reader(
             'file://' + store_path, config, cell.traffic['store_params'], seeds.reader, workers)
         phase('reader')
@@ -206,18 +251,11 @@ class Program(object):
         self.it = prefetch_to_device(self.loader, device, size=config['prefetch_batches'])
 
     def step(self, batch):
-        self.state, metrics = self.step_fn(self.state, batch['image'], batch['label'])
+        self.state, metrics = self.step_fn(self.state, *self.kind.feed(batch))
         return metrics
 
-    def momentum(self):
-        """SGD's momentum buffer of each leaf (after one step, the first
-        gradient); zeros where the optimizer keeps none."""
-        opt = self.state.optimizer
-        out = {}
-        for n, p in self.params.items():
-            buf = opt.state.get(p, {}).get('momentum_buffer')
-            out[n] = buf if buf is not None else p.detach() * 0
-        return out
+    def optimizer_state(self):
+        return self.kind.optimizer_state(self.state, self.params)
 
     def close(self):
         try:
@@ -227,48 +265,52 @@ class Program(object):
             self.reader.join()
 
 
+def _layout(tensors):
+    return [(n, t.shape, t.numel()) for n, t in tensors.items()]
+
+
 class WindowStep(object):
     """The step of the window that comes first at ``at_s`` seconds into it
     (drawn from the seed): its batch, its loss, and the program's parameters
-    and momentum before and after it, copied off the card in the stream's
-    order into host memory allocated before the window, so that the
+    and optimizer state before and after it, copied off the card in the
+    stream's order into host memory allocated before the window, so that the
     reference follows this replay from the program's own state."""
 
-    def __init__(self, params, at_s, device):
+    def __init__(self, params, opt_state, at_s, device):
         import torch
 
         self.at_s = at_s
-        self.shapes = [(n, p.shape, p.numel()) for n, p in params.items()]
-        total = sum(k for _, _, k in self.shapes)
-        # params before, momentum before, params after, momentum after
-        self.host = torch.empty((4, total), dtype=torch.float32,
+        # params before, optimizer state before, params after, state after
+        self.layouts = [_layout(params), _layout(opt_state)] * 2
+        sizes = [sum(k for _, _, k in layout) for layout in self.layouts]
+        self.offsets = [sum(sizes[:row]) for row in range(4)]
+        self.host = torch.empty(sum(sizes), dtype=torch.float32,
                                 pin_memory=device.type == 'cuda')
         self.taken = None
 
     def _copy(self, row, tensors):
-        offset = 0
-        for n, shape, k in self.shapes:
-            self.host[row, offset:offset + k].view(shape).copy_(tensors[n].detach(),
-                                                                 non_blocking=True)
+        offset = self.offsets[row]
+        for n, shape, k in self.layouts[row]:
+            self.host[offset:offset + k].view(shape).copy_(tensors[n].detach(), non_blocking=True)
             offset += k
 
     def step(self, program, batch, elapsed_s):
         if self.taken is not None or elapsed_s < self.at_s:
             return program.step(batch)
         self._copy(0, program.params)
-        self._copy(1, program.momentum())
+        self._copy(1, program.optimizer_state())
         index = program.state.step
         metrics = program.step(batch)
         self._copy(2, program.params)
-        self._copy(3, program.momentum())
+        self._copy(3, program.optimizer_state())
         self.taken = {'batch': batch, 'loss': metrics['loss'], 'index': index}
         return metrics
 
     def leaves(self, row):
-        """``{leaf: tensor}`` of one of the four copies, on the host."""
-        out, offset = {}, 0
-        for n, shape, k in self.shapes:
-            out[n] = self.host[row, offset:offset + k].view(shape)
+        """``{key: tensor}`` of one of the four copies, on the host."""
+        out, offset = {}, self.offsets[row]
+        for n, shape, k in self.layouts[row]:
+            out[n] = self.host[offset:offset + k].view(shape)
             offset += k
         return out
 
@@ -305,10 +347,8 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
     import torch
 
     from benchmark import checks, duty, flops
-    from benchmark.reference import resnet as ref_resnet
-    from benchmark.weights import make_weights
 
-    config, seeds = cell.config, Seeds(seed)
+    config, seeds, kind = cell.config, Seeds(seed), cell.model_module()
     workers = cell.traffic.get('workers') or len(os.sched_getaffinity(0))
     phases = [('start', time.time() - t_start)]
 
@@ -321,13 +361,13 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
-    weights = make_weights(config, seeds.weights, device)
+    weights = kind.make_weights(config, seeds.weights, device)
     phase('weights')
     program = Program(cell, store_path, seeds, device, workers, weights, phase)
     del weights
     phase('loader')
     p0 = {n: p.detach().to('cpu', copy=True) for n, p in program.params.items()}
-    row_ids, checked, losses, first_grad = [], [], [], None
+    row_ids, checked, losses, first_state = [], [], [], None
     for k in range(CHECKED_STEPS):
         batch = next(program.it)
         losses.append(program.step(batch)['loss'])
@@ -336,7 +376,8 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
         clock.sync()
         phase('step{}'.format(k + 1))
         if k == 0:
-            first_grad = {n: t.to('cpu', copy=True) for n, t in program.momentum().items()}
+            first_state = {n: t.to('cpu', copy=True)
+                           for n, t in program.optimizer_state().items()}
     change = {n: p.detach().cpu() - p0[n] for n, p in program.params.items()}
     del p0
     for _ in range(cell.traffic['warmup_steps']):
@@ -344,7 +385,8 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
         program.step(batch)
         row_ids.append(batch['row_id'])
     rng = np.random.default_rng(seeds.sample)
-    window_step = WindowStep(program.params, seconds * rng.uniform(0.2, 0.8), device)
+    window_step = WindowStep(program.params, program.optimizer_state(),
+                             seconds * rng.uniform(0.2, 0.8), device)
     clock.sync()
     phase('warmup_steps')
     print('setup: ' + ', '.join('{} {:.2f} s'.format(n, t) for n, t in phases), file=sys.stderr)
@@ -377,7 +419,7 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
         profiler.export_chrome_trace(trace_path)
         del profiler
         from benchmark.trace import reduce_trace
-        reduced = reduce_trace(trace_path, 'normalize_kernel')
+        reduced = reduce_trace(trace_path, kind.STEP_MARKER)
         os.remove(trace_path)
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     program_losses = [float(x) for x in losses]
@@ -385,7 +427,7 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
     if taken is not None:
         checked.append(taken['batch'])
         taken = dict(taken, loss=float(taken['loss']), batch=None)
-    staged = [(b['image'].cpu().numpy(), b['label'].cpu().numpy()) for b in checked]
+    staged = [tuple(b[field].cpu().numpy() for field in kind.FIELDS) for b in checked]
     staged_ids = [b['row_id'].cpu().numpy() for b in checked]
     all_ids = torch.cat(row_ids).cpu().numpy()
     program.close()
@@ -400,51 +442,54 @@ def run_cell(cell, seed, seconds, trace, device, clock, t_start, control=False):
 
     # -- the reference, with the program's state freed --------------------------
     store = cell.store_module()
-    expected, extra = [], {'stored_cell_mismatches': 0}
+    expected, extra = [], {}
     for ids in staged_ids:
         # an id outside the store (counted by unknown_rows) is compared
-        # against a row of the store, which it cannot match
-        images, labels, more = store.expected(store_path, config, cell.traffic['store_params'],
-                                              [int(i) % config['rows'] for i in ids])
-        expected.append((images, labels))
-        extra['stored_cell_mismatches'] += more['stored_cell_mismatches']
-    numbers = checks.data_numbers(staged, expected, all_ids, config['rows'])
+        # against a row of the store, which it cannot match; the store gives
+        # the kind's fields, then numbers of its own
+        *fields, more = store.expected(store_path, config, cell.traffic['store_params'],
+                                       [int(i) % config['rows'] for i in ids])
+        expected.append(tuple(fields))
+        for name, value in more.items():
+            extra[name] = extra.get(name, 0) + value
+    numbers = kind.data_numbers(staged, expected)
+    numbers.update(checks.row_numbers(all_ids, config['rows']))
     numbers.update(extra)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        params0 = make_weights(config, seeds.weights, device)
-        batches = [(torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device))
-                   for images, labels in expected]
-        ref = ref_resnet.train_steps(params0, batches[:CHECKED_STEPS], config, seeds.preprocess)
-        prog = {'losses': program_losses, 'first_grad': first_grad, 'change': change}
+        reference = cell.reference_module()
+        params0 = kind.make_weights(config, seeds.weights, device)
+        batches = [tuple(torch.from_numpy(values).to(device) for values in fields)
+                   for fields in expected]
+        ref = reference.train_steps(params0, batches[:CHECKED_STEPS], config, seeds.preprocess)
+        prog = {'losses': program_losses, 'first_grad': kind.gradient(config, None, first_state),
+                'change': change}
         numbers.update(checks.model_numbers(prog, ref))
         window_prog = window_ref = None
         if taken is not None:
-            # the program's gradient is what its momentum gained: t1 - m t0
-            p0, t0, p1, t1 = (window_step.leaves(row) for row in range(4))
-            window_prog = {'loss': taken['loss'],
-                           'grad': {n: t1[n] - config['momentum'] * t0[n] for n in t1},
+            p0, s0, p1, s1 = (window_step.leaves(row) for row in range(4))
+            window_prog = {'loss': taken['loss'], 'grad': kind.gradient(config, s0, s1),
                            'change': {n: p1[n] - p0[n] for n in p1}}
             window_args = ({n: t.to(device) for n, t in p0.items()},
-                           {n: t.to(device) for n, t in t0.items()}) + batches[CHECKED_STEPS] + (
+                           {n: t.to(device) for n, t in s0.items()}) + batches[CHECKED_STEPS] + (
                 config, seeds.preprocess, taken['index'])
-            window_ref = ref_resnet.window_step(*window_args)
+            window_ref = reference.window_step(*window_args)
         numbers.update(checks.window_numbers(window_prog, window_ref))
         control_numbers = None
         if control:
-            low = ref_resnet.train_steps(params0, batches[:CHECKED_STEPS], config,
-                                         seeds.preprocess, quant='fp8')
+            low = reference.train_steps(params0, batches[:CHECKED_STEPS], config,
+                                        seeds.preprocess, quant=kind.CONTROL)
             control_numbers = checks.model_numbers(low, ref)
             if window_ref is not None:
                 control_numbers.update(checks.window_numbers(
-                    ref_resnet.window_step(*window_args, quant='fp8'), window_ref))
+                    reference.window_step(*window_args, quant=kind.CONTROL), window_ref))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     correct, rows = checks.judge(numbers, cell.limits, cell.not_compared)
 
     names = cell.per_layer if trace else cell.end_to_end
-    ctx = Context(window=window, config=config, diag0=diag0, diag1=diag1, trace=reduced,
+    ctx = Context(window=window, config=config, kind=kind, diag0=diag0, diag1=diag1, trace=reduced,
                   setup_s=setup_s, memory_peak_bytes=memory_peak,
                   peak=flops.peak(torch.cuda.get_device_name(device)) if cuda else None)
     metrics = {}

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark.reference.quant import fp8
+
 BN_EPS = 1e-5
 
 
@@ -60,28 +62,6 @@ def leaves(config):
     return out
 
 
-def _round(x, dtype, largest):
-    """``x`` rounded to the float8 ``dtype`` at a per-tensor scale that maps
-    its largest magnitude to the type's, back in float32."""
-    scale = x.abs().amax().clamp_min(1e-30) / largest
-    return (x / scale).to(dtype).to(torch.float32) * scale
-
-
-class _Fp8(torch.autograd.Function):
-    """e4m3 forward, e5m2 backward."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return _round(x, torch.float8_e4m3fn, 448.0)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _round(grad, torch.float8_e5m2, 57344.0)
-
-
-_fp8 = _Fp8.apply
-
-
 def _same_pads(size, kernel, stride):
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
@@ -95,7 +75,7 @@ def _conv(x, w, stride, quant, pads=None):
     top, bottom, left, right = pads
     x = F.pad(x, (left, right, top, bottom))
     if quant:
-        return _fp8(F.conv2d(_fp8(x), _fp8(w), stride=stride))
+        return fp8(F.conv2d(fp8(x), fp8(w), stride=stride))
     return F.conv2d(x, w, stride=stride)
 
 
@@ -130,7 +110,7 @@ def forward(params, x, config, quant=None):
     x = x.mean(dim=(2, 3))
     w = p['head.weight']
     if q:
-        return _fp8(_fp8(x) @ _fp8(w).t()) + p['head.bias']
+        return fp8(fp8(x) @ fp8(w).t()) + p['head.bias']
     return x @ w.t() + p['head.bias']
 
 

@@ -1,7 +1,10 @@
 """Fixtures of the benchmark's own tests (imported by the test modules): a
-copy of the benchmark at a size the CPU holds (ResNet-50 at its published
-widths on 32 px images, batch 8, 96 rows), with limits of its own set from
-CPU readings at that size."""
+copy of the benchmark at a size the CPU holds. Each configuration takes the
+sizes, and each of its cells the limits, that ``tiny/<model>.json`` beside
+these tests gives for its model kind: ResNet-50 at its published widths on
+32 px images, batch 8, 96 rows, with limits set from CPU readings at that
+size (sound runs on six seeds against the control and the faults).
+"""
 
 import json
 import os
@@ -16,29 +19,28 @@ ROOT = os.path.dirname(BENCH)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-#: the tiny copy's limits, from CPU readings at that size: sound runs on six
-#: seeds against the control and the faults (``PERF.md`` section 6)
-TINY_CHECKS = {
-    'limits': {'pixel_max_err': 0, 'label_mismatches': 0, 'unknown_rows': 0,
-               'row_count_spread': 4, 'stored_cell_mismatches': 0, 'grad1_leaf_gap': 0.07,
-               'change_leaf_gap': 0.6, 'window_grad_leaf_gap': 0.06,
-               'window_change_leaf_gap': 0.2},
-    'not_compared': ['loss1_gap', 'loss_gap', 'window_loss_gap'],
-}
+from benchmark import harness  # noqa: E402
 
 
-def make_tiny(root):
+def make_tiny(root, extra=None):
     """A copy of the benchmark under ``root`` at the CPU's size; returns the
-    copy's benchmark directory."""
+    copy's benchmark directory. ``extra(root)``, where given, adds files and
+    ``BENCHMARK.json`` entries to the copy before it is cut to size."""
     bench = os.path.join(root, 'benchmark')
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns('.cache', '__pycache__'))
-    with open(os.path.join(ROOT, 'BENCHMARK.json')) as f:
+    shutil.copy(os.path.join(ROOT, 'BENCHMARK.json'), root)
+    if extra is not None:
+        extra(root)
+    with open(os.path.join(root, 'BENCHMARK.json')) as f:
         spec = json.load(f)
+    tiny = {}
     for entry in spec['configs']:
         path = os.path.join(root, entry['file'])
         with open(path) as f:
             config = json.load(f)
-        config.update(image_size=32, batch_size=8, rows=96, shuffling_queue_capacity=32)
+        with open(os.path.join(bench, 'tests', 'tiny', config['model'] + '.json')) as f:
+            tiny[entry['name']] = cut = json.load(f)
+        config.update(cut['sizes'])
         with open(path, 'w') as f:
             json.dump(config, f)
     for name in os.listdir(os.path.join(bench, 'traffic')):
@@ -52,12 +54,33 @@ def make_tiny(root):
         traffic.update(workers=1, warmup_steps=1)
         with open(path, 'w') as f:
             json.dump(traffic, f)
-    for name in os.listdir(os.path.join(bench, 'workloads')):
-        with open(os.path.join(bench, 'workloads', name), 'w') as f:
-            json.dump(TINY_CHECKS, f)
-    with open(os.path.join(root, 'BENCHMARK.json'), 'w') as f:
-        json.dump(spec, f)
+    for cell in spec['workloads']:
+        with open(os.path.join(bench, 'workloads', cell['name'] + '.json'), 'w') as f:
+            json.dump(tiny[cell['config']]['checks'], f)
     return bench
+
+
+def check_cell_files(cell):
+    """What a cell needs before it runs: its configuration, store, model
+    kind, reference and metric readers found by name, and every number its
+    checks give either held to a limit or named as not compared (the data's
+    and the rows' always held: they are exact)."""
+    from benchmark import checks
+
+    assert cell.config['batch_size'] > 0
+    assert cell.store_module().open_reader
+    kind = cell.model_module()
+    assert set(dir(kind)) >= set(harness.KIND_NAMES)
+    assert set(dir(cell.reference_module())) >= set(harness.REFERENCE_NAMES)
+    exact = set(kind.data_numbers([], [])) | set(checks.row_numbers([], 1))
+    assert exact <= set(cell.limits), sorted(exact - set(cell.limits))
+    given = exact | set(checks.MODEL_NUMBERS) | set(checks.WINDOW_NUMBERS)
+    held = set(cell.limits) | set(cell.not_compared)
+    assert given <= held, sorted(given - held)
+    for metric in cell.end_to_end + cell.per_layer:
+        assert callable(cell.metric_reader(metric))
+    assert 'setup_s' in cell.end_to_end and len(cell.end_to_end) >= 2
+    assert cell.per_layer
 
 
 @pytest.fixture(scope='session')
@@ -70,8 +93,6 @@ def tiny(tmp_path_factory):
 def cuda():
     """The card, or a skip: decided inside the test, never at import."""
     import torch
-
-    from benchmark import harness
 
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA card (CUDA is not available)')

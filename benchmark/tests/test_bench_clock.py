@@ -16,7 +16,6 @@ import pytest
 
 from benchmark import duty, harness, program_trace
 from benchmark.trace import reduce_trace
-from benchmark.weights import make_weights
 
 from .fixtures import cuda  # noqa: F401  (a fixture)
 
@@ -37,7 +36,7 @@ def _profiled_window(cell, device, seconds, path):
 
     seeds = harness.Seeds(SEED)
     store = harness.ensure_store(cell)
-    weights = make_weights(cell.config, seeds.weights, device)
+    weights = cell.model_module().make_weights(cell.config, seeds.weights, device)
     workers = cell.traffic.get('workers') or len(os.sched_getaffinity(0))
     program = harness.Program(cell, store, seeds, device, workers, weights, lambda name: None)
     del weights
@@ -138,7 +137,7 @@ def test_program_spans_share_the_profiler_clock(cuda, tmp_path):
                         'before_outer_end_us': tails}
 
     # the two reductions of the slice agree on its gaps
-    alone = reduce_trace(path, 'normalize_kernel')
+    alone = reduce_trace(path, cell.model_module().STEP_MARKER)
     reduced = program_trace.reduce_program_trace(merged)
     idle_share = (1.0 - alone['busy_s'] / alone['window_s']) * 100.0
     report.update(device_idle_share=idle_share, **reduced)

@@ -9,6 +9,8 @@ import pytest
 
 from benchmark import harness
 
+from .fixtures import check_cell_files
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -19,16 +21,7 @@ def _spec():
 
 @pytest.mark.parametrize('cell', [w['name'] for w in _spec()['workloads']])
 def test_every_cell_finds_its_files(cell):
-    found = harness.Cell(cell)
-    assert found.config['batch_size'] > 0
-    assert found.store_module().open_reader
-    assert set(found.limits) >= {'loss_gap', 'grad1_leaf_gap', 'change_leaf_gap',
-                                 'window_loss_gap', 'window_change_leaf_gap',
-                                 'pixel_max_err', 'label_mismatches'}
-    for metric in found.end_to_end + found.per_layer:
-        assert callable(found.metric_reader(metric))
-    assert 'setup_s' in found.end_to_end and len(found.end_to_end) >= 2
-    assert found.per_layer
+    check_cell_files(harness.Cell(cell))
 
 
 def test_an_added_cell_config_and_metric_need_no_edit(tmp_path):

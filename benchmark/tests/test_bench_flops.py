@@ -3,9 +3,10 @@
 import json
 import os
 
-from benchmark import flops
+from benchmark import flops, harness
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'configs', 'rn50_petastorm.json')
+RESNET50 = harness.Cell('rn50_petastorm.raw').model_module()
 
 
 def _config():
@@ -28,12 +29,12 @@ def test_resnet50_macs_at_224_match_a_hand_count():
     body = (_stage(56, 64, 64, 3, 1) + _stage(56, 256, 128, 4, 2) + _stage(28, 512, 256, 6, 2)
             + _stage(14, 1024, 512, 3, 2))
     head = 2048 * 1000
-    assert flops.resnet_macs(_config(), 224) == stem + body + head == 4089184256
+    assert RESNET50.macs(_config(), 224) == stem + body + head == 4089184256
 
 
 def test_train_step_flops_count_forward_and_backward_of_the_batch():
     config = _config()
-    assert flops.train_step_flops(config) == 2 * 3 * 256 * 4089184256
+    assert RESNET50.step_flops(config) == 2 * 3 * 256 * 4089184256
 
 
 def test_normalize_bytes_read_one_and_write_two_per_element():

@@ -74,9 +74,31 @@ def test_no_benchmark_file_imports_jax_or_the_jax_package():
         assert not _imported(path) & set(harness.FORBIDDEN_MODULES), path
 
 
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield '.' * node.level + (node.module or '')
+
+
 def test_the_reference_imports_nothing_of_the_program():
-    for path in _sources(os.path.join(BENCH, 'reference')):
-        assert 'petastorm_tpu_torch' not in _imported(path), path
+    """Every plain reference (``reference/``, and the test kind's under
+    ``tests/``) imports nothing of the program, and of the benchmark only
+    other references."""
+    references = [os.path.join(dirpath, 'reference') for dirpath, dirs, _ in os.walk(BENCH)
+                  if 'reference' in dirs]
+    assert os.path.join(BENCH, 'reference') in references
+    paths = [path for top in references for path in _sources(top)]
+    assert len(paths) >= 4, paths
+    for path in paths:
+        for module in _imported_modules(path):
+            top = module.split('.')[0]
+            assert top != 'petastorm_tpu_torch', (path, module)
+            if top == 'benchmark' or module.startswith('.'):
+                assert module.startswith('benchmark.reference.'), (path, module)
 
 
 def test_a_run_without_a_card_fails_and_prints_no_result():

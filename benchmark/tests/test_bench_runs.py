@@ -11,9 +11,12 @@ import pytest
 from benchmark import checks, faults, harness
 from benchmark.duty import HostClock
 
-from .fixtures import TINY_CHECKS, tiny  # noqa: F401  (a fixture)
+from .fixtures import tiny  # noqa: F401  (a fixture)
 
 CELLS = ('rn50_petastorm.raw',)
+#: each cell's faults: those of its model kind and those every kind can have
+FAULTS = [(name, fault) for name in CELLS
+          for fault in faults.names(harness.Cell(name).model_module())]
 SEED = 2 ** 31 + 12345
 
 
@@ -44,14 +47,13 @@ def test_a_sound_run_is_correct_and_its_line_has_the_keys(tiny, name, capsys):
     assert [r.split(' ')[1] for r in err.strip().splitlines()[-len(rows):]] == \
         [name for name, _, _ in rows]
     # the control fails one of the cell's numbers
-    control_ok, _ = checks.judge(result['control'], TINY_CHECKS['limits'],
-                                 TINY_CHECKS['not_compared'])
+    cell = harness.Cell(name, *tiny)
+    control_ok, _ = checks.judge(result['control'], cell.limits, cell.not_compared)
     assert not control_ok, result['control']
 
 
-@pytest.mark.parametrize('fault', sorted(faults.FAULTS))
-@pytest.mark.parametrize('name', CELLS)
+@pytest.mark.parametrize('name, fault', FAULTS)
 def test_a_planted_fault_makes_the_run_incorrect(tiny, name, fault):
-    with faults.planted(fault):
+    with faults.planted(fault, harness.Cell(name, *tiny).model_module()):
         result, _ = _run(tiny, name)
     assert not result['correct'], result['checks']
